@@ -1,0 +1,453 @@
+"""Batch-major staged expansion engine (the GUITAR search that serving runs).
+
+One iteration-major loop over the whole query batch, each phase a
+swappable stage:
+
+    pop      batched frontier pop over the (Q, ef) pools
+    grad     one batched value+gradient over the (Q, D) frontier (GUITAR):
+             the ``deepfm_grad`` kernel for DeepFM measures, the generic
+             ``torch.func`` stage otherwise
+    rank     Eq. 3/4 neighbor ranking: the ``neighbor_rank`` kernel, then a
+             static top-C and the adaptive alpha*theta mask
+    measure  one flattened (Q*C, D) evaluation per step: the
+             ``deepfm_score`` kernel for DeepFM measures
+    insert   batched pool insert + packed visited-bitmap update
+
+SL2G = no grad stage + select-all rank; GUITAR = grad stage + angle or
+projection rank. Stages resolve through the bundle registry
+(``core/bundles.py``).
+
+``ExpansionEngine.search`` is a host loop over the fixed-shape ``step``
+(the JAX package runs it as a ``lax.while_loop``). It asks the device
+whether every lane is done only every ``SYNC_EVERY`` steps; the steps run
+after a lane is done are no-ops for it, because ``_freeze_done`` keeps its
+state and its pop is inactive.
+
+Counters follow the paper's Table-2 accounting: ``n_eval`` counts effective
+(mask-surviving) measure evaluations, ``n_grad`` gradients, ``n_iters``
+expansions. Ids are int64 (torch's index type); the visited bitmap holds
+32-bit words in int64 lanes.
+
+Not ported in this slice: the index-fused stages (``fused=True``), bf16 and
+int8 residency, and the continuous runtime's lane lifecycle
+(``reset_lanes``, ``idle_state``); see ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.bundles import resolve_stages
+from repro_torch.core.corpus import CorpusStore, as_corpus_store
+from repro_torch.kernels.neighbor_rank import neighbor_rank
+from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
+
+SYNC_EVERY = 8   # steps between host checks of ``done.all()``
+_NEG_INF = float("-inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    k: int = 10                 # results to return
+    ef: int = 64                # pool (beam) size; >= k
+    budget: int = 8             # C: measure evals per expansion (guitar)
+    alpha: float = 1.01         # adaptive tolerance (>= 1)
+    mode: str = "guitar"        # guitar | sl2g
+    rank_by: str = "angle"      # angle | projection
+    adaptive: bool = True       # apply the alpha*theta mask
+    max_iters: int = 0          # 0 -> 4 * ef
+
+    def iters(self) -> int:
+        return self.max_iters if self.max_iters > 0 else 4 * self.ef
+
+
+class SearchResult(NamedTuple):
+    ids: torch.Tensor       # (Q, k) int64
+    scores: torch.Tensor    # (Q, k) float32
+    n_eval: torch.Tensor    # (Q,) effective measure evaluations
+    n_grad: torch.Tensor    # (Q,) gradient computations
+    n_iters: torch.Tensor   # (Q,) expansions
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineOptions:
+    """Backend knobs.
+
+    rank_impl:    'auto' (the neighbor_rank kernel for CUDA tensors, its
+                  plain version for CPU tensors) | 'ref' (the plain version
+                  everywhere)
+    measure_impl: 'auto' resolves the measure's registered bundle, 'vmap'
+                  forces the generic batched-score_fn stage
+    grad_impl:    'auto' | 'vmap', the same for the grad stage
+    fused:        index-fused stages; not ported yet (raises)
+    corpus_dtype: 'float32' only in this slice
+    adaptive:     'off' | 'angle' — angle-based adaptive candidate-set
+                  sizing: a static ``c_max`` block with a per-lane prefix
+                  mask from the alpha*theta band and the cutoff ``angle_tau``
+                  (guitar mode with rank_by='angle' only)
+    c_max:        adaptive block width (0 -> cfg.budget)
+    angle_tau:    default absolute angle cutoff in radians (<= 0: band
+                  only); ``search(taus=)`` overrides it per lane
+    """
+    rank_impl: str = "auto"
+    measure_impl: str = "auto"
+    grad_impl: str = "auto"
+    fused: bool = False
+    corpus_dtype: str = "float32"
+    adaptive: str = "off"
+    c_max: int = 0
+    angle_tau: float = 0.0
+
+
+# ---------------------------------------------------------------------------
+# batched state + packed visited bitmap
+# ---------------------------------------------------------------------------
+
+class EngineState(NamedTuple):
+    pool_scores: torch.Tensor    # (Q, ef) f32 desc-sorted
+    pool_ids: torch.Tensor       # (Q, ef) int64, -1 = empty
+    pool_expanded: torch.Tensor  # (Q, ef) bool
+    visited: torch.Tensor        # (Q, ceil(N/32)) int64 holding uint32 words
+    n_eval: torch.Tensor         # (Q,) int32
+    n_grad: torch.Tensor         # (Q,) int32
+    n_iters: torch.Tensor        # (Q,) int32
+    done: torch.Tensor           # (Q,) bool
+    iter_cap: torch.Tensor       # (Q,) int32 per-lane expansion budget
+    angle_tau: torch.Tensor      # (Q,) f32 per-lane adaptive angle cutoff
+
+
+class PopOut(NamedTuple):
+    slot: torch.Tensor      # (Q,) pool slot popped
+    fid: torch.Tensor       # (Q,) frontier node id, clamped >= 0
+    active: torch.Tensor    # (Q,) lane expands this step
+
+
+def bit_test_rows(bitmap: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """bitmap: (Q, W) words; ids: (Q, B) -> (Q, B) bool. Negative ids test
+    bit 0 of word 0 (callers mask them)."""
+    safe = ids.clamp_min(0).long()
+    w = torch.gather(bitmap, 1, safe >> 5)
+    return ((w >> (safe & 31)) & 1).bool()
+
+
+def bit_set_rows(bitmap: torch.Tensor, ids: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Set bits rowwise (returns a new bitmap). Within a row the masked-in
+    ids are distinct and unset (neighbor lists are duplicate-free and only
+    fresh ids are set), so a scatter-add acts as OR."""
+    safe = ids.clamp_min(0).long()
+    updates = torch.where(mask, torch.ones_like(safe) << (safe & 31),
+                          torch.zeros_like(safe))
+    rows = torch.arange(bitmap.shape[0], device=bitmap.device)[:, None]
+    out = bitmap.clone()
+    out.index_put_((rows.expand_as(safe), safe >> 5), updates,
+                   accumulate=True)
+    return out
+
+
+def _freeze_done(done: torch.Tensor, new: EngineState,
+                 old: EngineState) -> EngineState:
+    """Keep converged lanes' state frozen (lane-granular early exit).
+
+    ``visited`` is exempt: a done lane pops with ``active=False``, so every
+    bit update is masked to a no-op and the new bitmap already equals the
+    old one; skipping the select saves a (Q, N/32) copy per step."""
+    def pick(n, o):
+        d = done.view((-1,) + (1,) * (n.dim() - 1))
+        return torch.where(d, o, n)
+    return EngineState(*(n if f == "visited" else pick(n, o)
+                         for f, n, o in zip(EngineState._fields, new, old)))
+
+
+# ---------------------------------------------------------------------------
+# default stage implementations
+# ---------------------------------------------------------------------------
+
+def default_pop_stage(state: EngineState) -> Tuple[EngineState, PopOut]:
+    Q = state.pool_scores.shape[0]
+    cand = state.pool_scores.masked_fill(state.pool_expanded, _NEG_INF)
+    slot = torch.argmax(cand, dim=1)       # first maximum, as jnp.argmax
+    best = cand.gather(1, slot[:, None])[:, 0]
+    active = torch.isfinite(best) & ~state.done
+    fid = state.pool_ids.gather(1, slot[:, None])[:, 0].clamp_min(0)
+    marked = state.pool_expanded.clone()
+    marked[torch.arange(Q, device=slot.device), slot] = True
+    expanded = torch.where(active[:, None], marked, state.pool_expanded)
+    return state._replace(pool_expanded=expanded), PopOut(slot, fid, active)
+
+
+def _select_top_c(key, in_range, valid, cfg: SearchConfig,
+                  c_max: Optional[int] = None, tau=None):
+    """Static top-C over the ranking keys (ascending key, lower slot first
+    on ties, as ``lax.top_k``) + the adaptive alpha*theta mask. With
+    ``c_max``/``tau`` set, the block widens to ``c_max`` and the mask adds a
+    per-lane cutoff ``key <= tau`` (tau <= 0 disables it); the mask stays a
+    prefix of the block."""
+    C = min(c_max if c_max else cfg.budget, key.shape[1])
+    neg_key = torch.where(torch.isfinite(key), -key,
+                          torch.full_like(key, _NEG_INF))
+    sel_idx = torch.sort(neg_key, dim=1, descending=True,
+                         stable=True).indices[:, :C]
+    base_mask = in_range if cfg.adaptive else valid
+    sel_mask = base_mask.gather(1, sel_idx)
+    if tau is not None:
+        tau = tau[:, None]
+        sel_key = key.gather(1, sel_idx)
+        sel_mask = sel_mask & ((tau <= 0) | (sel_key <= tau))
+    return sel_idx, sel_mask
+
+
+def _adaptive_c_max(cfg: SearchConfig, options) -> Optional[int]:
+    if options.adaptive != "angle":
+        return None
+    return options.c_max if options.c_max else cfg.budget
+
+
+def make_guitar_rank_stage(cfg: SearchConfig,
+                           options: EngineOptions = EngineOptions()):
+    """Eq. 3 (angle) / Eq. 4 (projection) + static top-C + adaptive mask.
+    The trailing ``tau`` ((Q,) f32) is passed only when adaptive='angle'."""
+    c_max = _adaptive_c_max(cfg, options)
+    rank = neighbor_rank_ref if options.rank_impl == "ref" else neighbor_rank
+
+    def stage(x, grad, nvecs, valid, tau=None):
+        key, in_range = rank(x, grad, nvecs, valid, alpha=cfg.alpha,
+                             rank_by=cfg.rank_by)
+        return _select_top_c(key, in_range, valid, cfg, c_max, tau)
+    return stage
+
+
+def select_all_rank_stage(x, grad, nvecs, valid):
+    """SL2G: no pruning, every fresh neighbor is a candidate (C = B)."""
+    Q, B, _ = nvecs.shape
+    sel_idx = torch.arange(B, device=nvecs.device)[None, :].expand(Q, B)
+    return sel_idx, valid
+
+
+def default_insert_stage(state: EngineState, ids: torch.Tensor,
+                         scores: torch.Tensor,
+                         mask: torch.Tensor) -> EngineState:
+    """Merge (Q, C) candidates into the desc-sorted (Q, ef) pools: a stable
+    descending sort of [pool | candidates], truncated to ef. Ties go pool
+    first, then candidate order — the JAX merge-path insert's rule."""
+    ef = state.pool_scores.shape[1]
+    all_s = torch.cat([state.pool_scores,
+                       scores.masked_fill(~mask, _NEG_INF)], dim=1)
+    all_i = torch.cat([state.pool_ids, ids.masked_fill(~mask, -1)], dim=1)
+    all_e = torch.cat([state.pool_expanded, ~mask], dim=1)
+    order = torch.sort(all_s, dim=1, descending=True,
+                       stable=True).indices[:, :ef]
+    return state._replace(pool_scores=all_s.gather(1, order),
+                          pool_ids=all_i.gather(1, order),
+                          pool_expanded=all_e.gather(1, order))
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExpansionEngine:
+    """A staged, batch-major graph searcher. ``grad=None`` skips the
+    gradient phase (SL2G)."""
+    cfg: SearchConfig
+    pop: Callable
+    rank: Callable
+    measure: Callable
+    insert: Callable
+    grad: Optional[Callable] = None
+    corpus_dtype: str = "float32"
+    adaptive: str = "off"
+    c_max: int = 0
+    angle_tau: float = 0.0
+
+    def n_candidates(self, max_degree: int) -> int:
+        if self.grad is None:
+            return max_degree
+        c = self.cfg.budget
+        if self.adaptive == "angle" and self.c_max:
+            c = self.c_max
+        return min(c, max_degree)
+
+    def init_state(self, params, store: CorpusStore, neighbors, queries,
+                   entries, iter_caps=None, taus=None) -> EngineState:
+        """Seed each pool with its entry point (one measure call)."""
+        Q = queries.shape[0]
+        ef = self.cfg.ef
+        dev = queries.device
+        nwords = (store.n + 31) // 32
+        entries = entries.long()
+        e_scores = self.measure(params, store.take(entries), queries)
+        pool_scores = torch.full((Q, ef), _NEG_INF, dtype=torch.float32,
+                                 device=dev)
+        pool_scores[:, 0] = e_scores
+        pool_ids = torch.full((Q, ef), -1, dtype=torch.int64, device=dev)
+        pool_ids[:, 0] = entries
+        pool_expanded = torch.ones((Q, ef), dtype=torch.bool, device=dev)
+        pool_expanded[:, 0] = False
+        visited = bit_set_rows(
+            torch.zeros((Q, nwords), dtype=torch.int64, device=dev),
+            entries[:, None], torch.ones((Q, 1), dtype=torch.bool,
+                                         device=dev))
+        zeros = torch.zeros((Q,), dtype=torch.int32, device=dev)
+        if iter_caps is None:
+            iter_caps = torch.full((Q,), self.cfg.iters(),
+                                   dtype=torch.int32, device=dev)
+        else:
+            iter_caps = torch.as_tensor(iter_caps, device=dev).int()
+        if taus is None:
+            taus = torch.full((Q,), self.angle_tau, dtype=torch.float32,
+                              device=dev)
+        else:
+            taus = torch.as_tensor(taus, device=dev).float()
+        return EngineState(pool_scores, pool_ids, pool_expanded, visited,
+                           zeros + 1, zeros.clone(), zeros.clone(),
+                           torch.zeros((Q,), dtype=torch.bool, device=dev),
+                           iter_caps, taus)
+
+    def step(self, params, store: CorpusStore, neighbors, queries, qs_flat,
+             state: EngineState) -> EngineState:
+        """One iteration over the whole batch: pop, grad, rank, measure,
+        insert. ``qs_flat`` is the (Q*C, Dq) repeated query block."""
+        Q = queries.shape[0]
+        s, pop = self.pop(state)
+        nbr = neighbors[pop.fid].long()                    # (Q, B)
+        nbr_safe = nbr.clamp_min(0)
+        valid = (nbr >= 0) & ~bit_test_rows(s.visited, nbr) \
+            & pop.active[:, None]
+
+        x = store.take(pop.fid)                            # (Q, D)
+        if self.grad is not None:
+            _, g = self.grad(params, x, queries)
+            n_grad = s.n_grad + pop.active.int()
+        else:
+            g, n_grad = None, s.n_grad
+
+        targs = (state.angle_tau,) if self.adaptive == "angle" else ()
+        nvecs = store.take(nbr_safe)                       # (Q, B, D)
+        sel_idx, sel_mask = self.rank(x, g, nvecs, valid, *targs)
+        sel_ids = nbr.gather(1, sel_idx)
+
+        C = sel_idx.shape[1]
+        D = nvecs.shape[2]
+        sel_vecs = nvecs.gather(1, sel_idx[..., None].expand(Q, C, D))
+        flat_scores = self.measure(params, sel_vecs.reshape(Q * C, D),
+                                   qs_flat)
+        scores = flat_scores.reshape(Q, C).masked_fill(~sel_mask, _NEG_INF)
+
+        s = s._replace(
+            visited=bit_set_rows(s.visited, sel_ids, sel_mask),
+            n_grad=n_grad,
+            n_eval=s.n_eval + sel_mask.sum(dim=1).int(),
+            n_iters=s.n_iters + pop.active.int())
+        s = self.insert(s, sel_ids, scores, sel_mask)
+        exhausted = ~torch.any(~s.pool_expanded & torch.isfinite(
+            s.pool_scores), dim=1)
+        done = state.done | exhausted | (s.n_iters >= s.iter_cap) \
+            | ~pop.active
+        return s._replace(done=done)
+
+    def _result(self, final: EngineState) -> SearchResult:
+        k = self.cfg.k
+        return SearchResult(ids=final.pool_ids[:, :k],
+                            scores=final.pool_scores[:, :k],
+                            n_eval=final.n_eval, n_grad=final.n_grad,
+                            n_iters=final.n_iters)
+
+    def search(self, params, base, neighbors, queries: torch.Tensor,
+               entries, iter_caps=None, taus=None) -> SearchResult:
+        """base: (N, D) tensor/array or a ``CorpusStore``; neighbors: (N, B)
+        int -1-padded; queries: (Q, Dq) tensor on the search device;
+        entries: (Q,) entry ids; iter_caps: optional (Q,) per-query
+        expansion budgets; taus: optional (Q,) adaptive angle cutoffs.
+        Everything runs on ``queries.device``."""
+        dev = queries.device
+        store = as_corpus_store(base, self.corpus_dtype, device=dev)
+        if store.device != dev:
+            raise ValueError(f"corpus on {store.device}, queries on {dev}")
+        neighbors = torch.as_tensor(neighbors, device=dev)
+        entries = torch.as_tensor(entries, device=dev).long()
+        queries = queries.float().contiguous()
+        state = self.init_state(params, store, neighbors, queries, entries,
+                                iter_caps, taus)
+        C = self.n_candidates(neighbors.shape[1])
+        qs_flat = queries.repeat_interleave(C, dim=0)
+        # every live lane expands or finishes each step, so all lanes are
+        # done after max(iter_cap) + 1 steps; the check is a guard
+        limit = int(state.iter_cap.max()) + 1 + SYNC_EVERY
+        steps = 0
+        while True:
+            for _ in range(SYNC_EVERY):
+                state = _freeze_done(
+                    state.done,
+                    self.step(params, store, neighbors, queries, qs_flat,
+                              state),
+                    state)
+            steps += SYNC_EVERY
+            if bool(state.done.all()):
+                break
+            if steps >= limit:
+                raise RuntimeError(f"search did not converge in {steps} "
+                                   f"steps (iter cap {limit - 1})")
+        return self._result(state)
+
+
+# ---------------------------------------------------------------------------
+# builders
+# ---------------------------------------------------------------------------
+
+def _check_options(cfg: SearchConfig, options: EngineOptions) -> None:
+    if options.fused:
+        raise NotImplementedError(
+            "EngineOptions(fused=True) is not ported yet: the index-fused "
+            "kernels wait in ROADMAP.md, queue 2")
+    if options.rank_impl not in ("auto", "ref"):
+        raise ValueError(f"rank_impl must be 'auto' or 'ref', got "
+                         f"{options.rank_impl!r}")
+    for name in ("measure_impl", "grad_impl"):
+        if getattr(options, name) not in ("auto", "vmap"):
+            raise ValueError(f"{name} must be 'auto' or 'vmap', got "
+                             f"{getattr(options, name)!r}")
+    if cfg.mode not in ("guitar", "sl2g"):
+        raise ValueError(f"mode must be 'guitar' or 'sl2g', got "
+                         f"{cfg.mode!r}")
+    if options.adaptive not in ("off", "angle"):
+        raise ValueError(f"EngineOptions.adaptive must be 'off' or 'angle', "
+                         f"got {options.adaptive!r}")
+    if options.adaptive == "angle" and (cfg.mode != "guitar"
+                                        or cfg.rank_by != "angle"):
+        raise ValueError(
+            "EngineOptions(adaptive='angle') requires SearchConfig("
+            f"mode='guitar', rank_by='angle'); got mode={cfg.mode!r}, "
+            f"rank_by={cfg.rank_by!r}")
+
+
+def build_engine_from_fn(score_fn, cfg: SearchConfig,
+                         options: EngineOptions = EngineOptions(),
+                         meta: Optional[Tuple] = None) -> ExpansionEngine:
+    """Engine for a bare ``score_fn``; ``meta`` resolves its kernel
+    bundle. Stage selection flows only through ``resolve_stages``."""
+    _check_options(cfg, options)
+    meta = tuple(meta) if meta is not None else None
+    stages = resolve_stages(score_fn, meta, options)
+    if cfg.mode == "guitar":
+        grad, rank = stages.grad, make_guitar_rank_stage(cfg, options)
+    else:
+        grad, rank = None, select_all_rank_stage
+    return ExpansionEngine(cfg=cfg, pop=default_pop_stage, rank=rank,
+                           measure=stages.measure,
+                           insert=default_insert_stage, grad=grad,
+                           corpus_dtype=options.corpus_dtype,
+                           adaptive=options.adaptive, c_max=options.c_max,
+                           angle_tau=options.angle_tau)
+
+
+def build_engine(measure, cfg: SearchConfig,
+                 options: EngineOptions = EngineOptions()) -> ExpansionEngine:
+    """Engine for a ``Measure``: its ``meta`` resolves the kernel bundle."""
+    return build_engine_from_fn(measure.score_fn, cfg, options,
+                                getattr(measure, "meta", None))
+
+

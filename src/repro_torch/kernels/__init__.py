@@ -1,0 +1,17 @@
+"""Hand-written CUDA kernels of the port (``csrc/``), one package per
+kernel: ``ref.py`` holds the plain PyTorch version, ``ops.py`` the wrapper
+that launches the kernel for CUDA tensors and counts its launches."""
+from repro_torch.kernels.deepfm_grad import deepfm_value_and_grad  # noqa: F401
+from repro_torch.kernels.deepfm_score import deepfm_score  # noqa: F401
+from repro_torch.kernels.neighbor_rank import neighbor_rank  # noqa: F401
+
+KERNELS = (deepfm_score, neighbor_rank, deepfm_value_and_grad)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -1,0 +1,173 @@
+"""Build and load the port's CUDA kernels: one shared library from every
+``csrc/*.cu``, compiled with ``nvcc`` for ``sm_90a`` at first use and bound
+with ``ctypes`` (plain C entry points, no PyTorch headers).
+
+The library lands in ``build/repro_torch_kernels/<hash>/`` at the root of
+the checkout, keyed on a hash of the sources and flags, so an edited kernel
+is rebuilt and an unchanged one is loaded as it is. Each source compiles in
+its own ``nvcc`` process, all started together, then one link step joins
+them. Nothing here runs at import: the CPU tests import every module of the
+port on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry point -> argtypes; every entry returns cudaGetLastError()
+SIGNATURES = {
+    # cand, query, q_shared, w0, b0, w1, b1, w2, b2, out,
+    # M, D, fm_dim, H0, H1, stream
+    "deepfm_score_f32": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
+    # cand, query, q_shared, w0, b0, w1, b1, w2, b2, vals, grads,
+    # M, D, fm_dim, H0, H1, stream
+    "deepfm_grad_f32": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _P],
+    # x, grad, nvecs, valid(u8), key, mask(u8), Q, B, D, alpha,
+    # by_angle, stream
+    "neighbor_rank_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_INFO: dict = {}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
+                       "kernels build only where the CUDA toolkit is "
+                       "installed")
+
+
+def build(force: bool = False) -> Path:
+    """Compile the library if it is not built for these sources; returns
+    its path. Compiler output (``-Xptxas -v``: registers, shared memory,
+    spills per kernel) is kept beside it in ``build.log``."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / "librepro_torch_kernels.so"
+    if lib_path.exists() and not force:
+        BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True)
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    stage = BUILD_ROOT / f".build-{os.getpid()}"
+    shutil.rmtree(stage, ignore_errors=True)
+    stage.mkdir(parents=True)
+    try:
+        srcs = sorted(CSRC.glob("*.cu"))
+        procs = []
+        for src in srcs:
+            obj = stage / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            log.append(f"== {src.name} (rc={p.returncode})\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n"
+                               + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(stage / lib_path.name),
+             *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc={link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+        (stage / "build.log").write_text("\n".join(log))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        stage.rename(out_dir)
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    BUILD_INFO.update(path=str(lib_path), seconds=time.perf_counter() - t0,
+                      cached=False)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a C entry point."""
+    if rc != 0:
+        msg = load().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def require(t, name: str, device, shape, dtype=None) -> None:
+    """Validate a kernel argument: a tensor on ``device``, of ``shape``
+    (None entries match any size), contiguous, of ``dtype`` (float32 by
+    default). Raises ValueError/TypeError naming the argument."""
+    import torch
+    dtype = torch.float32 if dtype is None else dtype
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != ts for s, ts in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple('*' if s is None else s for s in shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def stream_of(device) -> int:
+    """The current CUDA stream's handle on ``device``, for a C launcher."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,89 @@
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports ``jax`` or the JAX package ``repro``, and its default device is the
+card, never a silent CPU fallback."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_BLOCKED_IMPORTS = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import repro_torch
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro")
+                   for k in sys.modules), "a blocked module got in"
+    print(len(names))
+""")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), str(ROOT)])
+    return env
+
+
+def test_port_imports_no_jax_and_no_repro():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS],
+                         capture_output=True, text=True, env=_env(),
+                         cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_port_sources_name_no_jax():
+    files = sorted(SRC.glob("repro_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax",
+                                     "import repro.", "from repro.",
+                                     "from repro import")), (f, s)
+
+
+def test_serve_default_device_refuses_cpu_fallback():
+    """Without --device cpu the launcher needs a card; here it has none,
+    so it must fail instead of serving on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--items", "300",
+         "--queries", "8"], capture_output=True, text=True, env=_env(),
+        cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert "cuda" in (out.stdout + out.stderr).lower()
+    assert "QPS" not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory without the rest of the repository
+    exits non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, env=env,
+                         cwd=tmp_path, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
