@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Card smoke test of the PyTorch/CUDA port (``src/repro_torch``): builds
 the CUDA kernels from this checkout, holds each against its plain PyTorch
-version on the card, runs the engine on the card against the same engine on
-the CPU, serves the GUITAR DeepFM search at N=100,000 through the port's
-oneshot serving path, counting kernel launches, and profiles one served
-batch (device busy share, device time by kernel).
+version on the card (the index-fused ones at float32, bfloat16 and int8
+residency, and bit for bit against the pre-gathered ones at float32), runs
+the engine on the card against the same engine on the CPU, serves the
+GUITAR DeepFM search at N=100,000 through the port's oneshot serving path
+(unfused, and fused at float32, bfloat16 and int8, and int8 with adaptive
+angle sizing), counting kernel launches in each run, and profiles one served
+batch of the unfused, the fused float32 and the fused int8 path (device
+busy share, device events per engine step, device time by kernel).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -142,6 +146,58 @@ def rank_costs(Q, B, D):
     return nbytes, flops
 
 
+def rank_close(torch, key, mask, pk, pm, alpha, rank_by, name):
+    """Keys against the plain keys (invalid keys equal, finite ones within
+    the tolerance) and the number of mask entries that differ away from the
+    alpha*theta band edge. Returns (max abs err, err/tol, n_diff)."""
+    fin = torch.isfinite(pk)
+    require(bool((torch.isfinite(key) == fin).all())
+            and bool((key[~fin] == pk[~fin]).all()),
+            f"{name} {rank_by}: invalid keys differ")
+    if not bool(fin.any()):
+        return 0.0, 0.0, int((mask != pm).sum())
+    if rank_by == "angle":
+        err, ratio = close_err(key[fin], pk[fin], 0.0, ANGLE_KEY_ATOL)
+        theta = torch.where(fin, pk, torch.inf).min(1, True).values
+        near = (pk - (alpha * theta)).abs() <= ANGLE_KEY_ATOL
+    else:
+        err, ratio = close_err(key[fin], pk[fin], PROJ_KEY_RTOL,
+                               PROJ_KEY_ATOL)
+        proj = torch.where(fin, -pk, -torch.inf)
+        theta = proj.max(1, True).values
+        bnd = torch.where(theta >= 0, theta / alpha, theta * alpha)
+        near = (proj - bnd).abs() <= PROJ_KEY_ATOL * (1 + bnd.abs())
+    return err, ratio, int(((mask != pm) & ~near).sum())
+
+
+RESIDENCIES = ("float32", "bfloat16", "int8")
+
+
+def row_bytes(dtype, D):
+    """Bytes of one resident corpus row: int8 rows carry a float32 scale."""
+    return {"float32": 4 * D, "bfloat16": 2 * D, "int8": D + 4}[dtype]
+
+
+def fused_deepfm_costs(dtype, M, D, fm, H0, H1, per_row_query, grad,
+                       masked=False):
+    """deepfm_costs with the rows read from the corpus in residency format
+    by int64 id, the optional mask, the x rows the grad form writes, and
+    the int8 dequant multiply."""
+    nbytes, flops = deepfm_costs(M, D, fm, H0, H1, per_row_query, grad)
+    nbytes += M * (row_bytes(dtype, D) - 4 * D) + 8 * M
+    nbytes += M if masked else 0
+    nbytes += 4 * M * D if grad else 0
+    flops += M * D if dtype == "int8" else 0
+    return nbytes, flops
+
+
+def fused_rank_costs(dtype, Q, B, D):
+    nbytes, flops = rank_costs(Q, B, D)
+    nbytes += Q * B * (row_bytes(dtype, D) - 4 * D) + 8 * Q * B
+    flops += Q * B * D if dtype == "int8" else 0
+    return nbytes, flops
+
+
 def check_kernels(torch, dev, measure, fm_dim):
     from repro_torch.kernels import (deepfm_score, deepfm_value_and_grad,
                                      neighbor_rank)
@@ -233,23 +289,8 @@ def check_kernels(torch, dev, measure, fm_dim):
             key, mask = neighbor_rank(x, g, nv, valid, alpha, rank_by)
             torch.cuda.synchronize()
             pk, pm = neighbor_rank_ref(x, g, nv, valid, alpha, rank_by)
-            fin = torch.isfinite(pk)
-            require(bool((torch.isfinite(key) == fin).all())
-                    and bool((key[~fin] == pk[~fin]).all()),
-                    f"neighbor_rank {rank_by}: invalid keys differ")
-            if rank_by == "angle":
-                err, ratio = close_err(key[fin], pk[fin], 0.0, ANGLE_KEY_ATOL)
-                theta = torch.where(fin, pk, torch.inf).min(1,
-                                                           True).values
-                near = (pk - (alpha * theta)).abs() <= ANGLE_KEY_ATOL
-            else:
-                err, ratio = close_err(key[fin], pk[fin], PROJ_KEY_RTOL,
-                                       PROJ_KEY_ATOL)
-                proj = torch.where(fin, -pk, -torch.inf)
-                theta = proj.max(1, True).values
-                bnd = torch.where(theta >= 0, theta / alpha, theta * alpha)
-                near = (proj - bnd).abs() <= PROJ_KEY_ATOL * (1 + bnd.abs())
-            n_diff = int(((mask != pm) & ~near).sum())
+            err, ratio, n_diff = rank_close(torch, key, mask, pk, pm, alpha,
+                                            rank_by, "neighbor_rank")
             log(f"neighbor_rank Q={Q} B={B} {rank_by}: key max_abs_err="
                 f"{err:.3e} (err/tol {ratio:.3f}) mask mismatches away from "
                 f"the band edge: {n_diff}")
@@ -270,23 +311,235 @@ def check_kernels(torch, dev, measure, fm_dim):
     return report
 
 
+def prefix_mask(torch, lanes, C, gen):
+    """The adaptive engine's mask shape: per lane a prefix of its C
+    candidates, of random length; lane 0 is masked entirely, lane 1 not."""
+    n = torch.randint(0, C + 1, (lanes,), generator=gen)
+    n[0], n[1] = 0, C
+    return (torch.arange(C)[None, :] < n[:, None]).reshape(-1)
+
+
+def check_fused_kernels(torch, dev, measure, fm_dim):
+    """The index-fused kernels at each residency against their plain
+    versions (both query forms, with and without a mask, -1 ids), and at
+    float32 bit for bit against the pre-gathered kernels on the gathered
+    rows; ``x`` of the grad form must equal ``store.take`` exactly. Times
+    each at f32, bf16 and int8."""
+    from repro_torch.core import make_corpus_store
+    from repro_torch.kernels import (deepfm_grad_fused, deepfm_score,
+                                     deepfm_score_fused,
+                                     deepfm_value_and_grad, neighbor_rank,
+                                     neighbor_rank_fused)
+    from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
+    from repro_torch.kernels.deepfm_grad_fused.ref import \
+        deepfm_grad_fused_ref
+    from repro_torch.kernels.deepfm_score_fused.ref import \
+        deepfm_score_fused_ref
+    from repro_torch.kernels.neighbor_rank_fused.ref import \
+        neighbor_rank_fused_ref
+
+    mlp = measure.params["mlp"]
+    w, b = mlp["w"], mlp["b"]
+    wb = [t for pair in zip(w, b) for t in pair]
+    D = w[0].shape[0] // 2 + fm_dim
+    H0, H1 = w[0].shape[1], w[1].shape[1]
+    N = 5000
+    gen = torch.Generator(device="cpu").manual_seed(321)
+    base = torch.randn((N, D), generator=gen)
+    stores = {dt: make_corpus_store(base, dt, device=dev)
+              for dt in RESIDENCIES}
+    neg_inf = float("-inf")
+
+    def rows(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def ids_of(*shape):
+        i = torch.randint(0, N, shape, generator=gen)
+        i.view(-1)[::13] = -1                 # padding, clamped in-kernel
+        return i.to(dev)
+
+    report = {}
+    # -- deepfm_score_fused: main path M = Q*C = 256 (C = 8) and 512
+    #    (adaptive c_max = 16), 32 at init, a ragged M
+    worst = 0.0
+    for dt, store in stores.items():
+        worst_dt = 0.0
+        for M, C in ((256, 8), (512, 16), (32, None), (77, None)):
+            for shared in (False, True):
+                for masked in (False, True):
+                    idx = ids_of(M)
+                    q = rows(D) if shared else rows(M, D)
+                    mask = None
+                    if masked:
+                        mask = (prefix_mask(torch, M // C, C, gen) if C
+                                else torch.rand(M, generator=gen) < 0.5)
+                        mask = mask.to(dev)
+                    got = deepfm_score_fused(store, idx, q, mlp, fm_dim,
+                                             mask=mask)
+                    torch.cuda.synchronize()
+                    want = deepfm_score_fused_ref(store, idx, q, *wb, fm_dim,
+                                                  mask)
+                    label = (f"deepfm_score_fused {dt} M={M} shared={shared}"
+                             f" masked={masked}")
+                    require(torch.equal(torch.isneginf(got),
+                                        torch.isneginf(want)),
+                            f"{label}: masked rows differ")
+                    fin = torch.isfinite(want)
+                    if bool(fin.any()):
+                        err, ratio = close_err(got[fin], want[fin],
+                                               SCORE_RTOL, SCORE_ATOL)
+                        require(ratio <= 1.0, f"{label}: {err:.3e}")
+                        worst_dt = max(worst_dt, err)
+                    if dt == "float32":
+                        unf = deepfm_score(store.take(idx.clamp_min(0)), q,
+                                           mlp, fm_dim)
+                        if mask is not None:
+                            unf = unf.masked_fill(~mask, neg_inf)
+                        require(torch.equal(got, unf), f"{label}: differs "
+                                f"from deepfm_score on the gathered rows")
+        log(f"deepfm_score_fused {dt}: 32 cases, max_abs_err {worst_dt:.3e}"
+            + (", equal to deepfm_score bit for bit" if dt == "float32"
+               else ""))
+        worst = max(worst, worst_dt)
+    M = 256
+    idx, q = ids_of(M), rows(M, D)
+    idx_a, q_a = ids_of(512), rows(512, D)
+    mask_a = prefix_mask(torch, 32, 16, gen).to(dev)
+    r = report["deepfm_score_fused"] = {"err": worst, "ms": {},
+                                        "plain_ms": {}, "bound": {}}
+    for dt, st in stores.items():
+        r["ms"][dt] = time_ms(lambda: deepfm_score_fused(st, idx, q, mlp,
+                                                         fm_dim))
+        r["plain_ms"][dt] = time_ms(lambda: deepfm_score_fused_ref(
+            st, idx, q, *wb, fm_dim))
+        r["bound"][dt] = bound_ms(*fused_deepfm_costs(dt, M, D, fm_dim, H0,
+                                                      H1, True, False))
+    st8 = stores["int8"]
+    r["host_us"] = host_us(lambda: deepfm_score_fused(st8, idx, q, mlp,
+                                                      fm_dim))
+    r["adaptive_int8"] = {
+        "M": 512, "live_rows": int(mask_a.sum()),
+        "ms": time_ms(lambda: deepfm_score_fused(st8, idx_a, q_a, mlp,
+                                                 fm_dim, mask=mask_a)),
+        "ms_unmasked": time_ms(lambda: deepfm_score_fused(st8, idx_a, q_a,
+                                                          mlp, fm_dim))}
+
+    # -- deepfm_grad_fused: main path Q = 32, a ragged Q, 256
+    worst = 0.0
+    for dt, store in stores.items():
+        worst_dt = 0.0
+        for M in (32, 7, 256):
+            for shared in (False, True):
+                idx = ids_of(M)
+                q = rows(D) if shared else rows(M, D)
+                v, g, x = deepfm_grad_fused(store, idx, q, mlp, fm_dim)
+                torch.cuda.synchronize()
+                pv, pg, px = deepfm_grad_fused_ref(store, idx, q, *wb, fm_dim)
+                label = f"deepfm_grad_fused {dt} M={M} shared={shared}"
+                require(torch.equal(x, px), f"{label}: x differs from "
+                        f"CorpusStore.take")
+                ev, rv = close_err(v, pv, SCORE_RTOL, SCORE_ATOL)
+                eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
+                require(rv <= 1.0 and rg <= 1.0,
+                        f"{label}: vals {ev:.3e} grads {eg:.3e}")
+                worst_dt = max(worst_dt, ev, eg)
+                if dt == "float32":
+                    uv, ug = deepfm_value_and_grad(px, q, mlp, fm_dim)
+                    require(torch.equal(v, uv) and torch.equal(g, ug),
+                            f"{label}: differs from deepfm_grad on the "
+                            f"gathered rows")
+        log(f"deepfm_grad_fused {dt}: 6 cases, max_abs_err {worst_dt:.3e}, "
+            f"x equal to CorpusStore.take"
+            + (", equal to deepfm_grad bit for bit" if dt == "float32"
+               else ""))
+        worst = max(worst, worst_dt)
+    M = 32
+    idx, q = ids_of(M), rows(M, D)
+    r = report["deepfm_grad_fused"] = {"err": worst, "ms": {},
+                                       "plain_ms": {}, "bound": {}}
+    for dt, st in stores.items():
+        r["ms"][dt] = time_ms(lambda: deepfm_grad_fused(st, idx, q, mlp,
+                                                        fm_dim))
+        r["plain_ms"][dt] = time_ms(lambda: deepfm_grad_fused_ref(
+            st, idx, q, *wb, fm_dim))
+        r["bound"][dt] = bound_ms(*fused_deepfm_costs(dt, M, D, fm_dim, H0,
+                                                      H1, True, True))
+    r["host_us"] = host_us(lambda: deepfm_grad_fused(st8, idx, q, mlp,
+                                                     fm_dim))
+
+    # -- neighbor_rank_fused: main path (Q, B) = (32, 48), a ragged shape,
+    #    both rank modes; frontier rows and gradients as the engine has them
+    alpha = 1.01
+    worst = 0.0
+    for dt, store in stores.items():
+        worst_dt = 0.0
+        for Q, B in ((32, 48), (5, 37)):
+            x = store.take(ids_of(Q).clamp_min(0))
+            g = deepfm_value_and_grad_ref(x, rows(Q, D), *wb,
+                                          fm_dim)[1].contiguous()
+            idx = ids_of(Q, B)
+            valid = (torch.rand((Q, B), generator=gen) < 0.7).to(dev) \
+                & (idx >= 0)
+            valid[0] = False                    # an all-invalid lane
+            for rank_by in ("angle", "projection"):
+                key, mask = neighbor_rank_fused(x, g, store, idx, valid,
+                                                alpha, rank_by)
+                torch.cuda.synchronize()
+                pk, pm = neighbor_rank_fused_ref(x, g, store, idx, valid,
+                                                 alpha, rank_by)
+                label = f"neighbor_rank_fused {dt} Q={Q} B={B} {rank_by}"
+                err, ratio, n_diff = rank_close(torch, key, mask, pk, pm,
+                                                alpha, rank_by, label)
+                require(ratio <= 1.0 and n_diff == 0,
+                        f"{label}: key {err:.3e}, {n_diff} mask mismatches")
+                worst_dt = max(worst_dt, err)
+                if dt == "float32":
+                    uk, um = neighbor_rank(x, g, store.take(idx.clamp_min(0)),
+                                           valid, alpha, rank_by)
+                    require(torch.equal(key, uk) and torch.equal(mask, um),
+                            f"{label}: differs from neighbor_rank on the "
+                            f"gathered rows")
+        log(f"neighbor_rank_fused {dt}: 4 cases, key max_abs_err "
+            f"{worst_dt:.3e}, no mask mismatch away from the band edge"
+            + (", equal to neighbor_rank bit for bit" if dt == "float32"
+               else ""))
+        worst = max(worst, worst_dt)
+    Q, B = 32, 48
+    x = stores["float32"].take(ids_of(Q).clamp_min(0))
+    g = deepfm_value_and_grad_ref(x, rows(Q, D), *wb, fm_dim)[1].contiguous()
+    idx = ids_of(Q, B)
+    valid = (torch.rand((Q, B), generator=gen) < 0.7).to(dev) & (idx >= 0)
+    r = report["neighbor_rank_fused"] = {"err": worst, "ms": {},
+                                         "plain_ms": {}, "bound": {}}
+    for dt, st in stores.items():
+        r["ms"][dt] = time_ms(lambda: neighbor_rank_fused(x, g, st, idx,
+                                                          valid, alpha))
+        r["plain_ms"][dt] = time_ms(lambda: neighbor_rank_fused_ref(
+            x, g, st, idx, valid, alpha))
+        r["bound"][dt] = bound_ms(*fused_rank_costs(dt, Q, B, D))
+    r["host_us"] = host_us(lambda: neighbor_rank_fused(x, g, st8, idx, valid,
+                                                       alpha))
+    return report
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine on the card against the engine on the CPU
 # ---------------------------------------------------------------------------
 
-def plain_result_scores(torch, measure, base_t, queries_t, ids):
-    """The plain DeepFM score of each returned id (-inf where id < 0)."""
+def plain_result_scores(torch, measure, store, queries_t, ids):
+    """The plain DeepFM score of each returned id's resident row, as
+    ``CorpusStore.take`` dequantizes it (-inf where id < 0)."""
     from repro_torch.kernels.deepfm_score.ref import deepfm_score_ref
     mlp = measure.params["mlp"]
     Q, k = ids.shape
-    rows = base_t[ids.clamp_min(0).reshape(-1)]
+    rows = store.take(ids.clamp_min(0).reshape(-1))
     qs = queries_t.repeat_interleave(k, dim=0)
     s = deepfm_score_ref(rows, qs, *[t for pair in zip(mlp["w"], mlp["b"])
                                      for t in pair], measure.meta[1])
     return s.reshape(Q, k).masked_fill(ids < 0, float("-inf"))
 
 
-def check_result(torch, measure, base_t, queries_t, res, k, label):
+def check_result(torch, measure, store, queries_t, res, k, label):
     ids, scores = res.ids, res.scores
     require(tuple(ids.shape) == (queries_t.shape[0], k), f"{label}: ids "
             f"shape {tuple(ids.shape)}")
@@ -296,7 +549,7 @@ def check_result(torch, measure, base_t, queries_t, res, k, label):
     srt = ids.sort(dim=1).values
     require(bool((srt[:, 1:] != srt[:, :-1]).all()), f"{label}: repeated "
             f"ids in a result row")
-    want = plain_result_scores(torch, measure, base_t, queries_t, ids)
+    want = plain_result_scores(torch, measure, store, queries_t, ids)
     err = float((scores - want).abs().max())
     log(f"{label}: returned scores vs plain DeepFM score of the returned "
         f"ids: max_abs_err={err:.3e}")
@@ -304,62 +557,112 @@ def check_result(torch, measure, base_t, queries_t, res, k, label):
             f"from the plain score by {err:.3e}")
 
 
-def check_engine(torch, np, dev):
+def same_result(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("ids", "scores", "n_eval", "n_grad", "n_iters"))
+
+
+def check_engine(torch, np, dev, N=5000):
+    """At N=5,000: the unfused and the fused int8 search agree with the
+    same search on the CPU within 0.01 recall@10, and the fused float32
+    search on the card returns the unfused one's ids, scores and counters
+    (plain and adaptive)."""
     from repro_torch.core import (EngineOptions, SearchConfig,
                                   brute_force_topk, make_corpus_store,
                                   make_family_measure, recall, search_measure)
     from repro_torch.graph import build_l2_graph
-    N, D, Q = 5000, 40, 256
+    D, Q = 40, 256
     rng = np.random.default_rng(1)
     base = rng.normal(size=(N, D)).astype(np.float32)
     queries = rng.normal(size=(Q, D)).astype(np.float32)
     graph = build_l2_graph(base, m=24, k_construction=100, device=dev)
     cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01, mode="guitar",
                        rank_by="angle")
-    out = {}
-    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        measure = make_family_measure("deepfm",
-                                      torch.Generator().manual_seed(0), D,
-                                      device=where)
-        store = make_corpus_store(base, device=where)
-        qt = torch.as_tensor(queries, device=where)
+    cpu = torch.device("cpu")
+    ctx = {}
+    for where in (dev, cpu):
+        ctx[where.type] = (
+            make_family_measure("deepfm", torch.Generator().manual_seed(0), D,
+                                device=where),
+            torch.as_tensor(graph.neighbors, device=where),
+            torch.as_tensor(queries, device=where),
+            torch.full((Q,), graph.entry, device=where))
+
+    def run(where, options, cfg=cfg):
+        measure, nbrs, qt, entries = ctx[where.type]
+        store = make_corpus_store(base, options.corpus_dtype, device=where)
         t0 = time.perf_counter()
-        res = search_measure(measure, store, torch.as_tensor(
-            graph.neighbors, device=where), qt,
-            torch.full((Q,), graph.entry, device=where), cfg,
-            EngineOptions())
-        if label == "card":
+        res = search_measure(measure, store, nbrs, qt, entries, cfg, options)
+        if where.type == "cuda":
             torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        if label == "cpu":
-            true_ids, _ = brute_force_topk(measure, store.data, qt, cfg.k)
-        else:
-            check_result(torch, measure, store.data, qt, res, cfg.k,
-                         f"engine N={N} on {where}")
-        out[label] = (res, secs)
-    r_card = recall(out["card"][0].ids, true_ids)
-    r_cpu = recall(out["cpu"][0].ids, true_ids)
-    same = float((out["card"][0].ids.cpu() == out["cpu"][0].ids).all(1)
-                 .float().mean())
-    log(f"engine N={N} Q={Q}: recall@10 card={r_card:.4f} cpu={r_cpu:.4f} "
-        f"(|diff| {abs(r_card - r_cpu):.4f} <= {RECALL_AGREE}); identical "
-        f"result rows {same:.3f}; card {out['card'][1]:.3f}s, cpu "
-        f"{out['cpu'][1]:.3f}s")
-    require(abs(r_card - r_cpu) <= RECALL_AGREE,
-            f"card/CPU recall disagree: {r_card:.4f} vs {r_cpu:.4f}")
-    return {"n": N, "queries": Q, "recall_card": r_card, "recall_cpu": r_cpu,
-            "identical_rows": same, "card_s": out["card"][1],
-            "cpu_s": out["cpu"][1]}
+            check_result(torch, measure, store, qt, res, cfg.k,
+                         f"engine N={N} {options.corpus_dtype} fused="
+                         f"{options.fused} adaptive={options.adaptive} on "
+                         f"the card")
+        return res, time.perf_counter() - t0
+
+    m_cpu, _, q_cpu, _ = ctx["cpu"]
+    true_ids, _ = brute_force_topk(m_cpu, torch.as_tensor(base), q_cpu,
+                                   cfg.k)
+    out = {"n": N, "queries": Q}
+    for label, options in (("unfused", EngineOptions()),
+                           ("fused_int8", EngineOptions(
+                               fused=True, corpus_dtype="int8"))):
+        (r_card, s_card), (r_cpu, s_cpu) = run(dev, options), \
+            run(cpu, options)
+        rc, rp = recall(r_card.ids, true_ids), recall(r_cpu.ids, true_ids)
+        same = float((r_card.ids.cpu() == r_cpu.ids).all(1).float().mean())
+        log(f"engine N={N} Q={Q} {label}: recall@10 card={rc:.4f} cpu="
+            f"{rp:.4f} (|diff| {abs(rc - rp):.4f} <= {RECALL_AGREE}); "
+            f"identical result rows {same:.3f}; card {s_card:.3f}s, cpu "
+            f"{s_cpu:.3f}s")
+        require(abs(rc - rp) <= RECALL_AGREE,
+                f"{label}: card/CPU recall disagree: {rc:.4f} vs {rp:.4f}")
+        out[label] = {"recall_card": rc, "recall_cpu": rp,
+                      "identical_rows": same, "card_s": s_card,
+                      "cpu_s": s_cpu}
+        if label == "unfused":
+            unfused_card = r_card
+    fused_f32, _ = run(dev, EngineOptions(fused=True))
+    require(same_result(torch, fused_f32, unfused_card),
+            "engine: the fused float32 search differs from the unfused one")
+    cfg_a = SearchConfig(k=10, ef=64, budget=8, alpha=1.2, mode="guitar",
+                         rank_by="angle")
+    adapt = dict(adaptive="angle", c_max=16, angle_tau=1.8)
+    un_a, _ = run(dev, EngineOptions(**adapt), cfg_a)
+    fu_a, _ = run(dev, EngineOptions(fused=True, **adapt), cfg_a)
+    require(same_result(torch, un_a, fu_a), "engine: the fused float32 "
+            "adaptive search differs from the unfused one")
+    log(f"engine N={N}: fused float32 search = unfused search on the card "
+        f"(ids, scores, counters), plain and adaptive angle")
+    out["fused_f32_equals_unfused"] = True
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 5: serve N = 100,000 through the oneshot path
 # ---------------------------------------------------------------------------
 
-def check_serve(torch, np, dev):
-    from repro_torch.core import (EngineOptions, SearchConfig,
-                                  brute_force_topk, make_corpus_store,
-                                  make_family_measure, recall, search_measure)
+UNFUSED = ("deepfm_score", "neighbor_rank", "deepfm_value_and_grad")
+FUSED = ("deepfm_score_fused", "neighbor_rank_fused", "deepfm_grad_fused")
+SERVE_RUNS = (
+    ("unfused float32", []),
+    ("fused float32", ["--fused"]),
+    ("fused bfloat16", ["--fused", "--corpus-dtype", "bfloat16"]),
+    ("fused int8", ["--corpus-dtype", "int8"]),
+    ("fused int8 adaptive", ["--fused", "--corpus-dtype", "int8",
+                             "--adaptive", "angle", "--c-max", "16"]),
+)
+
+
+def check_serve(torch, np, dev, items=100_000):
+    """One graph at N=100,000, served through the launcher's oneshot path
+    per SERVE_RUNS; each run's kernels must all launch, each result must
+    score its ids as the plain DeepFM scores their resident rows, and
+    recall is labelled on the float32 base."""
+    from repro_torch.core import (SearchConfig, brute_force_topk,
+                                  make_corpus_store, make_family_measure,
+                                  recall, search_measure)
     from repro_torch.graph import build_l2_graph
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
@@ -367,13 +670,13 @@ def check_serve(torch, np, dev):
     # the DeepFM model's width (D = 40, hidden 64x64) and corpus size
     # (DeepFMConfig.n_items), the paper's graph (M = 24, k_construction =
     # 100) and search settings; 10 batches of 32 queries
-    args = serve.parse_args(["--items", "100000", "--dim", "40",
-                             "--queries", "320", "--batch", "32",
-                             "--ef", "64", "--budget", "8",
-                             "--alpha", "1.01", "--k", "10",
-                             "--device", str(dev)])
+    common = ["--items", str(items), "--dim", "40", "--queries", "320",
+              "--batch", "32", "--ef", "64", "--budget", "8", "--alpha",
+              "1.01", "--k", "10", "--device", str(dev)]
+    args = serve.parse_args(common)
     rng = np.random.default_rng(0)
     base = rng.normal(size=(args.items, args.dim)).astype(np.float32)
+    query_stream = rng.bit_generator.state
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     graph = build_l2_graph(base, m=24, k_construction=100,
@@ -386,63 +689,78 @@ def check_serve(torch, np, dev):
                                   args.dim, device=dev)
     cfg = SearchConfig(k=args.k, ef=args.ef, mode=args.mode,
                        budget=args.budget, alpha=args.alpha)
-    store = make_corpus_store(base, device=dev)
+    base_t = torch.as_tensor(base, device=dev)
     nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    # recall@10 on 64 more queries, labelled on the float32 base
+    qt = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(64, args.dim)).astype(np.float32), device=dev)
+    entries = torch.full((64,), graph.entry, device=dev)
+    true_ids, _ = brute_force_topk(measure, base_t, qt, cfg.k)
 
-    reset_launch_counts()
-    summary = serve.serve_oneshot(args, graph, measure, cfg, EngineOptions(),
-                                  store, nbrs, rng, dev)
-    counts = launch_counts()
-    log(f"serve: kernel launches in the serve run: {counts}")
-    for name, n in counts.items():
-        require(n > 0, f"serve: kernel {name} was never launched")
+    out = {"graph_build_s": build_s}
+    ctx = {}
+    for label, extra in SERVE_RUNS:
+        args = serve.parse_args(common + extra)
+        options = serve.engine_options(args)
+        store = make_corpus_store(base_t, args.corpus_dtype, device=dev)
+        rng.bit_generator.state = query_stream   # the same query stream
+        reset_launch_counts()
+        summary = serve.serve_oneshot(args, graph, measure, cfg, options,
+                                      store, nbrs, base_t, rng, dev)
+        counts = launch_counts()
+        log(f"serve {label}: kernel launches in the serve run: {counts}")
+        for name in FUSED if options.fused else UNFUSED:
+            require(counts[name] > 0, f"serve {label}: kernel {name} was "
+                    f"never launched")
+        res = search_measure(measure, store, nbrs, qt, entries, cfg, options)
+        check_result(torch, measure, store, qt, res, cfg.k,
+                     f"serve {label} N={args.items}")
+        rec = recall(res.ids, true_ids)
+        log(f"serve {label}: recall@10 on 64 queries = {rec:.4f} (labels on "
+            f"the float32 base); evals/query "
+            f"{float(res.n_eval.float().mean()):.1f}, iterations mean "
+            f"{float(res.n_iters.float().mean()):.1f}")
+        log(f"serve {label}: QPS={summary['qps']:.1f} p50="
+            f"{summary['p50_ms']:.3f}ms p95={summary['p95_ms']:.3f}ms per "
+            f"batch of {args.batch}; evals/query "
+            f"{summary['evals_per_query']:.1f}, iterations mean "
+            f"{summary['iters_mean']:.1f} max {summary['iters_max']:.0f}; "
+            f"corpus {store.nbytes() / 2**20:.1f} MiB")
+        out[label] = {**summary, "recall64": rec, "launches": counts,
+                      "corpus_mib": store.nbytes() / 2**20}
+        ctx[label] = (measure, store, nbrs, graph, cfg, options)
+    return out, ctx
 
-    # recall@10 on 64 more queries against the exact top-10
-    qr = np.random.default_rng(7).normal(size=(64, args.dim))
-    qt = torch.as_tensor(qr.astype(np.float32), device=dev)
-    res = search_measure(measure, store, nbrs, qt,
-                         torch.full((64,), graph.entry, device=dev), cfg)
-    check_result(torch, measure, store.data, qt, res, cfg.k,
-                 f"serve N={args.items}")
-    true_ids, _ = brute_force_topk(measure, store.data, qt, cfg.k)
-    rec = recall(res.ids, true_ids)
-    log(f"serve: recall@10 on 64 queries = {rec:.4f}; evals/query "
-        f"{float(res.n_eval.float().mean()):.1f}, iterations mean "
-        f"{float(res.n_iters.float().mean()):.1f}")
-    log(f"serve: QPS={summary['qps']:.1f} p50={summary['p50_ms']:.3f}ms "
-        f"p95={summary['p95_ms']:.3f}ms per batch of {args.batch}; "
-        f"evals/query {summary['evals_per_query']:.1f}, iterations mean "
-        f"{summary['iters_mean']:.1f} max {summary['iters_max']:.0f}")
-    out = {**summary, "graph_build_s": build_s, "recall64": rec,
-           "launches": counts}
-    return out, (measure, store, nbrs, graph, cfg)
 
-
-def profile_serve(torch, np, dev, ctx):
+def profile_serve(torch, np, dev, ctx, label):
     """torch.profiler over one served batch of 32 at N=100,000: the share
     of the batch's wall time in which the card runs a kernel, and device
     time by kernel. It reports and checks nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import search_measure
-    from repro_torch.kernels import deepfm_value_and_grad
-    measure, store, nbrs, graph, cfg = ctx
+    from repro_torch.kernels import deepfm_grad_fused, deepfm_value_and_grad
+    measure, store, nbrs, graph, cfg, options = ctx
     q = torch.as_tensor(np.random.default_rng(9).normal(
         size=(32, store.dim)).astype(np.float32), device=dev)
     entries = torch.full((32,), graph.entry, device=dev)
-    search_measure(measure, store, nbrs, q, entries, cfg)
+
+    def steps():        # one grad launch per engine step
+        return deepfm_value_and_grad.launches + deepfm_grad_fused.launches
+
+    search_measure(measure, store, nbrs, q, entries, cfg, options)
     torch.cuda.synchronize()
-    launches0 = deepfm_value_and_grad.launches      # one per engine step
+    launches0 = steps()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        search_measure(measure, store, nbrs, q, entries, cfg)
+        search_measure(measure, store, nbrs, q, entries, cfg, options)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    steps = deepfm_value_and_grad.launches - launches0
+    n_steps = steps() - launches0
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        log("profile: the profiler recorded no device events")
+        log(f"profile {label}: the profiler recorded no device events")
         return {"wall_us": wall_us, "device_events": 0}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -458,14 +776,15 @@ def profile_serve(torch, np, dev, ctx):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    log(f"profile: one batch of 32 at N={store.n}: wall {wall_us:.0f}us, "
-        f"device busy {busy:.0f}us ({busy / wall_us:.1%}), idle "
-        f"{1 - busy / wall_us:.1%}; {len(kern)} device events over {steps} "
-        f"engine steps")
+    log(f"profile {label}: one batch of 32 at N={store.n}: wall "
+        f"{wall_us:.0f}us, device busy {busy:.0f}us ({busy / wall_us:.1%}), "
+        f"idle {1 - busy / wall_us:.1%}; {len(kern)} device events over "
+        f"{n_steps} engine steps ({len(kern) / max(n_steps, 1):.1f} per "
+        f"step)")
     for name, (n, t) in top:
-        log(f"profile:   {t:9.1f}us {n:6d}x  {name[:90]}")
+        log(f"profile {label}:   {t:9.1f}us {n:6d}x  {name[:90]}")
     return {"wall_us": wall_us, "busy_us": busy, "device_events": len(kern),
-            "idle_share": 1 - busy / wall_us, "steps": steps,
+            "idle_share": 1 - busy / wall_us, "steps": n_steps,
             "top": [(name, n, t) for name, (n, t) in top]}
 
 
@@ -476,9 +795,54 @@ KERNEL_META = {
                       "src/repro/kernels/neighbor_rank/kernel.py:47"),
     "deepfm_grad": ("src/repro_torch/kernels/csrc/deepfm_grad.cu",
                     "src/repro/kernels/deepfm_grad/kernel.py:63"),
+    "deepfm_score_fused": (
+        "src/repro_torch/kernels/csrc/deepfm_score_fused.cu",
+        "src/repro/kernels/deepfm_score_fused/kernel.py:101"),
+    "neighbor_rank_fused": (
+        "src/repro_torch/kernels/csrc/neighbor_rank_fused.cu",
+        "src/repro/kernels/neighbor_rank_fused/kernel.py:70"),
+    "deepfm_grad_fused": (
+        "src/repro_torch/kernels/csrc/deepfm_grad_fused.cu",
+        "src/repro/kernels/deepfm_grad_fused/kernel.py:85"),
 }
 WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
-           "deepfm_grad": "deepfm_value_and_grad"}
+           "deepfm_grad": "deepfm_value_and_grad",
+           "deepfm_score_fused": "deepfm_score_fused",
+           "neighbor_rank_fused": "neighbor_rank_fused",
+           "deepfm_grad_fused": "deepfm_grad_fused"}
+# the serve run whose launches each kernel reports
+LAUNCH_RUN = {"deepfm_score": "unfused float32",
+              "neighbor_rank": "unfused float32",
+              "deepfm_grad": "unfused float32",
+              "deepfm_score_fused": "fused int8 adaptive",
+              "neighbor_rank_fused": "fused int8 adaptive",
+              "deepfm_grad_fused": "fused int8 adaptive"}
+LINE_RESIDENCY = "int8"   # the fused kernels' numbers in the kernels line
+
+
+def kernel_line(results) -> dict:
+    kern, fused, serve_out = (results["kernels"], results["fused_kernels"],
+                              results["serve"])
+    out = []
+    for name in KERNEL_META:
+        launches = serve_out[LAUNCH_RUN[name]]["launches"][WRAPPER[name]]
+        entry = {"name": name, "route": "cuda",
+                 "source": KERNEL_META[name][0],
+                 "replaces": KERNEL_META[name][1], "launches": launches}
+        if name in kern:
+            r = kern[name]
+            entry.update(max_abs_err=r["err"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                         bound_by=r["bound"][1], library_ms=None)
+        else:
+            r, dt = fused[name], LINE_RESIDENCY
+            entry.update(max_abs_err=r["err"], ms=r["ms"][dt],
+                         plain_ms=r["plain_ms"][dt],
+                         bound_ms=r["bound"][dt][0],
+                         bound_by=r["bound"][dt][1], library_ms=None,
+                         residency=dt, ms_by_residency=r["ms"])
+        out.append(entry)
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -532,25 +896,33 @@ def main() -> int:
                 f"us by {r['bound'][1]}; one eager call costs the host "
                 f"{r['host_us']:.1f}us), max_abs_err {r['err']:.3e}")
         results["kernels"] = kern
+        fused = check_fused_kernels(torch, dev, measure, measure.meta[1])
+        for name, r in fused.items():
+            for dt in RESIDENCIES:
+                log(f"kernel {name} {dt}: {r['ms'][dt] * 1e3:.2f}us (plain "
+                    f"{r['plain_ms'][dt] * 1e3:.2f}us, bound "
+                    f"{r['bound'][dt][0] * 1e3:.4f}us by "
+                    f"{r['bound'][dt][1]})")
+            log(f"kernel {name}: one eager int8 call costs the host "
+                f"{r['host_us']:.1f}us; max_abs_err {r['err']:.3e}")
+        a = fused["deepfm_score_fused"]["adaptive_int8"]
+        log(f"kernel deepfm_score_fused int8 M=512 with a prefix mask "
+            f"({a['live_rows']} live rows): {a['ms'] * 1e3:.2f}us, unmasked "
+            f"{a['ms_unmasked'] * 1e3:.2f}us")
+        results["fused_kernels"] = fused
         results["engine"] = check_engine(torch, np, dev)
         results["serve"], ctx = check_serve(torch, np, dev)
-        results["profile"] = profile_serve(torch, np, dev, ctx)
+        results["profile"] = {
+            label: profile_serve(torch, np, dev, ctx[label], label)
+            for label in ("unfused float32", "fused float32",
+                          "fused int8 adaptive")}
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
     results["seconds"] = time.perf_counter() - t_start
     log(f"all phases passed in {results['seconds']:.1f}s")
 
-    launches = results["serve"]["launches"]
-    line = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
-         "replaces": KERNEL_META[name][1],
-         "launches": launches[WRAPPER[name]],
-         "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"],
-         "bound_ms": kern[name]["bound"][0],
-         "bound_by": kern[name]["bound"][1], "library_ms": None}
-        for name in ("deepfm_score", "neighbor_rank", "deepfm_grad")]}
+    line = kernel_line(results)
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)),
                     exist_ok=True)

@@ -2,8 +2,9 @@
 registry, the expansion engine and the search API."""
 from repro_torch.core.bundles import (MeasureKernelBundle, get_bundle,  # noqa: F401
                                       register_bundle, resolve_stages)
-from repro_torch.core.corpus import (CorpusStore, as_corpus_store,  # noqa: F401
-                                     make_corpus_store)
+from repro_torch.core.corpus import (CORPUS_DTYPES,  # noqa: F401
+                                     CorpusStore, as_corpus_store,
+                                     make_corpus_store, store_from_arrays)
 from repro_torch.core.engine import (EngineOptions, EngineState,  # noqa: F401
                                      ExpansionEngine, SearchConfig,
                                      SearchResult, build_engine,

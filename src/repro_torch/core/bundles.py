@@ -3,17 +3,21 @@ engine's score and grad stages.
 
 A ``MeasureKernelBundle`` declares, for one measure family, the stage
 factories the engine may route through: ``score`` (flattened (M, D)
-candidate scorer) and ``grad`` ((Q, D) frontier value+gradient). Each
-factory is ``(meta, options) -> stage``; a slot left ``None`` falls back to
-the generic stages. A ``Measure`` joins a family by advertising
+candidate scorer), ``grad`` ((Q, D) frontier value+gradient), and their
+index-fused forms ``score_fused`` (``(params, store, idx, qs, mask=None)``)
+and ``grad_fused`` (``(params, store, fid, q) -> (vals, grads, x)``), which
+take row ids into the resident ``CorpusStore``. Each factory is
+``(meta, options) -> stage``. A ``Measure`` joins a family by advertising
 ``meta = (family, *args)``. ``resolve_stages`` fills every missing slot
 (unknown family, absent factory, or ``measure_impl='vmap'`` /
-``grad_impl='vmap'``) with the generic batched ``score_fn`` and
-``torch.func.vmap(torch.func.grad_and_value(score_fn))`` stages.
+``grad_impl='vmap'``) with the generic stages: the batched ``score_fn``,
+``torch.func.vmap(torch.func.grad_and_value(score_fn))``, and the generic
+fused scorer (``store.take`` then ``score_fn``). A family without a fused
+grad leaves ``grad_fused`` None: the engine then gathers the frontier
+itself and runs the plain ``grad`` stage.
 
-The index-fused slots (``score_fused``, ``grad_fused``) and the ``mlp``
-family are not registered yet (ROADMAP.md, queue 2). Every resolved stage
-carries a ``bundle_family`` tag ("generic" for fallbacks).
+The ``mlp`` family is not registered yet (ROADMAP.md, queue 1). Every
+resolved stage carries a ``bundle_family`` tag ("generic" for fallbacks).
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.deepfm_grad import deepfm_value_and_grad
+from repro_torch.kernels.deepfm_grad_fused import deepfm_grad_fused
 from repro_torch.kernels.deepfm_score import deepfm_score
+from repro_torch.kernels.deepfm_score_fused import deepfm_score_fused
 
 StageFactory = Callable[[Tuple, Any], Callable]
 
@@ -34,7 +40,9 @@ class MeasureKernelBundle:
     the generic stages at resolution time."""
     family: str
     score: Optional[StageFactory] = None
+    score_fused: Optional[StageFactory] = None
     grad: Optional[StageFactory] = None
+    grad_fused: Optional[StageFactory] = None
 
 
 _REGISTRY: Dict[str, MeasureKernelBundle] = {}
@@ -72,6 +80,17 @@ def make_vmap_measure_stage(score_fn):
     return stage
 
 
+def make_vmap_measure_fused_stage(score_fn):
+    """Generic index-fused scorer: ``store.take`` then the batched
+    ``score_fn``. ``mask`` is the adaptive per-lane prefix mask: masked
+    rows score -inf (they are computed all the same)."""
+    def stage(params, store, idx, qs, mask=None):
+        out = score_fn(params, store.take(idx.clamp_min(0)), qs).float()
+        return out if mask is None else out.masked_fill(~mask,
+                                                        float("-inf"))
+    return stage
+
+
 def make_grad_stage(score_fn):
     """Per-row value and df/dx through ``torch.func``."""
     def stage(params, x, q):
@@ -88,15 +107,21 @@ def _tag(stage, family: str):
 
 
 class ResolvedStages(NamedTuple):
+    """What ``resolve_stages`` hands ``build_engine_from_fn``.
+    ``measure_fused`` and ``grad_fused`` are None unless ``options.fused``;
+    ``grad_fused`` is also None when the family has no fused grad kernel."""
     measure: Callable
+    measure_fused: Optional[Callable]
     grad: Callable
+    grad_fused: Optional[Callable]
 
 
 def resolve_stages(score_fn, meta: Optional[Tuple],
                    options: Any) -> ResolvedStages:
     """The single measure-to-stage dispatch path. ``options`` is the
-    engine's EngineOptions: ``measure_impl`` gates the score slot,
-    ``grad_impl`` the grad slot ('vmap' forces the generic stage)."""
+    engine's EngineOptions: ``measure_impl`` gates the score slots,
+    ``grad_impl`` the grad slots ('vmap' forces the generic stage), and
+    ``fused`` enables the fused slots."""
     bundle = resolve_bundle(meta)
     fam = bundle.family if bundle is not None else "generic"
 
@@ -104,12 +129,17 @@ def resolve_stages(score_fn, meta: Optional[Tuple],
         factory = getattr(bundle, slot, None) if bundle is not None else None
         if factory is not None and impl != "vmap":
             return _tag(factory(meta, options), fam)
-        return _tag(fallback(), "generic")
+        return _tag(fallback(), "generic") if fallback is not None else None
 
     measure = pick("score", options.measure_impl,
                    lambda: make_vmap_measure_stage(score_fn))
     grad = pick("grad", options.grad_impl, lambda: make_grad_stage(score_fn))
-    return ResolvedStages(measure, grad)
+    measure_fused = grad_fused = None
+    if options.fused:
+        measure_fused = pick("score_fused", options.measure_impl,
+                             lambda: make_vmap_measure_fused_stage(score_fn))
+        grad_fused = pick("grad_fused", options.grad_impl, None)
+    return ResolvedStages(measure, measure_fused, grad, grad_fused)
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +162,27 @@ def _deepfm_grad_stage(meta, options):
     return stage
 
 
+def _deepfm_score_fused_stage(meta, options):
+    fm_dim = int(meta[1])
+
+    def stage(params, store, idx, qs, mask=None):
+        return deepfm_score_fused(store, idx, qs, params["mlp"],
+                                  fm_dim=fm_dim, mask=mask)
+    return stage
+
+
+def _deepfm_grad_fused_stage(meta, options):
+    fm_dim = int(meta[1])
+
+    def stage(params, store, fid, q):
+        return deepfm_grad_fused(store, fid, q, params["mlp"], fm_dim=fm_dim)
+    return stage
+
+
 register_bundle(MeasureKernelBundle(
     family="deepfm",
     score=_deepfm_score_stage,
+    score_fused=_deepfm_score_fused_stage,
     grad=_deepfm_grad_stage,
+    grad_fused=_deepfm_grad_fused_stage,
 ))

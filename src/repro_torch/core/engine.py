@@ -17,6 +17,20 @@ SL2G = no grad stage + select-all rank; GUITAR = grad stage + angle or
 projection rank. Stages resolve through the bundle registry
 (``core/bundles.py``).
 
+Index-fused residency: with ``EngineOptions(fused=True)`` the rank,
+measure and grad stages take row ids into the resident ``CorpusStore``
+(float32, bfloat16 or int8, ``corpus_dtype``) and gather and dequantize the
+rows inside the kernels (``neighbor_rank_fused``, ``deepfm_score_fused``,
+``deepfm_grad_fused``), so the (Q, B, D) neighbor, (Q*C, D) candidate and
+(Q, D) frontier blocks never exist in device memory; the fused grad stage
+hands back the dequantized frontier rows for the rank stage. At float32
+residency the fused search equals the unfused one bit for bit, ids and
+scores. The unfused stages run on a quantized store as well
+(``store.take`` dequantizes). The JAX engine's ``tile`` plan (one combined
+gather per step, there to stop XLA:CPU re-inlining gathers) is not ported:
+the port always gathers in the kernels, as the Pallas kernels do. A store
+with tombstones scores deleted entries and candidates -inf.
+
 ``ExpansionEngine.search`` is a host loop over the fixed-shape ``step``
 (the JAX package runs it as a ``lax.while_loop``). It asks the device
 whether every lane is done only every ``SYNC_EVERY`` steps; the steps run
@@ -28,9 +42,9 @@ Counters follow the paper's Table-2 accounting: ``n_eval`` counts effective
 expansions. Ids are int64 (torch's index type); the visited bitmap holds
 32-bit words in int64 lanes.
 
-Not ported in this slice: the index-fused stages (``fused=True``), bf16 and
-int8 residency, and the continuous runtime's lane lifecycle
-(``reset_lanes``, ``idle_state``); see ROADMAP.md.
+Not ported yet: paged residency, the ``tile`` plan and autotune, and the
+continuous runtime's lane lifecycle (``reset_lanes``, ``idle_state``); see
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -40,9 +54,13 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.bundles import resolve_stages
-from repro_torch.core.corpus import CorpusStore, as_corpus_store
+from repro_torch.core.corpus import (CORPUS_DTYPES, CorpusStore,
+                                     as_corpus_store, bit_test_global)
 from repro_torch.kernels.neighbor_rank import neighbor_rank
 from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
+from repro_torch.kernels.neighbor_rank_fused import neighbor_rank_fused
+from repro_torch.kernels.neighbor_rank_fused.ref import \
+    neighbor_rank_fused_ref
 
 SYNC_EVERY = 8   # steps between host checks of ``done.all()``
 _NEG_INF = float("-inf")
@@ -81,8 +99,10 @@ class EngineOptions:
     measure_impl: 'auto' resolves the measure's registered bundle, 'vmap'
                   forces the generic batched-score_fn stage
     grad_impl:    'auto' | 'vmap', the same for the grad stage
-    fused:        index-fused stages; not ported yet (raises)
-    corpus_dtype: 'float32' only in this slice
+    fused:        index-fused rank/measure/grad stages: row ids into the
+                  resident corpus, gathered and dequantized in the kernels
+    corpus_dtype: 'float32' | 'bfloat16' | 'int8' corpus residency
+                  (non-fp32 dequantizes on gather, see core/corpus.py)
     adaptive:     'off' | 'angle' — angle-based adaptive candidate-set
                   sizing: a static ``c_max`` block with a per-lane prefix
                   mask from the alpha*theta band and the cutoff ``angle_tau``
@@ -219,10 +239,33 @@ def make_guitar_rank_stage(cfg: SearchConfig,
     return stage
 
 
+def make_guitar_rank_fused_stage(cfg: SearchConfig,
+                                 options: EngineOptions = EngineOptions()):
+    """Index-fused Eq. 3/4: keys and mask straight off the resident corpus
+    (the ``neighbor_rank_fused`` kernel), then the same top-C and mask."""
+    c_max = _adaptive_c_max(cfg, options)
+    rank = neighbor_rank_fused_ref if options.rank_impl == "ref" \
+        else neighbor_rank_fused
+
+    def stage(x, grad, store, idx, valid, tau=None):
+        key, in_range = rank(x, grad, store, idx, valid, alpha=cfg.alpha,
+                             rank_by=cfg.rank_by)
+        return _select_top_c(key, in_range, valid, cfg, c_max, tau)
+    return stage
+
+
 def select_all_rank_stage(x, grad, nvecs, valid):
     """SL2G: no pruning, every fresh neighbor is a candidate (C = B)."""
     Q, B, _ = nvecs.shape
     sel_idx = torch.arange(B, device=nvecs.device)[None, :].expand(Q, B)
+    return sel_idx, valid
+
+
+def select_all_rank_fused_stage(x, grad, store, idx, valid):
+    """SL2G, index-fused: no pruning and no gather; the measure stage
+    scores every fresh neighbor by id."""
+    Q, B = idx.shape
+    sel_idx = torch.arange(B, device=idx.device)[None, :].expand(Q, B)
     return sel_idx, valid
 
 
@@ -251,13 +294,18 @@ def default_insert_stage(state: EngineState, ids: torch.Tensor,
 @dataclasses.dataclass(frozen=True, eq=False)
 class ExpansionEngine:
     """A staged, batch-major graph searcher. ``grad=None`` skips the
-    gradient phase (SL2G)."""
+    gradient phase (SL2G). When ``rank_fused`` / ``measure_fused`` /
+    ``grad_fused`` are set (``EngineOptions(fused=True)``) the engine hands
+    those stages ``(store, ids)`` instead of gathered rows."""
     cfg: SearchConfig
     pop: Callable
     rank: Callable
     measure: Callable
     insert: Callable
     grad: Optional[Callable] = None
+    rank_fused: Optional[Callable] = None
+    measure_fused: Optional[Callable] = None
+    grad_fused: Optional[Callable] = None
     corpus_dtype: str = "float32"
     adaptive: str = "off"
     c_max: int = 0
@@ -279,7 +327,14 @@ class ExpansionEngine:
         dev = queries.device
         nwords = (store.n + 31) // 32
         entries = entries.long()
-        e_scores = self.measure(params, store.take(entries), queries)
+        if self.measure_fused is not None:
+            e_scores = self.measure_fused(params, store, entries, queries)
+        else:
+            e_scores = self.measure(params, store.take(entries), queries)
+        if store.tombstones is not None:
+            # a deleted entry never surfaces: the lane simply exhausts
+            e_scores = e_scores.masked_fill(
+                bit_test_global(store.tombstones, entries), _NEG_INF)
         pool_scores = torch.full((Q, ef), _NEG_INF, dtype=torch.float32,
                                  device=dev)
         pool_scores[:, 0] = e_scores
@@ -314,28 +369,50 @@ class ExpansionEngine:
         Q = queries.shape[0]
         s, pop = self.pop(state)
         nbr = neighbors[pop.fid].long()                    # (Q, B)
-        nbr_safe = nbr.clamp_min(0)
         valid = (nbr >= 0) & ~bit_test_rows(s.visited, nbr) \
             & pop.active[:, None]
 
-        x = store.take(pop.fid)                            # (Q, D)
-        if self.grad is not None:
+        if self.grad_fused is not None:
+            # the frontier rows come back from the kernel, dequantized
+            _, g, x = self.grad_fused(params, store, pop.fid, queries)
+            n_grad = s.n_grad + pop.active.int()
+        elif self.grad is not None:
+            x = store.take(pop.fid)                        # (Q, D)
             _, g = self.grad(params, x, queries)
             n_grad = s.n_grad + pop.active.int()
         else:
+            x = store.take(pop.fid)
             g, n_grad = None, s.n_grad
 
         targs = (state.angle_tau,) if self.adaptive == "angle" else ()
-        nvecs = store.take(nbr_safe)                       # (Q, B, D)
-        sel_idx, sel_mask = self.rank(x, g, nvecs, valid, *targs)
+        if self.rank_fused is not None:
+            # the kernels clamp -1 ids themselves
+            sel_idx, sel_mask = self.rank_fused(x, g, store, nbr, valid,
+                                                *targs)
+        else:
+            nvecs = store.take(nbr.clamp_min(0))           # (Q, B, D)
+            sel_idx, sel_mask = self.rank(x, g, nvecs, valid, *targs)
         sel_ids = nbr.gather(1, sel_idx)
 
         C = sel_idx.shape[1]
-        D = nvecs.shape[2]
-        sel_vecs = nvecs.gather(1, sel_idx[..., None].expand(Q, C, D))
-        flat_scores = self.measure(params, sel_vecs.reshape(Q * C, D),
-                                   qs_flat)
+        if self.measure_fused is not None:
+            # adaptive: the prefix mask rides into the kernel, whose masked
+            # rows skip their MLP
+            mkw = ({"mask": sel_mask.reshape(Q * C)}
+                   if self.adaptive == "angle" else {})
+            flat_scores = self.measure_fused(params, store,
+                                             sel_ids.reshape(Q * C), qs_flat,
+                                             **mkw)
+        else:
+            D = nvecs.shape[2]
+            sel_vecs = nvecs.gather(1, sel_idx[..., None].expand(Q, C, D))
+            flat_scores = self.measure(params, sel_vecs.reshape(Q * C, D),
+                                       qs_flat)
         scores = flat_scores.reshape(Q, C).masked_fill(~sel_mask, _NEG_INF)
+        if store.tombstones is not None:
+            # deleted rows score -inf: never returned, never expanded
+            scores = scores.masked_fill(
+                bit_test_global(store.tombstones, sel_ids), _NEG_INF)
 
         s = s._replace(
             visited=bit_set_rows(s.visited, sel_ids, sel_mask),
@@ -399,10 +476,9 @@ class ExpansionEngine:
 # ---------------------------------------------------------------------------
 
 def _check_options(cfg: SearchConfig, options: EngineOptions) -> None:
-    if options.fused:
-        raise NotImplementedError(
-            "EngineOptions(fused=True) is not ported yet: the index-fused "
-            "kernels wait in ROADMAP.md, queue 2")
+    if options.corpus_dtype not in CORPUS_DTYPES:
+        raise ValueError(f"corpus_dtype must be one of {CORPUS_DTYPES}, got "
+                         f"{options.corpus_dtype!r}")
     if options.rank_impl not in ("auto", "ref"):
         raise ValueError(f"rank_impl must be 'auto' or 'ref', got "
                          f"{options.rank_impl!r}")
@@ -433,12 +509,20 @@ def build_engine_from_fn(score_fn, cfg: SearchConfig,
     meta = tuple(meta) if meta is not None else None
     stages = resolve_stages(score_fn, meta, options)
     if cfg.mode == "guitar":
-        grad, rank = stages.grad, make_guitar_rank_stage(cfg, options)
+        grad, grad_fused = stages.grad, stages.grad_fused
+        rank = make_guitar_rank_stage(cfg, options)
+        rank_fused = make_guitar_rank_fused_stage(cfg, options) \
+            if options.fused else None
     else:
-        grad, rank = None, select_all_rank_stage
+        grad = grad_fused = None
+        rank = select_all_rank_stage
+        rank_fused = select_all_rank_fused_stage if options.fused else None
     return ExpansionEngine(cfg=cfg, pop=default_pop_stage, rank=rank,
                            measure=stages.measure,
                            insert=default_insert_stage, grad=grad,
+                           rank_fused=rank_fused,
+                           measure_fused=stages.measure_fused,
+                           grad_fused=grad_fused,
                            corpus_dtype=options.corpus_dtype,
                            adaptive=options.adaptive, c_max=options.c_max,
                            angle_tau=options.angle_tau)

@@ -7,6 +7,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.corpus import CorpusStore
 from repro_torch.core.engine import (EngineOptions, SearchConfig,
                                      SearchResult, build_engine)
 from repro_torch.core.measures import Measure
@@ -15,7 +16,8 @@ from repro_torch.core.measures import Measure
 def search_measure(measure: Measure, base, neighbors, queries, entries,
                    cfg: SearchConfig,
                    options: Optional[EngineOptions] = None) -> SearchResult:
-    """Batched GUITAR/SL2G search with the measure's registered kernels."""
+    """Batched GUITAR/SL2G search with the measure's registered kernels;
+    ``options`` selects the fused stages and the corpus residency."""
     eng = build_engine(measure, cfg, options or EngineOptions())
     return eng.search(measure.params, base, neighbors, queries, entries)
 
@@ -26,10 +28,15 @@ def brute_force_topk(measure: Measure, base: torch.Tensor,
     """Exact top-k by exhaustive evaluation of the measure's plain
     ``score_fn`` (the ground-truth labels), blocked over queries and corpus
     with a running top-k merge. Ties keep the lower id first, as
-    ``lax.top_k`` does. Runs on ``queries.device``; returns (ids (Q, k)
-    int64, scores (Q, k) f32)."""
+    ``lax.top_k`` does. ``base`` is always the float32 (N, D) corpus, never
+    a (possibly quantized) ``CorpusStore``: labels are taken at full
+    precision. Runs on ``queries.device``; returns (ids (Q, k) int64,
+    scores (Q, k) f32)."""
+    if isinstance(base, CorpusStore):
+        raise TypeError("brute_force_topk labels against the float32 base; "
+                        "pass the (N, D) array, not a CorpusStore")
     dev = queries.device
-    base = torch.as_tensor(base, device=dev)
+    base = torch.as_tensor(base, device=dev, dtype=torch.float32)
     outs_i, outs_s = [], []
     for q0 in range(0, queries.shape[0], q_block):
         qb = queries[q0: q0 + q_block]

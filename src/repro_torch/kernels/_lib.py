@@ -43,7 +43,22 @@ SIGNATURES = {
     # x, grad, nvecs, valid(u8), key, mask(u8), Q, B, D, alpha,
     # by_angle, stream
     "neighbor_rank_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # data, scales, ids(i64), residency, query, q_shared, mask(u8|NULL),
+    # w0, b0, w1, b1, w2, b2, out, M, D, fm_dim, H0, H1, stream
+    "deepfm_score_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _I, _P],
+    # data, scales, ids(i64), residency, query, q_shared, w0, b0, w1, b1,
+    # w2, b2, vals, grads, x, M, D, fm_dim, H0, H1, stream
+    "deepfm_grad_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, grad, data, scales, ids(i64), residency, valid(u8), key, mask(u8),
+    # Q, B, D, alpha, by_angle, stream
+    "neighbor_rank_fused": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                            _F, _I, _P],
 }
+
+# CorpusStore.dtype -> the kernels' residency code (csrc/rows.cuh)
+RESIDENCY = {"float32": 0, "bfloat16": 1, "int8": 2}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -166,6 +181,13 @@ def require(t, name: str, device, shape, dtype=None) -> None:
                          f"{tuple('*' if s is None else s for s in shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def corpus_args(store):
+    """The corpus arguments of an index-fused kernel: (data pointer, scales
+    pointer or None, residency code)."""
+    scales = None if store.scales is None else store.scales.data_ptr()
+    return store.data.data_ptr(), scales, RESIDENCY[store.dtype]
 
 
 def stream_of(device) -> int:

@@ -17,6 +17,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "rows.cuh"
 
 namespace repro {
 
@@ -39,11 +40,54 @@ __host__ __device__ inline size_t deepfm_weight_floats(int K0, int H0,
          static_cast<size_t>(H0) * (H1 + 1) + H1 + H1 + 1;
 }
 
-// Per-warp scratch: deep input (K0), z0 (H0), z1 (H1), and for the
-// backward g1 (H1) and g0 (H0).
+// Per-warp scratch: deep input (K0), z0 (H0), z1 (H1), for the backward
+// g1 (H1) and g0 (H0), and the row slice (D) an index-fused kernel
+// gathers and dequantizes its row into.
 __host__ __device__ inline size_t deepfm_scratch_floats(int K0, int H0,
-                                                        int H1) {
-  return static_cast<size_t>(K0) + 2 * H0 + 2 * H1;
+                                                        int H1, int D) {
+  return static_cast<size_t>(K0) + 2 * H0 + 2 * H1 + D;
+}
+
+struct DeepFMScratch {
+  float* in;
+  float* z0;
+  float* z1;
+  float* g1;
+  float* g0;
+  float* x;
+};
+
+__device__ inline DeepFMScratch deepfm_scratch(float* sm, int warp, int K0,
+                                               int H0, int H1, int D) {
+  DeepFMScratch c;
+  c.in = sm + deepfm_weight_floats(K0, H0, H1) +
+         warp * deepfm_scratch_floats(K0, H0, H1, D);
+  c.z0 = c.in + K0;
+  c.z1 = c.z0 + H0;
+  c.g1 = c.z1 + H1;
+  c.g0 = c.g1 + H1;
+  c.x = c.g0 + H0;
+  return c;
+}
+
+// The measure MLP's parameters in device memory (row-major, as the
+// PyTorch tensors hold them).
+struct DeepFMWeights {
+  const float* w0;
+  const float* b0;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+};
+
+// Dynamic shared memory of a DeepFM kernel block: the staged weights and
+// one scratch slice per warp.
+inline size_t deepfm_smem_bytes(int D, int fm, int H0, int H1) {
+  const int K0 = 2 * (D - fm);
+  return sizeof(float) *
+         (deepfm_weight_floats(K0, H0, H1) +
+          (kDeepFMThreads / kWarp) * deepfm_scratch_floats(K0, H0, H1, D));
 }
 
 __device__ inline DeepFMSmem deepfm_layout(float* sm, int K0, int H0,
@@ -86,21 +130,16 @@ __device__ inline void stage_padded(float* dst, const float* __restrict__ src,
 // Block-wide copy of the weights into the padded shared layout. The caller
 // must __syncthreads() before reading.
 __device__ inline void deepfm_stage(const DeepFMSmem& s,
-                                    const float* __restrict__ w0,
-                                    const float* __restrict__ b0,
-                                    const float* __restrict__ w1,
-                                    const float* __restrict__ b1,
-                                    const float* __restrict__ w2,
-                                    const float* __restrict__ b2, int K0,
-                                    int H0, int H1) {
-  stage_padded(s.W0, w0, K0, H0);
-  stage_padded(s.W1, w1, H0, H1);
-  for (int i = threadIdx.x; i < H0; i += blockDim.x) s.b0[i] = b0[i];
+                                    const DeepFMWeights& w, int K0, int H0,
+                                    int H1) {
+  stage_padded(s.W0, w.w0, K0, H0);
+  stage_padded(s.W1, w.w1, H0, H1);
+  for (int i = threadIdx.x; i < H0; i += blockDim.x) s.b0[i] = w.b0[i];
   for (int i = threadIdx.x; i < H1; i += blockDim.x) {
-    s.b1[i] = b1[i];
-    s.w2[i] = w2[i];
+    s.b1[i] = w.b1[i];
+    s.w2[i] = w.w2[i];
   }
-  if (threadIdx.x == 0) s.b2[0] = b2[0];
+  if (threadIdx.x == 0) s.b2[0] = w.b2[0];
 }
 
 // z[u] = bias[u] + sum_k in_k * W[k, u] for the lane's units u = lane,
@@ -153,6 +192,154 @@ __device__ inline float deepfm_forward_warp(const DeepFMSmem& s,
     lp = fmaf(fmaxf(z1[u], 0.f), s.w2[u], lp);
   const float logit = (warp_sum(lp) + s.b2[0]) + fmv;
   return 1.f / (1.f + expf(-logit));
+}
+
+// ---------------------------------------------------------------------------
+// The score and grad kernels, one body for every row source (rows.cuh):
+// GatheredRows for the pre-gathered kernels, CorpusRows<R> for the
+// index-fused ones. Blocks of kDeepFMRowsPerBlock rows, one warp per row.
+// ---------------------------------------------------------------------------
+
+// f(x_r, q_r) for each row r; ``mask`` (nullable) is the adaptive prefix
+// mask: a masked row scores -inf and its warp skips the FM and MLP, and a
+// block whose rows are all masked skips the weight staging as well.
+template <class Rows>
+__global__ void __launch_bounds__(kDeepFMThreads)
+deepfm_score_kernel(Rows rows, const float* __restrict__ query, int q_shared,
+                    const unsigned char* __restrict__ mask, DeepFMWeights w,
+                    float* __restrict__ out, int M, int D, int fm, int H0,
+                    int H1) {
+  extern __shared__ float sm[];
+  const int row0 = blockIdx.x * kDeepFMRowsPerBlock;
+  const int row1 = min(row0 + kDeepFMRowsPerBlock, M);
+  if (mask != nullptr) {
+    const int r = row0 + threadIdx.x;
+    const int live = threadIdx.x < kDeepFMRowsPerBlock && r < row1 && mask[r];
+    if (!__syncthreads_or(live)) {
+      if (r < row1 && threadIdx.x < kDeepFMRowsPerBlock) out[r] = -INFINITY;
+      return;
+    }
+  }
+  const int dd = D - fm;
+  const int K0 = 2 * dd;
+  const DeepFMSmem s = deepfm_layout(sm, K0, H0, H1);
+  deepfm_stage(s, w, K0, H0, H1);
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  const DeepFMScratch c = deepfm_scratch(sm, warp, K0, H0, H1, D);
+  for (int r = row0 + warp; r < row1; r += nwarps) {
+    __syncwarp();  // the previous row's scratch reads are done
+    if (mask != nullptr && !mask[r]) {
+      if (lane == 0) out[r] = -INFINITY;
+      continue;
+    }
+    const float* x = rows.load(r, D, c.x, lane);
+    const float* q = q_shared ? query : query + static_cast<size_t>(r) * D;
+    const float val =
+        deepfm_forward_warp(s, x, q, c.in, c.z0, c.z1, fm, dd, H0, H1, lane);
+    if (lane == 0) out[r] = val;
+  }
+}
+
+// Value and df/dx of each row; ``xout`` (nullable) receives the float32
+// row the kernel scored (the dequantized frontier rows of the fused form).
+template <class Rows>
+__global__ void __launch_bounds__(kDeepFMThreads)
+deepfm_grad_kernel(Rows rows, const float* __restrict__ query, int q_shared,
+                   DeepFMWeights w, float* __restrict__ vals,
+                   float* __restrict__ grads, float* __restrict__ xout, int M,
+                   int D, int fm, int H0, int H1) {
+  extern __shared__ float sm[];
+  const int dd = D - fm;
+  const int K0 = 2 * dd;
+  const DeepFMSmem s = deepfm_layout(sm, K0, H0, H1);
+  deepfm_stage(s, w, K0, H0, H1);
+  __syncthreads();
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  const DeepFMScratch c = deepfm_scratch(sm, warp, K0, H0, H1, D);
+  const int row0 = blockIdx.x * kDeepFMRowsPerBlock;
+  const int row1 = min(row0 + kDeepFMRowsPerBlock, M);
+  for (int r = row0 + warp; r < row1; r += nwarps) {
+    __syncwarp();  // the previous row's scratch reads are done
+    const float* x = rows.load(r, D, c.x, lane);
+    const float* q = q_shared ? query : query + static_cast<size_t>(r) * D;
+    const float val =
+        deepfm_forward_warp(s, x, q, c.in, c.z0, c.z1, fm, dd, H0, H1, lane);
+    const float g_logit = val * (1.f - val);
+    for (int u = lane; u < H1; u += kWarp)
+      c.g1[u] = c.z1[u] > 0.f ? g_logit * s.w2[u] : 0.f;
+    __syncwarp();
+    for (int v = lane; v < H0; v += kWarp) {
+      const float* row = s.W1 + v * (H1 + 1);
+      float a = 0.f;
+      for (int u = 0; u < H1; ++u) a = fmaf(c.g1[u], row[u], a);
+      c.g0[v] = c.z0[v] > 0.f ? a : 0.f;
+    }
+    __syncwarp();
+    float* gr = grads + static_cast<size_t>(r) * D;
+    for (int k = lane; k < dd; k += kWarp) {
+      const float* row = s.W0 + (dd + k) * (H0 + 1);
+      float a = 0.f;
+      for (int v = 0; v < H0; ++v) a = fmaf(c.g0[v], row[v], a);
+      gr[fm + k] = a;
+    }
+    for (int k = lane; k < fm; k += kWarp) gr[k] = g_logit * q[k];
+    if (xout != nullptr) {
+      float* xr = xout + static_cast<size_t>(r) * D;
+      for (int d = lane; d < D; d += kWarp) xr[d] = x[d];
+    }
+    if (lane == 0) vals[r] = val;
+  }
+}
+
+template <class Rows>
+inline cudaError_t launch_deepfm_score(Rows rows, const void* query,
+                                       int q_shared, const void* mask,
+                                       const DeepFMWeights& w, void* out,
+                                       int M, int D, int fm, int H0, int H1,
+                                       void* stream) {
+  if (M > 0) {
+    const size_t smem = deepfm_smem_bytes(D, fm, H0, H1);
+    allow_smem(deepfm_score_kernel<Rows>, smem);
+    const int grid = (M + kDeepFMRowsPerBlock - 1) / kDeepFMRowsPerBlock;
+    deepfm_score_kernel<Rows><<<grid, kDeepFMThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        rows, static_cast<const float*>(query), q_shared,
+        static_cast<const unsigned char*>(mask), w, static_cast<float*>(out),
+        M, D, fm, H0, H1);
+  }
+  return cudaGetLastError();
+}
+
+template <class Rows>
+inline cudaError_t launch_deepfm_grad(Rows rows, const void* query,
+                                      int q_shared, const DeepFMWeights& w,
+                                      void* vals, void* grads, void* xout,
+                                      int M, int D, int fm, int H0, int H1,
+                                      void* stream) {
+  if (M > 0) {
+    const size_t smem = deepfm_smem_bytes(D, fm, H0, H1);
+    allow_smem(deepfm_grad_kernel<Rows>, smem);
+    const int grid = (M + kDeepFMRowsPerBlock - 1) / kDeepFMRowsPerBlock;
+    deepfm_grad_kernel<Rows><<<grid, kDeepFMThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+        rows, static_cast<const float*>(query), q_shared, w,
+        static_cast<float*>(vals), static_cast<float*>(grads),
+        static_cast<float*>(xout), M, D, fm, H0, H1);
+  }
+  return cudaGetLastError();
+}
+
+inline DeepFMWeights deepfm_weights(const void* w0, const void* b0,
+                                    const void* w1, const void* b1,
+                                    const void* w2, const void* b2) {
+  return {static_cast<const float*>(w0), static_cast<const float*>(b0),
+          static_cast<const float*>(w1), static_cast<const float*>(b1),
+          static_cast<const float*>(w2), static_cast<const float*>(b2)};
 }
 
 }  // namespace repro

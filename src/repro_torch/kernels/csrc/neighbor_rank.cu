@@ -16,96 +16,17 @@
 // extra block barrier), keys go to shared memory, warp 0 reduces theta,
 // and the mask is written after one barrier. Diffs, norms and dots never
 // reach device memory.
-#include "common.cuh"
-
-namespace repro {
-
-constexpr int kRankThreads = 256;
-
-__global__ void __launch_bounds__(kRankThreads)
-neighbor_rank_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     const float* __restrict__ nv,
-                     const unsigned char* __restrict__ valid,
-                     float* __restrict__ key, unsigned char* __restrict__ mask,
-                     int B, int D, float alpha, int by_angle) {
-  extern __shared__ float rank_key[];  // B: angle, or masked projection
-  __shared__ float theta_s;
-  const float eps = 1e-12f;
-  const int qrow = blockIdx.x;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  const float* xr = x + static_cast<size_t>(qrow) * D;
-  const float* gr = g + static_cast<size_t>(qrow) * D;
-
-  float gp = 0.f;
-  for (int d = lane; d < D; d += kWarp) gp = fmaf(gr[d], gr[d], gp);
-  const float gnorm = sqrtf(warp_sum(gp)) + eps;
-
-  for (int b = warp; b < B; b += nwarps) {
-    const size_t qb = static_cast<size_t>(qrow) * B + b;
-    const float* nb = nv + qb * D;
-    float dp = 0.f, nn = 0.f;
-    for (int d = lane; d < D; d += kWarp) {
-      const float df = nb[d] - xr[d];
-      dp = fmaf(df, gr[d], dp);
-      nn = fmaf(df, df, nn);
-    }
-    dp = warp_sum(dp);
-    nn = warp_sum(nn);
-    const bool v = valid[qb] != 0;
-    float k;
-    if (by_angle) {
-      const float dnorm = sqrtf(nn) + eps;
-      const float c = fminf(fmaxf(dp / (dnorm * gnorm), -1.f), 1.f);
-      k = v ? acosf(c) : INFINITY;
-      if (lane == 0) rank_key[b] = k;
-    } else {
-      const float proj = dp / gnorm;
-      k = v ? -proj : INFINITY;
-      if (lane == 0) rank_key[b] = v ? proj : -INFINITY;
-    }
-    if (lane == 0) key[qb] = k;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float t = by_angle ? INFINITY : -INFINITY;
-    for (int b = lane; b < B; b += kWarp)
-      t = by_angle ? fminf(t, rank_key[b]) : fmaxf(t, rank_key[b]);
-    t = by_angle ? warp_min(t) : warp_max(t);
-    if (lane == 0) theta_s = t;
-  }
-  __syncthreads();
-  const float theta = theta_s;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const size_t qb = static_cast<size_t>(qrow) * B + b;
-    const bool v = valid[qb] != 0;
-    bool in;
-    if (by_angle) {
-      in = v && (rank_key[b] <= alpha * theta + eps);
-    } else {
-      const float bound = theta >= 0.f ? theta / alpha : theta * alpha;
-      in = v && (rank_key[b] >= bound - eps);
-    }
-    mask[qb] = in ? 1 : 0;
-  }
-}
-
-}  // namespace repro
+// The kernel body (neighbor_rank_kernel in neighbor_rank.cuh) is shared
+// with the index-fused form, neighbor_rank_fused.cu; here it reads
+// pre-gathered rows.
+#include "neighbor_rank.cuh"
 
 extern "C" int neighbor_rank_f32(const void* x, const void* g, const void* nv,
                                  const void* valid, void* key, void* mask,
                                  int Q, int B, int D, float alpha,
                                  int by_angle, void* stream) {
   using namespace repro;
-  if (Q > 0 && B > 0) {
-    const size_t smem = sizeof(float) * B;
-    allow_smem(neighbor_rank_kernel, smem);
-    neighbor_rank_kernel<<<Q, kRankThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(nv),
-        static_cast<const unsigned char*>(valid), static_cast<float*>(key),
-        static_cast<unsigned char*>(mask), B, D, alpha, by_angle);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_neighbor_rank(
+      x, g, GatheredRows{static_cast<const float*>(nv)}, valid, key, mask, Q,
+      B, D, alpha, by_angle, stream));
 }

@@ -4,12 +4,16 @@ through the expansion engine (closed-loop "oneshot" serving: each
 bucket-padded batch steps until every lane converges).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --items 10000 \
-        --queries 128 [--device cuda|cpu]
+        --queries 128 [--fused] [--corpus-dtype float32|bfloat16|int8] \
+        [--adaptive angle --c-max 16] [--device cuda|cpu]
 
-It takes the JAX launcher's flags that this slice supports (``--items --dim
---queries --batch --mode --measure deepfm --k --ef --alpha --budget``) plus
-``--device``; any other flag of the JAX launcher exits with a "not ported
-yet" message.
+It takes the JAX launcher's flags that the port supports (``--items --dim
+--queries --batch --mode --measure deepfm --k --ef --alpha --budget --fused
+--corpus-dtype --adaptive --c-max --angle-tau``) plus ``--device``; any
+other flag of the JAX launcher exits with a "not ported yet" message. As
+there, a non-float32 ``--corpus-dtype`` implies the index-fused path; the
+store is quantized once at start-up, and recall is labelled against the
+float32 base.
 """
 from __future__ import annotations
 
@@ -22,8 +26,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import (EngineOptions, SearchConfig, brute_force_topk,
-                              make_corpus_store, make_family_measure, recall,
-                              search_measure)
+                              build_engine, make_corpus_store,
+                              make_family_measure, recall, search_measure)
 from repro_torch.graph import build_l2_graph
 from repro_torch.serving import bucket_pad, latency_summary
 
@@ -31,10 +35,10 @@ from repro_torch.serving import bucket_pad, latency_summary
 JAX_ONLY_FLAGS = (
     "--list-measures", "--searcher", "--runtime", "--lanes", "--offered-qps",
     "--steps-per-tick", "--deadline", "--max-queue", "--sla", "--sla-mix",
-    "--adaptive", "--c-max", "--angle-tau", "--chaos", "--health-every",
-    "--trace-sample", "--trace-out", "--metrics-out", "--metrics-json",
-    "--profile-dir", "--corpus-dtype", "--fused", "--tile", "--autotune",
-    "--index", "--save-index", "--residency", "--page-rows", "--cache-mb")
+    "--chaos", "--health-every", "--trace-sample", "--trace-out",
+    "--metrics-out", "--metrics-json", "--profile-dir", "--tile",
+    "--autotune", "--index", "--save-index", "--residency", "--page-rows",
+    "--cache-mb")
 
 
 def _sync(device: torch.device) -> None:
@@ -42,12 +46,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, rng,
-                  device: torch.device) -> dict:
+def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
+                  rng, device: torch.device) -> dict:
     """Closed-loop batch serving: whole bucket-padded batches, each stepped
     to full convergence. Batch 0 is the warm-up (kernel library load, first
-    allocations) and is left out of the steady-state numbers. Returns the
-    summary it prints."""
+    allocations) and is left out of the steady-state numbers. ``store`` is
+    the resident corpus the search runs on; ``base_t`` is the float32 (N, D)
+    base that recall is labelled against. Returns the summary it prints."""
     lat_ms, evals, iters_all = [], [], []
     first_recall = None
     shapes_seen = set()
@@ -67,7 +72,7 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, rng,
         iters_all.extend(res.n_iters[:n].tolist())
         if s == 0:
             nr = min(16, n)
-            true_ids, _ = brute_force_topk(measure, store.data, qt[:nr],
+            true_ids, _ = brute_force_topk(measure, base_t, qt[:nr],
                                            args.k)
             first_recall = recall(res.ids[:nr], true_ids)
 
@@ -86,14 +91,17 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, rng,
     qps = args.batch * len(steady) / (sum(steady) / 1e3)
     lat = latency_summary(steady)
     iters = np.asarray(iters_all) if iters_all else np.asarray([0])
-    summary = {"runtime": "oneshot", "device": str(device), "qps": qps,
+    summary = {"runtime": "oneshot", "device": str(device),
+               "fused": options.fused, "corpus_dtype": options.corpus_dtype,
+               "adaptive": options.adaptive, "qps": qps,
                **lat, "evals_per_query": float(np.mean(evals)),
                "iters_mean": float(iters.mean()),
                "iters_max": float(iters.max()),
                "recall": first_recall, "n_batches": n_batches,
                "bucket_shapes": len(shapes_seen)}
     print(f"[serve] device={device} mode={args.mode} measure={args.measure} "
-          f"recall@{args.k}={first_recall:.3f} steady-state {qps:.0f} QPS "
+          f"corpus_dtype={options.corpus_dtype} fused={options.fused} "
+          f"adaptive={options.adaptive} recall@{args.k}={first_recall:.3f} steady-state {qps:.0f} QPS "
           f"(batch={args.batch})")
     print(f"[serve] latency/batch p50={lat['p50_ms']:.1f}ms "
           f"p95={lat['p95_ms']:.1f}ms batches={n_batches} "
@@ -117,6 +125,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ef", type=int, default=64)
     ap.add_argument("--alpha", type=float, default=1.01)
     ap.add_argument("--budget", type=int, default=8)
+    ap.add_argument("--corpus-dtype",
+                    choices=["float32", "bfloat16", "int8"],
+                    default="float32",
+                    help="corpus residency; non-fp32 implies the "
+                         "index-fused search path")
+    ap.add_argument("--fused", action="store_true",
+                    help="index-fused rank/score/grad stages (ids into the "
+                         "resident corpus, gathered in the kernels)")
+    ap.add_argument("--adaptive", choices=["off", "angle"], default="off",
+                    help="angle-based adaptive candidate-set sizing: the "
+                         "alpha*theta band + per-lane tau cutoff as a "
+                         "prefix mask over a static c-max block")
+    ap.add_argument("--c-max", type=int, default=0,
+                    help="adaptive: static candidate block width (0 = "
+                         "--budget)")
+    ap.add_argument("--angle-tau", type=float, default=0.0,
+                    help="adaptive: absolute angle cutoff in radians "
+                         "(<=0 disables)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
     return ap
@@ -137,6 +163,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         raise SystemExit(f"[serve] --measure {args.measure} is not ported "
                          f"yet (ROADMAP.md, queue 2)")
     return args
+
+
+def engine_options(args: argparse.Namespace) -> EngineOptions:
+    """The JAX launcher's mapping: a non-float32 residency implies the
+    index-fused path."""
+    fused = args.fused or args.corpus_dtype != "float32"
+    return EngineOptions(fused=fused, corpus_dtype=args.corpus_dtype,
+                         adaptive=args.adaptive, c_max=args.c_max,
+                         angle_tau=args.angle_tau)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -161,10 +196,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                   args.dim, device=device)
     cfg = SearchConfig(k=args.k, ef=args.ef, mode=args.mode,
                        budget=args.budget, alpha=args.alpha)
-    store = make_corpus_store(base, "float32", device=device)
+    options = engine_options(args)
+    try:
+        build_engine(measure, cfg, options)     # refuse bad combinations
+    except ValueError as e:
+        raise SystemExit(f"[serve] {e}")
+    base_t = torch.as_tensor(base, device=device)
+    # quantize once, up front: every batch searches the resident payload
+    store = make_corpus_store(base_t, args.corpus_dtype, device=device)
+    print(f"[serve] corpus resident: dtype={store.dtype} "
+          f"{store.nbytes() / 2**20:.1f} MiB "
+          f"({'fused' if options.fused else 'unfused'} path)")
     nbrs = torch.as_tensor(graph.neighbors, device=device)
-    return serve_oneshot(args, graph, measure, cfg, EngineOptions(), store,
-                         nbrs, rng, device)
+    return serve_oneshot(args, graph, measure, cfg, options, store, nbrs,
+                         base_t, rng, device)
 
 
 if __name__ == "__main__":

@@ -350,28 +350,48 @@ def test_make_family_measure_init():
 
 
 def test_corpus_store_fp32_only():
+    """Residency in all three dtypes (the test kept its first slice's
+    name): fp32 gathers exactly, bf16 within bf16 rounding, int8 within
+    half a step of its row scale, and a store in another dtype is
+    re-quantized from its float32 view."""
     base = np.random.default_rng(0).normal(size=(50, 40)).astype(np.float32)
-    store = make_corpus_store(base, device="cpu")
-    assert store.n == 50 and store.dim == 40 and store.nbytes() == 50 * 40 * 4
     ids = torch.tensor([[3, 0], [49, 7]])
-    np.testing.assert_array_equal(store.take(ids).numpy(), base[[[3, 0],
-                                                                 [49, 7]]])
-    assert as_corpus_store(store) is store
-    np.testing.assert_array_equal(store.dequantize().numpy(), base)
-    for dt in ("bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_corpus_store(base, dt, device="cpu")
+    step = np.abs(base).max(1, keepdims=True) / 127
+    for dt, itemsize, tol in (("float32", 4, 0.0), ("bfloat16", 2, 2 ** -8),
+                              ("int8", 1, None)):
+        store = make_corpus_store(base, dt, device="cpu")
+        extra = 50 * 4 if dt == "int8" else 0
+        assert store.n == 50 and store.dim == 40 and store.dtype == dt
+        assert store.nbytes() == 50 * 40 * itemsize + extra
+        got = store.take(ids).numpy()
+        assert got.dtype == np.float32
+        err = np.abs(got - base[[[3, 0], [49, 7]]])
+        if tol is None:
+            assert (err <= step[[[3, 0], [49, 7]]] / 2 + 1e-7).all()
+        else:
+            assert (err <= tol * np.abs(base[[[3, 0], [49, 7]]])).all()
+        np.testing.assert_array_equal(store.dequantize()[ids].numpy(), got)
+        assert as_corpus_store(store, dt) is store
+        again = as_corpus_store(store, "float32")
+        np.testing.assert_array_equal(again.data.numpy(),
+                                      store.dequantize().numpy())
+    with pytest.raises(ValueError, match="corpus_dtype"):
+        make_corpus_store(base, "float16", device="cpu")
 
 
 def test_engine_options_checked(system):
     tm = system["tm"]
-    with pytest.raises(NotImplementedError, match="fused"):
-        build_engine(tm, SearchConfig(), EngineOptions(fused=True))
+    with pytest.raises(ValueError, match="corpus_dtype"):
+        build_engine(tm, SearchConfig(), EngineOptions(corpus_dtype="fp8"))
     with pytest.raises(ValueError, match="rank_by='angle'"):
         build_engine(tm, SearchConfig(rank_by="projection"),
                      EngineOptions(adaptive="angle"))
     eng = build_engine(tm, SearchConfig(mode="sl2g"))
     assert eng.grad is None and eng.n_candidates(48) == 48
+    assert eng.rank_fused is None and eng.measure_fused is None
+    fused = build_engine(tm, SearchConfig(mode="sl2g"),
+                         EngineOptions(fused=True, corpus_dtype="int8"))
+    assert fused.grad_fused is None and fused.rank_fused is not None
 
 
 def test_batching_and_latency_match_jax():
@@ -399,3 +419,5 @@ def test_serve_runs_on_cpu_when_asked(capsys):
         serve.main(["--lanes", "8", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported yet"):
         serve.main(["--measure", "mlp", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        serve.main(["--fused", "--tile", "rowwise", "--device", "cpu"])
