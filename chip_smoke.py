@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Card smoke test of the PyTorch/CUDA port (``src/repro_torch``): builds
-the CUDA kernels from this checkout, holds each against its plain PyTorch
-version on the card (the index-fused ones at float32, bfloat16 and int8
-residency, and bit for bit against the pre-gathered ones at float32), runs
-the engine on the card against the same engine on the CPU, serves the
-GUITAR DeepFM search at N=100,000 through the port's oneshot serving path
-(unfused, and fused at float32, bfloat16 and int8, and int8 with adaptive
-angle sizing), counting kernel launches in each run, and profiles one served
-batch of the unfused, the fused float32 and the fused int8 path (device
-busy share, device events per engine step, device time by kernel).
+the ten CUDA kernels from this checkout, holds each against its plain
+PyTorch version on the card (the index-fused ones at float32, bfloat16 and
+int8 residency, and bit for bit against the pre-gathered ones at float32;
+the MLP ones at several depths), runs the engine with the DeepFM and the
+MLP measure on the card against the same engine on the CPU, serves the
+GUITAR search at N=100,000 through the port's oneshot serving path (DeepFM
+unfused, fused at float32, bfloat16 and int8, and int8 with adaptive angle
+sizing; the MLP measure unfused, fused int8 and fused int8 adaptive),
+counting kernel launches in each run, and profiles one served batch of four
+of those runs (device busy share, device events per engine step, device
+time by kernel).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -522,20 +524,282 @@ def check_fused_kernels(torch, dev, measure, fm_dim):
     return report
 
 
+# the MLP networks the MLP kernels are checked at: (label, Dx, Dq, hidden).
+# The first is the serving width, make_family_measure('mlp', ..., 40); the
+# rest cover one and two hidden layers, mlp_measure's default width (about
+# 129 KB of shared memory), Dq != Dx, a backward through two hidden
+# layers below the top one, and a net with no hidden layer.
+MLP_NETS = (
+    ("80-64-64-1", 40, 40, (64, 64)),
+    ("80-32-1", 40, 40, (32,)),
+    ("80-128-128-1", 40, 40, (128, 128)),
+    ("64-64-64-1 (Dq=24)", 40, 24, (64, 64)),
+    ("64-48-32-24-1 (Dq=24)", 40, 24, (48, 32, 24)),
+    ("80-1", 40, 40, ()),
+)
+
+
+def mlp_costs(M, Dx, Dq, dims, per_row_query, grad):
+    """Bytes (each input read once, each output written once) and FLOPs
+    of one MLP kernel call over M rows; dims = [Dx + Dq, ..., 1]."""
+    L = len(dims) - 1
+    weights = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(L))
+    rows_in = M * Dx + (M * Dq if per_row_query else Dq)
+    rows_out = M + (M * Dx if grad else 0)
+    nbytes = 4 * (rows_in + weights + rows_out)
+    hidden = dims[1:L]
+    fwd = sum(2 * dims[i] * dims[i + 1] + dims[i + 1] for i in range(L)) \
+        + sum(hidden) + 4
+    if L == 1:
+        bwd = 2 + Dx
+    else:
+        bwd = 2 + dims[L - 1] + sum(2 * dims[i] * dims[i + 1] + dims[i]
+                                    for i in range(1, L - 1)) \
+            + 2 * Dx * dims[1]
+    return nbytes, M * (fwd + (bwd if grad else 0))
+
+
+def fused_mlp_costs(dtype, M, Dx, Dq, dims, per_row_query, grad):
+    """mlp_costs with the rows read from the corpus in residency format by
+    int64 id, the x rows the grad form writes, and the int8 dequant."""
+    nbytes, flops = mlp_costs(M, Dx, Dq, dims, per_row_query, grad)
+    nbytes += M * (row_bytes(dtype, Dx) - 4 * Dx) + 8 * M
+    nbytes += 4 * M * Dx if grad else 0
+    flops += M * Dx if dtype == "int8" else 0
+    return nbytes, flops
+
+
+def random_mlp(torch, dev, d_in, hidden, gen):
+    """An MLP of the measure's init (``init_mlp``) with non-zero biases,
+    so the checks exercise every bias path."""
+    from repro_torch.models.layers import init_mlp
+    p = init_mlp(gen, [d_in, *hidden, 1], device="cpu")
+    p["b"] = [0.1 * torch.randn(b.shape, generator=gen) for b in p["b"]]
+    return {k: [t.to(dev) for t in v] for k, v in p.items()}
+
+
+def check_mlp_kernels(torch, dev):
+    """The four MLP kernels against their plain versions at every net of
+    MLP_NETS: mlp_score at M = 256, 512, 77, 1 and mlp_grad at Q = 32, 7,
+    both query forms; the fused pair at each residency (with and without a
+    prefix mask, -1 ids), ``x`` of the grad form equal to
+    ``CorpusStore.take``, and at float32 bit for bit against the
+    pre-gathered pair on the gathered rows. Times each at the serving
+    net and shape."""
+    from repro_torch.core import make_corpus_store
+    from repro_torch.kernels import (mlp_grad_fused, mlp_score,
+                                     mlp_score_fused, mlp_value_and_grad)
+    from repro_torch.kernels.mlp_grad.ref import mlp_value_and_grad_ref
+    from repro_torch.kernels.mlp_grad_fused.ref import mlp_grad_fused_ref
+    from repro_torch.kernels.mlp_score.ops import mlp_dims
+    from repro_torch.kernels.mlp_score.ref import mlp_score_ref
+    from repro_torch.kernels.mlp_score_fused.ref import mlp_score_fused_ref
+
+    N = 5000
+    gen = torch.Generator(device="cpu").manual_seed(456)
+    neg_inf = float("-inf")
+
+    def rows(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def ids_of(*shape):
+        i = torch.randint(0, N, shape, generator=gen)
+        i.view(-1)[::13] = -1                 # padding, clamped in-kernel
+        return i.to(dev)
+
+    def expand(q, M):
+        return q.expand(M, -1) if q.dim() == 1 else q
+
+    worst = {k: 0.0 for k in ("mlp_score", "mlp_grad", "mlp_score_fused",
+                              "mlp_grad_fused")}
+    serving = None
+    for label, Dx, Dq, hidden in MLP_NETS:
+        net = random_mlp(torch, dev, Dx + Dq, hidden, gen)
+        w, b = net["w"], net["b"]
+        base = torch.randn((N, Dx), generator=gen)
+        stores = {dt: make_corpus_store(base, dt, device=dev)
+                  for dt in RESIDENCIES}
+        if serving is None:
+            serving = (net, Dx, Dq, stores)
+        n_cases = 0
+        # -- mlp_score: M = Q*C = 256 (C = 8), 512 (adaptive c_max = 16),
+        #    a ragged M, one row
+        for M in (256, 512, 77, 1):
+            for shared in (False, True):
+                c, q = rows(M, Dx), (rows(Dq) if shared else rows(M, Dq))
+                got = mlp_score(c, q, net)
+                torch.cuda.synchronize()
+                err, ratio = close_err(got, mlp_score_ref(c, expand(q, M), w,
+                                                          b),
+                                       SCORE_RTOL, SCORE_ATOL)
+                require(ratio <= 1.0, f"mlp_score {label} M={M} shared="
+                        f"{shared}: {err:.3e}")
+                worst["mlp_score"] = max(worst["mlp_score"], err)
+                n_cases += 1
+        # -- mlp_grad: Q = 32 frontier rows, a ragged Q
+        for M in (32, 7):
+            for shared in (False, True):
+                c, q = rows(M, Dx), (rows(Dq) if shared else rows(M, Dq))
+                v, g = mlp_value_and_grad(c, q, net)
+                torch.cuda.synchronize()
+                pv, pg = mlp_value_and_grad_ref(c, expand(q, M), w, b)
+                ev, rv = close_err(v, pv, SCORE_RTOL, SCORE_ATOL)
+                eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
+                require(rv <= 1.0 and rg <= 1.0, f"mlp_grad {label} M={M} "
+                        f"shared={shared}: vals {ev:.3e} grads {eg:.3e}")
+                worst["mlp_grad"] = max(worst["mlp_grad"], ev, eg)
+                n_cases += 1
+        for dt, store in stores.items():
+            # -- mlp_score_fused: the same shapes, masked and not
+            for M, C in ((256, 8), (512, 16), (77, None), (1, None)):
+                for shared in (False, True):
+                    for masked in (False, True):
+                        idx = ids_of(M)
+                        q = rows(Dq) if shared else rows(M, Dq)
+                        mask = None
+                        if masked:
+                            mask = (prefix_mask(torch, M // C, C, gen) if C
+                                    else torch.rand(M, generator=gen) < 0.5)
+                            mask = mask.to(dev)
+                        got = mlp_score_fused(store, idx, q, net, mask=mask)
+                        torch.cuda.synchronize()
+                        want = mlp_score_fused_ref(store, idx, q, w, b, mask)
+                        tag = (f"mlp_score_fused {label} {dt} M={M} shared="
+                               f"{shared} masked={masked}")
+                        require(torch.equal(torch.isneginf(got),
+                                            torch.isneginf(want)),
+                                f"{tag}: masked rows differ")
+                        fin = torch.isfinite(want)
+                        if bool(fin.any()):
+                            err, ratio = close_err(got[fin], want[fin],
+                                                   SCORE_RTOL, SCORE_ATOL)
+                            require(ratio <= 1.0, f"{tag}: {err:.3e}")
+                            worst["mlp_score_fused"] = max(
+                                worst["mlp_score_fused"], err)
+                        if dt == "float32":
+                            unf = mlp_score(store.take(idx.clamp_min(0)), q,
+                                            net)
+                            if mask is not None:
+                                unf = unf.masked_fill(~mask, neg_inf)
+                            require(torch.equal(got, unf), f"{tag}: differs "
+                                    f"from mlp_score on the gathered rows")
+                        n_cases += 1
+            # -- mlp_grad_fused: Q = 32, a ragged Q
+            for M in (32, 7):
+                for shared in (False, True):
+                    idx = ids_of(M)
+                    q = rows(Dq) if shared else rows(M, Dq)
+                    v, g, x = mlp_grad_fused(store, idx, q, net)
+                    torch.cuda.synchronize()
+                    pv, pg, px = mlp_grad_fused_ref(store, idx, q, w, b)
+                    tag = f"mlp_grad_fused {label} {dt} M={M} shared={shared}"
+                    require(torch.equal(x, px), f"{tag}: x differs from "
+                            f"CorpusStore.take")
+                    ev, rv = close_err(v, pv, SCORE_RTOL, SCORE_ATOL)
+                    eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
+                    require(rv <= 1.0 and rg <= 1.0,
+                            f"{tag}: vals {ev:.3e} grads {eg:.3e}")
+                    worst["mlp_grad_fused"] = max(worst["mlp_grad_fused"],
+                                                  ev, eg)
+                    if dt == "float32":
+                        uv, ug = mlp_value_and_grad(px, q, net)
+                        require(torch.equal(v, uv) and torch.equal(g, ug),
+                                f"{tag}: differs from mlp_grad on the "
+                                f"gathered rows")
+                    n_cases += 1
+        log(f"mlp kernels {label}: {n_cases} cases match their plain "
+            f"versions; the fused pair equals the pre-gathered pair bit for "
+            f"bit at float32, x equal to CorpusStore.take")
+    # a network deeper than the kernels take, or too wide for the card's
+    # shared memory, is refused with the way to the generic stages
+    c, q = rows(8, 40), rows(8, 40)
+    for label, hidden in (("9 layers", (16,) * 8), ("80-256-256-1", (256,
+                                                                     256))):
+        try:
+            mlp_score(c, q, random_mlp(torch, dev, 80, hidden, gen))
+        except ValueError as e:
+            require("measure_impl='vmap'" in str(e),
+                    f"mlp_score {label}: refused without naming the generic "
+                    f"stages: {e}")
+        else:
+            raise SmokeFailure(f"mlp_score {label}: not refused")
+    log("mlp kernels: a 9-layer and an 80-256-256-1 network are refused, "
+        "naming EngineOptions(measure_impl='vmap', grad_impl='vmap')")
+
+    # timing at the serving net: M = 256 candidates, Q = 32 frontier rows,
+    # per-row queries (the engine's qs_flat)
+    net, Dx, Dq, stores = serving
+    w, b = net["w"], net["b"]
+    dims = mlp_dims(w)
+    report = {}
+    c, q = rows(256, Dx), rows(256, Dq)
+    report["mlp_score"] = dict(
+        err=worst["mlp_score"], ms=time_ms(lambda: mlp_score(c, q, net)),
+        plain_ms=time_ms(lambda: mlp_score_ref(c, q, w, b)),
+        host_us=host_us(lambda: mlp_score(c, q, net)),
+        bound=bound_ms(*mlp_costs(256, Dx, Dq, dims, True, False)))
+    cg, qg = rows(32, Dx), rows(32, Dq)
+    report["mlp_grad"] = dict(
+        err=worst["mlp_grad"],
+        ms=time_ms(lambda: mlp_value_and_grad(cg, qg, net)),
+        plain_ms=time_ms(lambda: mlp_value_and_grad_ref(cg, qg, w, b)),
+        host_us=host_us(lambda: mlp_value_and_grad(cg, qg, net)),
+        bound=bound_ms(*mlp_costs(32, Dx, Dq, dims, True, True)))
+    idx = ids_of(256)
+    r = report["mlp_score_fused"] = {"err": worst["mlp_score_fused"],
+                                     "ms": {}, "plain_ms": {}, "bound": {}}
+    for dt, st in stores.items():
+        r["ms"][dt] = time_ms(lambda: mlp_score_fused(st, idx, q, net))
+        r["plain_ms"][dt] = time_ms(lambda: mlp_score_fused_ref(st, idx, q,
+                                                                w, b))
+        r["bound"][dt] = bound_ms(*fused_mlp_costs(dt, 256, Dx, Dq, dims,
+                                                   True, False))
+    st8 = stores["int8"]
+    r["host_us"] = host_us(lambda: mlp_score_fused(st8, idx, q, net))
+    idx_a, q_a = ids_of(512), rows(512, Dq)
+    mask_a = prefix_mask(torch, 32, 16, gen).to(dev)
+    r["adaptive_int8"] = {
+        "M": 512, "live_rows": int(mask_a.sum()),
+        "ms": time_ms(lambda: mlp_score_fused(st8, idx_a, q_a, net,
+                                              mask=mask_a)),
+        "ms_unmasked": time_ms(lambda: mlp_score_fused(st8, idx_a, q_a,
+                                                       net))}
+    idx = ids_of(32)
+    r = report["mlp_grad_fused"] = {"err": worst["mlp_grad_fused"],
+                                    "ms": {}, "plain_ms": {}, "bound": {}}
+    for dt, st in stores.items():
+        r["ms"][dt] = time_ms(lambda: mlp_grad_fused(st, idx, qg, net))
+        r["plain_ms"][dt] = time_ms(lambda: mlp_grad_fused_ref(st, idx, qg,
+                                                               w, b))
+        r["bound"][dt] = bound_ms(*fused_mlp_costs(dt, 32, Dx, Dq, dims,
+                                                   True, True))
+    r["host_us"] = host_us(lambda: mlp_grad_fused(st8, idx, qg, net))
+    return report
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine on the card against the engine on the CPU
 # ---------------------------------------------------------------------------
 
 def plain_result_scores(torch, measure, store, queries_t, ids):
-    """The plain DeepFM score of each returned id's resident row, as
-    ``CorpusStore.take`` dequantizes it (-inf where id < 0)."""
+    """The plain score of the measure's family (DeepFM or MLP) of each
+    returned id's resident row, as ``CorpusStore.take`` dequantizes it
+    (-inf where id < 0)."""
     from repro_torch.kernels.deepfm_score.ref import deepfm_score_ref
-    mlp = measure.params["mlp"]
+    from repro_torch.kernels.mlp_score.ref import mlp_score_ref
     Q, k = ids.shape
     rows = store.take(ids.clamp_min(0).reshape(-1))
     qs = queries_t.repeat_interleave(k, dim=0)
-    s = deepfm_score_ref(rows, qs, *[t for pair in zip(mlp["w"], mlp["b"])
-                                     for t in pair], measure.meta[1])
+    family = measure.meta[0]
+    if family == "deepfm":
+        mlp = measure.params["mlp"]
+        s = deepfm_score_ref(rows, qs, *[t for pair in zip(mlp["w"],
+                                                           mlp["b"])
+                                         for t in pair], measure.meta[1])
+    elif family == "mlp":
+        s = mlp_score_ref(rows, qs, measure.params["w"], measure.params["b"])
+    else:
+        raise SmokeFailure(f"no plain score for the {family!r} family")
     return s.reshape(Q, k).masked_fill(ids < 0, float("-inf"))
 
 
@@ -551,8 +815,8 @@ def check_result(torch, measure, store, queries_t, res, k, label):
             f"ids in a result row")
     want = plain_result_scores(torch, measure, store, queries_t, ids)
     err = float((scores - want).abs().max())
-    log(f"{label}: returned scores vs plain DeepFM score of the returned "
-        f"ids: max_abs_err={err:.3e}")
+    log(f"{label}: returned scores vs plain {measure.meta[0]} score of the "
+        f"returned ids: max_abs_err={err:.3e}")
     require(err <= RESULT_SCORE_ATOL, f"{label}: returned scores differ "
             f"from the plain score by {err:.3e}")
 
@@ -562,11 +826,16 @@ def same_result(torch, a, b) -> bool:
                for f in ("ids", "scores", "n_eval", "n_grad", "n_iters"))
 
 
-def check_engine(torch, np, dev, N=5000):
-    """At N=5,000: the unfused and the fused int8 search agree with the
-    same search on the CPU within 0.01 recall@10, and the fused float32
-    search on the card returns the unfused one's ids, scores and counters
-    (plain and adaptive)."""
+# the searches the engine phase holds against the CPU, per measure family
+ENGINE_MODES = {"deepfm": ("unfused", "fused_int8"),
+                "mlp": ("unfused", "fused_f32", "fused_int8")}
+
+
+def check_engine(torch, np, dev, family, N=5000):
+    """At N=5,000 with the ``family`` measure: the searches of
+    ENGINE_MODES[family] agree with the same search on the CPU within 0.01
+    recall@10, and the fused float32 search on the card returns the
+    unfused one's ids, scores and counters (plain and adaptive)."""
     from repro_torch.core import (EngineOptions, SearchConfig,
                                   brute_force_topk, make_corpus_store,
                                   make_family_measure, recall, search_measure)
@@ -582,7 +851,7 @@ def check_engine(torch, np, dev, N=5000):
     ctx = {}
     for where in (dev, cpu):
         ctx[where.type] = (
-            make_family_measure("deepfm", torch.Generator().manual_seed(0), D,
+            make_family_measure(family, torch.Generator().manual_seed(0), D,
                                 device=where),
             torch.as_tensor(graph.neighbors, device=where),
             torch.as_tensor(queries, device=where),
@@ -596,7 +865,7 @@ def check_engine(torch, np, dev, N=5000):
         if where.type == "cuda":
             torch.cuda.synchronize()
             check_result(torch, measure, store, qt, res, cfg.k,
-                         f"engine N={N} {options.corpus_dtype} fused="
+                         f"engine {family} N={N} {options.corpus_dtype} fused="
                          f"{options.fused} adaptive={options.adaptive} on "
                          f"the card")
         return res, time.perf_counter() - t0
@@ -604,15 +873,20 @@ def check_engine(torch, np, dev, N=5000):
     m_cpu, _, q_cpu, _ = ctx["cpu"]
     true_ids, _ = brute_force_topk(m_cpu, torch.as_tensor(base), q_cpu,
                                    cfg.k)
-    out = {"n": N, "queries": Q}
-    for label, options in (("unfused", EngineOptions()),
-                           ("fused_int8", EngineOptions(
-                               fused=True, corpus_dtype="int8"))):
+    options_of = {"unfused": EngineOptions(),
+                  "fused_f32": EngineOptions(fused=True),
+                  "fused_int8": EngineOptions(fused=True,
+                                              corpus_dtype="int8")}
+    out = {"family": family, "n": N, "queries": Q}
+    card = {}
+    for label in ENGINE_MODES[family]:
+        options = options_of[label]
         (r_card, s_card), (r_cpu, s_cpu) = run(dev, options), \
             run(cpu, options)
         rc, rp = recall(r_card.ids, true_ids), recall(r_cpu.ids, true_ids)
         same = float((r_card.ids.cpu() == r_cpu.ids).all(1).float().mean())
-        log(f"engine N={N} Q={Q} {label}: recall@10 card={rc:.4f} cpu="
+        log(f"engine {family} N={N} Q={Q} {label}: recall@10 card={rc:.4f} "
+            f"cpu="
             f"{rp:.4f} (|diff| {abs(rc - rp):.4f} <= {RECALL_AGREE}); "
             f"identical result rows {same:.3f}; card {s_card:.3f}s, cpu "
             f"{s_cpu:.3f}s")
@@ -621,20 +895,21 @@ def check_engine(torch, np, dev, N=5000):
         out[label] = {"recall_card": rc, "recall_cpu": rp,
                       "identical_rows": same, "card_s": s_card,
                       "cpu_s": s_cpu}
-        if label == "unfused":
-            unfused_card = r_card
-    fused_f32, _ = run(dev, EngineOptions(fused=True))
-    require(same_result(torch, fused_f32, unfused_card),
-            "engine: the fused float32 search differs from the unfused one")
+        card[label] = r_card
+    fused_f32 = card["fused_f32"] if "fused_f32" in card \
+        else run(dev, options_of["fused_f32"])[0]
+    require(same_result(torch, fused_f32, card["unfused"]),
+            f"engine {family}: the fused float32 search differs from the "
+            f"unfused one")
     cfg_a = SearchConfig(k=10, ef=64, budget=8, alpha=1.2, mode="guitar",
                          rank_by="angle")
     adapt = dict(adaptive="angle", c_max=16, angle_tau=1.8)
     un_a, _ = run(dev, EngineOptions(**adapt), cfg_a)
     fu_a, _ = run(dev, EngineOptions(fused=True, **adapt), cfg_a)
-    require(same_result(torch, un_a, fu_a), "engine: the fused float32 "
-            "adaptive search differs from the unfused one")
-    log(f"engine N={N}: fused float32 search = unfused search on the card "
-        f"(ids, scores, counters), plain and adaptive angle")
+    require(same_result(torch, un_a, fu_a), f"engine {family}: the fused "
+            f"float32 adaptive search differs from the unfused one")
+    log(f"engine {family} N={N}: fused float32 search = unfused search on "
+        f"the card (ids, scores, counters), plain and adaptive angle")
     out["fused_f32_equals_unfused"] = True
     return out
 
@@ -643,23 +918,38 @@ def check_engine(torch, np, dev, N=5000):
 # phase 5: serve N = 100,000 through the oneshot path
 # ---------------------------------------------------------------------------
 
-UNFUSED = ("deepfm_score", "neighbor_rank", "deepfm_value_and_grad")
-FUSED = ("deepfm_score_fused", "neighbor_rank_fused", "deepfm_grad_fused")
+# the kernels a serve run launches, by (measure family, fused); a run must
+# launch each of its kernels and none of the others
+KERNELS_OF = {
+    ("deepfm", False): ("deepfm_score", "neighbor_rank",
+                        "deepfm_value_and_grad"),
+    ("deepfm", True): ("deepfm_score_fused", "neighbor_rank_fused",
+                       "deepfm_grad_fused"),
+    ("mlp", False): ("mlp_score", "neighbor_rank", "mlp_value_and_grad"),
+    ("mlp", True): ("mlp_score_fused", "neighbor_rank_fused",
+                    "mlp_grad_fused"),
+}
+ADAPTIVE_ARGS = ["--fused", "--corpus-dtype", "int8", "--adaptive", "angle",
+                 "--c-max", "16"]
+# (label, measure family, launcher flags)
 SERVE_RUNS = (
-    ("unfused float32", []),
-    ("fused float32", ["--fused"]),
-    ("fused bfloat16", ["--fused", "--corpus-dtype", "bfloat16"]),
-    ("fused int8", ["--corpus-dtype", "int8"]),
-    ("fused int8 adaptive", ["--fused", "--corpus-dtype", "int8",
-                             "--adaptive", "angle", "--c-max", "16"]),
+    ("unfused float32", "deepfm", []),
+    ("fused float32", "deepfm", ["--fused"]),
+    ("fused bfloat16", "deepfm", ["--fused", "--corpus-dtype", "bfloat16"]),
+    ("fused int8", "deepfm", ["--corpus-dtype", "int8"]),
+    ("fused int8 adaptive", "deepfm", ADAPTIVE_ARGS),
+    ("mlp unfused float32", "mlp", []),
+    ("mlp fused int8", "mlp", ["--corpus-dtype", "int8"]),
+    ("mlp fused int8 adaptive", "mlp", ADAPTIVE_ARGS),
 )
 
 
 def check_serve(torch, np, dev, items=100_000):
     """One graph at N=100,000, served through the launcher's oneshot path
-    per SERVE_RUNS; each run's kernels must all launch, each result must
-    score its ids as the plain DeepFM scores their resident rows, and
-    recall is labelled on the float32 base."""
+    per SERVE_RUNS with the DeepFM and the MLP measure; each run must
+    launch every kernel of its path and no other, each result must score
+    its ids as the plain measure scores their resident rows, and recall is
+    labelled on the float32 base."""
     from repro_torch.core import (SearchConfig, brute_force_topk,
                                   make_corpus_store, make_family_measure,
                                   recall, search_measure)
@@ -685,8 +975,11 @@ def check_serve(torch, np, dev, items=100_000):
     build_s = time.perf_counter() - t0
     log(f"serve: graph N={args.items} built on the card in {build_s:.2f}s "
         f"(avg degree {graph.avg_degree:.1f}, max {graph.max_degree})")
-    measure = make_family_measure("deepfm", torch.Generator().manual_seed(0),
-                                  args.dim, device=dev)
+    # the launcher's measures: DeepFM and the MLP at the serving width
+    measures = {fam: make_family_measure(fam,
+                                         torch.Generator().manual_seed(0),
+                                         args.dim, device=dev)
+                for fam in ("deepfm", "mlp")}
     cfg = SearchConfig(k=args.k, ef=args.ef, mode=args.mode,
                        budget=args.budget, alpha=args.alpha)
     base_t = torch.as_tensor(base, device=dev)
@@ -695,12 +988,14 @@ def check_serve(torch, np, dev, items=100_000):
     qt = torch.as_tensor(np.random.default_rng(7).normal(
         size=(64, args.dim)).astype(np.float32), device=dev)
     entries = torch.full((64,), graph.entry, device=dev)
-    true_ids, _ = brute_force_topk(measure, base_t, qt, cfg.k)
+    true_ids = {fam: brute_force_topk(m, base_t, qt, cfg.k)[0]
+                for fam, m in measures.items()}
 
     out = {"graph_build_s": build_s}
     ctx = {}
-    for label, extra in SERVE_RUNS:
-        args = serve.parse_args(common + extra)
+    for label, family, extra in SERVE_RUNS:
+        args = serve.parse_args(common + ["--measure", family] + extra)
+        measure = measures[family]
         options = serve.engine_options(args)
         store = make_corpus_store(base_t, args.corpus_dtype, device=dev)
         rng.bit_generator.state = query_stream   # the same query stream
@@ -709,13 +1004,15 @@ def check_serve(torch, np, dev, items=100_000):
                                       store, nbrs, base_t, rng, dev)
         counts = launch_counts()
         log(f"serve {label}: kernel launches in the serve run: {counts}")
-        for name in FUSED if options.fused else UNFUSED:
-            require(counts[name] > 0, f"serve {label}: kernel {name} was "
-                    f"never launched")
+        path = KERNELS_OF[(family, options.fused)]
+        for name, n in counts.items():
+            require(n > 0 if name in path else n == 0,
+                    f"serve {label}: kernel {name} launched {n} times; the "
+                    f"path's kernels are {path}")
         res = search_measure(measure, store, nbrs, qt, entries, cfg, options)
         check_result(torch, measure, store, qt, res, cfg.k,
                      f"serve {label} N={args.items}")
-        rec = recall(res.ids, true_ids)
+        rec = recall(res.ids, true_ids[family])
         log(f"serve {label}: recall@10 on 64 queries = {rec:.4f} (labels on "
             f"the float32 base); evals/query "
             f"{float(res.n_eval.float().mean()):.1f}, iterations mean "
@@ -726,7 +1023,8 @@ def check_serve(torch, np, dev, items=100_000):
             f"{summary['evals_per_query']:.1f}, iterations mean "
             f"{summary['iters_mean']:.1f} max {summary['iters_max']:.0f}; "
             f"corpus {store.nbytes() / 2**20:.1f} MiB")
-        out[label] = {**summary, "recall64": rec, "launches": counts,
+        out[label] = {**summary, "family": family, "recall64": rec,
+                      "launches": counts,
                       "corpus_mib": store.nbytes() / 2**20}
         ctx[label] = (measure, store, nbrs, graph, cfg, options)
     return out, ctx
@@ -739,14 +1037,19 @@ def profile_serve(torch, np, dev, ctx, label):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import search_measure
-    from repro_torch.kernels import deepfm_grad_fused, deepfm_value_and_grad
+    from repro_torch.kernels import (deepfm_grad_fused,
+                                     deepfm_value_and_grad, mlp_grad_fused,
+                                     mlp_value_and_grad)
     measure, store, nbrs, graph, cfg, options = ctx
     q = torch.as_tensor(np.random.default_rng(9).normal(
         size=(32, store.dim)).astype(np.float32), device=dev)
     entries = torch.full((32,), graph.entry, device=dev)
 
     def steps():        # one grad launch per engine step
-        return deepfm_value_and_grad.launches + deepfm_grad_fused.launches
+        return sum(fn.launches for fn in (deepfm_value_and_grad,
+                                          deepfm_grad_fused,
+                                          mlp_value_and_grad,
+                                          mlp_grad_fused))
 
     search_measure(measure, store, nbrs, q, entries, cfg, options)
     torch.cuda.synchronize()
@@ -804,38 +1107,54 @@ KERNEL_META = {
     "deepfm_grad_fused": (
         "src/repro_torch/kernels/csrc/deepfm_grad_fused.cu",
         "src/repro/kernels/deepfm_grad_fused/kernel.py:85"),
+    "mlp_score": ("src/repro_torch/kernels/csrc/mlp_score.cu",
+                  "src/repro/kernels/mlp_score/kernel.py:52"),
+    "mlp_score_fused": ("src/repro_torch/kernels/csrc/mlp_score_fused.cu",
+                        "src/repro/kernels/mlp_score/kernel.py:126"),
+    "mlp_grad": ("src/repro_torch/kernels/csrc/mlp_grad.cu",
+                 "src/repro/kernels/mlp_grad/kernel.py:73"),
+    "mlp_grad_fused": ("src/repro_torch/kernels/csrc/mlp_grad_fused.cu",
+                       "src/repro/kernels/mlp_grad/kernel.py:131"),
 }
 WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
            "deepfm_grad": "deepfm_value_and_grad",
            "deepfm_score_fused": "deepfm_score_fused",
            "neighbor_rank_fused": "neighbor_rank_fused",
-           "deepfm_grad_fused": "deepfm_grad_fused"}
+           "deepfm_grad_fused": "deepfm_grad_fused",
+           "mlp_score": "mlp_score", "mlp_score_fused": "mlp_score_fused",
+           "mlp_grad": "mlp_value_and_grad",
+           "mlp_grad_fused": "mlp_grad_fused"}
 # the serve run whose launches each kernel reports
 LAUNCH_RUN = {"deepfm_score": "unfused float32",
               "neighbor_rank": "unfused float32",
               "deepfm_grad": "unfused float32",
               "deepfm_score_fused": "fused int8 adaptive",
               "neighbor_rank_fused": "fused int8 adaptive",
-              "deepfm_grad_fused": "fused int8 adaptive"}
+              "deepfm_grad_fused": "fused int8 adaptive",
+              "mlp_score": "mlp unfused float32",
+              "mlp_grad": "mlp unfused float32",
+              "mlp_score_fused": "mlp fused int8 adaptive",
+              "mlp_grad_fused": "mlp fused int8 adaptive"}
 LINE_RESIDENCY = "int8"   # the fused kernels' numbers in the kernels line
 
 
 def kernel_line(results) -> dict:
-    kern, fused, serve_out = (results["kernels"], results["fused_kernels"],
-                              results["serve"])
+    timed = {**results["kernels"], **results["fused_kernels"],
+             **results["mlp_kernels"]}
+    serve_out = results["serve"]
     out = []
     for name in KERNEL_META:
         launches = serve_out[LAUNCH_RUN[name]]["launches"][WRAPPER[name]]
         entry = {"name": name, "route": "cuda",
                  "source": KERNEL_META[name][0],
                  "replaces": KERNEL_META[name][1], "launches": launches}
-        if name in kern:
-            r = kern[name]
+        r = timed[name]
+        if not isinstance(r["ms"], dict):      # a pre-gathered kernel
             entry.update(max_abs_err=r["err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                          bound_by=r["bound"][1], library_ms=None)
         else:
-            r, dt = fused[name], LINE_RESIDENCY
+            dt = LINE_RESIDENCY
             entry.update(max_abs_err=r["err"], ms=r["ms"][dt],
                          plain_ms=r["plain_ms"][dt],
                          bound_ms=r["bound"][dt][0],
@@ -843,6 +1162,28 @@ def kernel_line(results) -> dict:
                          residency=dt, ms_by_residency=r["ms"])
         out.append(entry)
     return {"kernels": out}
+
+
+def log_kernels(report) -> None:
+    """One line per kernel (per residency for a fused one) of its times."""
+    for name, r in report.items():
+        if not isinstance(r["ms"], dict):
+            log(f"kernel {name}: {r['ms'] * 1e3:.2f}us (plain "
+                f"{r['plain_ms'] * 1e3:.2f}us, bound {r['bound'][0] * 1e3:.4f}"
+                f"us by {r['bound'][1]}; one eager call costs the host "
+                f"{r['host_us']:.1f}us), max_abs_err {r['err']:.3e}")
+            continue
+        for dt in RESIDENCIES:
+            log(f"kernel {name} {dt}: {r['ms'][dt] * 1e3:.2f}us (plain "
+                f"{r['plain_ms'][dt] * 1e3:.2f}us, bound "
+                f"{r['bound'][dt][0] * 1e3:.4f}us by {r['bound'][dt][1]})")
+        log(f"kernel {name}: one eager int8 call costs the host "
+            f"{r['host_us']:.1f}us; max_abs_err {r['err']:.3e}")
+        if "adaptive_int8" in r:
+            a = r["adaptive_int8"]
+            log(f"kernel {name} int8 M=512 with a prefix mask "
+                f"({a['live_rows']} live rows): {a['ms'] * 1e3:.2f}us, "
+                f"unmasked {a['ms_unmasked'] * 1e3:.2f}us")
 
 
 def main() -> int:
@@ -889,33 +1230,21 @@ def main() -> int:
         measure = make_family_measure("deepfm",
                                       torch.Generator().manual_seed(0), 40,
                                       device=dev)
-        kern = check_kernels(torch, dev, measure, measure.meta[1])
-        for name, r in kern.items():
-            log(f"kernel {name}: {r['ms'] * 1e3:.2f}us (plain "
-                f"{r['plain_ms'] * 1e3:.2f}us, bound {r['bound'][0] * 1e3:.4f}"
-                f"us by {r['bound'][1]}; one eager call costs the host "
-                f"{r['host_us']:.1f}us), max_abs_err {r['err']:.3e}")
-        results["kernels"] = kern
-        fused = check_fused_kernels(torch, dev, measure, measure.meta[1])
-        for name, r in fused.items():
-            for dt in RESIDENCIES:
-                log(f"kernel {name} {dt}: {r['ms'][dt] * 1e3:.2f}us (plain "
-                    f"{r['plain_ms'][dt] * 1e3:.2f}us, bound "
-                    f"{r['bound'][dt][0] * 1e3:.4f}us by "
-                    f"{r['bound'][dt][1]})")
-            log(f"kernel {name}: one eager int8 call costs the host "
-                f"{r['host_us']:.1f}us; max_abs_err {r['err']:.3e}")
-        a = fused["deepfm_score_fused"]["adaptive_int8"]
-        log(f"kernel deepfm_score_fused int8 M=512 with a prefix mask "
-            f"({a['live_rows']} live rows): {a['ms'] * 1e3:.2f}us, unmasked "
-            f"{a['ms_unmasked'] * 1e3:.2f}us")
-        results["fused_kernels"] = fused
-        results["engine"] = check_engine(torch, np, dev)
+        results["kernels"] = check_kernels(torch, dev, measure,
+                                           measure.meta[1])
+        log_kernels(results["kernels"])
+        results["fused_kernels"] = check_fused_kernels(torch, dev, measure,
+                                                       measure.meta[1])
+        log_kernels(results["fused_kernels"])
+        results["mlp_kernels"] = check_mlp_kernels(torch, dev)
+        log_kernels(results["mlp_kernels"])
+        results["engine"] = check_engine(torch, np, dev, "deepfm")
+        results["engine_mlp"] = check_engine(torch, np, dev, "mlp")
         results["serve"], ctx = check_serve(torch, np, dev)
         results["profile"] = {
             label: profile_serve(torch, np, dev, ctx[label], label)
             for label in ("unfused float32", "fused float32",
-                          "fused int8 adaptive")}
+                          "fused int8 adaptive", "mlp fused int8 adaptive")}
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

@@ -1,7 +1,8 @@
 """Search core of the port: measures, corpus residency, the bundle
 registry, the expansion engine and the search API."""
 from repro_torch.core.bundles import (MeasureKernelBundle, get_bundle,  # noqa: F401
-                                      register_bundle, resolve_stages)
+                                      list_families, register_bundle,
+                                      resolve_stages)
 from repro_torch.core.corpus import (CORPUS_DTYPES,  # noqa: F401
                                      CorpusStore, as_corpus_store,
                                      make_corpus_store, store_from_arrays)
@@ -12,6 +13,6 @@ from repro_torch.core.engine import (EngineOptions, EngineState,  # noqa: F401
 from repro_torch.core.measures import (MEASURE_FAMILIES, Measure,  # noqa: F401
                                        deepfm_measure, inner_product_measure,
                                        l2_measure, make_family_measure,
-                                       params_from_jax)
+                                       mlp_measure, params_from_jax)
 from repro_torch.core.search import (brute_force_topk, recall,  # noqa: F401
                                      search_measure)

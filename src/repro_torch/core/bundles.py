@@ -16,13 +16,16 @@ fused scorer (``store.take`` then ``score_fn``). A family without a fused
 grad leaves ``grad_fused`` None: the engine then gathers the frontier
 itself and runs the plain ``grad`` stage.
 
-The ``mlp`` family is not registered yet (ROADMAP.md, queue 1). Every
-resolved stage carries a ``bundle_family`` tag ("generic" for fallbacks).
+Two families are registered, each with all four slots: ``deepfm`` (the
+paper's measure, its MLP under ``params['mlp']``) and ``mlp`` (the generic
+``sigmoid(MLP([x, q]))`` measure, whose params are the ``{'w', 'b'}``
+pytree itself). Every resolved stage carries a ``bundle_family`` tag
+("generic" for fallbacks).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +33,10 @@ from repro_torch.kernels.deepfm_grad import deepfm_value_and_grad
 from repro_torch.kernels.deepfm_grad_fused import deepfm_grad_fused
 from repro_torch.kernels.deepfm_score import deepfm_score
 from repro_torch.kernels.deepfm_score_fused import deepfm_score_fused
+from repro_torch.kernels.mlp_grad import mlp_value_and_grad
+from repro_torch.kernels.mlp_grad_fused import mlp_grad_fused
+from repro_torch.kernels.mlp_score import mlp_score
+from repro_torch.kernels.mlp_score_fused import mlp_score_fused
 
 StageFactory = Callable[[Tuple, Any], Callable]
 
@@ -43,6 +50,10 @@ class MeasureKernelBundle:
     score_fused: Optional[StageFactory] = None
     grad: Optional[StageFactory] = None
     grad_fused: Optional[StageFactory] = None
+
+    def slots(self) -> Dict[str, bool]:
+        return {s: getattr(self, s) is not None
+                for s in ("score", "score_fused", "grad", "grad_fused")}
 
 
 _REGISTRY: Dict[str, MeasureKernelBundle] = {}
@@ -59,6 +70,10 @@ def register_bundle(bundle: MeasureKernelBundle,
 
 def get_bundle(family: str) -> Optional[MeasureKernelBundle]:
     return _REGISTRY.get(family)
+
+
+def list_families() -> List[str]:
+    return sorted(_REGISTRY)
 
 
 def resolve_bundle(meta: Optional[Tuple]) -> Optional[MeasureKernelBundle]:
@@ -185,4 +200,41 @@ register_bundle(MeasureKernelBundle(
     score_fused=_deepfm_score_fused_stage,
     grad=_deepfm_grad_stage,
     grad_fused=_deepfm_grad_fused_stage,
+))
+
+
+# ---------------------------------------------------------------------------
+# the MLP bundle (the generic 'heavier f' measure; params are {'w', 'b'})
+# ---------------------------------------------------------------------------
+
+def _mlp_score_stage(meta, options):
+    def stage(params, vecs, qs):
+        return mlp_score(vecs, qs, params)
+    return stage
+
+
+def _mlp_grad_stage(meta, options):
+    def stage(params, x, q):
+        return mlp_value_and_grad(x, q, params)
+    return stage
+
+
+def _mlp_score_fused_stage(meta, options):
+    def stage(params, store, idx, qs, mask=None):
+        return mlp_score_fused(store, idx, qs, params, mask=mask)
+    return stage
+
+
+def _mlp_grad_fused_stage(meta, options):
+    def stage(params, store, fid, q):
+        return mlp_grad_fused(store, fid, q, params)
+    return stage
+
+
+register_bundle(MeasureKernelBundle(
+    family="mlp",
+    score=_mlp_score_stage,
+    score_fused=_mlp_score_fused_stage,
+    grad=_mlp_grad_stage,
+    grad_fused=_mlp_grad_fused_stage,
 ))

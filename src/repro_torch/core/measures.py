@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import deepfm as deepfm_lib
+from repro_torch.models import layers as L
 
 ScoreFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -48,6 +49,27 @@ def deepfm_measure(params: dict, cfg: deepfm_lib.DeepFMConfig) -> Measure:
         return deepfm_lib.score(p, x, q, cfg)
 
     return Measure("deepfm", fn, mlp_params, meta=("deepfm", cfg.fm_dim))
+
+
+def mlp_measure(generator: torch.Generator, d_x: int, d_q: int,
+                hidden=(128, 128), name: str = "mlp",
+                device="cuda") -> Measure:
+    """Generic MLP measure f(x, q) = sigmoid(MLP([x, q])), item first: the
+    'heavier f' regime where gradient pruning pays off most.
+    ``meta=('mlp',)`` routes the engine through the ``mlp_*`` kernels (any
+    depth; the layer shapes are read off ``params``, the top-level
+    ``{'w': [...], 'b': [...]}``)."""
+    params = L.init_mlp(generator, [d_x + d_q, *hidden, 1], device=device)
+
+    def fn(p, x, q):
+        # a shared query row meets a block of items: expand the leading
+        # dims only, since d_q may differ from d_x
+        lead = torch.broadcast_shapes(x.shape[:-1], q.shape[:-1])
+        h = torch.cat([x.expand(*lead, x.shape[-1]),
+                       q.expand(*lead, q.shape[-1])], dim=-1)
+        return torch.sigmoid(L.mlp_apply(p, h)[..., 0])
+
+    return Measure(name, fn, params, meta=("mlp",))
 
 
 def inner_product_measure() -> Measure:
@@ -87,9 +109,8 @@ def make_family_measure(family: str, generator: torch.Generator, dim: int,
         params = deepfm_lib.init_measure(generator, cfg, device=device)
         return deepfm_measure(params, cfg)
     if family == "mlp":
-        raise NotImplementedError(
-            "the 'mlp' measure family is not ported yet: its kernels "
-            "(mlp_score, mlp_grad) wait in ROADMAP.md, queue 2")
+        return mlp_measure(generator, dim, dim, hidden=tuple(hidden),
+                           device=device)
     raise ValueError(f"unknown measure family {family!r}; known: "
                      f"{MEASURE_FAMILIES}")
 

@@ -12,6 +12,7 @@ port on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,6 +56,20 @@ SIGNATURES = {
     # Q, B, D, alpha, by_angle, stream
     "neighbor_rank_fused": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                             _F, _I, _P],
+    # The MLP kernels take the network as arrays: ws and bs (void*[L]),
+    # dims (int[L + 1], dims[0] = Dx + Dq, dims[L] = 1) and the depth L.
+    # cand, query, q_shared, ws, bs, dims, L, out, M, Dx, Dq, stream
+    "mlp_score_f32": [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    # cand, query, q_shared, ws, bs, dims, L, vals, grads, M, Dx, Dq, stream
+    "mlp_grad_f32": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # data, scales, ids(i64), residency, query, q_shared, mask(u8|NULL),
+    # ws, bs, dims, L, out, M, Dx, Dq, stream
+    "mlp_score_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I,
+                        _I, _I, _P],
+    # data, scales, ids(i64), residency, query, q_shared, ws, bs, dims, L,
+    # vals, grads, x, M, Dx, Dq, stream
+    "mlp_grad_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+                       _I, _I, _I, _P],
 }
 
 # CorpusStore.dtype -> the kernels' residency code (csrc/rows.cuh)
@@ -152,6 +167,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_smem_optin.argtypes = [ctypes.c_int]
+        lib.repro_smem_optin.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -188,6 +205,17 @@ def corpus_args(store):
     pointer or None, residency code)."""
     scales = None if store.scales is None else store.scales.data_ptr()
     return store.data.data_ptr(), scales, RESIDENCY[store.dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(index: int) -> int:
+    """The most dynamic shared memory (bytes) a block may opt in to on card
+    ``index``, as the CUDA runtime reports it."""
+    n = load().repro_smem_optin(index)
+    if n < 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of cuda:"
+                           f"{index}")
+    return n
 
 
 def stream_of(device) -> int:

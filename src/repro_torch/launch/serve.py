@@ -1,19 +1,22 @@
-"""Serving launcher of the port: stand up a GUITAR ranking service (DeepFM
-measure + l2 graph index) on one device and answer batches of queries
-through the expansion engine (closed-loop "oneshot" serving: each
-bucket-padded batch steps until every lane converges).
+"""Serving launcher of the port: stand up a GUITAR ranking service (a
+registered measure family, DeepFM or the generic MLP, + l2 graph index) on
+one device and answer batches of queries through the expansion engine
+(closed-loop "oneshot" serving: each bucket-padded batch steps until every
+lane converges).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --items 10000 \
-        --queries 128 [--fused] [--corpus-dtype float32|bfloat16|int8] \
+        --queries 128 [--measure deepfm|mlp] [--fused] \
+        [--corpus-dtype float32|bfloat16|int8] \
         [--adaptive angle --c-max 16] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --list-measures
 
 It takes the JAX launcher's flags that the port supports (``--items --dim
---queries --batch --mode --measure deepfm --k --ef --alpha --budget --fused
---corpus-dtype --adaptive --c-max --angle-tau``) plus ``--device``; any
-other flag of the JAX launcher exits with a "not ported yet" message. As
-there, a non-float32 ``--corpus-dtype`` implies the index-fused path; the
-store is quantized once at start-up, and recall is labelled against the
-float32 base.
+--queries --batch --mode --measure --list-measures --k --ef --alpha
+--budget --fused --corpus-dtype --adaptive --c-max --angle-tau``) plus
+``--device``; any other flag of the JAX launcher exits with a "not ported
+yet" message. As there, a non-float32 ``--corpus-dtype`` implies the
+index-fused path; the store is quantized once at start-up, and recall is
+labelled against the float32 base.
 """
 from __future__ import annotations
 
@@ -25,15 +28,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import (EngineOptions, SearchConfig, brute_force_topk,
-                              build_engine, make_corpus_store,
+from repro_torch.core import (MEASURE_FAMILIES, EngineOptions, SearchConfig,
+                              brute_force_topk, build_engine, get_bundle,
+                              list_families, make_corpus_store,
                               make_family_measure, recall, search_measure)
 from repro_torch.graph import build_l2_graph
 from repro_torch.serving import bucket_pad, latency_summary
 
 # flags of the JAX launcher (repro.launch.serve) this slice does not serve
 JAX_ONLY_FLAGS = (
-    "--list-measures", "--searcher", "--runtime", "--lanes", "--offered-qps",
+    "--searcher", "--runtime", "--lanes", "--offered-qps",
     "--steps-per-tick", "--deadline", "--max-queue", "--sla", "--sla-mix",
     "--chaos", "--health-every", "--trace-sample", "--trace-out",
     "--metrics-out", "--metrics-json", "--profile-dir", "--tile",
@@ -119,8 +123,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--queries", type=int, default=128)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--mode", choices=["guitar", "sl2g"], default="guitar")
-    ap.add_argument("--measure", choices=["deepfm", "mlp"], default="deepfm",
-                    help="measure family; only deepfm is ported")
+    ap.add_argument("--measure", choices=sorted(MEASURE_FAMILIES),
+                    default="deepfm",
+                    help="measure family (registry-resolved kernel bundle): "
+                         "the paper's DeepFM, or the generic "
+                         "sigmoid(MLP([x, q])) measure")
+    ap.add_argument("--list-measures", action="store_true",
+                    help="print the measure-kernel bundle registry and exit")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--ef", type=int, default=64)
     ap.add_argument("--alpha", type=float, default=1.01)
@@ -159,10 +168,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              f"has it; see ROADMAP.md)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.measure != "deepfm":
-        raise SystemExit(f"[serve] --measure {args.measure} is not ported "
-                         f"yet (ROADMAP.md, queue 2)")
     return args
+
+
+def list_measures() -> dict:
+    """Print the measure-kernel bundle registry, as the JAX launcher's
+    ``--list-measures`` does; returns {family: registered slots}."""
+    print("measure-kernel bundle registry "
+          "(family: registered stage factories)")
+    out = {}
+    for fam in list_families():
+        have = [s for s, ok in get_bundle(fam).slots().items() if ok]
+        servable = " (serve constructor)" if fam in MEASURE_FAMILIES else ""
+        print(f"  {fam}: {', '.join(have)}{servable}")
+        out[fam] = have
+    print("unregistered families fall back to the generic batched "
+          "score_fn / torch.func stages")
+    print("adaptive |C| (--adaptive angle) masks the score_fused stage: "
+          "families with a fused scorer skip fully-masked rows in-kernel; "
+          "generic fallbacks mask densely")
+    return out
 
 
 def engine_options(args: argparse.Namespace) -> EngineOptions:
@@ -176,6 +201,8 @@ def engine_options(args: argparse.Namespace) -> EngineOptions:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
+    if args.list_measures:
+        return list_measures()
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

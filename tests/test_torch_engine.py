@@ -341,8 +341,12 @@ def test_make_family_measure_init():
     assert all((t == 0).all() for t in bias)
     # N(0, 1) / sqrt(d_in), as the JAX dense_init
     assert abs(float(w[0].std()) * 8 - 1) < 0.05
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_family_measure("mlp", torch.Generator(), 40, device="cpu")
+    # the mlp family builds too (since its kernels were ported): the JAX
+    # launcher's widths, 80 -> 64 -> 64 -> 1
+    m = make_family_measure("mlp", torch.Generator(), 40, device="cpu")
+    assert m.meta == ("mlp",)
+    assert [tuple(t.shape) for t in m.params["w"]] == [(80, 64), (64, 64),
+                                                       (64, 1)]
     with pytest.raises(RuntimeError, match="cuda"):
         if torch.cuda.is_available():
             raise RuntimeError("cuda present: nothing to refuse here")
@@ -417,7 +421,9 @@ def test_serve_runs_on_cpu_when_asked(capsys):
     assert "steady-state" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not ported yet"):
         serve.main(["--lanes", "8", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--measure", "mlp", "--device", "cpu"])
+    mlp = serve.main(["--items", "600", "--dim", "40", "--queries", "40",
+                      "--batch", "32", "--measure", "mlp", "--device",
+                      "cpu"])
+    assert mlp["n_batches"] == 2 and mlp["qps"] > 0 and mlp["recall"] > 0.5
     with pytest.raises(SystemExit, match="not ported yet"):
         serve.main(["--fused", "--tile", "rowwise", "--device", "cpu"])

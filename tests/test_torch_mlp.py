@@ -1,0 +1,504 @@
+"""The port's MLP measure family (``mlp_measure``, the ``mlp`` bundle, the
+``mlp_*`` kernels' wrappers, ``--measure mlp``) against the JAX package on
+the CPU.
+
+- The pre-gathered wrappers (kernels 7 and 9) are held against the JAX
+  functions both through the Pallas kernels in interpret mode
+  (``use_pallas=True, interpret=True``) and through the jnp references
+  (``use_pallas=False``); the fused wrappers (8 and 10) against the JAX
+  fused jnp references (the fused Pallas interpret path does not run on
+  this jax: ``pltpu`` has no ``TPUMemorySpace``), over the JAX store's own
+  payload at float32, bfloat16 and int8. Scores, values and gradients at
+  rtol 1e-5 / atol 1e-6 (fp32 sums in another order), the dequantized
+  frontier rows ``x`` exactly.
+- Inside the port the fused float32 kernels and search equal the unfused
+  ones exactly (ids, scores, counters).
+- Whole searches with a JAX ``mlp_measure`` carried across by
+  ``params_from_jax`` hold the JAX engine's recall@10 within 0.01.
+
+On the CPU every wrapper runs its plain version; the CUDA kernels are held
+against those on the card (``test_mlp_kernels_match_plain_on_card`` and
+``chip_smoke.py``).
+"""
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import corpus as jcorpus  # noqa: E402
+from repro.core import (EngineOptions as JOptions,  # noqa: E402
+                        SearchConfig as JConfig,
+                        brute_force_topk as j_brute_force_topk,
+                        make_family_measure as j_make_family_measure,
+                        mlp_measure as j_mlp_measure,
+                        search_measure as j_search_measure)
+from repro.graph import build_l2_graph as j_build_l2_graph  # noqa: E402
+from repro.kernels.mlp_grad import (  # noqa: E402
+    mlp_grad_fused as j_grad_fused, mlp_value_and_grad as j_value_and_grad)
+from repro.kernels.mlp_score import (  # noqa: E402
+    mlp_score as j_score, mlp_score_fused as j_score_fused)
+from repro_torch.core import (EngineOptions, SearchConfig,  # noqa: E402
+                              build_engine, make_corpus_store,
+                              make_family_measure,
+                              mlp_measure, params_from_jax, recall,
+                              search_measure, store_from_arrays)
+from repro_torch.kernels import (launch_counts, mlp_grad_fused,  # noqa: E402
+                                 mlp_score, mlp_score_fused,
+                                 mlp_value_and_grad)
+from repro_torch.kernels.mlp_score.ops import (MAX_LAYERS,  # noqa: E402
+                                               mlp_smem_bytes)
+
+DX = 40
+DTYPES = ("float32", "bfloat16", "int8")
+HIDDEN = ((16,), (32, 32), (64, 64))
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _np_mlp(seed, d_in, hidden):
+    """Random layers with non-zero biases (``init_mlp`` zeroes them)."""
+    rng = np.random.default_rng(seed)
+    dims = [d_in, *hidden, 1]
+    w = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+         for a, b in zip(dims[:-1], dims[1:])]
+    b = [(0.1 * rng.normal(size=(n,))).astype(np.float32) for n in dims[1:]]
+    return {"w": w, "b": b}
+
+
+def _both(np_params):
+    """(the JAX pytree, the port's params) over the same numpy arrays."""
+    jp = {"w": [jnp.asarray(a) for a in np_params["w"]],
+          "b": [jnp.asarray(a) for a in np_params["b"]]}
+    return jp, params_from_jax(np_params, device="cpu")
+
+
+def _close(got, want, **kw):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL, **kw)
+
+
+# ---------------------------------------------------------------------------
+# kernels 7 and 9: pre-gathered, against the Pallas kernels (interpret) and
+# the jnp references
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 7, 77, 256])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("hidden", HIDDEN, ids=str)
+def test_mlp_score_matches_jax(hidden, shared, M):
+    jp, tp = _both(_np_mlp(len(hidden) * 10 + hidden[0], 2 * DX, hidden))
+    rng = np.random.default_rng(M)
+    cand = rng.normal(size=(M, DX)).astype(np.float32)
+    query = rng.normal(size=(DX,) if shared else (M, DX)).astype(np.float32)
+    got = mlp_score(torch.from_numpy(cand), torch.from_numpy(query), tp)
+    assert got.shape == (M,) and got.dtype == torch.float32
+    for use_pallas in (True, False):
+        want = j_score(jnp.asarray(cand), jnp.asarray(query), jp,
+                       use_pallas=use_pallas, interpret=True)
+        _close(got.numpy(), want, err_msg=f"use_pallas={use_pallas}")
+
+
+@pytest.mark.parametrize("M", [1, 7, 77, 256])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("hidden", HIDDEN, ids=str)
+def test_mlp_grad_matches_jax(hidden, shared, M):
+    jp, tp = _both(_np_mlp(len(hidden) * 10 + hidden[0], 2 * DX, hidden))
+    rng = np.random.default_rng(M + 1)
+    cand = rng.normal(size=(M, DX)).astype(np.float32)
+    query = rng.normal(size=(DX,) if shared else (M, DX)).astype(np.float32)
+    vals, grads = mlp_value_and_grad(torch.from_numpy(cand),
+                                     torch.from_numpy(query), tp)
+    assert vals.shape == (M,) and grads.shape == (M, DX)
+    assert grads.is_contiguous()
+    for use_pallas in (True, False):
+        wv, wg = j_value_and_grad(jnp.asarray(cand), jnp.asarray(query), jp,
+                                  use_pallas=use_pallas, interpret=True)
+        _close(vals.numpy(), wv, err_msg=f"use_pallas={use_pallas}")
+        _close(grads.numpy(), wg, err_msg=f"use_pallas={use_pallas}")
+
+
+@pytest.mark.parametrize("hidden", [(), (48, 32, 24)], ids=str)
+def test_mlp_kernels_take_dq_other_than_dx(hidden):
+    """Dq != Dx, a depth-1 network (no hidden layer) and a 4-layer one."""
+    dq = 24
+    jp, tp = _both(_np_mlp(5, DX + dq, hidden))
+    rng = np.random.default_rng(6)
+    cand = rng.normal(size=(33, DX)).astype(np.float32)
+    for qshape in ((33, dq), (dq,)):
+        query = rng.normal(size=qshape).astype(np.float32)
+        c, q = torch.from_numpy(cand), torch.from_numpy(query)
+        _close(mlp_score(c, q, tp).numpy(),
+               j_score(jnp.asarray(cand), jnp.asarray(query), jp,
+                       use_pallas=False))
+        vals, grads = mlp_value_and_grad(c, q, tp)
+        wv, wg = j_value_and_grad(jnp.asarray(cand), jnp.asarray(query), jp,
+                                  use_pallas=False)
+        assert grads.shape == (33, DX)
+        _close(vals.numpy(), wv)
+        _close(grads.numpy(), wg)
+
+
+# ---------------------------------------------------------------------------
+# kernels 8 and 10: index-fused, against the JAX fused jnp references
+# ---------------------------------------------------------------------------
+
+def _port_store(js):
+    """The port's store over exactly the JAX store's payload."""
+    return store_from_arrays(
+        np.asarray(js.data), None if js.scales is None
+        else np.asarray(js.scales), js.dtype, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def stores():
+    base = np.random.default_rng(7).normal(size=(500, DX)).astype(np.float32)
+    out = {}
+    for dt in DTYPES:
+        js = jcorpus.make_corpus_store(jnp.asarray(base), dt)
+        out[dt] = (js, _port_store(js))
+    return out
+
+
+@pytest.fixture(scope="module")
+def net():
+    return _both(_np_mlp(8, 2 * DX, (64, 64)))
+
+
+def _prefix_mask(rng, lanes, C):
+    """The adaptive engine's mask: a per-lane prefix of its C candidates;
+    lane 0 masked entirely, lane 1 not at all."""
+    n = rng.integers(0, C + 1, size=lanes)
+    n[0], n[1] = 0, C
+    return (np.arange(C)[None, :] < n[:, None]).reshape(-1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mlp_score_fused_matches_jax(net, stores, dtype, shared, masked):
+    jp, tp = net
+    js, ts = stores[dtype]
+    M = 96                                      # 12 lanes of C = 8
+    rng = np.random.default_rng(9)
+    idx = rng.integers(0, 500, size=M)
+    idx[[3, 40, 41]] = -1                       # padding, clamped to row 0
+    query = rng.normal(size=(DX,) if shared else (M, DX)).astype(np.float32)
+    mask = _prefix_mask(rng, 12, 8) if masked else None
+    got = mlp_score_fused(
+        ts, torch.from_numpy(idx), torch.from_numpy(query), tp,
+        mask=None if mask is None else torch.from_numpy(mask))
+    want = np.asarray(j_score_fused(
+        js, jnp.asarray(idx.astype(np.int32)), jnp.asarray(query), jp,
+        use_pallas=False, mask=None if mask is None else jnp.asarray(mask)))
+    assert got.shape == (M,) and got.dtype == torch.float32
+    got = got.numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    if masked:
+        assert np.isneginf(got[~mask]).all() and np.isfinite(got[mask]).all()
+    fin = np.isfinite(want)
+    _close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mlp_grad_fused_matches_jax(net, stores, dtype, shared):
+    jp, tp = net
+    js, ts = stores[dtype]
+    Q = 33
+    rng = np.random.default_rng(10)
+    idx = rng.integers(0, 500, size=Q)
+    idx[[5, 6]] = -1
+    query = rng.normal(size=(DX,) if shared else (Q, DX)).astype(np.float32)
+    vals, grads, x = mlp_grad_fused(ts, torch.from_numpy(idx),
+                                    torch.from_numpy(query), tp)
+    q_b = np.broadcast_to(query, (Q, DX)) if shared else query
+    wv, wg, wx = j_grad_fused(js, jnp.asarray(idx.astype(np.int32)),
+                              jnp.asarray(q_b), jp, use_pallas=False)
+    assert vals.shape == (Q,) and grads.shape == x.shape == (Q, DX)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(wx))
+    np.testing.assert_array_equal(
+        x.numpy(), ts.take(torch.from_numpy(idx).clamp_min(0)).numpy())
+    _close(vals.numpy(), wv)
+    _close(grads.numpy(), wg)
+
+
+def test_mlp_fused_kernels_equal_unfused_at_f32(net, stores):
+    """At float32 residency the fused wrappers return the unfused ones'
+    values on the gathered rows, bit for bit (the kernels share one body
+    per pair; the plain versions gather, then run the unfused one)."""
+    _, tp = net
+    _, ts = stores["float32"]
+    rng = np.random.default_rng(11)
+    idx = torch.from_numpy(rng.integers(-1, 500, size=64))
+    q = torch.from_numpy(rng.normal(size=(64, DX)).astype(np.float32))
+    mask = torch.from_numpy(_prefix_mask(rng, 8, 8))
+    rows = ts.take(idx.clamp_min(0))
+    want = mlp_score(rows, q, tp).masked_fill(~mask, float("-inf"))
+    assert torch.equal(mlp_score_fused(ts, idx, q, tp, mask=mask), want)
+    v, g, x = mlp_grad_fused(ts, idx, q, tp)
+    uv, ug = mlp_value_and_grad(rows, q, tp)
+    assert torch.equal(x, rows) and torch.equal(v, uv) and torch.equal(g, ug)
+
+
+# ---------------------------------------------------------------------------
+# argument checks, shared-memory sizing, launch counts
+# ---------------------------------------------------------------------------
+
+def test_mlp_wrappers_reject_bad_arguments(stores):
+    _, ts = stores["int8"]
+    c, q = torch.zeros((4, DX)), torch.zeros((4, DX))
+    deep = params_from_jax(_np_mlp(0, 2 * DX, (8,) * MAX_LAYERS),
+                           device="cpu")
+    with pytest.raises(ValueError, match="measure_impl='vmap'"):
+        mlp_score(c, q, deep)
+    with pytest.raises(ValueError, match="measure_impl='vmap'"):
+        mlp_grad_fused(ts, torch.arange(4), q, deep)
+    wide = params_from_jax(_np_mlp(0, 2 * DX, (8,)), device="cpu")
+    wide["w"][-1] = torch.zeros((8, 2))
+    wide["b"][-1] = torch.zeros((2,))
+    with pytest.raises(ValueError, match="width 1"):
+        mlp_value_and_grad(c, q, wide)
+    tp = params_from_jax(_np_mlp(0, 2 * DX, (8,)), device="cpu")
+    with pytest.raises(ValueError, match="w0: shape"):     # Dx + Dq != 80
+        mlp_score(c, torch.zeros((4, DX + 1)), tp)
+    with pytest.raises(ValueError, match="query: shape"):
+        mlp_score(c, torch.zeros((3, DX)), tp)
+    with pytest.raises(TypeError, match="dtype"):
+        mlp_score(c.double(), q, tp)
+    with pytest.raises(TypeError, match="dtype"):
+        mlp_score_fused(ts, torch.arange(4).int(), q, tp)
+    with pytest.raises(ValueError, match="shape"):
+        mlp_score_fused(ts, torch.arange(4), q, tp,
+                        mask=torch.ones(3, dtype=torch.bool))
+    tp["b"][0] = tp["b"][0].double()
+    with pytest.raises(TypeError, match="b0: dtype"):
+        mlp_score(c, q, tp)
+
+
+def test_mlp_smem_bytes():
+    """The staged network plus eight warps' scratch, as ``mlp_net`` in
+    csrc/mlp.cuh lays it out: the serving width (80 -> 64 -> 64 -> 1)
+    needs opt-in shared memory above 48 KB, ``hidden=(128, 128)`` about
+    129 KB, both under the H100's 227 KB."""
+    w64 = 80 * 65 + 64 + 64 * 65 + 64 + 64 + 1
+    assert mlp_smem_bytes([80, 64, 64, 1], DX) == \
+        4 * (w64 + 8 * (80 + 64 + 64 + 2 * 64 + DX))
+    assert 48 * 1024 < mlp_smem_bytes([80, 64, 64, 1], DX) < 52_000
+    assert 128_000 < mlp_smem_bytes([80, 128, 128, 1], DX) < 232_448
+    assert mlp_smem_bytes([80, 1], DX) == 4 * (80 + 1 + 8 * (80 + DX))
+
+
+def test_mlp_cpu_calls_launch_no_kernel(net, stores):
+    _, tp = net
+    _, ts = stores["bfloat16"]
+    before = launch_counts()
+    assert {"mlp_score", "mlp_score_fused", "mlp_value_and_grad",
+            "mlp_grad_fused"} <= set(before)
+    c = torch.zeros((6, DX))
+    ids = torch.arange(6)
+    mlp_score(c, torch.zeros(DX), tp)
+    mlp_value_and_grad(c, c, tp)
+    mlp_score_fused(ts, ids, torch.zeros(DX), tp)
+    mlp_grad_fused(ts, ids, c, tp)
+    assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the measure and the bundle
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dq", [DX, 24])
+def test_mlp_measure_matches_jax(dq):
+    """A JAX ``mlp_measure`` carried across by ``params_from_jax`` scores
+    and differentiates as the JAX one: item first in the concatenation,
+    and a shared query meets a block of items as ``brute_force_topk``
+    calls it."""
+    jm = j_mlp_measure(jax.random.PRNGKey(3), DX, dq, hidden=(64, 64))
+    np_params = jax.tree_util.tree_map(np.asarray, jm.params)
+    tm = dataclasses.replace(
+        mlp_measure(torch.Generator(), DX, dq, hidden=(64, 64),
+                    device="cpu"),
+        params=params_from_jax(np_params, device="cpu"))
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(50, DX)).astype(np.float32)
+    q = rng.normal(size=(50, dq)).astype(np.float32)
+    want = jax.vmap(jm.score)(jnp.asarray(x), jnp.asarray(q))
+    _close(tm.score(torch.from_numpy(x), torch.from_numpy(q)).numpy(), want)
+    # a (Qb, 1, Dq) query block against a (1, N, Dx) item block
+    block = tm.score(torch.from_numpy(x)[None], torch.from_numpy(q[:3, None]))
+    assert block.shape == (3, 50)
+    for i in range(3):
+        _close(block[i].numpy(), jm.score_batch(jnp.asarray(x),
+                                                jnp.asarray(q[i])))
+    # a shared (Dq,) query row against (N, Dx) items
+    _close(tm.score(torch.from_numpy(x), torch.from_numpy(q[0])).numpy(),
+           jm.score_batch(jnp.asarray(x), jnp.asarray(q[0])))
+    gx = tm.grad_x(torch.from_numpy(x[0]), torch.from_numpy(q[0]))
+    _close(gx.numpy(), jm.grad_x(jnp.asarray(x[0]), jnp.asarray(q[0])))
+    # the bundle's kernels agree with the measure's own score_fn
+    _close(mlp_score(torch.from_numpy(x), torch.from_numpy(q),
+                     tm.params).numpy(), want)
+
+
+def test_make_family_measure_mlp():
+    a = make_family_measure("mlp", torch.Generator().manual_seed(3), DX,
+                            device="cpu")
+    b = make_family_measure("mlp", torch.Generator().manual_seed(3), DX,
+                            device="cpu")
+    assert a.meta == ("mlp",) and a.name == "mlp"
+    assert [tuple(t.shape) for t in a.params["w"]] == [(80, 64), (64, 64),
+                                                       (64, 1)]
+    assert all(torch.equal(s, t) for s, t in zip(a.params["w"],
+                                                 b.params["w"]))
+    assert all((t == 0).all() for t in a.params["b"])
+    assert abs(float(a.params["w"][0].std()) * np.sqrt(80) - 1) < 0.05
+    deep = mlp_measure(torch.Generator().manual_seed(0), DX, DX,
+                       device="cpu")
+    assert [tuple(t.shape) for t in deep.params["w"]] == [(80, 128),
+                                                          (128, 128),
+                                                          (128, 1)]
+
+
+def test_mlp_bundle_tags():
+    m = make_family_measure("mlp", torch.Generator().manual_seed(0), DX,
+                            device="cpu")
+    eng = build_engine(m, SearchConfig(), EngineOptions(fused=True))
+    for stage in (eng.measure, eng.grad, eng.measure_fused, eng.grad_fused):
+        assert stage.bundle_family == "mlp"
+    gen = build_engine(m, SearchConfig(), EngineOptions(
+        fused=True, measure_impl="vmap", grad_impl="vmap"))
+    assert gen.measure.bundle_family == gen.grad.bundle_family == "generic"
+    assert gen.measure_fused.bundle_family == "generic"
+    assert gen.grad_fused is None
+
+
+# ---------------------------------------------------------------------------
+# whole searches
+# ---------------------------------------------------------------------------
+
+N, Q = 1000, 64
+
+
+@pytest.fixture(scope="module")
+def system():
+    """N=1000 items, D=40, the JAX launcher's mlp measure (80 -> 64 -> 64
+    -> 1) and its l2 graph; the port gets the same weights through
+    ``params_from_jax``."""
+    rng = np.random.default_rng(13)
+    base = rng.normal(size=(N, DX)).astype(np.float32)
+    queries = rng.normal(size=(Q, DX)).astype(np.float32)
+    graph = j_build_l2_graph(base, m=12, k_construction=48)
+    jm = j_make_family_measure("mlp", jax.random.PRNGKey(0), DX)
+    tm = dataclasses.replace(
+        make_family_measure("mlp", torch.Generator(), DX, device="cpu"),
+        params=params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params),
+                               device="cpu"))
+    truth, _ = j_brute_force_topk(jm, jnp.asarray(base), jnp.asarray(queries),
+                                  10)
+    return dict(base=base, queries=queries, graph=graph, jm=jm, tm=tm,
+                truth=np.asarray(truth))
+
+
+CFG = dict(k=10, ef=32, budget=8, alpha=1.01, mode="guitar",
+           rank_by="angle")
+ADAPTIVE = dict(adaptive="angle", c_max=12, angle_tau=1.8)
+MODES = {
+    "unfused": ({}, {}),
+    "fused-f32": ({}, dict(fused=True)),
+    "fused-int8": ({}, dict(fused=True, corpus_dtype="int8")),
+    "fused-int8-adaptive": (dict(alpha=1.2),
+                            dict(fused=True, corpus_dtype="int8",
+                                 **ADAPTIVE)),
+}
+
+
+def _search(system, store, cfg_kw, opt_kw):
+    g = system["graph"]
+    return search_measure(
+        system["tm"], store, torch.from_numpy(g.neighbors),
+        torch.from_numpy(system["queries"]), torch.full((Q,), g.entry),
+        SearchConfig(**cfg_kw), EngineOptions(**opt_kw))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mlp_search_recall_matches_jax(system, mode):
+    """The same graph, payload (the JAX store's bits), queries and
+    weights through both engines."""
+    cfg_kw, opt_kw = MODES[mode]
+    cfg_kw = {**CFG, **cfg_kw}
+    js = jcorpus.make_corpus_store(jnp.asarray(system["base"]),
+                                   opt_kw.get("corpus_dtype", "float32"))
+    g = system["graph"]
+    jr = j_search_measure(
+        system["jm"], js, jnp.asarray(g.neighbors),
+        jnp.asarray(system["queries"]), jnp.full((Q,), g.entry, jnp.int32),
+        JConfig(**cfg_kw), JOptions(**opt_kw))
+    tr = _search(system, _port_store(js), cfg_kw, opt_kw)
+    r_j = recall(np.asarray(jr.ids), system["truth"])
+    r_t = recall(tr.ids, system["truth"])
+    assert abs(r_j - r_t) <= 0.01, (r_j, r_t)
+    assert r_t > 0.5
+    # returned scores are the measure's scores of the resident rows
+    want = system["tm"].score(_port_store(js).take(tr.ids),
+                              torch.from_numpy(system["queries"])[:, None])
+    np.testing.assert_allclose(tr.scores.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_mlp_fused_search_equals_unfused_at_f32(system, adaptive):
+    cfg_kw = {**CFG, "alpha": 1.2} if adaptive else CFG
+    opt_kw = ADAPTIVE if adaptive else {}
+    store = make_corpus_store(system["base"], device="cpu")
+    un = _search(system, store, cfg_kw, opt_kw)
+    fu = _search(system, store, cfg_kw, {**opt_kw, "fused": True})
+    for f in ("ids", "scores", "n_eval", "n_grad", "n_iters"):
+        assert torch.equal(getattr(un, f), getattr(fu, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+def test_serve_mlp_on_cpu(capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--items", "600", "--dim", "40", "--queries", "40",
+                      "--batch", "32", "--measure", "mlp", "--fused",
+                      "--corpus-dtype", "int8", "--adaptive", "angle",
+                      "--c-max", "16", "--device", "cpu"])
+    assert out["n_batches"] == 2 and out["qps"] > 0 and out["recall"] > 0.5
+    assert "measure=mlp corpus_dtype=int8 fused=True" in \
+        capsys.readouterr().out
+
+
+def test_list_measures_prints_both_families(capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--list-measures"])
+    slots = ["score", "score_fused", "grad", "grad_fused"]
+    assert out == {"deepfm": slots, "mlp": slots}
+    text = capsys.readouterr().out
+    assert "deepfm: score, score_fused, grad, grad_fused (serve " \
+        "constructor)" in text
+    assert "mlp: score, score_fused, grad, grad_fused (serve " \
+        "constructor)" in text
+
+
+@pytest.mark.cuda
+def test_mlp_kernels_match_plain_on_card():
+    """On a card: the four MLP kernels against their plain versions at
+    several depths, Dq != Dx and every residency, and the fused pair bit
+    for bit against the pre-gathered one at float32 (the same checks as
+    chip_smoke.py's MLP kernel phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    report = chip_smoke.check_mlp_kernels(torch, torch.device("cuda"))
+    assert set(report) == {"mlp_score", "mlp_score_fused", "mlp_grad",
+                           "mlp_grad_fused"}
