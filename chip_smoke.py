@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Card smoke test of the PyTorch/CUDA port (``src/repro_torch``): builds
-the ten CUDA kernels from this checkout, holds each against its plain
+the thirteen CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card (the index-fused ones at float32, bfloat16 and
 int8 residency, and bit for bit against the pre-gathered ones at float32;
-the MLP ones at several depths), runs the engine with the DeepFM and the
+the MLP ones at several depths; the library kernels embedding_bag,
+decode_attention and flash_attention at the JAX test shapes and at
+DLRM-RM2 and Yi-9B widths in float32 and bfloat16, driven once each as
+the slice's main path and timed beside one PyTorch call of the same
+function), runs the engine with the DeepFM and the
 MLP measure on the card against the same engine on the CPU, serves the
 GUITAR search at N=100,000 through the port's oneshot serving path (DeepFM
 unfused, fused at float32, bfloat16 and int8, and int8 with adaptive angle
@@ -22,6 +26,7 @@ before it lists each kernel's numbers as JSON.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -32,9 +37,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor) peak and
+# dense bf16 tensor-core peak
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 
 # kernel-vs-plain tolerances on the card. Both compute in fp32 and differ
 # only in summation order (warp shuffles and FMA chains vs cuBLAS), a few
@@ -114,9 +121,13 @@ def host_us(fn, reps: int = 200) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, dtype: str = "float32"):
+    """The least time of a call: the larger of its bytes over the memory
+    rate and its FLOPs over the peak of its input dtype (the bf16 tensor
+    peak for bfloat16 inputs, the fp32 peak otherwise), and which one."""
+    peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_FP32_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -778,6 +789,465 @@ def check_mlp_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the library kernels (embedding_bag, decode_attn, flash_attn)
+# ---------------------------------------------------------------------------
+
+# kernel-vs-plain tolerances of the library kernels on the card. The bag
+# sums slot by slot in float32 with product and add rounded separately,
+# as its plain version does, so the two should agree to the bit in float32
+# and after the one rounding to bf16; the tolerance allows one bf16 step.
+# Attention: both sides compute in float32 from the same inputs, in
+# another order (FMA chains and a chunk merge vs cuBLAS and softmax) over
+# up to 524,288 positions.
+BAG_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (2.0 ** -7, 1e-6)}
+ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5
+
+# Yi-9B (src/repro/configs/yi_9b.py) attention widths; LM_SHAPES lengths
+YI_H, YI_KV, YI_HD = 32, 4, 128
+# DLRM-RM2 (src/repro/configs/dlrm_rm2.py): 26 Criteo fields, one table of
+# pad_vocab(sum of cardinalities) rows, embed dim 64
+DLRM_D = 64
+PAD_FRACTION = 0.05         # ids set to -1 (padding) in the bag inputs
+BAG_ID_SETS = 64            # serve_p99 id sets the timed calls cycle through
+
+
+def event_ms(fn, reps: int = 3, warm: int = 1) -> float:
+    """Device time of one call for calls of a millisecond or more: ``warm``
+    calls, then ``reps`` eager calls between two CUDA events."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bag_costs(B, L, d, n_valid, n_rows, esize, idx_size, weighted):
+    """Bytes: ids (and weights) read once, each distinct row the valid ids
+    name read once (``n_rows``: ids repeat within the small Criteo fields),
+    the (B, d) sums written once; FLOPs: one multiply-add per element of
+    each of the ``n_valid`` valid ids."""
+    nbytes = B * L * idx_size + (B * L * esize if weighted else 0) \
+        + n_rows * d * esize + B * d * esize
+    return nbytes, 2 * n_valid * d
+
+
+def decode_costs(B, H, KV, hd, n, esize, qsize):
+    """The valid prefix of K and V read once, q read and the float32 output
+    written once; two products of 2 * hd FLOPs per (head, position)."""
+    nbytes = B * H * hd * qsize + 2 * B * n * KV * hd * esize \
+        + B * H * hd * 4
+    return nbytes, 4 * B * H * n * hd
+
+
+def flash_costs(B, S, H, hd, esize):
+    """q, k, v read once, the float32 output written once; 4 * hd FLOPs per
+    causal (query, key) pair."""
+    nbytes = 3 * B * S * H * hd * esize + B * S * H * hd * 4
+    return nbytes, 4 * B * H * hd * (S * (S + 1) // 2)
+
+
+def drive_segment(torch, label, name, calls, expect):
+    """One segment of the slice's main path: every launch count set to 0,
+    ``calls`` run through the public wrapper, the counts read; the segment
+    must launch ``name`` ``expect`` times and no other kernel."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = calls()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"library {label}: kernel launches in the main-path run: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for k, n in counts.items():
+        require(n == (expect if k == name else 0),
+                f"library {label}: kernel {k} launched {n} times; the "
+                f"segment launches {name} {expect} times and nothing else")
+    return out, counts[name]
+
+
+def check_library_bag(torch, dev, report):
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.models.recsys import CRITEO_CARDINALITIES, field_offsets
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    worst = 0.0
+
+    def close_bag(got, want, dt, label):
+        nonlocal worst
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"{label}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                f"{tuple(want.shape)}")
+        err, ratio = close_err(got.float(), want.float(), *BAG_TOL[dt])
+        require(ratio <= 1.0, f"{label}: max_abs_err {err:.3e}")
+        worst = max(worst, err)
+        return err, bool(torch.equal(got, want))
+
+    # -- the JAX test shapes (tests/test_kernels.py:83), the smoke width of
+    #    DLRM-RM2 (26 x 50 rows, d = 8) and the edges
+    n_cases, n_equal = 0, 0
+    for r, d, b, l in ((100, 16, 8, 4), (500, 64, 33, 8), (64, 128, 16, 2),
+                       (1300, 8, 26, 3)):
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            table = torch.randn((r, d), generator=gen).to(dev, tdt)
+            idx = torch.randint(-1, r, (b, l), generator=gen,
+                                dtype=torch.int32)
+            w = torch.rand((b, l), generator=gen).to(dev, tdt)
+            edge = idx.clone().long()
+            edge[:, 0] = r                                  # out of range
+            edge[0] = -1                                    # an empty bag
+            edge[-1, -1] = -7                               # out of range
+            for ids, ww in ((idx.to(dev), w), (idx.to(dev), None),
+                            (edge.to(dev), w)):
+                got = embedding_bag(table, ids, ww)
+                torch.cuda.synchronize()
+                _, eq = close_bag(got, embedding_bag_ref(table, ids, ww), dt,
+                                  f"embedding_bag {dt} R={r} d={d} B={b} "
+                                  f"L={l} ids {ids.dtype}")
+                n_cases, n_equal = n_cases + 1, n_equal + eq
+    log(f"embedding_bag: {n_cases} cases at the JAX test shapes and edges "
+        f"(no weights, int64 ids, ids outside [-1, R), an empty bag) match "
+        f"the plain version, {n_equal} bit for bit")
+
+    # -- DLRM-RM2: one table of pad_vocab(sum(cardinalities)) x 64 rows
+    card = torch.tensor(CRITEO_CARDINALITIES, dtype=torch.int64)
+    offs = torch.from_numpy(field_offsets(CRITEO_CARDINALITIES)).long()
+    R = pad_vocab(int(card.sum()))
+    tables = {"float32": torch.randn(
+        (R, DLRM_D), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(12))}
+    tables["bfloat16"] = tables["float32"].to(torch.bfloat16)
+    log(f"embedding_bag: DLRM-RM2 table {R} x {DLRM_D} resident in float32 "
+        f"({tables['float32'].nbytes / 1e9:.2f} GB) and bfloat16 "
+        f"({tables['bfloat16'].nbytes / 1e9:.2f} GB)")
+
+    def ids_of(batch, L):
+        """(batch * 26, L) int32 ids, each uniform in its field's range,
+        PAD_FRACTION of them -1."""
+        u = torch.rand((batch, 26, L), generator=gen, dtype=torch.float64)
+        ids = (u * card[None, :, None]).long().clamp_max(
+            card[None, :, None] - 1) + offs[None, :, None]
+        ids[torch.rand(ids.shape, generator=gen) < PAD_FRACTION] = -1
+        return ids.reshape(batch * 26, L).to(torch.int32).to(dev)
+
+    shapes = {"serve_p99 L=1": (512, 1), "serve_p99 L=8": (512, 8),
+              "train_batch L=1": (65536, 1)}
+    inputs = {}
+    for label, (batch, L) in shapes.items():
+        ids = ids_of(batch, L)
+        w = torch.rand(ids.shape, generator=gen).to(dev)
+        inputs[label] = (ids, w)
+        for dt, table in tables.items():
+            wt = w.to(table.dtype)
+            got = embedding_bag(table, ids, wt)
+            torch.cuda.synchronize()
+            err, eq = close_bag(got, embedding_bag_ref(table, ids, wt), dt,
+                                f"embedding_bag DLRM-RM2 {label} {dt}")
+            log(f"embedding_bag DLRM-RM2 {label} {dt} ({ids.shape[0]} "
+                f"bags): max_abs_err {err:.3e}, equal bit for bit: {eq}")
+
+    # -- the main path: the DLRM lookups at serve_p99 and train_batch
+    def lookups():
+        return [embedding_bag(t, ids, w.to(t.dtype))
+                for ids, w in inputs.values() for t in tables.values()]
+    _, launches = drive_segment(torch, "DLRM-RM2 lookups", "embedding_bag",
+                                lookups, 2 * len(inputs))
+
+    # -- times: kernel, plain version, F.embedding_bag (-1 mapped to row 0
+    #    with weight 0, ids as int64; prepared outside the timed region).
+    #    A serve_p99 call reads 1.6-26 MB of rows, inside the 50 MB L2, so
+    #    one timed replay cycles through BAG_ID_SETS fresh id sets (at
+    #    least 100 MB of rows), and the rows come from device memory as a
+    #    server's would.
+    r = report["embedding_bag"] = {"launches": launches, "shapes": {}}
+    for label, (ids, w) in inputs.items():
+        B, L = ids.shape
+        batch = shapes[label][0]
+        sets = [(ids, w)] + [(ids_of(batch, L), w)
+                             for _ in range(BAG_ID_SETS - 1)] \
+            if B < 100_000 else [(ids, w)]
+        n_valid = sum(int((i >= 0).sum()) for i, _ in sets) / len(sets)
+        n_rows = sum(int(torch.unique(i[i >= 0]).numel())
+                     for i, _ in sets) / len(sets)
+        for dt, table in tables.items():
+            args = [(i, ww.to(table.dtype)) for i, ww in sets]
+            lib_args = [(i.clamp_min(0).long(),
+                         torch.where(i >= 0, ww, torch.zeros_like(ww)))
+                        for i, ww in args]
+            timer = (lambda f: time_ms(f, reps=len(sets))) \
+                if len(sets) > 1 else (lambda f: event_ms(f, reps=20))
+            turn = itertools.count()
+
+            def cycled(fn, argl):
+                return lambda: fn(*argl[next(turn) % len(argl)])
+            r["shapes"][f"{label} {dt}"] = dict(
+                bags=B, L=L, valid_ids=n_valid, distinct_rows=n_rows,
+                id_sets=len(sets),
+                ms=timer(cycled(lambda i, ww: embedding_bag(table, i, ww),
+                                args)),
+                plain_ms=timer(cycled(
+                    lambda i, ww: embedding_bag_ref(table, i, ww), args)),
+                library_ms=timer(cycled(lambda i, ww: F.embedding_bag(
+                    i, table, mode="sum", per_sample_weights=ww), lib_args)),
+                host_us=host_us(cycled(
+                    lambda i, ww: embedding_bag(table, i, ww), args),
+                    reps=50),
+                bound=bound_ms(*bag_costs(
+                    B, L, DLRM_D, n_valid, n_rows, table.element_size(), 4,
+                    True), dt))
+    r["err"] = worst
+    del tables, inputs
+    torch.cuda.empty_cache()
+
+
+def check_library_decode(torch, dev, report):
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.decode_attn.ops import _launch as decode_launch
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    worst = 0.0
+
+    def check(got, want, label):
+        nonlocal worst
+        require(got.dtype == torch.float32 and got.shape == want.shape,
+                f"{label}: {got.dtype} {tuple(got.shape)}")
+        err, ratio = close_err(got, want, ATTN_RTOL, ATTN_ATOL)
+        require(ratio <= 1.0, f"{label}: max_abs_err {err:.3e} (err/tol "
+                f"{ratio:.3f})")
+        worst = max(worst, err)
+        return err
+
+    # -- the JAX test shapes (tests/test_kernels.py:122), the smoke width
+    #    of Yi-9B (H = 8, KV = 2, hd = 16) and the edges
+    n_cases = 0
+    for b, h, kv, hd, t, ln in ((2, 8, 2, 32, 128, 100),
+                                (1, 4, 4, 64, 300, 300),
+                                (3, 8, 4, 16, 1024, 77),
+                                (2, 16, 8, 64, 512, 512),
+                                (2, 8, 2, 16, 700, 513)):
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, h, hd), generator=gen).to(dev, dt)
+            kc = torch.randn((b, t, kv, hd), generator=gen).to(dev, dt)
+            vc = torch.randn((b, t, kv, hd), generator=gen).to(dev, dt)
+            dev_len = torch.tensor([ln], dtype=torch.int32, device=dev)
+            for length in (ln, dev_len, 0, t + 5):
+                want = decode_attention_ref(q, kc, vc, length)
+                label = (f"decode_attention {dt} B={b} H={h} KV={kv} hd={hd}"
+                         f" T={t} length={int(length)}")
+                check(decode_attention(q, kc, vc, length), want, label)
+                check(decode_launch(q, kc, vc, length, n_chunks=1), want,
+                      label + " (one chunk)")
+                n_cases += 2
+            if dt == torch.bfloat16:   # a float32 query over a bf16 cache
+                check(decode_attention(q.float(), kc, vc, ln),
+                      decode_attention_ref(q.float(), kc, vc, ln),
+                      f"decode_attention f32 q, bf16 cache T={t}")
+                n_cases += 1
+    log(f"decode_attention: {n_cases} cases at the JAX test shapes (f32 and "
+        f"bf16, length as an int and as a device tensor, length 0 -> zeros, "
+        f"length > T, split and one chunk) match the plain version")
+
+    # -- Yi-9B: decode_32k (bf16 at B=128, f32 at B=32) and long_500k
+    cases = (("decode_32k bf16", 128, 32768, torch.bfloat16),
+             ("decode_32k f32 B=32", 32, 32768, torch.float32),
+             ("long_500k bf16", 1, 524288, torch.bfloat16))
+    r = report["decode_attention"] = {"shapes": {}}
+    for label, B, T, dt in cases:
+        g = torch.Generator(device=dev).manual_seed(22)
+        q = torch.randn((B, YI_H, YI_HD), device=dev, generator=g).to(dt)
+        kc = torch.randn((B, T, YI_KV, YI_HD), device=dev, generator=g,
+                         dtype=dt)
+        vc = torch.randn((B, T, YI_KV, YI_HD), device=dev, generator=g,
+                         dtype=dt)
+        length = torch.tensor([T], dtype=torch.int32, device=dev)
+        want = decode_attention_ref(q, kc, vc, length)
+        err = check(decode_attention(q, kc, vc, length), want,
+                    f"decode_attention Yi-9B {label}")
+        del want
+        log(f"decode_attention Yi-9B {label} (cache "
+            f"{2 * kc.nbytes / 1e9:.2f} GB): max_abs_err {err:.3e}")
+        if label == "decode_32k bf16":
+            # the main path: four decode steps, the prefix growing on the
+            # device (no host sync between steps)
+            def steps():
+                length.fill_(T - 4)
+                outs = []
+                for _ in range(4):
+                    length.add_(1)
+                    outs.append(decode_attention(q, kc, vc, length))
+                return outs
+            outs, launches = drive_segment(torch, "Yi-9B decode_32k",
+                                           "decode_attention", steps, 4)
+            check(outs[-1], decode_attention_ref(q, kc, vc, T),
+                  "decode_attention main-path step at length T")
+            del outs
+            r["launches"] = launches
+        # SDPA as the yardstick: the G heads of a kv head as G query rows
+        # of one attention, over (B, KV, T, hd) copies made beforehand
+        qg = q.reshape(B, YI_KV, YI_H // YI_KV, YI_HD)
+        kt = kc.transpose(1, 2).contiguous()
+        vt = vc.transpose(1, 2).contiguous()
+        prefix = (torch.arange(T, device=dev) < length)[None, None, None, :]
+        n = int(length)
+        entry = r["shapes"][label] = dict(
+            B=B, T=T, length=n,
+            ms=event_ms(lambda: decode_attention(q, kc, vc, length),
+                        reps=10),
+            plain_ms=event_ms(lambda: decode_attention_ref(q, kc, vc,
+                                                           length)),
+            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                qg, kt, vt, attn_mask=prefix), reps=10),
+            host_us=host_us(lambda: decode_attention(q, kc, vc, length),
+                            reps=20),
+            bound=bound_ms(*decode_costs(
+                B, YI_H, YI_KV, YI_HD, n, kc.element_size(),
+                q.element_size()),
+                "bfloat16" if dt == torch.bfloat16 else "float32"))
+        if B == 1:
+            entry["one_chunk_ms"] = event_ms(
+                lambda: decode_launch(q, kc, vc, length, n_chunks=1))
+        del q, kc, vc, kt, vt, qg
+        torch.cuda.empty_cache()
+    r["err"] = worst
+
+
+def check_library_flash(torch, dev, report):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    worst = 0.0
+
+    def check(got, want, label):
+        nonlocal worst
+        require(got.dtype == torch.float32 and got.shape == want.shape,
+                f"{label}: {got.dtype} {tuple(got.shape)}")
+        err, ratio = close_err(got, want, ATTN_RTOL, ATTN_ATOL)
+        require(ratio <= 1.0, f"{label}: max_abs_err {err:.3e} (err/tol "
+                f"{ratio:.3f})")
+        worst = max(worst, err)
+        return err
+
+    # -- the JAX test shapes (tests/test_kernels.py:158), the smoke width
+    #    of Yi-9B, ragged S, hd = 128, and a strided q
+    n_cases = 0
+    for b, s, h, hd in ((2, 128, 4, 32), (1, 100, 2, 16), (2, 256, 2, 64),
+                        (1, 64, 8, 8), (2, 77, 8, 16), (1, 300, 2, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, s, h, hd), generator=gen).to(dev, dt)
+                       for _ in range(3))
+            want = flash_attention_ref(q, k, v)
+            check(flash_attention(q, k, v), want,
+                  f"flash_attention {dt} B={b} S={s} H={h} hd={hd}")
+            qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+            check(flash_attention(qt, k, v), want,
+                  f"flash_attention {dt} B={b} S={s} strided q")
+            n_cases += 2
+    log(f"flash_attention: {n_cases} cases at the JAX test shapes (f32 and "
+        f"bf16, ragged S, strided q) match the plain version")
+
+    # -- Yi-9B: train_4k width (B=8 of 256) and one prefill_32k-long call
+    r = report["flash_attention"] = {"shapes": {}}
+    cases = (("train_4k bf16 B=8", 8, 4096, torch.bfloat16, None),
+             ("train_4k f32 B=1", 1, 4096, torch.float32, None),
+             ("prefill_32k bf16 B=1", 1, 32768, torch.bfloat16, 256))
+    for label, B, S, dt, sample in cases:
+        g = torch.Generator(device=dev).manual_seed(32)
+        q, k, v = (torch.randn((B, S, YI_H, YI_HD), device=dev, generator=g,
+                               dtype=dt) for _ in range(3))
+        if label == "train_4k bf16 B=8":
+            # the main path: one causal prefill through the public wrapper
+            out, launches = drive_segment(torch, "Yi-9B train_4k prefill",
+                                          "flash_attention",
+                                          lambda: flash_attention(q, k, v),
+                                          1)
+            r["launches"] = launches
+        else:
+            out = flash_attention(q, k, v)
+        rows = None
+        if sample:
+            rows = torch.randperm(S, generator=gen)[:sample].sort().values
+            rows[-1] = S - 1
+            rows = rows.to(dev)
+            want = flash_attention_ref(q, k, v, q_rows=rows)
+            got = out.index_select(1, rows)
+        else:
+            want, got = flash_attention_ref(q, k, v), out
+        err = check(got, want, f"flash_attention Yi-9B {label}")
+        log(f"flash_attention Yi-9B {label}: max_abs_err {err:.3e}"
+            + (f" over {sample} sampled query rows" if sample else ""))
+        del out, want, got
+        if dt == torch.bfloat16:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            r["shapes"][label] = dict(
+                B=B, S=S, plain_rows=sample or S,
+                ms=event_ms(lambda: flash_attention(q, k, v),
+                            reps=2 if S > 8192 else 5),
+                plain_ms=event_ms(lambda: flash_attention_ref(
+                    q, k, v, q_rows=rows), reps=2),
+                library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), reps=10),
+                bound=bound_ms(*flash_costs(B, S, YI_H, YI_HD, 2),
+                                     "bfloat16"),
+                bound_f32_peak=bound_ms(
+                    *flash_costs(B, S, YI_H, YI_HD, 2), "float32"))
+            if S <= 8192:
+                r["shapes"][label]["host_us"] = host_us(
+                    lambda: flash_attention(q, k, v), reps=3)
+            del qt, kt, vt
+        del q, k, v
+        torch.cuda.empty_cache()
+    r["err"] = worst
+
+
+def check_library_kernels(torch, dev):
+    """Kernels 11-13 against their plain versions at the JAX test shapes
+    (f32 and bf16) and at DLRM-RM2 and Yi-9B widths, each driven once
+    through its public wrapper as a segment of the slice's main path
+    (launches counted per segment), then timed beside its plain version
+    and one PyTorch call of the same function (``library_ms``)."""
+    report = {}
+    check_library_bag(torch, dev, report)
+    check_library_decode(torch, dev, report)
+    check_library_flash(torch, dev, report)
+    return report
+
+
+# the shape whose numbers each library kernel reports in the kernels line
+LIBRARY_LINE_SHAPE = {"embedding_bag": "train_batch L=1 float32",
+                      "decode_attention": "decode_32k bf16",
+                      "flash_attention": "train_4k bf16 B=8"}
+
+
+def log_library(report) -> None:
+    for name, r in report.items():
+        for label, e in r["shapes"].items():
+            extra = ""
+            if "one_chunk_ms" in e:
+                extra = (f"; one chunk per (batch, kv head) "
+                         f"{e['one_chunk_ms']:.4f}ms")
+            if "bound_f32_peak" in e:
+                extra = (f"; bound at the fp32 peak "
+                         f"{e['bound_f32_peak'][0]:.4f}ms")
+            if "host_us" in e:
+                extra += (f"; one eager call costs the host "
+                          f"{e['host_us']:.1f}us")
+            log(f"kernel {name} {label}: {e['ms']:.4f}ms (plain "
+                f"{e['plain_ms']:.4f}ms, library {e['library_ms']:.4f}ms, "
+                f"bound {e['bound'][0]:.4f}ms by {e['bound'][1]}){extra}")
+        log(f"kernel {name}: max_abs_err {r['err']:.3e}; {r['launches']} "
+            f"launches on the main path")
+
+# ---------------------------------------------------------------------------
 # phase 4: the engine on the card against the engine on the CPU
 # ---------------------------------------------------------------------------
 
@@ -1116,6 +1586,14 @@ KERNEL_META = {
     "mlp_grad_fused": ("src/repro_torch/kernels/csrc/mlp_grad_fused.cu",
                        "src/repro/kernels/mlp_grad/kernel.py:131"),
 }
+KERNEL_META.update({
+    "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/kernel.py:41"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn/kernel.py:59"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn/kernel.py:67"),
+})
 WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
            "deepfm_grad": "deepfm_value_and_grad",
            "deepfm_score_fused": "deepfm_score_fused",
@@ -1123,8 +1601,13 @@ WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
            "deepfm_grad_fused": "deepfm_grad_fused",
            "mlp_score": "mlp_score", "mlp_score_fused": "mlp_score_fused",
            "mlp_grad": "mlp_value_and_grad",
-           "mlp_grad_fused": "mlp_grad_fused"}
-# the serve run whose launches each kernel reports
+           "mlp_grad_fused": "mlp_grad_fused",
+           "embedding_bag": "embedding_bag",
+           "decode_attention": "decode_attention",
+           "flash_attention": "flash_attention"}
+# the run whose launches each kernel reports: a serve run by its label, or
+# ("phase", name) for a kernel off the serving paths, whose launches come
+# from that phase's main-path segments
 LAUNCH_RUN = {"deepfm_score": "unfused float32",
               "neighbor_rank": "unfused float32",
               "deepfm_grad": "unfused float32",
@@ -1134,7 +1617,10 @@ LAUNCH_RUN = {"deepfm_score": "unfused float32",
               "mlp_score": "mlp unfused float32",
               "mlp_grad": "mlp unfused float32",
               "mlp_score_fused": "mlp fused int8 adaptive",
-              "mlp_grad_fused": "mlp fused int8 adaptive"}
+              "mlp_grad_fused": "mlp fused int8 adaptive",
+              "embedding_bag": ("phase", "library_kernels"),
+              "decode_attention": ("phase", "library_kernels"),
+              "flash_attention": ("phase", "library_kernels")}
 LINE_RESIDENCY = "int8"   # the fused kernels' numbers in the kernels line
 
 
@@ -1144,7 +1630,21 @@ def kernel_line(results) -> dict:
     serve_out = results["serve"]
     out = []
     for name in KERNEL_META:
-        launches = serve_out[LAUNCH_RUN[name]]["launches"][WRAPPER[name]]
+        run = LAUNCH_RUN[name]
+        if isinstance(run, tuple):             # a phase's main-path run
+            r = results[run[1]][WRAPPER[name]]
+            e = r["shapes"][LIBRARY_LINE_SHAPE[WRAPPER[name]]]
+            out.append({"name": name, "route": "cuda",
+                        "source": KERNEL_META[name][0],
+                        "replaces": KERNEL_META[name][1],
+                        "launches": r["launches"], "max_abs_err": r["err"],
+                        "ms": e["ms"], "plain_ms": e["plain_ms"],
+                        "bound_ms": e["bound"][0],
+                        "bound_by": e["bound"][1],
+                        "library_ms": e["library_ms"],
+                        "shape": LIBRARY_LINE_SHAPE[WRAPPER[name]]})
+            continue
+        launches = serve_out[run]["launches"][WRAPPER[name]]
         entry = {"name": name, "route": "cuda",
                  "source": KERNEL_META[name][0],
                  "replaces": KERNEL_META[name][1], "launches": launches}
@@ -1238,6 +1738,8 @@ def main() -> int:
         log_kernels(results["fused_kernels"])
         results["mlp_kernels"] = check_mlp_kernels(torch, dev)
         log_kernels(results["mlp_kernels"])
+        results["library_kernels"] = check_library_kernels(torch, dev)
+        log_library(results["library_kernels"])
         results["engine"] = check_engine(torch, np, dev, "deepfm")
         results["engine_mlp"] = check_engine(torch, np, dev, "mlp")
         results["serve"], ctx = check_serve(torch, np, dev)

@@ -4,11 +4,16 @@ that launches the kernel for CUDA tensors and counts its launches. The
 ``deepfm_*`` kernels carry the DeepFM measure, the ``mlp_*`` kernels the
 generic MLP measure; the ``*_fused`` kernels take row ids into a resident
 ``CorpusStore`` (float32, bfloat16 or int8) and gather and dequantize the
-rows themselves."""
+rows themselves. ``embedding_bag``, ``decode_attention`` and
+``flash_attention`` are the library kernels of the recommendation and
+language models (off the search path), float32 or bfloat16."""
+from repro_torch.kernels.decode_attn import decode_attention  # noqa: F401
 from repro_torch.kernels.deepfm_grad import deepfm_value_and_grad  # noqa: F401
 from repro_torch.kernels.deepfm_grad_fused import deepfm_grad_fused  # noqa: F401
 from repro_torch.kernels.deepfm_score import deepfm_score  # noqa: F401
 from repro_torch.kernels.deepfm_score_fused import deepfm_score_fused  # noqa: F401
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
+from repro_torch.kernels.flash_attn import flash_attention  # noqa: F401
 from repro_torch.kernels.mlp_grad import mlp_value_and_grad  # noqa: F401
 from repro_torch.kernels.mlp_grad_fused import mlp_grad_fused  # noqa: F401
 from repro_torch.kernels.mlp_score import mlp_score  # noqa: F401
@@ -18,7 +23,8 @@ from repro_torch.kernels.neighbor_rank_fused import neighbor_rank_fused  # noqa:
 
 KERNELS = (deepfm_score, neighbor_rank, deepfm_value_and_grad,
            deepfm_score_fused, neighbor_rank_fused, deepfm_grad_fused,
-           mlp_score, mlp_score_fused, mlp_value_and_grad, mlp_grad_fused)
+           mlp_score, mlp_score_fused, mlp_value_and_grad, mlp_grad_fused,
+           embedding_bag, decode_attention, flash_attention)
 
 
 def reset_launch_counts() -> None:

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 
 # C entry point -> argtypes; every entry returns cudaGetLastError()
 SIGNATURES = {
@@ -70,10 +71,21 @@ SIGNATURES = {
     # vals, grads, x, M, Dx, Dq, stream
     "mlp_grad_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,
                        _I, _I, _I, _P],
+    # The library kernels take a dtype code (DTYPE: float32 0, bfloat16 1).
+    # table, dtype, R, d, idx, idx64, weights|NULL, out, B, L, stream
+    "embedding_bag": [_P, _I, _LL, _I, _P, _I, _P, _P, _I, _I, _P],
+    # q, q_f32, k, v, dtype, length(i32*)|NULL, length, B, T, KV, G, hd,
+    # chunk, n_chunks, part_acc, part_ml, out, stream
+    "decode_attention": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _P, _P, _P],
+    # q, k, v, dtype, strides (long long[9]), out, B, S, H, hd, stream
+    "flash_attention": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # CorpusStore.dtype -> the kernels' residency code (csrc/rows.cuh)
 RESIDENCY = {"float32": 0, "bfloat16": 1, "int8": 2}
+# tensor dtype -> the library kernels' dtype code (csrc/elem.cuh)
+DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}

@@ -1,0 +1,344 @@
+"""The port's decode and flash attention kernel wrappers, and its attention
+layers, against the JAX package.
+
+On the CPU each wrapper runs its plain PyTorch version (the CUDA kernels
+run only on the card: ``test_library_kernels_match_plain_on_card`` there,
+and ``chip_smoke.py``). Inputs come from numpy seeds and go through both
+sides; the JAX kernels run as the JAX package's own tests run them here
+(Pallas in interpret mode), beside their jnp refs.
+
+Tolerances:
+- float32: rtol/atol 2e-4, the JAX kernel tests' own (an online softmax
+  against a one-pass one, sums in another order).
+- bfloat16 q/k/v against the jnp refs: 2e-4 as well, since both sides
+  widen the same bf16 values and compute in float32.
+- bfloat16 against the Pallas kernels: 2e-2, the JAX bf16 test tolerance,
+  because the Pallas kernels round P to bf16 before P @ V (a relative
+  2^-8 per weight); the port keeps P in float32.
+- The model layers: 1e-5 in float32; 2e-2 in bfloat16 (both sides cast
+  the probabilities to bf16 and multiply in bf16).
+"""
+import sys
+from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attn import (  # noqa: E402
+    decode_attention as jax_decode)
+from repro.kernels.decode_attn.ref import decode_attention_ref  # noqa: E402
+from repro.kernels.flash_attn import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro_torch.kernels import decode_attention, flash_attention  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+BF16 = ml_dtypes.bfloat16
+RTOL = ATOL = 2e-4
+BF16_PALLAS_TOL = 2e-2
+
+
+def _normal(seed, *shape, dtype=np.float32):
+    return np.random.default_rng(seed).normal(size=shape).astype(
+        np.float32).astype(dtype)
+
+
+def _t(a):
+    return layers.tensor_from_jax(a, device="cpu")
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+
+DECODE_SWEEP = [(2, 8, 2, 32, 128, 100, 64), (1, 4, 4, 64, 300, 300, 128),
+                (3, 8, 4, 16, 1024, 77, 256), (2, 16, 8, 64, 512, 512, 512)]
+
+
+def _cache(seed, b, h, kv, hd, t, dtype=np.float32):
+    return (_normal(seed, b, h, hd, dtype=dtype),
+            _normal(seed + 1, b, t, kv, hd, dtype=dtype),
+            _normal(seed + 2, b, t, kv, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("b,h,kv,hd,t,ln,bt", DECODE_SWEEP)
+def test_decode_matches_jax_sweep(b, h, kv, hd, t, ln, bt):
+    q, k, v = _cache(b * t, b, h, kv, hd, t)
+    got = decode_attention(_t(q), _t(k), _t(v), ln, block_t=bt)
+    assert got.shape == (b, h, hd) and got.dtype == torch.float32
+    pallas = jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), ln,
+                        block_t=bt)
+    ref = decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.int32(ln))
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_decode_empty_prefix_gives_zeros_as_pallas():
+    """length = 0: the Pallas kernel's guards give zeros; the jnp ref's
+    softmax over an all -inf row gives NaN. The port follows the kernel."""
+    q, k, v = _cache(1, 2, 8, 2, 32, 128)
+    got = decode_attention(_t(q), _t(k), _t(v), 0)
+    assert (got == 0).all()
+    pallas = _np(jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            0, block_t=64))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    ref = _np(decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.int32(0)))
+    assert np.isnan(ref).all()
+
+
+def test_decode_length_beyond_cache_acts_as_full_cache():
+    q, k, v = _cache(2, 1, 4, 4, 16, 96)
+    got = decode_attention(_t(q), _t(k), _t(v), 500)
+    np.testing.assert_array_equal(got.numpy(), decode_attention(
+        _t(q), _t(k), _t(v), 96).numpy())
+    pallas = jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 500,
+                        block_t=32)
+    np.testing.assert_allclose(got.numpy(), _np(pallas), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_decode_length_as_device_tensor():
+    """A one-element int32 tensor (how a decode loop keeps the prefix on
+    the device) gives what the int gives."""
+    q, k, v = _cache(3, 2, 8, 2, 16, 200)
+    length = torch.tensor([123], dtype=torch.int32)
+    assert torch.equal(decode_attention(_t(q), _t(k), _t(v), length),
+                       decode_attention(_t(q), _t(k), _t(v), 123))
+
+
+def test_decode_bf16_cache():
+    q, k, v = _cache(4, 2, 8, 2, 32, 256, dtype=BF16)
+    got = decode_attention(_t(q), _t(k), _t(v), 200)
+    assert got.dtype == torch.float32
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    np.testing.assert_allclose(
+        got.numpy(), _np(decode_attention_ref(jq, jk, jv, jnp.int32(200))),
+        rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        got.numpy(), _np(jax_decode(jq, jk, jv, 200, block_t=64)),
+        rtol=BF16_PALLAS_TOL, atol=BF16_PALLAS_TOL)
+    # a float32 query over the bf16 cache: the same products
+    got32 = decode_attention(_t(q.astype(np.float32)), _t(k), _t(v), 200)
+    np.testing.assert_allclose(got32.numpy(), got.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_decode_matches_gqa_layer():
+    """Kernel wrapper == the JAX model's grouped attention on a cache
+    prefix (and the port's own ``gqa_attention``)."""
+    B, H, KV, hd, T, ln = 2, 8, 4, 32, 256, 199
+    q, k, v = (_normal(0, B, 1, H, hd), _normal(1, B, T, KV, hd),
+               _normal(2, B, T, KV, hd))
+    mask = np.arange(T)[None, :] < ln
+    want = _np(jax_layers.gqa_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v),
+                                        mask=jnp.asarray(mask))[:, 0])
+    got = decode_attention(_t(q[:, 0]), _t(k), _t(v), ln)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    port = layers.gqa_attention(_t(q), _t(k), _t(v),
+                                mask=torch.from_numpy(mask))[:, 0]
+    np.testing.assert_allclose(port.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_decode_wrapper_refuses_bad_arguments():
+    q, k, v = (torch.zeros((2, 8, 16)), torch.zeros((2, 32, 2, 16)),
+               torch.zeros((2, 32, 2, 16)))
+    with pytest.raises(TypeError):
+        decode_attention(q, k.half(), v.half(), 4)
+    with pytest.raises(TypeError):
+        decode_attention(q.bfloat16(), k, v, 4)
+    with pytest.raises(ValueError):
+        decode_attention(q, k, v[:, :16], 4)
+    with pytest.raises(ValueError):
+        decode_attention(torch.zeros((2, 6, 16)), k, torch.zeros(
+            (2, 32, 4, 16)), 4)
+    with pytest.raises(ValueError):
+        decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 4)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_SWEEP = [(2, 128, 4, 32, 32, 32), (1, 100, 2, 16, 32, 32),
+               (2, 256, 2, 64, 64, 128), (1, 64, 8, 8, 64, 16)]
+
+
+def _qkv(seed, b, s, h, hd, dtype=np.float32):
+    return tuple(_normal(seed + i, b, s, h, hd, dtype=dtype)
+                 for i in range(3))
+
+
+@pytest.mark.parametrize("b,s,h,hd,bq,bk", FLASH_SWEEP)
+def test_flash_matches_jax_sweep(b, s, h, hd, bq, bk):
+    q, k, v = _qkv(s, b, s, h, hd)
+    got = flash_attention(_t(q), _t(k), _t(v), block_q=bq, block_k=bk)
+    assert got.shape == (b, s, h, hd) and got.dtype == torch.float32
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    for want in (jax_flash(jq, jk, jv, block_q=bq, block_k=bk),
+                 flash_attention_ref(jq, jk, jv)):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_flash_ragged_length_with_unequal_blocks():
+    """S = 100 with block_q = 32 and block_k = 64: the JAX wrapper pads S
+    to 128; the port masks the ragged edge instead."""
+    q, k, v = _qkv(5, 2, 100, 2, 16)
+    got = flash_attention(_t(q), _t(k), _t(v), block_q=32, block_k=64)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     block_q=32, block_k=64)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
+
+
+def test_flash_bf16():
+    q, k, v = _qkv(6, 1, 96, 2, 32, dtype=BF16)
+    got = flash_attention(_t(q), _t(k), _t(v))
+    assert got.dtype == torch.float32
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    np.testing.assert_allclose(got.numpy(),
+                               _np(flash_attention_ref(jq, jk, jv)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(),
+                               _np(jax_flash(jq, jk, jv, block_q=32,
+                                             block_k=32)),
+                               rtol=BF16_PALLAS_TOL, atol=BF16_PALLAS_TOL)
+
+
+def test_flash_reads_strided_layouts():
+    """A (B, H, S, hd) tensor viewed as (B, S, H, hd) gives what its
+    contiguous copy gives (the kernel reads through strides)."""
+    q, k, v = (_t(x) for x in _qkv(7, 2, 40, 3, 8))
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qs.is_contiguous()
+    assert torch.equal(flash_attention(qs, k, v), flash_attention(q, k, v))
+
+
+def test_flash_wrapper_refuses_bad_arguments():
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :4], q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q.bfloat16())
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the attention layers
+# ---------------------------------------------------------------------------
+
+def test_causal_mask_matches_jax():
+    for S, T in ((5, 5), (3, 8), (1, 6)):
+        np.testing.assert_array_equal(
+            layers.causal_mask(S, T).numpy(),
+            np.asarray(jax_layers.causal_mask(S, T)))
+
+
+def test_expand_kv_matches_jax():
+    k = _normal(8, 2, 5, 2, 4)
+    np.testing.assert_array_equal(layers.expand_kv(_t(k), 8).numpy(),
+                                  np.asarray(jax_layers.expand_kv(
+                                      jnp.asarray(k), 8)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_and_gqa_match_jax(dtype):
+    np_dtype = np.float32 if dtype == "float32" else BF16
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    B, S, T, H, KV, hd = 2, 6, 10, 4, 2, 8
+    q = _normal(9, B, S, H, hd, dtype=np_dtype)
+    k = _normal(10, B, T, KV, hd, dtype=np_dtype)
+    v = _normal(11, B, T, KV, hd, dtype=np_dtype)
+    mask = np.asarray(jax_layers.causal_mask(S, T))
+    got = layers.gqa_attention(_t(q), _t(k), _t(v),
+                               mask=torch.tensor(mask))
+    want = jax_layers.gqa_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), mask=jnp.asarray(mask))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got.float()), _np(want), rtol=tol,
+                               atol=tol)
+    ke, ve = layers.expand_kv(_t(k), H), layers.expand_kv(_t(v), H)
+    got = layers.mha_attention(_t(q), ke, ve, mask=torch.tensor(mask))
+    want = jax_layers.mha_attention(
+        jnp.asarray(q), jax_layers.expand_kv(jnp.asarray(k), H),
+        jax_layers.expand_kv(jnp.asarray(v), H), mask=jnp.asarray(mask))
+    np.testing.assert_allclose(_np(got.float()), _np(want), rtol=tol,
+                               atol=tol)
+
+
+def test_chunked_causal_mha_matches_jax():
+    B, S, H, hd = 2, 64, 4, 16
+    q, k, v = _qkv(12, B, S, H, hd)
+    full = layers.mha_attention(_t(q), _t(k), _t(v),
+                                mask=layers.causal_mask(S))
+    for chunk in (16, 32):
+        got = layers.chunked_causal_mha(_t(q), _t(k), _t(v), chunk)
+        want = jax_layers.chunked_causal_mha(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), chunk)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(ValueError):
+        layers.chunked_causal_mha(_t(q), _t(k), _t(v), 24)
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole, at Yi-9B's smoke width (H = 8, KV = 2, hd = 16)
+# ---------------------------------------------------------------------------
+
+def test_slice_decode_over_cache_prefix_matches_jax_layer():
+    B, H, KV, hd, T = 3, 8, 2, 16, 160
+    for ln in (1, 97, T):
+        q, k, v = (_normal(13, B, 1, H, hd), _normal(14, B, T, KV, hd),
+                   _normal(15, B, T, KV, hd))
+        mask = np.broadcast_to(np.arange(T) < ln, (1, T))
+        want = jax_layers.gqa_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v),
+                                        mask=jnp.asarray(mask))[:, 0]
+        got = decode_attention(_t(q[:, 0]), _t(k), _t(v),
+                               torch.tensor([ln], dtype=torch.int32))
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_slice_causal_prefill_matches_jax_layer():
+    B, S, H, KV, hd = 2, 72, 8, 2, 16
+    q = _normal(16, B, S, H, hd)
+    k, v = _normal(17, B, S, KV, hd), _normal(18, B, S, KV, hd)
+    want = jax_layers.mha_attention(
+        jnp.asarray(q), jax_layers.expand_kv(jnp.asarray(k), H),
+        jax_layers.expand_kv(jnp.asarray(v), H),
+        mask=jax_layers.causal_mask(S))
+    got = flash_attention(_t(q), layers.expand_kv(_t(k), H),
+                          layers.expand_kv(_t(v), H))
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_library_kernels_match_plain_on_card():
+    """On a card: embedding_bag, decode_attention and flash_attention
+    against their plain versions at the JAX test shapes and at DLRM-RM2
+    and Yi-9B widths (the checks of chip_smoke.py's library phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    report = chip_smoke.check_library_kernels(torch, torch.device("cuda"))
+    assert set(report) == {"embedding_bag", "decode_attention",
+                           "flash_attention"}
