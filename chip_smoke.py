@@ -7,7 +7,8 @@ the MLP ones at several depths; the library kernels embedding_bag,
 decode_attention and flash_attention at the JAX test shapes and at
 DLRM-RM2 and Yi-9B widths in float32 and bfloat16, driven once each as
 the slice's main path and timed beside one PyTorch call of the same
-function), runs the engine with the DeepFM and the
+function; bf16 attention on the tensor cores, checked in the SASS and in
+each launch's path), runs the engine with the DeepFM and the
 MLP measure on the card against the same engine on the CPU, serves the
 GUITAR search at N=100,000 through the port's oneshot serving path (DeepFM
 unfused, fused at float32, bfloat16 and int8, and int8 with adaptive angle
@@ -853,11 +854,14 @@ def flash_costs(B, S, H, hd, esize):
     return nbytes, 4 * B * H * hd * (S * (S + 1) // 2)
 
 
-def drive_segment(torch, label, name, calls, expect):
+def drive_segment(torch, label, name, calls, expect, path=None):
     """One segment of the slice's main path: every launch count set to 0,
     ``calls`` run through the public wrapper, the counts read; the segment
-    must launch ``name`` ``expect`` times and no other kernel."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    must launch ``name`` ``expect`` times and no other kernel, and with
+    ``path`` every one of those launches must have taken that kernel
+    (``"tensor_core"`` or ``"cuda_core"``)."""
+    from repro_torch.kernels import (launch_counts, path_launch_counts,
+                                     reset_launch_counts)
     reset_launch_counts()
     out = calls()
     torch.cuda.synchronize()
@@ -868,6 +872,12 @@ def drive_segment(torch, label, name, calls, expect):
         require(n == (expect if k == name else 0),
                 f"library {label}: kernel {k} launched {n} times; the "
                 f"segment launches {name} {expect} times and nothing else")
+    if path is not None:
+        paths = path_launch_counts()[name]
+        log(f"library {label}: {name} launches by path: {paths}")
+        require(paths == {p: (expect if p == path else 0) for p in paths},
+                f"library {label}: {name} launches by path {paths}; every "
+                f"launch of the segment must take the {path} kernel")
     return out, counts[name]
 
 
@@ -1010,7 +1020,7 @@ def check_library_bag(torch, dev, report):
 
 def check_library_decode(torch, dev, report):
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels import decode_attention, path_launch_counts
     from repro_torch.kernels.decode_attn.ops import _launch as decode_launch
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     gen = torch.Generator(device="cpu").manual_seed(21)
@@ -1027,13 +1037,15 @@ def check_library_decode(torch, dev, report):
         return err
 
     # -- the JAX test shapes (tests/test_kernels.py:122), the smoke width
-    #    of Yi-9B (H = 8, KV = 2, hd = 16) and the edges
+    #    of Yi-9B (H = 8, KV = 2, hd = 16), hd = 128 and 8, and the edges
     n_cases = 0
     for b, h, kv, hd, t, ln in ((2, 8, 2, 32, 128, 100),
                                 (1, 4, 4, 64, 300, 300),
                                 (3, 8, 4, 16, 1024, 77),
                                 (2, 16, 8, 64, 512, 512),
-                                (2, 8, 2, 16, 700, 513)):
+                                (2, 8, 2, 16, 700, 513),
+                                (2, 8, 2, 128, 700, 650),
+                                (1, 8, 4, 8, 300, 200)):
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn((b, h, hd), generator=gen).to(dev, dt)
             kc = torch.randn((b, t, kv, hd), generator=gen).to(dev, dt)
@@ -1044,7 +1056,7 @@ def check_library_decode(torch, dev, report):
                 label = (f"decode_attention {dt} B={b} H={h} KV={kv} hd={hd}"
                          f" T={t} length={int(length)}")
                 check(decode_attention(q, kc, vc, length), want, label)
-                check(decode_launch(q, kc, vc, length, n_chunks=1), want,
+                check(decode_launch(q, kc, vc, length, n_chunks=1)[0], want,
                       label + " (one chunk)")
                 n_cases += 2
             if dt == torch.bfloat16:   # a float32 query over a bf16 cache
@@ -1053,8 +1065,9 @@ def check_library_decode(torch, dev, report):
                       f"decode_attention f32 q, bf16 cache T={t}")
                 n_cases += 1
     log(f"decode_attention: {n_cases} cases at the JAX test shapes (f32 and "
-        f"bf16, length as an int and as a device tensor, length 0 -> zeros, "
-        f"length > T, split and one chunk) match the plain version")
+        f"bf16, hd 8-128, length as an int and as a device tensor, length 0 "
+        f"-> zeros, length > T, split and one chunk) match the plain "
+        f"version; launches by path {path_launch_counts()['decode_attention']}")
 
     # -- Yi-9B: decode_32k (bf16 at B=128, f32 at B=32) and long_500k
     cases = (("decode_32k bf16", 128, 32768, torch.bfloat16),
@@ -1086,7 +1099,8 @@ def check_library_decode(torch, dev, report):
                     outs.append(decode_attention(q, kc, vc, length))
                 return outs
             outs, launches = drive_segment(torch, "Yi-9B decode_32k",
-                                           "decode_attention", steps, 4)
+                                           "decode_attention", steps, 4,
+                                           path="tensor_core")
             check(outs[-1], decode_attention_ref(q, kc, vc, T),
                   "decode_attention main-path step at length T")
             del outs
@@ -1112,9 +1126,12 @@ def check_library_decode(torch, dev, report):
                 B, YI_H, YI_KV, YI_HD, n, kc.element_size(),
                 q.element_size()),
                 "bfloat16" if dt == torch.bfloat16 else "float32"))
+        entry["gb_per_s"] = decode_costs(
+            B, YI_H, YI_KV, YI_HD, n, kc.element_size(),
+            q.element_size())[0] / entry["ms"] / 1e6
         if B == 1:
             entry["one_chunk_ms"] = event_ms(
-                lambda: decode_launch(q, kc, vc, length, n_chunks=1))
+                lambda: decode_launch(q, kc, vc, length, n_chunks=1)[0])
         del q, kc, vc, kt, vt, qg
         torch.cuda.empty_cache()
     r["err"] = worst
@@ -1122,7 +1139,7 @@ def check_library_decode(torch, dev, report):
 
 def check_library_flash(torch, dev, report):
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, path_launch_counts
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     gen = torch.Generator(device="cpu").manual_seed(31)
     worst = 0.0
@@ -1148,12 +1165,17 @@ def check_library_flash(torch, dev, report):
             want = flash_attention_ref(q, k, v)
             check(flash_attention(q, k, v), want,
                   f"flash_attention {dt} B={b} S={s} H={h} hd={hd}")
-            qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                          for x in (q, k, v))
             check(flash_attention(qt, k, v), want,
                   f"flash_attention {dt} B={b} S={s} strided q")
-            n_cases += 2
+            check(flash_attention(q, kt, vt), want,
+                  f"flash_attention {dt} B={b} S={s} strided k and v")
+            n_cases += 3
     log(f"flash_attention: {n_cases} cases at the JAX test shapes (f32 and "
-        f"bf16, ragged S, strided q) match the plain version")
+        f"bf16, hd 8-128, ragged S, strided q, strided k and v) match the "
+        f"plain version; launches by path "
+        f"{path_launch_counts()['flash_attention']}")
 
     # -- Yi-9B: train_4k width (B=8 of 256) and one prefill_32k-long call
     r = report["flash_attention"] = {"shapes": {}}
@@ -1169,7 +1191,7 @@ def check_library_flash(torch, dev, report):
             out, launches = drive_segment(torch, "Yi-9B train_4k prefill",
                                           "flash_attention",
                                           lambda: flash_attention(q, k, v),
-                                          1)
+                                          1, path="tensor_core")
             r["launches"] = launches
         else:
             out = flash_attention(q, k, v)
@@ -1186,27 +1208,74 @@ def check_library_flash(torch, dev, report):
         log(f"flash_attention Yi-9B {label}: max_abs_err {err:.3e}"
             + (f" over {sample} sampled query rows" if sample else ""))
         del out, want, got
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes, flops = flash_costs(B, S, YI_H, YI_HD, q.element_size())
+        entry = r["shapes"][label] = dict(
+            B=B, S=S, plain_rows=sample or S,
+            ms=event_ms(lambda: flash_attention(q, k, v),
+                        reps=2 if S > 8192 else 5),
+            plain_ms=event_ms(lambda: flash_attention_ref(
+                q, k, v, q_rows=rows), reps=2),
+            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=10))
+        entry["tflop_per_s"] = flops / entry["ms"] / 1e9
+        entry["bound"] = bound_ms(nbytes, flops, "bfloat16"
+                                  if dt == torch.bfloat16 else "float32")
         if dt == torch.bfloat16:
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            r["shapes"][label] = dict(
-                B=B, S=S, plain_rows=sample or S,
-                ms=event_ms(lambda: flash_attention(q, k, v),
-                            reps=2 if S > 8192 else 5),
-                plain_ms=event_ms(lambda: flash_attention_ref(
-                    q, k, v, q_rows=rows), reps=2),
-                library_ms=event_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), reps=10),
-                bound=bound_ms(*flash_costs(B, S, YI_H, YI_HD, 2),
-                                     "bfloat16"),
-                bound_f32_peak=bound_ms(
-                    *flash_costs(B, S, YI_H, YI_HD, 2), "float32"))
-            if S <= 8192:
-                r["shapes"][label]["host_us"] = host_us(
-                    lambda: flash_attention(q, k, v), reps=3)
-            del qt, kt, vt
-        del q, k, v
+            # the kernel splits P into bf16 hi + lo: its tensor cores do
+            # 1.5x the function's FLOPs (two P V products beside one Q K^T)
+            entry["bound_split_p"] = bound_ms(nbytes, 1.5 * flops,
+                                              "bfloat16")
+            entry["bound_f32_peak"] = bound_ms(nbytes, flops, "float32")
+        if S <= 8192:
+            entry["host_us"] = host_us(lambda: flash_attention(q, k, v),
+                                       reps=3)
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     r["err"] = worst
+
+
+# the tensor-core attention kernels, and the instruction their SASS must
+# hold: wgmma (HGMMA) for flash, mma.sync (HMMA) for decode
+TC_KERNELS = {"flash_tc_kernel": "HGMMA", "decode_tc_kernel": "HMMA"}
+
+
+def check_tensor_core_build(lib_path):
+    """The tensor-core kernels as built: each instantiation's registers,
+    shared memory and spills (``ptxas -v`` in build.log), and its count of
+    tensor-core instructions in the library's SASS (``cuobjdump -sass``),
+    which must not be 0."""
+    from repro_torch.kernels import _lib
+    entry, ptxas = None, {}
+    with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if any(
+                    k in line for k in TC_KERNELS) else None
+            elif entry and ("registers" in line or "spill" in line):
+                ptxas.setdefault(entry, []).append(
+                    line.replace("ptxas info    :", "").strip())
+    cuobjdump = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            kind = next((k for k in TC_KERNELS if k in fn), None)
+            if kind:
+                counts[fn] = 0
+        elif fn in counts and TC_KERNELS[kind] in line:
+            counts[fn] += 1
+    for k, instr in TC_KERNELS.items():
+        mine = {f: n for f, n in counts.items() if k in f}
+        require(bool(mine) and all(mine.values()),
+                f"SASS: {k} instantiations {mine} must each hold {instr}")
+    for f, n in counts.items():
+        kind = next(k for k in TC_KERNELS if k in f)
+        log(f"tensor cores: {f}: {n} {TC_KERNELS[kind]} in the SASS; ptxas: "
+            + " | ".join(ptxas.get(f, ["no ptxas line"])))
+    return {"sass": counts, "ptxas": ptxas}
 
 
 def check_library_kernels(torch, dev):
@@ -1232,12 +1301,17 @@ def log_library(report) -> None:
     for name, r in report.items():
         for label, e in r["shapes"].items():
             extra = ""
+            if "gb_per_s" in e:
+                extra = f"; {e['gb_per_s']:.1f} GB/s"
+            if "tflop_per_s" in e:
+                extra = f"; {e['tflop_per_s']:.1f} TFLOP/s"
             if "one_chunk_ms" in e:
-                extra = (f"; one chunk per (batch, kv head) "
-                         f"{e['one_chunk_ms']:.4f}ms")
-            if "bound_f32_peak" in e:
-                extra = (f"; bound at the fp32 peak "
-                         f"{e['bound_f32_peak'][0]:.4f}ms")
+                extra += (f"; one chunk per (batch, kv head) "
+                          f"{e['one_chunk_ms']:.4f}ms")
+            if "bound_split_p" in e:
+                extra += (f"; bound of the split-P work (1.5x) "
+                          f"{e['bound_split_p'][0]:.4f}ms, of the function "
+                          f"at the fp32 peak {e['bound_f32_peak'][0]:.4f}ms")
             if "host_us" in e:
                 extra += (f"; one eager call costs the host "
                           f"{e['host_us']:.1f}us")
@@ -1591,7 +1665,8 @@ KERNEL_META.update({
                       "src/repro/kernels/embedding_bag/kernel.py:41"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn/kernel.py:59"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+    # the bf16 main path's kernel (float32 runs csrc/flash_attn.cu)
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn_tc.cu",
                         "src/repro/kernels/flash_attn/kernel.py:67"),
 })
 WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
@@ -1643,6 +1718,8 @@ def kernel_line(results) -> dict:
                         "bound_by": e["bound"][1],
                         "library_ms": e["library_ms"],
                         "shape": LIBRARY_LINE_SHAPE[WRAPPER[name]]})
+            if "bound_split_p" in e:
+                out[-1]["bound_split_p_ms"] = e["bound_split_p"][0]
             continue
         launches = serve_out[run]["launches"][WRAPPER[name]]
         entry = {"name": name, "route": "cuda",
@@ -1704,7 +1781,6 @@ def main() -> int:
         print(f"[smoke] FAIL: the port is not importable ({e}); run from a "
               f"checkout of the repository", file=sys.stderr)
         return 3
-
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -1738,6 +1814,8 @@ def main() -> int:
         log_kernels(results["fused_kernels"])
         results["mlp_kernels"] = check_mlp_kernels(torch, dev)
         log_kernels(results["mlp_kernels"])
+        results["tensor_core_build"] = check_tensor_core_build(
+            _lib.BUILD_INFO["path"])
         results["library_kernels"] = check_library_kernels(torch, dev)
         log_library(results["library_kernels"])
         results["engine"] = check_engine(torch, np, dev, "deepfm")

@@ -30,7 +30,16 @@ KERNELS = (deepfm_score, neighbor_rank, deepfm_value_and_grad,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        for path in getattr(fn, "path_launches", ()):
+            fn.path_launches[path] = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def path_launch_counts() -> dict:
+    """For each kernel with more than one implementation (the attention
+    kernels: tensor-core and CUDA-core), its launches by path."""
+    return {fn.__name__: dict(fn.path_launches) for fn in KERNELS
+            if hasattr(fn, "path_launches")}

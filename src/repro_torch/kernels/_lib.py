@@ -78,8 +78,13 @@ SIGNATURES = {
     # chunk, n_chunks, part_acc, part_ml, out, stream
     "decode_attention": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P],
+    # the same without dtype (a bfloat16 cache)
+    "decode_attention_tc": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P, _P, _P, _P],
     # q, k, v, dtype, strides (long long[9]), out, B, S, H, hd, stream
     "flash_attention": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # the same without dtype (bfloat16)
+    "flash_attention_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # CorpusStore.dtype -> the kernels' residency code (csrc/rows.cuh)
@@ -181,6 +186,9 @@ def load() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_smem_optin.argtypes = [ctypes.c_int]
         lib.repro_smem_optin.restype = ctypes.c_int
+        lib.decode_attention_tc_resident.argtypes = [ctypes.c_int,
+                                                     ctypes.c_int]
+        lib.decode_attention_tc_resident.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

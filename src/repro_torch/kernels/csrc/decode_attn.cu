@@ -1,5 +1,9 @@
 // Flash-decode GQA attention: one query position per (batch, head)
-// against a length-masked KV cache, online softmax in float32.
+// against a length-masked KV cache, online softmax in float32. Two chunk
+// kernels share one split and one merge: a tensor-core kernel for a bf16
+// cache at hd >= 16 (decode_tc_kernel), and a CUDA-core kernel for a
+// float32 cache (TF32 stays off) and for bf16 at hd = 8, under mma's k16
+// depth (decode_chunk_kernel).
 //
 // Replaces: src/repro/kernels/decode_attn/kernel.py, decode_attention_pallas
 // (the Pallas kernel that walks the cache in T-chunks along a sequential
@@ -12,26 +16,44 @@
 // and kv head; at Yi-9B's G = 8, hd = 128 in bf16 that is ~8 FLOP per
 // byte, under the float32 FMA rate's ~20 and far under the tensor cores'.
 //
-// Design: the TPU walks T in order on one core; here one block per
+// Split: the TPU walks T in order on one core; here one block per
 // (T-chunk, kv head, batch) row runs in parallel and a second small kernel
 // merges the chunks (flash-decode), so even long_500k (B = 1, KV = 4) puts
-// ~500 blocks on the 132 SMs instead of 4. A block takes its chunk 128
-// positions at a time: (1) each thread scores one position against the G
-// query heads (its K row in 16-byte loads, q transposed in shared memory
-// and read four heads per load), (2) a warp per head folds the tile into
-// the running (m, l) and rescales, as the Pallas kernel does, with its
-// guards: a masked logit contributes 0, a chunk with no valid position
-// writes m = -inf and l = 0, and the merge divides by max(l, 1e-30), so
-// length = 0 gives zeros; (3) each thread owns one channel of the
-// accumulator for its heads (all G heads at hd = 128) and streams V rows,
-// coalesced along hd, reading P four heads per shared-memory load (this
-// halved the kernel's time on the card: shared-memory loads, not bytes
-// from device memory, were its limit). P stays in float32 (no rounding to
-// v's dtype before the product, unlike the MXU path). ``length`` is read
-// from device memory, as the Pallas kernel reads it from SMEM, so a decode
-// loop never syncs the host; positions at or beyond it are neither read
-// nor counted, so the cache needs no padding.
+// ~500 blocks on the 132 SMs instead of 4. Guards as in the Pallas kernel:
+// a masked logit contributes 0, a chunk with no valid position writes
+// m = -inf and l = 0, and the merge divides by max(l, 1e-30), so length
+// = 0 gives zeros. ``length`` is read from device memory, as the Pallas
+// kernel reads it from SMEM, so a decode loop never syncs the host;
+// positions at or beyond it are neither read nor counted, so the cache
+// needs no padding.
+//
+// decode_tc_kernel (bf16 cache): the CUDA-core kernel ran bf16 at 2.1x the
+// byte bound, held back by shared-memory loads feeding scalar FMAs and by
+// few bytes in flight. Here a block of four warps streams its chunk in
+// tiles of 64 positions (K and V, 16-byte cp.async, zero fill past the
+// length) through a three-stage ring, so up to two tiles (32 KB at hd =
+// 128) are in flight per block while one is consumed. Each warp takes 16
+// positions of a tile and keeps its own running (m, l, O) over the chunk
+// (merged across the four warps once, at the end): logits S (16 x 16) =
+// q K^T by mma.sync m16n8k16 with the G heads as the M rows (padded to
+// 16; q is the A operand, held in registers for the whole chunk; a float32
+// q is split hi + lo and multiplied twice), K through ldmatrix; the S
+// accumulator becomes P's A fragment in registers, split hi + lo, and
+// O (16 x hd) += P V with V through ldmatrix.trans. Rows are padded by 16
+// bytes in shared memory, so the ldmatrix reads are free of bank
+// conflicts. Unlike the Pallas kernel, which rounds P to v's dtype, P
+// keeps ~2^-17 through the split.
+//
+// decode_chunk_kernel (float32 cache, bf16 at hd = 8): a block takes its
+// chunk 128 positions at a time: (1) each thread scores one position
+// against the G query heads (its K row in 16-byte loads, q transposed in
+// shared memory and read four heads per load), (2) a warp per head folds
+// the tile into the running (m, l) and rescales, (3) each thread owns one
+// channel of the accumulator for its heads and streams V rows, coalesced
+// along hd, reading P four heads per shared-memory load. P stays in
+// float32.
 #include "elem.cuh"
+#include "tc.cuh"
 
 namespace repro {
 namespace {
@@ -199,8 +221,228 @@ __global__ void __launch_bounds__(kDecThreads)
   }
 }
 
+// --- the tensor-core chunk kernel (bf16 cache, hd >= 16) -------------------
+
+constexpr int kTcThreads = 128;   // four warps
+constexpr int kTcTile = 64;       // positions per tile: 16 per warp
+constexpr int kTcStages = 3;
+
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  constexpr size_t ring =
+      static_cast<size_t>(kTcStages) * 2 * kTcTile * (HD + 8) * 2;
+  constexpr size_t merge = sizeof(float) * (4 * 16 * HD + 2 * 4 * 16);
+  return ring > merge ? ring : merge;
+}
+
+template <int HD, bool QF32>
+__global__ void __launch_bounds__(kTcThreads)
+    decode_tc_kernel(const void* __restrict__ q,
+                     const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v,
+                     const int* __restrict__ len_ptr, int len_val, int T_,
+                     int KV, int G, int chunk, float scale,
+                     float* __restrict__ part_acc,
+                     float* __restrict__ part_ml) {
+  using namespace tc;
+  constexpr int P = HD + 8;      // row pitch in elements (16-byte pad)
+  constexpr int KS = HD / 16;    // k16 steps of q K^T
+  constexpr int NT = HD / 8;     // n8 tiles of O
+  constexpr int CPR = HD / 8;    // 16-byte pieces per row
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(dsmem);  // [st][K|V][pos][P]
+
+  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int H = KV * G;
+  int n = len_ptr ? *len_ptr : len_val;
+  n = n < 0 ? 0 : (n > T_ ? T_ : n);
+  const int start = c * chunk;
+  const int end = start + chunk < n ? start + chunk : n;
+  const int n_tiles = end > start ? (end - start + kTcTile - 1) / kTcTile : 0;
+
+  const size_t row_stride = static_cast<size_t>(KV) * HD;
+  const uint16_t* kb = k + (static_cast<size_t>(b) * T_ * KV + kvh) * HD;
+  const uint16_t* vb = v + (static_cast<size_t>(b) * T_ * KV + kvh) * HD;
+  auto load_tile = [&](int tile, int stage) {
+    const int t0 = start + tile * kTcTile;
+    uint16_t* ks = ring + static_cast<size_t>(stage) * 2 * kTcTile * P;
+    uint16_t* vs = ks + kTcTile * P;
+    for (int e = tid; e < kTcTile * CPR; e += kTcThreads) {
+      const int r = e / CPR, cc = e % CPR, pos = t0 + r;
+      const bool ok = pos < end;
+      const size_t off = static_cast<size_t>(ok ? pos : start) * row_stride +
+                         cc * 8;
+      cp_async_16(smem_u32(ks + r * P + cc * 8), kb + off, ok);
+      cp_async_16(smem_u32(vs + r * P + cc * 8), vb + off, ok);
+    }
+  };
+
+  // q as the A operand of every k16 step, heads g and g + 8 (0 past G)
+  uint32_t qa[KS][4], ql[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i & 1), col = kk * 16 + 2 * t + 8 * (i >> 1);
+      const size_t off = (static_cast<size_t>(b) * H + kvh * G + row) * HD +
+                         col;
+      if (QF32) {
+        float2 x = make_float2(0.0f, 0.0f);
+        if (row < G) x = *reinterpret_cast<const float2*>(
+                         static_cast<const float*>(q) + off);
+        split_bf16x2(x.x, x.y, qa[kk][i], ql[kk][i]);
+      } else {
+        qa[kk][i] = row < G ? *reinterpret_cast<const uint32_t*>(
+                                  static_cast<const uint16_t*>(q) + off)
+                            : 0u;
+        ql[kk][i] = 0u;
+      }
+    }
+  }
+
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();               // tile it landed; tile it - 1 is free
+    const int nx = it + kTcStages - 1;
+    if (nx < n_tiles) load_tile(nx, nx % kTcStages);
+    cp_async_commit();
+
+    const uint16_t* kw = ring +
+        static_cast<size_t>(it % kTcStages) * 2 * kTcTile * P + warp * 16 * P;
+    const uint16_t* vw = kw + kTcTile * P;
+
+    // S = q K^T over this warp's 16 positions (two n8 tiles)
+    float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(smem_u32(kw + ((lane % 8) + (lane / 16) * 8) * P + kk * 16 +
+                       ((lane / 8) % 2) * 8),
+              b0, b1, b2, b3);
+      mma_16816(s[0], qa[kk], b0, b1);
+      mma_16816(s[1], qa[kk], b2, b3);
+      if (QF32) {
+        mma_16816(s[0], ql[kk], b0, b1);
+        mma_16816(s[1], ql[kk], b2, b3);
+      }
+    }
+
+    // online softmax per head row (g: e = 0, 1; g + 8: e = 2, 3)
+    const int p0 = start + it * kTcTile + warp * 16;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = p0 + 8 * j + 2 * t + (e & 1) < end ? s[j][e] * scale
+                                                     : -INFINITY;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                       fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float base = m_new == -INFINITY ? 0.0f : m_new;
+      const float corr = expf(m[r] - base);       // 0 while m = -inf
+      m[r] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = expf(s[j][e] - base);         // a masked logit gives 0
+          sum += s[j][e];
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][2 * r] *= corr;
+        o[j][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V: P (16 heads x 16 positions) as one A fragment, hi and lo
+    uint32_t ph[4], pl[4];
+    split_bf16x2(s[0][0], s[0][1], ph[0], pl[0]);
+    split_bf16x2(s[0][2], s[0][3], ph[1], pl[1]);
+    split_bf16x2(s[1][0], s[1][1], ph[2], pl[2]);
+    split_bf16x2(s[1][2], s[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_trans(smem_u32(vw + ((lane % 8) + ((lane / 8) % 2) * 8) * P +
+                             jj * 16 + (lane / 16) * 8),
+                    b0, b1, b2, b3);
+      mma_16816(o[2 * jj], ph, b0, b1);
+      mma_16816(o[2 * jj], pl, b0, b1);
+      mma_16816(o[2 * jj + 1], ph, b2, b3);
+      mma_16816(o[2 * jj + 1], pl, b2, b3);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                 // the ring becomes the merge buffer
+
+  // merge the four warps' (m, l, O) of this chunk
+  float* mo = reinterpret_cast<float*>(dsmem);     // [warp * 16 + row][HD]
+  float* mm = mo + 4 * 16 * HD;                     // [warp * 16 + row]
+  float* ml = mm + 4 * 16;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(mo + row * HD + 8 * j + 2 * t) =
+          make_float2(o[j][2 * r], o[j][2 * r + 1]);
+    if (t == 0) {
+      mm[row] = m[r];
+      ml[row] = l[r];
+    }
+  }
+  __syncthreads();
+  const size_t part = (static_cast<size_t>(b) * KV + kvh) * gridDim.x + c;
+  for (int e = tid; e < G * HD; e += kTcThreads) {
+    const int row = e / HD, d = e % HD;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mm[w * 16 + row]);
+    float lsum = 0.0f, acc = 0.0f;
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float mw = mm[w * 16 + row];
+        const float f = mw == -INFINITY ? 0.0f : expf(mw - mx);
+        lsum = fmaf(ml[w * 16 + row], f, lsum);
+        acc = fmaf(mo[(w * 16 + row) * HD + d], f, acc);
+      }
+    }
+    part_acc[(part * G + row) * HD + d] = acc;
+    if (d == 0) {
+      part_ml[(part * G + row) * 2 + 0] = mx;
+      part_ml[(part * G + row) * 2 + 1] = lsum;
+    }
+  }
+}
+
 // One block per (batch, head), one thread per channel: rescale each
-// chunk's partial sums to the common max and divide once.
+// chunk's partial sums to the common max and divide once. The chunk loops
+// are unrolled so that their loads are in flight together: with hundreds
+// of chunks (long_500k) a loop of dependent loads dominated the call.
 __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
                                     const float* __restrict__ part_ml,
                                     float* __restrict__ out, int n_chunks,
@@ -211,74 +453,96 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
   const int d = threadIdx.x;
   const size_t base = (static_cast<size_t>(b) * KV + kvh) * n_chunks;
   float m = -INFINITY;
+#pragma unroll 8
   for (int c = 0; c < n_chunks; ++c)
     m = fmaxf(m, part_ml[((base + c) * G + g) * 2]);
   float l = 0.0f, acc = 0.0f;
+#pragma unroll 8
   for (int c = 0; c < n_chunks; ++c) {
     const size_t p = (base + c) * G + g;
     const float mc = part_ml[p * 2];
-    if (mc == -INFINITY) continue;
-    const float f = expf(mc - m);
+    // an empty chunk (m = -inf) wrote l = 0 and acc = 0, and adds nothing
+    const float f = mc == -INFINITY ? 0.0f : expf(mc - m);
     l = fmaf(part_ml[p * 2 + 1], f, l);
     acc = fmaf(part_acc[p * hd + d], f, acc);
   }
   out[static_cast<size_t>(bh) * hd + d] = acc / fmaxf(l, 1e-30f);
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const void* q, int q_f32, const void* k, const void* v,
-                      const int* len_ptr, int len_val, int B, int T_, int KV,
-                      int G, int chunk, int n_chunks, float* part_acc,
-                      float* part_ml, float* out, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  dim3 grid(n_chunks, KV, B);
-  decode_chunk_kernel<T, HD><<<grid, kDecThreads, 0, stream>>>(
-      q, q_f32, static_cast<const T*>(k), static_cast<const T*>(v), len_ptr,
-      len_val, T_, KV, G, chunk, scale, part_acc, part_ml);
+// The arguments of one decode call, as the C entry points take them.
+struct Args {
+  const void* q;
+  int q_f32;
+  const void* k;
+  const void* v;
+  const int* len_ptr;
+  int len_val, B, T, KV, G, chunk, n_chunks;
+  float* part_acc;
+  float* part_ml;
+  float* out;
+};
+
+// After a chunk kernel's launch: the merge over its n_chunks partials.
+cudaError_t merge(const Args& a, int hd, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<<<B * KV * G, HD, 0, stream>>>(part_acc, part_ml, out,
-                                                     n_chunks, KV, G, HD);
+  decode_merge_kernel<<<a.B * a.KV * a.G, hd, 0, stream>>>(
+      a.part_acc, a.part_ml, a.out, a.n_chunks, a.KV, a.G, hd);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(int hd, const void* q, int q_f32, const void* k,
-                   const void* v, const int* len_ptr, int len_val, int B,
-                   int T_, int KV, int G, int chunk, int n_chunks,
-                   float* part_acc, float* part_ml, float* out,
-                   cudaStream_t s) {
-  switch (hd) {
-    case 8:
-      return launch_hd<T, 8>(q, q_f32, k, v, len_ptr, len_val, B, T_, KV, G,
-                             chunk, n_chunks, part_acc, part_ml, out, s);
-    case 16:
-      return launch_hd<T, 16>(q, q_f32, k, v, len_ptr, len_val, B, T_, KV,
-                              G, chunk, n_chunks, part_acc, part_ml, out, s);
-    case 32:
-      return launch_hd<T, 32>(q, q_f32, k, v, len_ptr, len_val, B, T_, KV,
-                              G, chunk, n_chunks, part_acc, part_ml, out, s);
-    case 64:
-      return launch_hd<T, 64>(q, q_f32, k, v, len_ptr, len_val, B, T_, KV,
-                              G, chunk, n_chunks, part_acc, part_ml, out, s);
-    case 128:
-      return launch_hd<T, 128>(q, q_f32, k, v, len_ptr, len_val, B, T_, KV,
-                               G, chunk, n_chunks, part_acc, part_ml, out, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <typename T, int HD>
+cudaError_t launch_cuda_core(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.n_chunks, a.KV, a.B);
+  decode_chunk_kernel<T, HD><<<grid, kDecThreads, 0, stream>>>(
+      a.q, a.q_f32, static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.len_ptr, a.len_val, a.T, a.KV, a.G, a.chunk,
+      1.0f / sqrtf(static_cast<float>(HD)), a.part_acc, a.part_ml);
+  return merge(a, HD, stream);
+}
+
+template <int HD>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<HD>();
+  auto kernel = a.q_f32 ? decode_tc_kernel<HD, true>
+                        : decode_tc_kernel<HD, false>;
+  allow_smem(kernel, smem);
+  const dim3 grid(a.n_chunks, a.KV, a.B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      a.q, static_cast<const uint16_t*>(a.k),
+      static_cast<const uint16_t*>(a.v), a.len_ptr, a.len_val, a.T, a.KV,
+      a.G, a.chunk, 1.0f / sqrtf(static_cast<float>(HD)), a.part_acc,
+      a.part_ml);
+  return merge(a, HD, stream);
+}
+
+template <int HD>
+int tc_resident(int q_f32) {
+  constexpr size_t smem = tc_smem_bytes<HD>();
+  auto kernel = q_f32 ? decode_tc_kernel<HD, true>
+                      : decode_tc_kernel<HD, false>;
+  allow_smem(kernel, smem);
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTcThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
 }  // namespace repro
 
 // q (B, H, hd) float32 (q_f32) or in the cache's dtype; k, v (B, T, KV, hd)
-// in dtype (0 float32, 1 bfloat16); the valid prefix is *len_ptr if
-// len_ptr is not NULL, else len_val (clamped to [0, T]). The chunk kernel
-// runs n_chunks blocks of ``chunk`` positions (a multiple of 128) per
-// (batch, kv head) into part_acc (B, KV, n_chunks, G, hd) and part_ml
-// (B, KV, n_chunks, G, 2); the merge writes out (B, H, hd) float32.
-// Returns cudaGetLastError().
+// in the cache's dtype; the valid prefix is *len_ptr if len_ptr is not
+// NULL, else len_val (clamped to [0, T]). The chunk kernel runs n_chunks
+// blocks of ``chunk`` positions (a multiple of 128) per (batch, kv head)
+// into part_acc (B, KV, n_chunks, G, hd) and part_ml (B, KV, n_chunks, G,
+// 2); the merge writes out (B, H, hd) float32. Both entry points return
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments they do not
+// take.
+
+// The CUDA-core kernel: a float32 cache (dtype 0) at hd in {8, 16, 32,
+// 64, 128}, or a bfloat16 cache (dtype 1) at hd = 8.
 extern "C" int decode_attention(const void* q, int q_f32, const void* k,
                                 const void* v, int dtype, const int* len_ptr,
                                 int len_val, int B, int T, int KV, int G,
@@ -288,17 +552,58 @@ extern "C" int decode_attention(const void* q, int q_f32, const void* k,
   using namespace repro;
   if (G < 1 || G > kMaxG || chunk % kDecTile != 0 || n_chunks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, q_f32, k, v, len_ptr, len_val, B, T, KV, G, chunk,
+               n_chunks, static_cast<float*>(part_acc),
+               static_cast<float*>(part_ml), static_cast<float*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  float* o = static_cast<float*>(out);
-  if (dtype == kDTypeF32)
-    return static_cast<int>(launch<float>(hd, q, q_f32, k, v, len_ptr,
-                                          len_val, B, T, KV, G, chunk,
-                                          n_chunks, pa, pm, o, s));
   if (dtype == kDTypeBF16)
-    return static_cast<int>(launch<uint16_t>(hd, q, q_f32, k, v, len_ptr,
-                                             len_val, B, T, KV, G, chunk,
-                                             n_chunks, pa, pm, o, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(hd == 8 ? launch_cuda_core<uint16_t, 8>(a, s)
+                                    : cudaErrorInvalidValue);
+  if (dtype != kDTypeF32) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 8: return static_cast<int>(launch_cuda_core<float, 8>(a, s));
+    case 16: return static_cast<int>(launch_cuda_core<float, 16>(a, s));
+    case 32: return static_cast<int>(launch_cuda_core<float, 32>(a, s));
+    case 64: return static_cast<int>(launch_cuda_core<float, 64>(a, s));
+    case 128: return static_cast<int>(launch_cuda_core<float, 128>(a, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The tensor-core kernel: a bfloat16 cache at hd in {16, 32, 64, 128}; q
+// 8-byte aligned.
+extern "C" int decode_attention_tc(const void* q, int q_f32, const void* k,
+                                   const void* v, const int* len_ptr,
+                                   int len_val, int B, int T, int KV, int G,
+                                   int hd, int chunk, int n_chunks,
+                                   void* part_acc, void* part_ml, void* out,
+                                   void* stream) {
+  using namespace repro;
+  if (G < 1 || G > kMaxG || chunk % kTcTile != 0 || n_chunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, q_f32, k, v, len_ptr, len_val, B, T, KV, G, chunk,
+               n_chunks, static_cast<float*>(part_acc),
+               static_cast<float*>(part_ml), static_cast<float*>(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return static_cast<int>(launch_tc<16>(a, s));
+    case 32: return static_cast<int>(launch_tc<32>(a, s));
+    case 64: return static_cast<int>(launch_tc<64>(a, s));
+    case 128: return static_cast<int>(launch_tc<128>(a, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of the tensor-core chunk kernel at hd (and q_f32) that fit on one
+// SM of the current device at once, as the occupancy calculator counts
+// them; -1 on error or for a head width it does not take.
+extern "C" int decode_attention_tc_resident(int hd, int q_f32) {
+  using namespace repro;
+  switch (hd) {
+    case 16: return tc_resident<16>(q_f32);
+    case 32: return tc_resident<32>(q_f32);
+    case 64: return tc_resident<64>(q_f32);
+    case 128: return tc_resident<128>(q_f32);
+    default: return -1;
+  }
 }

@@ -1,18 +1,19 @@
-// Causal FlashAttention-2 forward: per (batch, head) and query tile, the
-// online softmax over the key tiles up to the diagonal, in float32.
+// Causal FlashAttention-2 forward on CUDA cores: per (batch, head) and
+// query tile, the online softmax over the key tiles up to the diagonal, in
+// float32. It serves float32 q/k/v (TF32 stays off, so float32 keeps its
+// CUDA-core products) and bf16 at hd = 8, under wgmma's k16 depth; bf16 at
+// hd >= 16 runs on the tensor cores (flash_attn_tc.cu).
 //
 // Replaces: src/repro/kernels/flash_attn/kernel.py, flash_attention_pallas
 // (the Pallas kernel over a (batch*heads, q-blocks, k-blocks) grid with k
 // innermost, the running max, normalizer and (Bq, hd) accumulator in VMEM
-// scratch across k, and the tiles above the diagonal skipped by pl.when).
+// scratch across k, and the tiles above the diagonal skipped by pl.when),
+// for those inputs.
 //
 // What bounds it on an H100: operations. At Yi-9B's train_4k width (S =
 // 4096, hd = 128) the causal forward does ~S * hd / 2 FLOPs for each byte
-// of q, k, v and o, far above the ~295 FLOP/byte at which bf16 tensor
-// cores stop waiting on memory. This kernel runs the products as float32
-// FMA on CUDA cores (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s
-// bf16): its distance from the tensor-core bound is the known cost of this
-// first version, and wgmma tiles are the next step.
+// of q, k, v and o; in float32 that is bound by the 67 TFLOP/s FMA peak,
+// which this kernel's tiles approach within ~2.5x.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, batch*head),
 // the heaviest (last) query tiles scheduled first. The block keeps its Q
@@ -202,16 +203,16 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, float* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(int hd, const void* q, const void* k, const void* v,
-                   float* out, int B, int S, int H, Strides sq, Strides sk,
-                   Strides sv, cudaStream_t s) {
+cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
+                       float* out, int B, int S, int H, Strides sq,
+                       Strides sk, Strides sv, cudaStream_t s) {
   switch (hd) {
-    case 8: return launch_hd<T, 8>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 16: return launch_hd<T, 16>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 32: return launch_hd<T, 32>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 64: return launch_hd<T, 64>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 128: return launch_hd<T, 128>(q, k, v, out, B, S, H, sq, sk, sv, s);
+    case 8: return launch_hd<float, 8>(q, k, v, out, B, S, H, sq, sk, sv, s);
+    case 16: return launch_hd<float, 16>(q, k, v, out, B, S, H, sq, sk, sv, s);
+    case 32: return launch_hd<float, 32>(q, k, v, out, B, S, H, sq, sk, sv, s);
+    case 64: return launch_hd<float, 64>(q, k, v, out, B, S, H, sq, sk, sv, s);
+    case 128:
+      return launch_hd<float, 128>(q, k, v, out, B, S, H, sq, sk, sv, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -219,9 +220,10 @@ cudaError_t launch(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro
 
-// q, k, v (B, S, H, hd) in dtype (0 float32, 1 bfloat16), channels
-// contiguous, batch/sequence/head strides in elements (strides[0..2] for
-// q, [3..5] for k, [6..8] for v); out (B, S, H, hd) float32, contiguous.
+// q, k, v (B, S, H, hd) in dtype (0 float32 at any hd, 1 bfloat16 at
+// hd = 8 only), channels contiguous, batch/sequence/head strides in
+// elements (strides[0..2] for q, [3..5] for k, [6..8] for v); out (B, S,
+// H, hd) float32, contiguous.
 // Causal. Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int dtype, const long long* strides,
@@ -236,9 +238,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   float* o = static_cast<float*>(out);
   if (dtype == kDTypeF32)
     return static_cast<int>(
-        launch<float>(hd, q, k, v, o, B, S, H, sq, sk, sv, s));
-  if (dtype == kDTypeBF16)
+        launch_f32(hd, q, k, v, o, B, S, H, sq, sk, sv, s));
+  if (dtype == kDTypeBF16 && hd == 8)
     return static_cast<int>(
-        launch<uint16_t>(hd, q, k, v, o, B, S, H, sq, sk, sv, s));
+        launch_hd<uint16_t, 8>(q, k, v, o, B, S, H, sq, sk, sv, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,13 @@
-"""Wrapper of the flash-decode GQA attention kernel
-(``csrc/decode_attn.cu``): checks its arguments, launches the kernel for
-CUDA tensors, and uses the plain version only for CPU tensors."""
+"""Wrapper of the flash-decode GQA attention kernels
+(``csrc/decode_attn.cu``): checks its arguments, launches a kernel for
+CUDA tensors, and uses the plain version only for CPU tensors.
+
+Two chunk kernels share the split and the merge, chosen by the cache's
+dtype and the head width alone (``kernel_path``): a bfloat16 cache at
+hd >= 16 runs on the tensor cores (mma.sync fed by a cp.async ring, P and
+a float32 q split into bf16 hi + lo); a float32 cache (TF32 stays off) and
+bfloat16 at hd = 8, under mma's k16 depth, run on the CUDA cores.
+``decode_attention.path_launches`` counts the launches of each."""
 from __future__ import annotations
 
 import functools
@@ -10,15 +17,41 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernel's compiled head widths
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernels' compiled head widths
+TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 widths on the tensor cores
 MAX_GROUP = 16                     # query heads per kv head (csrc kMaxG)
-TILE = 128                         # positions per tile (csrc kDecTile)
+TILE = 128                         # chunk granule (csrc kDecTile; kTcTile
+                                   # = 64 divides it)
 BLOCKS_PER_SM = 16                 # the split's target occupancy
+
+
+def kernel_path(cache_dtype: torch.dtype, hd: int) -> str:
+    """Which chunk kernel a CUDA call launches: ``"tensor_core"`` or
+    ``"cuda_core"``."""
+    if cache_dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_resident(index: int, hd: int, q_f32: bool) -> int:
+    """Blocks of the tensor-core chunk kernel at ``hd`` that fit on one SM
+    of card ``index`` at once, as the CUDA occupancy calculator counts them
+    (2 at hd = 128, 104 KB of shared memory each). With few (batch, kv
+    head) rows ``split`` fills exactly one wave of them: at long_500k
+    (hd = 128) one wave, 64 chunks, took 0.38 ms, 512 chunks 0.50 and 1.3
+    waves 0.49-0.54 (PERF.md §6, runs P2-P8); only hd = 128 was timed."""
+    with torch.cuda.device(index):
+        n = _lib.load().decode_attention_tc_resident(hd, int(q_f32))
+    if n < 1:
+        raise RuntimeError(f"decode_attention: no resident count of the "
+                           f"tensor-core kernel at hd={hd} on cuda:{index}")
+    return n
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -32,11 +65,15 @@ def chunking(T: int, n_chunks: int):
     return chunk, max(1, _cdiv(T, chunk))
 
 
-def split(B: int, KV: int, T: int, sms: int):
+def split(B: int, KV: int, T: int, sms: int, resident: int = 0):
     """(chunk, n_chunks) per (batch, kv head) such that B * KV * n_chunks
     is about BLOCKS_PER_SM blocks per SM, with no chunk shorter than one
-    tile."""
-    n = _cdiv(BLOCKS_PER_SM * sms, B * KV)
+    tile; with ``resident`` (blocks that fit on an SM at once) and fewer
+    rows than one wave of them, exactly one wave instead."""
+    if resident and B * KV < resident * sms:
+        n = resident * sms // (B * KV)
+    else:
+        n = _cdiv(BLOCKS_PER_SM * sms, B * KV)
     return chunking(T, max(1, min(n, _cdiv(T, TILE))))
 
 
@@ -64,8 +101,9 @@ def _check(q, k, v):
 
 
 def _launch(q, k, v, length, n_chunks=None):
-    """Launch the chunk and merge kernels (no launch count; the public
-    wrapper counts). ``n_chunks`` None splits T as ``split`` says."""
+    """Launch the chunk and merge kernels; returns (out, path). No launch
+    count: the public wrapper counts. ``n_chunks`` None splits T as
+    ``split`` says."""
     B, H, hd, T, KV = _check(q, k, v)
     dev = k.device
     G = H // KV
@@ -75,9 +113,9 @@ def _launch(q, k, v, length, n_chunks=None):
                          f"per kv head, got hd={hd}, G={G}")
     _lib.require(q, "q", dev, (B, H, hd), q.dtype)
     _lib.require(k, "k", dev, (B, T, KV, hd), k.dtype)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 8:
         raise ValueError("decode_attention: the cache must be 16-byte "
-                         "aligned")
+                         "aligned and q 8-byte aligned")
     if isinstance(length, torch.Tensor):
         if length.numel() != 1 or length.dtype != torch.int32 \
                 or length.device != dev:
@@ -86,8 +124,13 @@ def _launch(q, k, v, length, n_chunks=None):
         len_ptr, len_val = length.data_ptr(), 0
     else:
         len_ptr, len_val = None, int(length)
+    path = kernel_path(k.dtype, hd)
     if n_chunks is None:
-        chunk, n_chunks = split(B, KV, T, _sm_count(dev.index or 0))
+        index = dev.index or 0
+        chunk, n_chunks = split(
+            B, KV, T, _sm_count(index),
+            _tc_resident(index, hd, q.dtype == torch.float32)
+            if path == "tensor_core" else 0)
     else:
         chunk, n_chunks = chunking(T, n_chunks)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
@@ -95,13 +138,19 @@ def _launch(q, k, v, length, n_chunks=None):
                            device=dev)
     part_ml = torch.empty((B, KV, n_chunks, G, 2), dtype=torch.float32,
                           device=dev)
-    rc = _lib.load().decode_attention(
-        q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(),
-        v.data_ptr(), _lib.DTYPE[k.dtype], len_ptr, len_val, B, T, KV, G, hd,
-        chunk, n_chunks, part_acc.data_ptr(), part_ml.data_ptr(),
-        out.data_ptr(), _lib.stream_of(dev))
-    _lib.check(rc, "decode_attention")
-    return out
+    lib = _lib.load()
+    args = (len_ptr, len_val, B, T, KV, G, hd, chunk, n_chunks,
+            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            _lib.stream_of(dev))
+    q_f32 = int(q.dtype == torch.float32)
+    if path == "tensor_core":
+        rc = lib.decode_attention_tc(q.data_ptr(), q_f32, k.data_ptr(),
+                                     v.data_ptr(), *args)
+    else:
+        rc = lib.decode_attention(q.data_ptr(), q_f32, k.data_ptr(),
+                                  v.data_ptr(), _lib.DTYPE[k.dtype], *args)
+    _lib.check(rc, f"decode_attention ({path})")
+    return out, path
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,17 +161,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the host): the valid prefix, clamped to [0, T]. Returns (B, H, hd)
     float32; an empty prefix gives zeros.
 
-    ``block_t`` is kept from the JAX signature; on the card the kernel
-    chooses its own tile (128 positions) and splits T across blocks."""
+    ``block_t`` is kept from the JAX signature; on the card the kernels
+    choose their own tiles and split T across blocks."""
     del block_t
     if k.device.type == "cpu":
         _check(q, k, v)
         return decode_attention_ref(q, k, v, length)
     if k.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {k.device}")
-    out = _launch(q, k, v, length)
+    out, path = _launch(q, k, v, length)
     decode_attention.launches += 1
+    decode_attention.path_launches[path] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}

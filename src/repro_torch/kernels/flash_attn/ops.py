@@ -1,6 +1,13 @@
-"""Wrapper of the causal flash-attention forward kernel
-(``csrc/flash_attn.cu``): checks its arguments, launches the kernel for
-CUDA tensors, and uses the plain version only for CPU tensors."""
+"""Wrapper of the causal flash-attention forward kernels: checks its
+arguments, launches a kernel for CUDA tensors, and uses the plain version
+only for CPU tensors.
+
+Two kernels, chosen by dtype and head width alone (``kernel_path``):
+bfloat16 at hd >= 16 runs on the tensor cores (``csrc/flash_attn_tc.cu``,
+wgmma fed by TMA, P split into bf16 hi + lo); float32 (TF32 stays off) and
+bfloat16 at hd = 8, under wgmma's k16 depth, run on the CUDA cores
+(``csrc/flash_attn.cu``). ``flash_attention.path_launches`` counts the
+launches of each."""
 from __future__ import annotations
 
 import ctypes
@@ -10,7 +17,37 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernel's compiled head widths
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernels' compiled head widths
+TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 widths on the tensor cores
+TMA_ALIGN = 16                     # bytes: TMA's base and stride rule
+
+
+def kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel a CUDA call launches: ``"tensor_core"`` or
+    ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _strides(q, k, v):
+    return (ctypes.c_longlong * 9)(*[t.stride(i) for t in (q, k, v)
+                                     for i in range(3)])
+
+
+def _check_tma(q, k, v):
+    """The tensor-core kernel reads q, k, v through TMA descriptors: each
+    base 16-byte aligned and each batch, sequence and head stride a
+    multiple of 16 bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % TMA_ALIGN or any(
+                (t.stride(i) * t.element_size()) % TMA_ALIGN
+                for i in range(3)):
+            raise ValueError(
+                f"flash_attention: bf16 {name} is read by TMA, which needs "
+                f"a 16-byte-aligned base and batch/sequence/head strides "
+                f"that are multiples of 16 bytes; got strides "
+                f"{tuple(t.stride())} at address {t.data_ptr():#x}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,8 +58,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32.
 
     ``block_q`` and ``block_k`` are kept from the JAX signature; on the
-    card the kernel chooses its own tiles (64 x 64) and masks the ragged
-    S edge itself, so any S works."""
+    card the kernels choose their own tiles and mask the ragged S edge
+    themselves, so any S works."""
     del block_q, block_k
     if q.dim() != 4 or q.dtype not in _lib.DTYPE:
         raise TypeError(f"flash_attention: q must be (B, S, H, hd) float32 "
@@ -38,20 +75,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes hd in "
+        raise ValueError(f"flash_attention: the kernels take hd in "
                          f"{HEAD_DIMS}, got {hd}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the channel dim must be "
                          "contiguous")
-    strides = (ctypes.c_longlong * 9)(*[t.stride(i) for t in (q, k, v)
-                                        for i in range(3)])
+    path = kernel_path(q.dtype, hd)
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
-    rc = _lib.load().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _lib.DTYPE[q.dtype],
-        strides, out.data_ptr(), B, S, H, hd, _lib.stream_of(q.device))
-    _lib.check(rc, "flash_attention")
+    lib = _lib.load()
+    if path == "tensor_core":
+        _check_tma(q, k, v)
+        rc = lib.flash_attention_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
+            out.data_ptr(), B, S, H, hd, _lib.stream_of(q.device))
+    else:
+        rc = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _lib.DTYPE[q.dtype],
+            _strides(q, k, v), out.data_ptr(), B, S, H, hd,
+            _lib.stream_of(q.device))
+    _lib.check(rc, f"flash_attention ({path})")
     flash_attention.launches += 1
+    flash_attention.path_launches[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}

@@ -17,7 +17,12 @@ Tolerances:
   2^-8 per weight); the port keeps P in float32.
 - The model layers: 1e-5 in float32; 2e-2 in bfloat16 (both sides cast
   the probabilities to bf16 and multiply in bf16).
+- The emulations of the tensor-core kernels' arithmetic (bf16 inputs, a
+  tile-wise online softmax, P and a float32 q split into bf16 hi + lo,
+  float32 sums): 2e-4 against the jnp refs and the Pallas kernels, fed the
+  same bf16 values as float32 (so the Pallas kernels do not round P).
 """
+import math
 import sys
 from pathlib import Path
 
@@ -36,6 +41,10 @@ from repro.kernels.flash_attn import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro_torch.kernels import decode_attention, flash_attention  # noqa: E402
+from repro_torch.kernels.decode_attn import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    flash_attention_ref as port_flash_ref)
 from repro_torch.models import layers  # noqa: E402
 
 BF16 = ml_dtypes.bfloat16
@@ -236,6 +245,202 @@ def test_flash_wrapper_refuses_bad_arguments():
         flash_attention(q, q, q.bfloat16())
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernels' arithmetic (csrc/flash_attn_tc.cu and the bf16
+# chunk kernel of csrc/decode_attn.cu), emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+
+# the card's kernel-vs-plain check (chip_smoke.ATTN_RTOL, ATTN_ATOL)
+CARD_RTOL, CARD_ATOL = 1e-4, 1e-5
+
+
+def _split(x):
+    """float32 -> (hi, lo) bf16: hi = bf16(x), lo = bf16(x - hi), as the
+    kernels split P (and decode a float32 q) for two bf16 products."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_matmul(a, b):
+    """a (float32) @ b (bf16) as the tensor cores do it: a split hi + lo,
+    two bf16 products, float32 sums."""
+    hi, lo = _split(a)
+    return hi.float() @ b.float() + lo.float() @ b.float()
+
+
+def flash_tc_emulation(q, k, v, tile=128, split_p=True):
+    """The tensor-core flash kernel's arithmetic on bf16 (B, S, H, hd):
+    key tiles of ``tile`` up to the diagonal, the online softmax in
+    float32 (a masked logit gives 0, m = -inf keeps exponent base 0), and
+    O += P V with P split hi + lo (or, with ``split_p`` False, rounded once
+    to bf16 as the Pallas kernel does). Returns (B, S, H, hd) float32."""
+    B, S, H, hd = q.shape
+    qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd)
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = (qf.float() @ kt.float().transpose(-1, -2)) / math.sqrt(hd)
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        s = s.masked_fill(kpos > qpos, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == -math.inf, 0.0, m_new)
+        corr, p = torch.exp(m - base), torch.exp(s - base)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = _split_matmul(p, vt) if split_p else \
+            p.to(torch.bfloat16).float() @ vt.float()
+        acc, m = acc * corr + pv, m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+def decode_tc_emulation(q, k, v, length, tile=64):
+    """The tensor-core decode kernel's arithmetic: q (B, H, hd) bf16 or
+    float32 (split hi + lo, two products), a bf16 (B, T, KV, hd) cache
+    walked in tiles of ``tile`` positions below ``length``, the online
+    softmax in float32, P split hi + lo. Returns (B, H, hd) float32;
+    length <= 0 gives zeros."""
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    n = max(0, min(int(length), T))
+    qg = q.reshape(B, KV, G, 1, hd)
+    parts = _split(qg.float()) if q.dtype == torch.float32 else (qg,)
+    kf = k.permute(0, 2, 1, 3)[:, :, None]    # (B, KV, 1, T, hd)
+    vf = v.permute(0, 2, 1, 3)[:, :, None]
+    m = torch.full((B, KV, G, 1, 1), -math.inf)
+    l = torch.zeros((B, KV, G, 1, 1))
+    acc = torch.zeros((B, KV, G, 1, hd))
+    for t0 in range(0, n, tile):
+        t1 = min(t0 + tile, n)
+        kt, vt = kf[:, :, :, t0:t1], vf[:, :, :, t0:t1]
+        s = sum(part.float() @ kt.float().transpose(-1, -2)
+                for part in parts) / math.sqrt(hd)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc, m = acc * corr + _split_matmul(p, vt), m_new
+    return (acc / l.clamp_min(1e-30)).reshape(B, H, hd)
+
+
+def _bf16_values(seed, *shape):
+    """N(0, 1) values rounded to bf16: as a bf16 tensor for the emulation
+    and as float32 numpy for the JAX side (the same numbers)."""
+    t = torch.from_numpy(_normal(seed, *shape)).to(torch.bfloat16)
+    return t, t.float().numpy()
+
+
+@pytest.mark.parametrize("dist", ["normal", "probabilities", "wide"])
+def test_bf16_split_reconstructs_float32(dist):
+    """hi + lo is within 2^-16 of x, relative, for float32 x (N(0, 1),
+    softmax weights in (0, 1], and magnitudes across 2^-60..2^60)."""
+    rng = np.random.default_rng(40)
+    x = rng.normal(size=100_000).astype(np.float32)
+    if dist == "probabilities":
+        x = np.exp(-np.abs(x) * 8).astype(np.float32)
+    elif dist == "wide":
+        x = (x * np.exp2(rng.integers(-60, 60, size=x.size))).astype(
+            np.float32)
+    xt = torch.from_numpy(x)
+    hi, lo = _split(xt)
+    err = (hi.double() + lo.double() - xt.double()).abs()
+    assert (err <= 2.0 ** -16 * xt.double().abs()).all()
+    assert (err / xt.double().abs()).max() < 2.0 ** -16
+
+
+FLASH_TC_SWEEP = [c[:4] for c in FLASH_SWEEP if c[3] in
+                  flash_ops.TC_HEAD_DIMS] + [(2, 77, 8, 16), (1, 300, 2, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,hd", FLASH_TC_SWEEP)
+def test_flash_tc_emulation_matches_jax(b, s, h, hd):
+    (q, qn), (k, kn), (v, vn) = (_bf16_values(s + i, b, s, h, hd)
+                                 for i in range(3))
+    got = flash_tc_emulation(q, k, v)
+    jq, jk, jv = jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn)
+    bq = 32 if s % 32 == 0 else 16
+    for want in (flash_attention_ref(jq, jk, jv),
+                 jax_flash(jq, jk, jv, block_q=bq, block_k=bq)):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_flash_tc_split_holds_the_card_tolerance():
+    """At hd = 128 over 512 keys: P split hi + lo stays inside the card's
+    check against the exact plain version; P rounded once to bf16 (the
+    Pallas way) misses it many times over. This is why the kernel splits."""
+    q, k, v = (_bf16_values(50 + i, 1, 512, 2, 128)[0] for i in range(3))
+    want = port_flash_ref(q, k, v).double()
+    lim = CARD_ATOL + CARD_RTOL * want.abs()
+    split = ((flash_tc_emulation(q, k, v).double() - want).abs() / lim).max()
+    once = ((flash_tc_emulation(q, k, v, split_p=False).double() - want)
+            .abs() / lim).max()
+    assert split < 0.5 and once > 20
+
+
+DECODE_TC_SWEEP = [c[:6] for c in DECODE_SWEEP]
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,kv,hd,t,ln", DECODE_TC_SWEEP)
+def test_decode_tc_emulation_matches_jax(b, h, kv, hd, t, ln, q_dtype):
+    (q, qn), (k, kn), (v, vn) = (_bf16_values(b * t, b, h, hd),
+                                 _bf16_values(b * t + 1, b, t, kv, hd),
+                                 _bf16_values(b * t + 2, b, t, kv, hd))
+    if q_dtype == "float32":   # a float32 q over the bf16 cache
+        qn = _normal(b * t + 3, b, h, hd)
+        q = torch.from_numpy(qn)
+    got = decode_tc_emulation(q, k, v, ln)
+    jq, jk, jv = jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn)
+    for want in (decode_attention_ref(jq, jk, jv, jnp.int32(ln)),
+                 jax_decode(jq, jk, jv, ln, block_t=64)):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("length", [0, -3, 700])
+def test_decode_tc_emulation_edges_match_pallas(length):
+    """length 0 (or below) gives zeros, length > T acts as T, as in the
+    Pallas kernel (the jnp ref gives NaN at 0)."""
+    (q, qn), (k, kn), (v, vn) = (_bf16_values(60, 2, 8, 32),
+                                 _bf16_values(61, 2, 256, 2, 32),
+                                 _bf16_values(62, 2, 256, 2, 32))
+    got = decode_tc_emulation(q, k, v, length)
+    want = jax_decode(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+                      max(length, 0), block_t=64)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
+    if length <= 0:
+        assert (got == 0).all()
+
+
+def test_decode_split_fills_one_wave_for_the_tensor_cores():
+    """The split aims at BLOCKS_PER_SM blocks per SM in chunks of whole
+    tiles; for the tensor-core kernel with fewer (batch, kv head) rows
+    than one wave of resident blocks, at exactly one wave."""
+    for B, T in ((128, 32768), (1, 524288), (1, 4096), (4, 300)):
+        for resident in (0, 2, 4):
+            chunk, n = decode_ops.split(B, 4, T, 132, resident)
+            assert chunk % decode_ops.TILE == 0
+            assert (n - 1) * chunk < T <= n * chunk
+            if resident:
+                assert B * 4 * n <= max(resident * 132, B * 4 * 5)
+    assert decode_ops.split(128, 4, 32768, 132) == (6656, 5)
+    assert decode_ops.split(128, 4, 32768, 132, 2) == (6656, 5)
+    assert decode_ops.split(1, 4, 524288, 132, 2) == (8064, 66)
+    assert decode_ops.split(1, 4, 524288, 132) == (1024, 512)
+
+
+@pytest.mark.parametrize("module", [flash_ops, decode_ops])
+def test_kernel_path_by_dtype_and_head_width(module):
+    """bf16 at hd >= 16 goes to the tensor cores; float32 (TF32 off) and
+    bf16 at hd = 8 (under the MMA's k16 depth) stay on the CUDA cores."""
+    for hd in module.HEAD_DIMS:
+        assert module.kernel_path(torch.float32, hd) == "cuda_core"
+        assert module.kernel_path(torch.bfloat16, hd) == (
+            "cuda_core" if hd == 8 else "tensor_core")
 
 
 # ---------------------------------------------------------------------------
