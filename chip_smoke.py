@@ -7,8 +7,9 @@ the MLP ones at several depths; the library kernels embedding_bag,
 decode_attention and flash_attention at the JAX test shapes and at
 DLRM-RM2 and Yi-9B widths in float32 and bfloat16, driven once each as
 the slice's main path and timed beside one PyTorch call of the same
-function; bf16 attention on the tensor cores, checked in the SASS and in
-each launch's path), runs the engine with the DeepFM and the
+function; attention on the tensor cores, bf16 by wgmma and mma.sync and
+float32 in 3xTF32 by both, checked in the SASS, in ptxas's spill report
+and in each launch's path), runs the engine with the DeepFM and the
 MLP measure on the card against the same engine on the CPU, serves the
 GUITAR search at N=100,000 through the port's oneshot serving path (DeepFM
 unfused, fused at float32, bfloat16 and int8, and int8 with adaptive angle
@@ -39,10 +40,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor) peak and
-# dense bf16 tensor-core peak
+# dense bf16 and TF32 tensor-core peaks
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12
+H100_TF32_FLOPS = 495e12
 
 # kernel-vs-plain tolerances on the card. Both compute in fp32 and differ
 # only in summation order (warp shuffles and FMA chains vs cuBLAS), a few
@@ -125,8 +127,10 @@ def host_us(fn, reps: int = 200) -> float:
 def bound_ms(nbytes: float, flops: float, dtype: str = "float32"):
     """The least time of a call: the larger of its bytes over the memory
     rate and its FLOPs over the peak of its input dtype (the bf16 tensor
-    peak for bfloat16 inputs, the fp32 peak otherwise), and which one."""
-    peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_FP32_FLOPS
+    peak for bfloat16 inputs, the TF32 tensor peak for "tf32", the fp32
+    peak otherwise), and which one."""
+    peak = {"bfloat16": H100_BF16_FLOPS, "tf32": H100_TF32_FLOPS}.get(
+        dtype, H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1142,57 +1146,73 @@ def check_library_flash(torch, dev, report):
     from repro_torch.kernels import flash_attention, path_launch_counts
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     gen = torch.Generator(device="cpu").manual_seed(31)
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}   # by the inputs' dtype
 
-    def check(got, want, label):
-        nonlocal worst
+    def check(got, want, label, dt):
         require(got.dtype == torch.float32 and got.shape == want.shape,
                 f"{label}: {got.dtype} {tuple(got.shape)}")
         err, ratio = close_err(got, want, ATTN_RTOL, ATTN_ATOL)
         require(ratio <= 1.0, f"{label}: max_abs_err {err:.3e} (err/tol "
                 f"{ratio:.3f})")
-        worst = max(worst, err)
+        key = str(dt).split(".")[-1]
+        worst[key] = max(worst[key], err)
         return err
 
     # -- the JAX test shapes (tests/test_kernels.py:158), the smoke width
     #    of Yi-9B, ragged S, hd = 128, and a strided q
-    n_cases = 0
+    n_cases = {torch.float32: 0, torch.bfloat16: 0}
+    by_path = {dt: {} for dt in n_cases}
     for b, s, h, hd in ((2, 128, 4, 32), (1, 100, 2, 16), (2, 256, 2, 64),
                         (1, 64, 8, 8), (2, 77, 8, 16), (1, 300, 2, 128)):
         for dt in (torch.float32, torch.bfloat16):
+            before = dict(path_launch_counts()["flash_attention"])
             q, k, v = (torch.randn((b, s, h, hd), generator=gen).to(dev, dt)
                        for _ in range(3))
             want = flash_attention_ref(q, k, v)
             check(flash_attention(q, k, v), want,
-                  f"flash_attention {dt} B={b} S={s} H={h} hd={hd}")
+                  f"flash_attention {dt} B={b} S={s} H={h} hd={hd}", dt)
             qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
                           for x in (q, k, v))
             check(flash_attention(qt, k, v), want,
-                  f"flash_attention {dt} B={b} S={s} strided q")
+                  f"flash_attention {dt} B={b} S={s} strided q", dt)
             check(flash_attention(q, kt, vt), want,
-                  f"flash_attention {dt} B={b} S={s} strided k and v")
-            n_cases += 3
-    log(f"flash_attention: {n_cases} cases at the JAX test shapes (f32 and "
-        f"bf16, hd 8-128, ragged S, strided q, strided k and v) match the "
-        f"plain version; launches by path "
-        f"{path_launch_counts()['flash_attention']}")
+                  f"flash_attention {dt} B={b} S={s} strided k and v", dt)
+            n_cases[dt] += 3
+            for p, n in path_launch_counts()["flash_attention"].items():
+                if n > before[p]:
+                    by_path[dt][p] = by_path[dt].get(p, 0) + n - before[p]
+    for dt, n in n_cases.items():
+        log(f"flash_attention {dt}: {n} cases at the JAX test shapes (hd "
+            f"8-128, ragged S, strided q, strided k and v) match the plain "
+            f"version; launches by path {by_path[dt]}")
+    require(by_path[torch.float32] == {"tensor_core_tf32":
+                                       n_cases[torch.float32]},
+            f"flash_attention float32 launches by path "
+            f"{by_path[torch.float32]}: every float32 case must take the "
+            f"3xTF32 tensor-core kernel")
 
-    # -- Yi-9B: train_4k width (B=8 of 256) and one prefill_32k-long call
+    # -- Yi-9B: train_4k width (B=8 of 256; f32 at B=1) and one
+    #    prefill_32k-long call; each train_4k case is driven once as a
+    #    segment of the main path
     r = report["flash_attention"] = {"shapes": {}}
     cases = (("train_4k bf16 B=8", 8, 4096, torch.bfloat16, None),
              ("train_4k f32 B=1", 1, 4096, torch.float32, None),
              ("prefill_32k bf16 B=1", 1, 32768, torch.bfloat16, 256))
+    segment_path = {"train_4k bf16 B=8": "tensor_core",
+                    "train_4k f32 B=1": "tensor_core_tf32"}
     for label, B, S, dt, sample in cases:
         g = torch.Generator(device=dev).manual_seed(32)
         q, k, v = (torch.randn((B, S, YI_H, YI_HD), device=dev, generator=g,
                                dtype=dt) for _ in range(3))
-        if label == "train_4k bf16 B=8":
+        launches = None
+        if label in segment_path:
             # the main path: one causal prefill through the public wrapper
-            out, launches = drive_segment(torch, "Yi-9B train_4k prefill",
-                                          "flash_attention",
-                                          lambda: flash_attention(q, k, v),
-                                          1, path="tensor_core")
-            r["launches"] = launches
+            out, launches = drive_segment(
+                torch, f"Yi-9B {label} prefill", "flash_attention",
+                lambda: flash_attention(q, k, v), 1,
+                path=segment_path[label])
+            if label == "train_4k bf16 B=8":
+                r["launches"] = launches
         else:
             out = flash_attention(q, k, v)
         rows = None
@@ -1204,14 +1224,14 @@ def check_library_flash(torch, dev, report):
             got = out.index_select(1, rows)
         else:
             want, got = flash_attention_ref(q, k, v), out
-        err = check(got, want, f"flash_attention Yi-9B {label}")
+        err = check(got, want, f"flash_attention Yi-9B {label}", dt)
         log(f"flash_attention Yi-9B {label}: max_abs_err {err:.3e}"
             + (f" over {sample} sampled query rows" if sample else ""))
         del out, want, got
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         nbytes, flops = flash_costs(B, S, YI_H, YI_HD, q.element_size())
         entry = r["shapes"][label] = dict(
-            B=B, S=S, plain_rows=sample or S,
+            B=B, S=S, plain_rows=sample or S, dtype=str(dt).split(".")[-1],
             ms=event_ms(lambda: flash_attention(q, k, v),
                         reps=2 if S > 8192 else 5),
             plain_ms=event_ms(lambda: flash_attention_ref(
@@ -1219,32 +1239,48 @@ def check_library_flash(torch, dev, report):
             library_ms=event_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), reps=10))
         entry["tflop_per_s"] = flops / entry["ms"] / 1e9
+        # ``bound``: the function's own work at the card's fastest rate for
+        # its input dtype (bf16 tensor peak for bf16, TF32 tensor peak for
+        # float32); the split's extra work and the fp32 (FMA) peak are
+        # side figures
         entry["bound"] = bound_ms(nbytes, flops, "bfloat16"
-                                  if dt == torch.bfloat16 else "float32")
+                                  if dt == torch.bfloat16 else "tf32")
+        entry["bound_f32_peak"] = bound_ms(nbytes, flops, "float32")
+        if launches is not None:
+            entry["launches"] = launches
         if dt == torch.bfloat16:
             # the kernel splits P into bf16 hi + lo: its tensor cores do
             # 1.5x the function's FLOPs (two P V products beside one Q K^T)
             entry["bound_split_p"] = bound_ms(nbytes, 1.5 * flops,
                                               "bfloat16")
-            entry["bound_f32_peak"] = bound_ms(nbytes, flops, "float32")
+        else:
+            # 3xTF32: every product taken three times on the TF32 tensor
+            # cores
+            entry["bound_split_tf32"] = bound_ms(nbytes, 3 * flops, "tf32")
         if S <= 8192:
             entry["host_us"] = host_us(lambda: flash_attention(q, k, v),
                                        reps=3)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    r["err"] = worst
+    r["err"] = max(worst.values())
+    r["err_by_dtype"] = worst
 
 
-# the tensor-core attention kernels, and the instruction their SASS must
-# hold: wgmma (HGMMA) for flash, mma.sync (HMMA) for decode
-TC_KERNELS = {"flash_tc_kernel": "HGMMA", "decode_tc_kernel": "HMMA"}
+# the tensor-core attention kernels, and the instructions their SASS must
+# hold: wgmma (HGMMA) for bf16 flash, mma.sync (HMMA) for decode, both for
+# float32 flash (S by wgmma, P V by mma.sync, TF32)
+TC_KERNELS = {"flash_tc_kernel": ("HGMMA",), "decode_tc_kernel": ("HMMA",),
+              "flash_tf32_kernel": ("HGMMA", "HMMA")}
+# those whose every instantiation must build without a spill
+NO_SPILL = ("flash_tf32_kernel",)
 
 
 def check_tensor_core_build(lib_path):
     """The tensor-core kernels as built: each instantiation's registers,
     shared memory and spills (``ptxas -v`` in build.log), and its count of
     tensor-core instructions in the library's SASS (``cuobjdump -sass``),
-    which must not be 0."""
+    which must not be 0; a ``NO_SPILL`` kernel must report 0 bytes of
+    spill stores and loads."""
     from repro_torch.kernels import _lib
     entry, ptxas = None, {}
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
@@ -1264,17 +1300,25 @@ def check_tensor_core_build(lib_path):
             fn = line.split("Function :")[1].strip()
             kind = next((k for k in TC_KERNELS if k in fn), None)
             if kind:
-                counts[fn] = 0
-        elif fn in counts and TC_KERNELS[kind] in line:
-            counts[fn] += 1
-    for k, instr in TC_KERNELS.items():
-        mine = {f: n for f, n in counts.items() if k in f}
-        require(bool(mine) and all(mine.values()),
-                f"SASS: {k} instantiations {mine} must each hold {instr}")
+                counts[fn] = dict.fromkeys(TC_KERNELS[kind], 0)
+        elif fn in counts:
+            for instr in counts[fn]:
+                # "HMMA" is not a substring of "HGMMA"
+                counts[fn][instr] += instr in line
     for f, n in counts.items():
-        kind = next(k for k in TC_KERNELS if k in f)
-        log(f"tensor cores: {f}: {n} {TC_KERNELS[kind]} in the SASS; ptxas: "
+        log(f"tensor cores: {f}: {n} in the SASS; ptxas: "
             + " | ".join(ptxas.get(f, ["no ptxas line"])))
+    for k, instrs in TC_KERNELS.items():
+        mine = {f: n for f, n in counts.items() if k in f}
+        require(bool(mine) and all(all(n.values()) for n in mine.values()),
+                f"SASS: {k} instantiations {mine} must each hold "
+                f"{' and '.join(instrs)}")
+    for f in counts:
+        if any(k in f for k in NO_SPILL):
+            spills = [x for x in ptxas.get(f, []) if "spill" in x]
+            require(bool(spills) and all(
+                "0 bytes spill stores, 0 bytes spill loads" in x
+                for x in spills), f"ptxas: {f} spills ({spills})")
     return {"sass": counts, "ptxas": ptxas}
 
 
@@ -1291,10 +1335,11 @@ def check_library_kernels(torch, dev):
     return report
 
 
-# the shape whose numbers each library kernel reports in the kernels line
+# the shape whose numbers each library kernel of the kernels line reports
 LIBRARY_LINE_SHAPE = {"embedding_bag": "train_batch L=1 float32",
                       "decode_attention": "decode_32k bf16",
-                      "flash_attention": "train_4k bf16 B=8"}
+                      "flash_attention": "train_4k bf16 B=8",
+                      "flash_attention_f32": "train_4k f32 B=1"}
 
 
 def log_library(report) -> None:
@@ -1310,8 +1355,15 @@ def log_library(report) -> None:
                           f"{e['one_chunk_ms']:.4f}ms")
             if "bound_split_p" in e:
                 extra += (f"; bound of the split-P work (1.5x) "
-                          f"{e['bound_split_p'][0]:.4f}ms, of the function "
-                          f"at the fp32 peak {e['bound_f32_peak'][0]:.4f}ms")
+                          f"{e['bound_split_p'][0]:.4f}ms")
+            if "bound_split_tf32" in e:
+                extra += (f"; bound of the 3xTF32 work (3x) at the TF32 "
+                          f"peak {e['bound_split_tf32'][0]:.4f}ms")
+            if "bound_f32_peak" in e:
+                extra += (f"; of the function at the fp32 peak "
+                          f"{e['bound_f32_peak'][0]:.4f}ms")
+            if "launches" in e:
+                extra += f"; {e['launches']} launches on the main path"
             if "host_us" in e:
                 extra += (f"; one eager call costs the host "
                           f"{e['host_us']:.1f}us")
@@ -1665,9 +1717,12 @@ KERNEL_META.update({
                       "src/repro/kernels/embedding_bag/kernel.py:41"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn/kernel.py:59"),
-    # the bf16 main path's kernel (float32 runs csrc/flash_attn.cu)
+    # flash_attention's two main-path kernels: bf16 (wgmma) and float32
+    # (3xTF32); bf16 at hd = 8 runs csrc/flash_attn.cu
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn_tc.cu",
                         "src/repro/kernels/flash_attn/kernel.py:67"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
+                            "src/repro/kernels/flash_attn/kernel.py:67"),
 })
 WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
            "deepfm_grad": "deepfm_value_and_grad",
@@ -1679,7 +1734,8 @@ WRAPPER = {"deepfm_score": "deepfm_score", "neighbor_rank": "neighbor_rank",
            "mlp_grad_fused": "mlp_grad_fused",
            "embedding_bag": "embedding_bag",
            "decode_attention": "decode_attention",
-           "flash_attention": "flash_attention"}
+           "flash_attention": "flash_attention",
+           "flash_attention_f32": "flash_attention"}
 # the run whose launches each kernel reports: a serve run by its label, or
 # ("phase", name) for a kernel off the serving paths, whose launches come
 # from that phase's main-path segments
@@ -1695,7 +1751,8 @@ LAUNCH_RUN = {"deepfm_score": "unfused float32",
               "mlp_grad_fused": "mlp fused int8 adaptive",
               "embedding_bag": ("phase", "library_kernels"),
               "decode_attention": ("phase", "library_kernels"),
-              "flash_attention": ("phase", "library_kernels")}
+              "flash_attention": ("phase", "library_kernels"),
+              "flash_attention_f32": ("phase", "library_kernels")}
 LINE_RESIDENCY = "int8"   # the fused kernels' numbers in the kernels line
 
 
@@ -1708,18 +1765,22 @@ def kernel_line(results) -> dict:
         run = LAUNCH_RUN[name]
         if isinstance(run, tuple):             # a phase's main-path run
             r = results[run[1]][WRAPPER[name]]
-            e = r["shapes"][LIBRARY_LINE_SHAPE[WRAPPER[name]]]
+            e = r["shapes"][LIBRARY_LINE_SHAPE[name]]
             out.append({"name": name, "route": "cuda",
                         "source": KERNEL_META[name][0],
                         "replaces": KERNEL_META[name][1],
-                        "launches": r["launches"], "max_abs_err": r["err"],
+                        "launches": e.get("launches", r["launches"]),
+                        "max_abs_err": r.get("err_by_dtype", {}).get(
+                            e.get("dtype"), r["err"]),
                         "ms": e["ms"], "plain_ms": e["plain_ms"],
                         "bound_ms": e["bound"][0],
                         "bound_by": e["bound"][1],
                         "library_ms": e["library_ms"],
-                        "shape": LIBRARY_LINE_SHAPE[WRAPPER[name]]})
-            if "bound_split_p" in e:
-                out[-1]["bound_split_p_ms"] = e["bound_split_p"][0]
+                        "shape": LIBRARY_LINE_SHAPE[name]})
+            for key in ("bound_split_p", "bound_split_tf32",
+                        "bound_f32_peak"):
+                if key in e:
+                    out[-1][key + "_ms"] = e[key][0]
             continue
         launches = serve_out[run]["launches"][WRAPPER[name]]
         entry = {"name": name, "route": "cuda",

@@ -81,10 +81,11 @@ SIGNATURES = {
     # the same without dtype (a bfloat16 cache)
     "decode_attention_tc": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P],
-    # q, k, v, dtype, strides (long long[9]), out, B, S, H, hd, stream
-    "flash_attention": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    # the same without dtype (bfloat16)
+    # q, k, v, strides (long long[9]), out, B, S, H, hd, stream: bfloat16
+    # at hd = 8 (CUDA cores), bfloat16 at hd >= 16 (wgmma), float32 (3xTF32)
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention_tf32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # CorpusStore.dtype -> the kernels' residency code (csrc/rows.cuh)

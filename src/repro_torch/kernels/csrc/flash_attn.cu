@@ -1,27 +1,24 @@
 // Causal FlashAttention-2 forward on CUDA cores: per (batch, head) and
 // query tile, the online softmax over the key tiles up to the diagonal, in
-// float32. It serves float32 q/k/v (TF32 stays off, so float32 keeps its
-// CUDA-core products) and bf16 at hd = 8, under wgmma's k16 depth; bf16 at
-// hd >= 16 runs on the tensor cores (flash_attn_tc.cu).
+// float32. It serves only bf16 q/k/v at hd = 8, under wgmma's k16 depth;
+// bf16 at hd >= 16 runs on the tensor cores (flash_attn_tc.cu), and
+// float32 at every width too, in 3xTF32 (flash_attn_tf32.cu), which
+// replaced this kernel's float32 instantiations.
 //
 // Replaces: src/repro/kernels/flash_attn/kernel.py, flash_attention_pallas
 // (the Pallas kernel over a (batch*heads, q-blocks, k-blocks) grid with k
 // innermost, the running max, normalizer and (Bq, hd) accumulator in VMEM
 // scratch across k, and the tiles above the diagonal skipped by pl.when),
-// for those inputs.
+// for bf16 inputs at hd = 8.
 //
-// What bounds it on an H100: operations. At Yi-9B's train_4k width (S =
-// 4096, hd = 128) the causal forward does ~S * hd / 2 FLOPs for each byte
-// of q, k, v and o; in float32 that is bound by the 67 TFLOP/s FMA peak,
-// which this kernel's tiles approach within ~2.5x.
+// What bounds it on an H100: operations, at the 67 TFLOP/s FMA peak (the
+// causal forward does ~S * hd / 2 FLOPs for each byte of q, k, v and o).
 //
 // Design: one block of 256 threads per (query tile of 64 rows, batch*head),
 // the heaviest (last) query tiles scheduled first. The block keeps its Q
 // tile in shared memory and walks key tiles of 64 only up to the diagonal
 // (the Pallas pl.when skip); each key tile is staged twice through one
-// buffer, K for S = Q K^T, then V for O += P V, so the dynamic shared
-// memory stays at ~83 KB for hd = 128 and two blocks fit on an SM (above
-// 48 KB it is opted in with cudaFuncSetAttribute). Rows are padded to
+// buffer, K for S = Q K^T, then V for O += P V. Rows are padded to
 // hd + 1 floats, so the row-major reads of S = Q K^T and the V reads are
 // free of bank conflicts; P goes through shared memory transposed, read as
 // float4. Each thread holds a 4 x 4 tile of S and 4 rows x hd/16 channels
@@ -203,44 +200,23 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, float* out,
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(int hd, const void* q, const void* k, const void* v,
-                       float* out, int B, int S, int H, Strides sq,
-                       Strides sk, Strides sv, cudaStream_t s) {
-  switch (hd) {
-    case 8: return launch_hd<float, 8>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 16: return launch_hd<float, 16>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 32: return launch_hd<float, 32>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 64: return launch_hd<float, 64>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    case 128:
-      return launch_hd<float, 128>(q, k, v, out, B, S, H, sq, sk, sv, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 }  // namespace repro
 
-// q, k, v (B, S, H, hd) in dtype (0 float32 at any hd, 1 bfloat16 at
-// hd = 8 only), channels contiguous, batch/sequence/head strides in
-// elements (strides[0..2] for q, [3..5] for k, [6..8] for v); out (B, S,
-// H, hd) float32, contiguous.
-// Causal. Returns cudaGetLastError().
+// q, k, v (B, S, H, 8) bfloat16, channels contiguous, batch/sequence/head
+// strides in elements (strides[0..2] for q, [3..5] for k, [6..8] for v);
+// out (B, S, H, 8) float32, contiguous. Causal. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for another hd.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               int dtype, const long long* strides,
-                               void* out, int B, int S, int H, int hd,
-                               void* stream) {
+                               const long long* strides, void* out, int B,
+                               int S, int H, int hd, void* stream) {
   using namespace repro;
+  if (hd != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0 || B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (dtype == kDTypeF32)
-    return static_cast<int>(
-        launch_f32(hd, q, k, v, o, B, S, H, sq, sk, sv, s));
-  if (dtype == kDTypeBF16 && hd == 8)
-    return static_cast<int>(
-        launch_hd<uint16_t, 8>(q, k, v, o, B, S, H, sq, sk, sv, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_hd<uint16_t, 8>(
+      q, k, v, static_cast<float*>(out), B, S, H, sq, sk, sv,
+      static_cast<cudaStream_t>(stream)));
 }

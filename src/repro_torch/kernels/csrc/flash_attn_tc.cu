@@ -46,8 +46,6 @@
 // scale is 1/sqrt(hd). The public (B, S, H, hd) layout is read through
 // one TMA descriptor per tensor with dims (hd, H, S, B) and the tensor's
 // own strides, so no transposed copy is made.
-#include <cuda.h>
-
 #include "tc.cuh"
 
 namespace repro {
@@ -316,67 +314,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library links no libcuda)
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (B, S, H, hd) bf16 with channel stride 1 and (b, s, h) strides in
-// elements, as dims (hd, H, S, B); boxes of (box_c, 1, 128, 1).
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
-              const long long* st, int box_c, int sw_bytes) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                 static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_c), 1, kBN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      sw_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : (sw_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                        : CU_TENSOR_MAP_SWIZZLE_32B);
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const long long* strides, float* out, int B, int S,
                       int H, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, S, H, HD, strides, C::BOXC, C::SW) ||
-      !make_map(&mk, k, B, S, H, HD, strides + 3, C::BOXC, C::SW) ||
-      !make_map(&mv, v, B, S, H, HD, strides + 6, C::BOXC, C::SW))
+  constexpr CUtensorMapDataType kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&mq, q, kBF16, 2, B, S, H, HD, strides, C::BOXC, kBM,
+                C::SW) ||
+      !make_map(&mk, k, kBF16, 2, B, S, H, HD, strides + 3, C::BOXC, kBN,
+                C::SW) ||
+      !make_map(&mv, v, kBF16, 2, B, S, H, HD, strides + 6, C::BOXC, kBN,
+                C::SW))
     return cudaErrorInvalidValue;
   constexpr size_t smem = smem_bytes<HD>();
   auto kernel = flash_tc_kernel<HD>;

@@ -1,11 +1,16 @@
-// Tensor-core and asynchronous-copy helpers of the bf16 attention kernels
-// (decode_attn.cu, flash_attn_tc.cu), as inline PTX for sm_90a:
+// Tensor-core and asynchronous-copy helpers of the attention kernels
+// (decode_attn.cu, flash_attn_tc.cu, flash_attn_tf32.cu), as inline PTX
+// for sm_90a:
 //
 // - the bf16 hi/lo split that keeps a float32 operand to ~2^-17 relative
-//   through two bf16 products (P in both kernels, a float32 q in decode);
-// - mma.sync m16n8k16 with ldmatrix, and cp.async with zero fill (decode);
-// - mbarriers, 4-d TMA tile loads, and wgmma with its shared-memory matrix
-//   descriptors (flash).
+//   through two bf16 products (P in both bf16 kernels, a float32 q in
+//   decode), and the TF32 big/small split of the 3xTF32 products (float32
+//   flash);
+// - mma.sync m16n8k16 (bf16) with ldmatrix, and cp.async with zero fill
+//   (decode); mma.sync m16n8k8 (TF32, float32 flash's P V);
+// - mbarriers, 4-d TMA tile loads and their tensor maps (both flash
+//   kernels), and wgmma with its shared-memory matrix descriptors (bf16
+//   flash, and float32 flash's S in TF32).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "wgmma register fragments"): lane = 4 * g + t. An m16n8 float32
@@ -20,6 +25,7 @@
 // k16 step kk.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -113,6 +119,49 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// x -> big = TF32(x) by cvt.rna's rule (to nearest, ties away from
+// zero: half of the 13 dropped bits added to the magnitude, then cleared)
+// and small = x - big, exact in float32, which the MMA reads as TF32 by
+// dropping its low 13 bits (toward zero). Integer ops, because
+// cvt.rna.tf32.f32 compiles to ~5 instructions on sm_90 and the float32
+// flash kernel splits hundreds of values per lane per key tile. big is
+// within 2^-11 of x and small within 2^-10 of the rest, so big + small is
+// within ~2^-21 of x (relative): a product taken as big * big + big *
+// small + small * big (3xTF32) keeps float32's accuracy for these sums
+// (the dropped small * small term is ~2^-22). This is not TF32 mode: no
+// operand loses float32 precision.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d (16 x 8, float32) += a (16 x 8, TF32, row-major: a[0] (row g, k t),
+// a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4)) * b (8 x 8,
+// TF32, col-major: b0 (k t, column g), b1 (k t + 4, column g)).
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32 from the split operands (ab, as: a's big and small
+// fragments; bb*, bs*: b's): the two cross products first, so their small
+// terms enter the accumulator before the big one.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_1688_tf32(d, as, bb0, bb1);
+  mma_1688_tf32(d, ab, bs0, bs1);
+  mma_1688_tf32(d, ab, bb0, bb1);
+}
+
 // ---------------------------------------------------------------------------
 // mbarrier and TMA (sm_90)
 // ---------------------------------------------------------------------------
@@ -168,6 +217,62 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, S, H, hd) of ``esize``-byte elements with channel stride 1 and
+// (b, s, h) strides in elements, as a map with dims (hd, H, S, B); boxes
+// of (box_c, 1, box_rows, 1), swizzled by sw_bytes (128, 64 or 32, the
+// box row's bytes). Elements outside the tensor load as zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr,
+                     CUtensorMapDataType type, int esize, int B, int S,
+                     int H, int hd, const long long* st, int box_c,
+                     int box_rows, int sw_bytes) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * esize,
+                                 static_cast<cuuint64_t>(st[1]) * esize,
+                                 static_cast<cuuint64_t>(st[0]) * esize};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_c), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      sw_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (sw_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                        : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------------------
 // wgmma (sm_90a)
 // ---------------------------------------------------------------------------
@@ -208,6 +313,38 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for an accumulator kept as n8 chunks (d[i] = chunk i).
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(float (&d)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+
+// D (64 x 64, float32) += A (64 x 8, TF32, registers: per warp the
+// mma.sync m16n8k8 A fragment of its 16 rows) * B (8 x 64, TF32) from
+// shared memory, K-major (.tf32 has no transpose); scale_d 0 overwrites
+// D. D as eight n8 chunks of four.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[8][4],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 128, float32) = A (64 x 16, Q) * B (16 x 128), both from

@@ -2,12 +2,16 @@
 arguments, launches a kernel for CUDA tensors, and uses the plain version
 only for CPU tensors.
 
-Two kernels, chosen by dtype and head width alone (``kernel_path``):
-bfloat16 at hd >= 16 runs on the tensor cores (``csrc/flash_attn_tc.cu``,
-wgmma fed by TMA, P split into bf16 hi + lo); float32 (TF32 stays off) and
-bfloat16 at hd = 8, under wgmma's k16 depth, run on the CUDA cores
-(``csrc/flash_attn.cu``). ``flash_attention.path_launches`` counts the
-launches of each."""
+Three kernels, chosen by dtype and head width alone (``kernel_path``):
+float32 runs on the tensor cores in 3xTF32 (``csrc/flash_attn_tf32.cu``,
+S by wgmma and P V by mma.sync, fed by TMA; every operand split into TF32
+big + small and each product taken three times, so float32 keeps its
+accuracy: this is not TF32 mode, and ``allow_tf32`` stays False); bfloat16 at hd >= 16 runs on
+the tensor cores (``csrc/flash_attn_tc.cu``, wgmma fed by TMA, P split
+into bf16 hi + lo); bfloat16 at hd = 8, under wgmma's k16 depth, runs on
+the CUDA cores (``csrc/flash_attn.cu``). ``flash_attention.path_launches``
+counts the launches of each. No path falls back to another: a kernel that
+refuses its inputs raises."""
 from __future__ import annotations
 
 import ctypes
@@ -20,12 +24,18 @@ from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernels' compiled head widths
 TC_HEAD_DIMS = (16, 32, 64, 128)   # bf16 widths on the tensor cores
 TMA_ALIGN = 16                     # bytes: TMA's base and stride rule
+# the kernels by path; the two tensor-core ones read through TMA
+ENTRY = {"tensor_core_tf32": "flash_attention_tf32",
+         "tensor_core": "flash_attention_tc", "cuda_core": "flash_attention"}
 
 
 def kernel_path(dtype: torch.dtype, hd: int) -> str:
-    """Which kernel a CUDA call launches: ``"tensor_core"`` or
-    ``"cuda_core"``."""
-    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+    """Which kernel a CUDA call launches: ``"tensor_core_tf32"`` (float32,
+    3xTF32), ``"tensor_core"`` (bf16 at hd >= 16) or ``"cuda_core"``
+    (bf16 at hd = 8)."""
+    if dtype == torch.float32:
+        return "tensor_core_tf32"
+    if hd in TC_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
 
@@ -36,17 +46,17 @@ def _strides(q, k, v):
 
 
 def _check_tma(q, k, v):
-    """The tensor-core kernel reads q, k, v through TMA descriptors: each
+    """The tensor-core kernels read q, k, v through TMA descriptors: each
     base 16-byte aligned and each batch, sequence and head stride a
-    multiple of 16 bytes."""
+    multiple of 16 bytes (8 bf16 or 4 float32 elements)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % TMA_ALIGN or any(
                 (t.stride(i) * t.element_size()) % TMA_ALIGN
                 for i in range(3)):
             raise ValueError(
-                f"flash_attention: bf16 {name} is read by TMA, which needs "
-                f"a 16-byte-aligned base and batch/sequence/head strides "
-                f"that are multiples of 16 bytes; got strides "
+                f"flash_attention: {t.dtype} {name} is read by TMA, which "
+                f"needs a 16-byte-aligned base and batch/sequence/head "
+                f"strides that are multiples of 16 bytes; got strides "
                 f"{tuple(t.stride())} at address {t.data_ptr():#x}")
 
 
@@ -81,18 +91,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: the channel dim must be "
                          "contiguous")
     path = kernel_path(q.dtype, hd)
-    out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
-    lib = _lib.load()
-    if path == "tensor_core":
+    if path != "cuda_core":
         _check_tma(q, k, v)
-        rc = lib.flash_attention_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
-            out.data_ptr(), B, S, H, hd, _lib.stream_of(q.device))
-    else:
-        rc = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _lib.DTYPE[q.dtype],
-            _strides(q, k, v), out.data_ptr(), B, S, H, hd,
-            _lib.stream_of(q.device))
+    out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
+    rc = getattr(_lib.load(), ENTRY[path])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
+        out.data_ptr(), B, S, H, hd, _lib.stream_of(q.device))
     _lib.check(rc, f"flash_attention ({path})")
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1
@@ -100,4 +104,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}
+flash_attention.path_launches = {path: 0 for path in ENTRY}

@@ -21,6 +21,10 @@ Tolerances:
   tile-wise online softmax, P and a float32 q split into bf16 hi + lo,
   float32 sums): 2e-4 against the jnp refs and the Pallas kernels, fed the
   same bf16 values as float32 (so the Pallas kernels do not round P).
+- The emulation of the float32 kernel's 3xTF32 arithmetic (every operand
+  split into TF32 big + small, three products per GEMM, float32 sums):
+  2e-4 against the jnp ref and the Pallas kernel, as the float32 sweep;
+  against the card's own 1e-4/1e-5 check in the split test.
 """
 import math
 import sys
@@ -381,6 +385,129 @@ def test_flash_tc_split_holds_the_card_tolerance():
     assert split < 0.5 and once > 20
 
 
+def _tf32(x):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to the nearest value
+    with 10 mantissa bits, ties away from zero (add half of the 13 dropped
+    bits to the magnitude, then clear them), kept in a float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    """float32 -> TF32 as the MMA reads a float32 register: the low 13
+    bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """float32 -> (big, small) as the float32 kernel splits an operand and
+    the MMA reads it: big = TF32(x) by ``cvt.rna``'s rule, small = x - big
+    (exact), read as TF32 toward zero."""
+    big = _tf32(x)
+    return big, _tf32_toward_zero(x - big)
+
+
+def _tf32_matmul(a, b, form="3x"):
+    """a @ b (float32) as the float32 kernel's tensor cores take it:
+    ``"3x"`` big*big + big*small + small*big (the kernel), ``"1x"`` one
+    TF32 product (TF32 mode), ``"a_split"`` only a split (big*big +
+    small*big: b rounded once to TF32). Sums in float32, the cross terms
+    first."""
+    ab, am = _split_tf32(a)
+    bb, bm = _split_tf32(b)
+    if form == "1x":
+        return ab @ bb
+    if form == "a_split":
+        return am @ bb + ab @ bb
+    return (am @ bb + ab @ bm) + ab @ bb
+
+
+def flash_tf32x3_emulation(q, k, v, tile=64, pv_form="3x", s_form="3x"):
+    """The float32 tensor-core flash kernel's arithmetic on float32 (B, S,
+    H, hd): key tiles of ``tile`` up to the diagonal, S = Q K^T and O +=
+    P V each through ``_tf32_matmul`` (``s_form``, ``pv_form``), the
+    online softmax in float32 per tile (a masked logit gives 0, m = -inf
+    keeps exponent base 0). Returns (B, S, H, hd) float32."""
+    B, S, H, hd = q.shape
+    qf, kf, vf = (x.transpose(1, 2).float() for x in (q, k, v))
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = _tf32_matmul(qf, kt.transpose(-1, -2), s_form) / math.sqrt(hd)
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        s = s.masked_fill(kpos > qpos, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == -math.inf, 0.0, m_new)
+        corr, p = torch.exp(m - base), torch.exp(s - base)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc, m = acc * corr + _tf32_matmul(p, vt, pv_form), m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dist", ["normal", "probabilities", "wide"])
+def test_tf32_split_reconstructs_float32(dist):
+    """big + small, as the MMA reads them, is within 2^-21 of x, relative
+    (N(0, 1), softmax weights in (0, 1], magnitudes across 2^-60..2^60);
+    big alone, as TF32 mode keeps it, only within 2^-11; big's ties round
+    away from zero."""
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=100_000).astype(np.float32)
+    if dist == "probabilities":
+        x = np.exp(-np.abs(x) * 8).astype(np.float32)
+    elif dist == "wide":
+        x = (x * np.exp2(rng.integers(-60, 60, size=x.size))).astype(
+            np.float32)
+    xt = torch.from_numpy(x)
+    big, small = _split_tf32(xt)
+    for part in (big, small):
+        assert (part.view(torch.int32) & 0x1FFF == 0).all()
+    rel = ((big.double() + small.double() - xt.double()).abs()
+           / xt.double().abs())
+    assert rel.max() < 2.0 ** -21
+    assert (big.double() - xt.double()).abs().div(xt.double().abs()).max() \
+        < 2.0 ** -11
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -11)])
+    assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -9)]
+
+
+FLASH_TF32_SWEEP = [c[:4] for c in FLASH_SWEEP] + [(2, 77, 8, 16),
+                                                   (1, 300, 2, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,hd", FLASH_TF32_SWEEP)
+def test_flash_tf32x3_emulation_matches_jax(b, s, h, hd):
+    """At every width of the float32 kernel, hd = 8 included."""
+    q, k, v = _qkv(s + 1, b, s, h, hd)
+    got = flash_tf32x3_emulation(_t(q), _t(k), _t(v))
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    bq = 32 if s % 32 == 0 else 16
+    for want in (flash_attention_ref(jq, jk, jv),
+                 jax_flash(jq, jk, jv, block_q=bq, block_k=bq)):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_flash_tf32_split_holds_the_card_tolerance():
+    """At hd = 128 over 512 keys, float32 inputs: 3xTF32 on both products
+    stays well inside the card's check against the exact plain version;
+    one TF32 product each (TF32 mode), and 3xTF32 with V left unsplit in
+    P V, miss it more than 10x. This is why the kernel splits every
+    operand."""
+    q, k, v = (_t(x) for x in _qkv(70, 1, 512, 2, 128))
+    want = port_flash_ref(q, k, v).double()
+    lim = CARD_ATOL + CARD_RTOL * want.abs()
+
+    def ratio(**form):
+        got = flash_tf32x3_emulation(q, k, v, **form).double()
+        return float(((got - want).abs() / lim).max())
+    assert ratio() < 0.25
+    assert ratio(s_form="1x", pv_form="1x") > 10
+    assert ratio(pv_form="a_split") > 10
+
+
 DECODE_TC_SWEEP = [c[:6] for c in DECODE_SWEEP]
 
 
@@ -435,12 +562,29 @@ def test_decode_split_fills_one_wave_for_the_tensor_cores():
 
 @pytest.mark.parametrize("module", [flash_ops, decode_ops])
 def test_kernel_path_by_dtype_and_head_width(module):
-    """bf16 at hd >= 16 goes to the tensor cores; float32 (TF32 off) and
-    bf16 at hd = 8 (under the MMA's k16 depth) stay on the CUDA cores."""
+    """bf16 at hd >= 16 goes to the tensor cores, bf16 at hd = 8 (under
+    the MMA's k16 depth) stays on the CUDA cores; float32 flash goes to the
+    3xTF32 tensor-core kernel, float32 decode stays on the CUDA cores."""
+    f32_path = "tensor_core_tf32" if module is flash_ops else "cuda_core"
     for hd in module.HEAD_DIMS:
-        assert module.kernel_path(torch.float32, hd) == "cuda_core"
+        assert module.kernel_path(torch.float32, hd) == f32_path
         assert module.kernel_path(torch.bfloat16, hd) == (
             "cuda_core" if hd == 8 else "tensor_core")
+
+
+def test_flash_float32_path_is_the_tf32_split_at_every_width():
+    """Float32 flash takes the 3xTF32 kernel at every compiled width (the
+    k8 step fits hd = 8); its launches are counted under its own path, and
+    it reads through TMA like the bf16 tensor-core kernel."""
+    assert {flash_ops.kernel_path(torch.float32, hd)
+            for hd in flash_ops.HEAD_DIMS} == {"tensor_core_tf32"}
+    assert set(flash_attention.path_launches) == {
+        "tensor_core_tf32", "tensor_core", "cuda_core"}
+    assert flash_ops.ENTRY["tensor_core_tf32"] == "flash_attention_tf32"
+    q = torch.zeros((1, 8, 2, 8))
+    with pytest.raises(ValueError, match="float32 q is read by TMA"):
+        flash_ops._check_tma(q[:, :, :, :6].contiguous()[..., :5], q, q)
+    flash_ops._check_tma(q, q, q)
 
 
 # ---------------------------------------------------------------------------
