@@ -9,7 +9,10 @@ DLRM-RM2 and Yi-9B widths in float32 and bfloat16, driven once each as
 the slice's main path and timed beside one PyTorch call of the same
 function; attention on the tensor cores, bf16 by wgmma and mma.sync and
 float32 in 3xTF32 by both, checked in the SASS, in ptxas's spill report
-and in each launch's path), runs the engine with the DeepFM and the
+and in each launch's path; the MLP grad pair's cluster kernel checked in
+the SASS for its cluster barrier, st.async pushes and mbarrier waits, and
+built without a spill; a launch floor timed beside the search-path
+kernels), runs the engine with the DeepFM and the
 MLP measure on the card against the same engine on the CPU, serves the
 GUITAR search at N=100,000 through the port's oneshot serving path (DeepFM
 unfused, fused at float32, bfloat16 and int8, and int8 with adaptive angle
@@ -122,6 +125,14 @@ def host_us(fn, reps: int = 200) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def launch_floor_ms(torch, dev) -> float:
+    """``time_ms`` of a trivial kernel, an in-place add on a one-element
+    tensor: the least a launch costs under the same graph replay, beside
+    which the search-path kernels' times are read."""
+    one = torch.zeros(1, device=dev)
+    return time_ms(lambda: one.add_(1.0))
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str = "float32"):
@@ -544,7 +555,9 @@ def check_fused_kernels(torch, dev, measure, fm_dim):
 # The first is the serving width, make_family_measure('mlp', ..., 40); the
 # rest cover one and two hidden layers, mlp_measure's default width (about
 # 129 KB of shared memory), Dq != Dx, a backward through two hidden
-# layers below the top one, and a net with no hidden layer.
+# layers below the top one, a net with no hidden layer, and widths that
+# are not multiples of 4 (the grad kernel's 4-byte copies, zero pads and
+# partial slices).
 MLP_NETS = (
     ("80-64-64-1", 40, 40, (64, 64)),
     ("80-32-1", 40, 40, (32,)),
@@ -552,6 +565,7 @@ MLP_NETS = (
     ("64-64-64-1 (Dq=24)", 40, 24, (64, 64)),
     ("64-48-32-24-1 (Dq=24)", 40, 24, (48, 32, 24)),
     ("80-1", 40, 40, ()),
+    ("70-30-17-1 (Dx=37)", 37, 33, (30, 17)),
 )
 
 
@@ -594,11 +608,17 @@ def random_mlp(torch, dev, d_in, hidden, gen):
     return {k: [t.to(dev) for t in v] for k, v in p.items()}
 
 
+# the frontier sizes the MLP grad pair is checked at (its clusters take
+# tiles of 4 rows): the serving Q, a small one with a ragged tile, many
+# tiles with a ragged last one, and a large one
+GRAD_QS = (32, 7, 77, 256)
+
+
 def check_mlp_kernels(torch, dev):
     """The four MLP kernels against their plain versions at every net of
-    MLP_NETS: mlp_score at M = 256, 512, 77, 1 and mlp_grad at Q = 32, 7,
-    both query forms; the fused pair at each residency (with and without a
-    prefix mask, -1 ids), ``x`` of the grad form equal to
+    MLP_NETS: mlp_score at M = 256, 512, 77, 1 and mlp_grad at the Q of
+    GRAD_QS, both query forms; the fused pair at each residency (with and
+    without a prefix mask, -1 ids), ``x`` of the grad form equal to
     ``CorpusStore.take``, and at float32 bit for bit against the
     pre-gathered pair on the gathered rows. Times each at the serving
     net and shape."""
@@ -652,8 +672,8 @@ def check_mlp_kernels(torch, dev):
                         f"{shared}: {err:.3e}")
                 worst["mlp_score"] = max(worst["mlp_score"], err)
                 n_cases += 1
-        # -- mlp_grad: Q = 32 frontier rows, a ragged Q
-        for M in (32, 7):
+        # -- mlp_grad: the frontier sizes of GRAD_QS
+        for M in GRAD_QS:
             for shared in (False, True):
                 c, q = rows(M, Dx), (rows(Dq) if shared else rows(M, Dq))
                 v, g = mlp_value_and_grad(c, q, net)
@@ -700,8 +720,8 @@ def check_mlp_kernels(torch, dev):
                             require(torch.equal(got, unf), f"{tag}: differs "
                                     f"from mlp_score on the gathered rows")
                         n_cases += 1
-            # -- mlp_grad_fused: Q = 32, a ragged Q
-            for M in (32, 7):
+            # -- mlp_grad_fused: the same Q
+            for M in GRAD_QS:
                 for shared in (False, True):
                     idx = ids_of(M)
                     q = rows(Dq) if shared else rows(M, Dq)
@@ -1266,28 +1286,33 @@ def check_library_flash(torch, dev, report):
     r["err_by_dtype"] = worst
 
 
-# the tensor-core attention kernels, and the instructions their SASS must
-# hold: wgmma (HGMMA) for bf16 flash, mma.sync (HMMA) for decode, both for
-# float32 flash (S by wgmma, P V by mma.sync, TF32)
-TC_KERNELS = {"flash_tc_kernel": ("HGMMA",), "decode_tc_kernel": ("HMMA",),
-              "flash_tf32_kernel": ("HGMMA", "HMMA")}
+# the kernels whose SASS must hold given instructions: the tensor-core
+# attention kernels, wgmma (HGMMA) for bf16 flash, mma.sync (HMMA) for
+# decode, both for float32 flash (S by wgmma, P V by mma.sync, TF32); the
+# MLP grad pair's cluster kernel, its cluster barrier (UCGABAR_ARV), its
+# st.async pushes into the other CTAs' shared memory (STAS) and its
+# mbarrier waits (SYNCS.PHASECHK)
+SASS_KERNELS = {"flash_tc_kernel": ("HGMMA",), "decode_tc_kernel": ("HMMA",),
+                "flash_tf32_kernel": ("HGMMA", "HMMA"),
+                "mlp_grad_cluster_kernel": ("UCGABAR_ARV", "STAS",
+                                            "SYNCS.PHASECHK")}
 # those whose every instantiation must build without a spill
-NO_SPILL = ("flash_tf32_kernel",)
+NO_SPILL = ("flash_tf32_kernel", "mlp_grad_cluster_kernel")
 
 
-def check_tensor_core_build(lib_path):
-    """The tensor-core kernels as built: each instantiation's registers,
-    shared memory and spills (``ptxas -v`` in build.log), and its count of
-    tensor-core instructions in the library's SASS (``cuobjdump -sass``),
-    which must not be 0; a ``NO_SPILL`` kernel must report 0 bytes of
-    spill stores and loads."""
+def check_kernel_build(lib_path):
+    """The kernels of SASS_KERNELS as built: each instantiation's
+    registers, shared memory and spills (``ptxas -v`` in build.log), and
+    its count of each required instruction in the library's SASS
+    (``cuobjdump -sass``), which must not be 0; a ``NO_SPILL`` kernel must
+    report 0 bytes of spill stores and loads."""
     from repro_torch.kernels import _lib
     entry, ptxas = None, {}
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
         for line in f:
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if any(
-                    k in line for k in TC_KERNELS) else None
+                    k in line for k in SASS_KERNELS) else None
             elif entry and ("registers" in line or "spill" in line):
                 ptxas.setdefault(entry, []).append(
                     line.replace("ptxas info    :", "").strip())
@@ -1298,17 +1323,17 @@ def check_tensor_core_build(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            kind = next((k for k in TC_KERNELS if k in fn), None)
+            kind = next((k for k in SASS_KERNELS if k in fn), None)
             if kind:
-                counts[fn] = dict.fromkeys(TC_KERNELS[kind], 0)
+                counts[fn] = dict.fromkeys(SASS_KERNELS[kind], 0)
         elif fn in counts:
             for instr in counts[fn]:
                 # "HMMA" is not a substring of "HGMMA"
                 counts[fn][instr] += instr in line
     for f, n in counts.items():
-        log(f"tensor cores: {f}: {n} in the SASS; ptxas: "
+        log(f"sass: {f}: {n}; ptxas: "
             + " | ".join(ptxas.get(f, ["no ptxas line"])))
-    for k, instrs in TC_KERNELS.items():
+    for k, instrs in SASS_KERNELS.items():
         mine = {f: n for f, n in counts.items() if k in f}
         require(bool(mine) and all(all(n.values()) for n in mine.values()),
                 f"SASS: {k} instantiations {mine} must each hold "
@@ -1786,6 +1811,7 @@ def kernel_line(results) -> dict:
         entry = {"name": name, "route": "cuda",
                  "source": KERNEL_META[name][0],
                  "replaces": KERNEL_META[name][1], "launches": launches}
+        entry["launch_floor_ms"] = results["launch_floor_ms"]
         r = timed[name]
         if not isinstance(r["ms"], dict):      # a pre-gathered kernel
             entry.update(max_abs_err=r["err"], ms=r["ms"],
@@ -1802,17 +1828,20 @@ def kernel_line(results) -> dict:
     return {"kernels": out}
 
 
-def log_kernels(report) -> None:
-    """One line per kernel (per residency for a fused one) of its times."""
+def log_kernels(report, floor_ms) -> None:
+    """One line per kernel (per residency for a fused one) of its times,
+    beside the launch floor (``launch_floor_ms``)."""
     for name, r in report.items():
         if not isinstance(r["ms"], dict):
-            log(f"kernel {name}: {r['ms'] * 1e3:.2f}us (plain "
+            log(f"kernel {name}: {r['ms'] * 1e3:.2f}us (launch floor "
+                f"{floor_ms * 1e3:.2f}us, plain "
                 f"{r['plain_ms'] * 1e3:.2f}us, bound {r['bound'][0] * 1e3:.4f}"
                 f"us by {r['bound'][1]}; one eager call costs the host "
                 f"{r['host_us']:.1f}us), max_abs_err {r['err']:.3e}")
             continue
         for dt in RESIDENCIES:
-            log(f"kernel {name} {dt}: {r['ms'][dt] * 1e3:.2f}us (plain "
+            log(f"kernel {name} {dt}: {r['ms'][dt] * 1e3:.2f}us (launch "
+                f"floor {floor_ms * 1e3:.2f}us, plain "
                 f"{r['plain_ms'][dt] * 1e3:.2f}us, bound "
                 f"{r['bound'][dt][0] * 1e3:.4f}us by {r['bound'][dt][1]})")
         log(f"kernel {name}: one eager int8 call costs the host "
@@ -1863,20 +1892,23 @@ def main() -> int:
                         or "Compiling entry" in line:
                     log("ptxas: " + line.strip())
 
+        results["launch_floor_ms"] = launch_floor_ms(torch, dev)
+        log(f"launch floor: {results['launch_floor_ms'] * 1e3:.2f}us per "
+            f"in-place add on a one-element tensor under graph replay")
+
         from repro_torch.core import make_family_measure
         measure = make_family_measure("deepfm",
                                       torch.Generator().manual_seed(0), 40,
                                       device=dev)
         results["kernels"] = check_kernels(torch, dev, measure,
                                            measure.meta[1])
-        log_kernels(results["kernels"])
+        log_kernels(results["kernels"], results["launch_floor_ms"])
         results["fused_kernels"] = check_fused_kernels(torch, dev, measure,
                                                        measure.meta[1])
-        log_kernels(results["fused_kernels"])
+        log_kernels(results["fused_kernels"], results["launch_floor_ms"])
         results["mlp_kernels"] = check_mlp_kernels(torch, dev)
-        log_kernels(results["mlp_kernels"])
-        results["tensor_core_build"] = check_tensor_core_build(
-            _lib.BUILD_INFO["path"])
+        log_kernels(results["mlp_kernels"], results["launch_floor_ms"])
+        results["kernel_build"] = check_kernel_build(_lib.BUILD_INFO["path"])
         results["library_kernels"] = check_library_kernels(torch, dev)
         log_library(results["library_kernels"])
         results["engine"] = check_engine(torch, np, dev, "deepfm")

@@ -1,20 +1,24 @@
-// The generic MLP measure, shared by its score and grad kernels.
+// The generic MLP measure: the network description (MLPNet) shared by its
+// score and grad kernels, and the score kernel. The grad kernels' body is
+// mlp_grad.cuh.
 //
 //   f(x, q) = sigmoid(MLP([x | q])),  MLP = L dense layers, ReLU between
 //   layers, the last of width 1
 //
 // The depth L is a runtime value up to kMaxMLPLayers, carried with the
 // layer widths and the weight pointers in a by-value kernel parameter
-// (MLPNet). The layout is deepfm.cuh's: the whole network is staged once
-// per block into shared memory, every hidden layer's weight matrix with a
-// row stride of (cols + 1) floats (stage_padded), so that the forward (a
-// warp reads one row across 32 columns) and the backward's transposed
-// products (a warp reads one column across 32 rows) both hit 32 distinct
-// banks without a transposed copy. The last layer (H, 1) is staged as a
-// plain vector and is a dot product plus warp_sum. One warp owns one row
-// at a time, its lanes split the hidden units (dense_warp), and the row's
-// input [x | q] and every pre-activation z_i stay in the warp's scratch
-// slice for the backward, never in device memory.
+// (MLPNet). The score kernel's layout is deepfm.cuh's: the whole network
+// is staged once per block into shared memory, every hidden layer's
+// weight matrix with a row stride of (cols + 1) floats (stage_padded), so
+// that a warp reading one row across 32 columns hits 32 distinct banks.
+// The last layer (H, 1) is staged as a plain vector and is a dot product
+// plus warp_sum. One warp owns one row at a time, its lanes split the
+// hidden units (dense_warp), and the row's input [x | q] and every
+// pre-activation z_i stay in the warp's scratch slice, never in device
+// memory. (mlp_net also sizes two gradient buffers per warp that the
+// score kernel leaves unused; they stay, so that the shared-memory limit
+// the wrappers check, and so the set of networks they take, does not
+// move.)
 #pragma once
 
 #include "common.cuh"
@@ -138,55 +142,8 @@ __device__ inline float mlp_forward_warp(const float* sm, const MLPNet& net,
   return 1.f / (1.f + expf(-logit));
 }
 
-// df/dx of the row the warp just ran forward (value ``val``), written to
-// gx[0:dx]. The ReLU backward is a mask on the resident pre-activations;
-// only the x part of the input's cotangent is computed, never the q part.
-__device__ inline void mlp_backward_warp(const float* sm, const MLPNet& net,
-                                         float val, float* scr,
-                                         float* __restrict__ gx, int lane) {
-  const int L = net.layers;
-  const float g_logit = val * (1.f - val);
-  const float* w_last = sm + net.woff[L - 1];
-  if (L == 1) {
-    for (int k = lane; k < net.dx; k += kWarp) gx[k] = g_logit * w_last[k];
-    return;
-  }
-  float* g = scr + net.scratch_floats - net.dx - 2 * net.gmax;
-  float* gn = g + net.gmax;
-  {  // the top hidden layer, through the last layer's vector
-    const float* z = scr + net.inoff[L - 1];
-    for (int u = lane; u < net.dim[L - 1]; u += kWarp)
-      g[u] = z[u] > 0.f ? g_logit * w_last[u] : 0.f;
-  }
-  __syncwarp();
-  for (int i = L - 2; i >= 1; --i) {
-    // layer i maps z_{i-1} (dim[i]) -> z_i (dim[i + 1])
-    const int Hin = net.dim[i], Hout = net.dim[i + 1];
-    const float* W = sm + net.woff[i];
-    const float* z = scr + net.inoff[i];
-    for (int v = lane; v < Hin; v += kWarp) {
-      const float* row = W + v * (Hout + 1);
-      float a = 0.f;
-      for (int u = 0; u < Hout; ++u) a = fmaf(g[u], row[u], a);
-      gn[v] = z[v] > 0.f ? a : 0.f;
-    }
-    __syncwarp();
-    float* t = g;
-    g = gn;
-    gn = t;
-  }
-  const int H0 = net.dim[1];
-  const float* W0 = sm + net.woff[0];
-  for (int k = lane; k < net.dx; k += kWarp) {
-    const float* row = W0 + k * (H0 + 1);
-    float a = 0.f;
-    for (int v = 0; v < H0; ++v) a = fmaf(g[v], row[v], a);
-    gx[k] = a;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The score and grad kernels, one body for every row source (rows.cuh):
+// The score kernel, one body for every row source (rows.cuh):
 // GatheredRows for the pre-gathered kernels, CorpusRows<R> for the
 // index-fused ones. Blocks of kMLPRowsPerBlock rows, one warp per row.
 // ---------------------------------------------------------------------------
@@ -231,39 +188,6 @@ mlp_score_kernel(Rows rows, const float* __restrict__ query, int q_shared,
   }
 }
 
-// Value and df/dx of each row; ``xout`` (nullable) receives the float32
-// row the kernel scored (the dequantized frontier rows of the fused form).
-template <class Rows>
-__global__ void __launch_bounds__(kMLPThreads)
-mlp_grad_kernel(Rows rows, const float* __restrict__ query, int q_shared,
-                MLPNet net, float* __restrict__ vals,
-                float* __restrict__ grads, float* __restrict__ xout, int M) {
-  extern __shared__ float sm[];
-  mlp_stage(sm, net);
-  __syncthreads();
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  float* scr = sm + net.weight_floats + warp * net.scratch_floats;
-  float* slice = scr + net.scratch_floats - net.dx;
-  const int row0 = blockIdx.x * kMLPRowsPerBlock;
-  const int row1 = min(row0 + kMLPRowsPerBlock, M);
-  for (int r = row0 + warp; r < row1; r += nwarps) {
-    __syncwarp();  // the previous row's scratch reads are done
-    const float* x = rows.load(r, net.dx, slice, lane);
-    const float* q =
-        q_shared ? query : query + static_cast<size_t>(r) * net.dq;
-    const float val = mlp_forward_warp(sm, net, x, q, scr, lane);
-    mlp_backward_warp(sm, net, val, scr,
-                      grads + static_cast<size_t>(r) * net.dx, lane);
-    if (xout != nullptr) {
-      float* xr = xout + static_cast<size_t>(r) * net.dx;
-      for (int d = lane; d < net.dx; d += kWarp) xr[d] = x[d];
-    }
-    if (lane == 0) vals[r] = val;
-  }
-}
-
 template <class Rows>
 inline cudaError_t launch_mlp_score(Rows rows, const void* query,
                                     int q_shared, const void* mask,
@@ -278,24 +202,6 @@ inline cudaError_t launch_mlp_score(Rows rows, const void* query,
         rows, static_cast<const float*>(query), q_shared,
         static_cast<const unsigned char*>(mask), net,
         static_cast<float*>(out), M);
-  }
-  return cudaGetLastError();
-}
-
-template <class Rows>
-inline cudaError_t launch_mlp_grad(Rows rows, const void* query,
-                                   int q_shared, const MLPNet& net,
-                                   void* vals, void* grads, void* xout,
-                                   int M, void* stream) {
-  if (M > 0) {
-    const size_t smem = mlp_smem_bytes(net);
-    allow_smem(mlp_grad_kernel<Rows>, smem);
-    const int grid = (M + kMLPRowsPerBlock - 1) / kMLPRowsPerBlock;
-    mlp_grad_kernel<Rows><<<grid, kMLPThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        rows, static_cast<const float*>(query), q_shared, net,
-        static_cast<float*>(vals), static_cast<float*>(grads),
-        static_cast<float*>(xout), M);
   }
   return cudaGetLastError();
 }

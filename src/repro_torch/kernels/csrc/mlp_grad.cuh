@@ -1,0 +1,719 @@
+// The MLP measure's value and analytic df/dx (mlp_grad, mlp_grad_fused):
+// a tile of 4 rows per thread-block cluster of n CTAs.
+//
+//   f(x, q) = sigmoid(MLP([x | q])), df/dx by the hand-derived backward
+//
+// Layout. The host plans n from the widths: about 8 hidden units per CTA,
+// a power of two from 2 to the portable cluster size of 8 (n = 8 at 80 ->
+// 64 -> 64 -> 1; 1 without a hidden layer). CTA c owns a contiguous slice
+// of the units of every hidden layer (a multiple of 4 units) and of the Dx
+// gradient columns, and computes only those outputs, in both directions,
+// from full inputs:
+//
+//  - forward: relu(z_i)[:, own units] from the full relu(z_{i-1}), with
+//    the columns W_i[:, own units];
+//  - backward: g_{i-1}[:, own units] = mask * (g_i W_i^T) from the full
+//    g_i, with the rows W_i[own units, :], and at the end gx[:, own
+//    columns] from the full g_0 and the rows W_0[own columns, :];
+//  - the value: every CTA takes the full dot of the top layer with the
+//    last layer's weights for the tile's rows.
+//
+// Each slice a CTA computes is pushed to every CTA of the cluster (itself
+// included) by st.async into the receivers' shared memory, each push
+// counted in bytes on the receiver's mbarrier of that exchange, so a CTA
+// waits only for the data it reads: no cluster-wide barrier and no fence
+// between layers (one with release semantics cost ~0.65 us per layer).
+// Every exchange buffer is written once per launch. There are 2L - 3
+// exchanges for L layers (3 at serving), a cluster barrier before the
+// first (the mbarriers are initialised) and one before exit (no CTA leaves
+// while pushes to it are in flight).
+//
+// The kernel is a chain of dependent steps (stage, layer, exchange, ...)
+// run by few threads, so its time is latency: 4 rows per cluster put the
+// serving Q = 32 on 8 clusters of 8 CTAs, and at the serving widths the
+// kernel is compiled for them (FixedWidths), every loop of constant length
+// and every index folded. Tiles of 32, 16 and 8 rows on clusters of 4, and
+// the same body at run-time widths, were slower (tools/mlp_grad_split.py,
+// PERF.md). Activations are [row][unit], weights as they lie in device
+// memory (the forward's column slices [k][unit], the backward's row slices
+// [unit][k]), so every staging copy is a 16-byte cp.async where the widths
+// allow (4-byte otherwise), all of them in flight at once, and a thread
+// computes one row by four units from one 16-byte load of inputs and four
+// of weights per 16 FMAs, the K sum split over KS lanes (chunks of 4 k,
+// chunk = g mod KS) and reduced by xor shuffles. Pads to a multiple of 4
+// are zero. bf16/int8 rows are loaded and dequantized with rows.cuh's
+// rounding. Every sum runs in a fixed order, so the index-fused form (the
+// same body over CorpusRows) equals the pre-gathered one bit for bit at
+// float32.
+//
+// Stop cuts the kernel short for timing its phases
+// (tools/mlp_grad_split.py): 0 the launch, 1 staging, 2 through the value.
+#pragma once
+
+#include <stdint.h>
+
+#include <type_traits>
+#include <utility>
+
+#include "mlp.cuh"
+#include "tc.cuh"
+
+namespace repro {
+
+constexpr int kMLPGradThreads = 256;
+constexpr int kMLPGradMaxCluster = 8;      // the portable cluster size
+constexpr int kMLPGradUnitsPerCTA = 8;     // hidden units per CTA aimed at
+constexpr int kMLPGradTile = 4;            // rows per cluster
+constexpr int kMLPGradTileLog2 = 2;
+constexpr size_t kMLPGradSmemCap = 232448; // opt-in shared memory per block
+constexpr int kMLPGradBarFloats = 32;      // 2 * kMaxMLPLayers - 3 mbarriers
+constexpr int kMLPGradAll = 3;
+
+__host__ __device__ constexpr int mlp_grad_align4(int v) {
+  return (v + 3) & ~3;
+}
+
+// A launch's layout: cluster size, slice widths and shared-memory
+// offsets in floats. Mirrored by mlp_grad_plan in
+// kernels/mlp_grad/ops.py.
+struct MLPGradPlan {
+  int n;                     // CTAs per cluster
+  int s[kMaxMLPLayers];      // units of hidden layer i per CTA (4 | s)
+  int ks;                    // Dx gradient columns per CTA
+  int wf[kMaxMLPLayers];     // W_i[:, own units], align4(dim[i]) x s[i]
+  int bf[kMaxMLPLayers];     // b_i[own units]
+  int wb[kMaxMLPLayers];     // i >= 1: W_i[own units of layer i - 1, :],
+                             // s[i - 1] x align4(dim[i + 1]); i = 0:
+                             // W_0[own x columns, :], align4(ks) x
+                             // align4(dim[1])
+  int wl, bl;                // the last layer's weights and bias
+  int x;                     // the tile's [x | q], 4 x align4(dim[0])
+  int a[kMaxMLPLayers];      // hidden layer i's relu(z) and
+  int g[kMaxMLPLayers];      // cotangent, 4 x align4(dim[i + 1]) each
+  int gl;                    // f * (1 - f) per row
+  int floats;
+};
+
+// Plan a launch for ``net``; false if a CTA's shared memory does not fit
+// (never for a network the score kernels' layout fits:
+// tests/test_torch_mlp.py).
+inline bool mlp_grad_plan(MLPGradPlan& p, const MLPNet& net) {
+  const int L = net.layers;
+  int n = 1;
+  if (L > 1) {
+    n = 2;
+    while (n < kMLPGradMaxCluster && n * kMLPGradUnitsPerCTA < net.gmax)
+      n *= 2;
+  }
+  p.n = n;
+  for (int i = 0; i + 1 < L; ++i) {
+    p.s[i] = mlp_grad_align4((net.dim[i + 1] + n - 1) / n);
+  }
+  p.ks = (net.dx + n - 1) / n;
+  constexpr int T = kMLPGradTile;
+  int off = kMLPGradBarFloats;
+  auto take = [&off](int floats) {
+    const int o = off;
+    off += mlp_grad_align4(floats);
+    return o;
+  };
+  for (int i = 0; i + 1 < L; ++i) {
+    p.wf[i] = take(mlp_grad_align4(net.dim[i]) * p.s[i]);
+    p.bf[i] = take(p.s[i]);
+    p.wb[i] = take((i > 0 ? p.s[i - 1] : mlp_grad_align4(p.ks)) *
+                   mlp_grad_align4(net.dim[i + 1]));
+  }
+  p.wl = take(mlp_grad_align4(net.dim[L - 1]));
+  p.bl = take(1);
+  p.x = take(T * mlp_grad_align4(net.dim[0]));
+  for (int i = 0; i + 1 < L; ++i) {
+    p.a[i] = take(T * mlp_grad_align4(net.dim[i + 1]));
+    p.g[i] = take(T * mlp_grad_align4(net.dim[i + 1]));
+  }
+  p.gl = take(T);
+  p.floats = off;
+  return sizeof(float) * off <= kMLPGradSmemCap;
+}
+
+namespace mlpg {
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(tc::smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(tc::smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of ``addr`` (a local shared address) in
+// CTA ``rank``'s shared memory.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 (4) bytes into a CTA's shared memory, counted on its mbarrier.
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async1(uint32_t addr, float v,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n"
+      :: "r"(addr), "f"(v), "r"(bar) : "memory");
+}
+
+// Push the first ``valid`` (1-4) floats of ``v`` to address ``at`` of
+// ranks g, g + KS, ... < n, each counted on that rank's ``bar``.
+__device__ __forceinline__ void push(uint32_t at, float4 v, int valid,
+                                     uint32_t bar, int g, int KS, int n) {
+  for (int r = g; r < n; r += KS) {
+    const uint32_t ra = map_rank(at, r), rb = map_rank(bar, r);
+    if (valid == 4) {
+      st_async4(ra, v, rb);
+    } else {
+      st_async1(ra, v.x, rb);
+      if (valid > 1) st_async1(ra + 4, v.y, rb);
+      if (valid > 2) st_async1(ra + 8, v.z, rb);
+    }
+  }
+}
+
+// Wait for phase 0 of an exchange's mbarrier: every byte pushed to this
+// CTA has landed, and the pushers' writes are visible (cluster scope).
+__device__ __forceinline__ void wait_exchange(uint64_t* bar) {
+  const uint32_t a = tc::smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// f(e) for e < count, spread over the block: a loop of constant length
+// when ``count`` is a constant, so that its copies go out back to back.
+template <class F>
+__device__ __forceinline__ void for_each(int count, F f) {
+#pragma unroll 4
+  for (int m = 0; m < (count + kMLPGradThreads - 1) / kMLPGradThreads; ++m) {
+    const int e = m * kMLPGradThreads + static_cast<int>(threadIdx.x);
+    if (e < count) f(e);
+  }
+}
+
+// The CTA's slice [lo, lo + width) of ``units`` split s per CTA over n.
+struct Slice {
+  int lo, width;
+};
+
+__device__ __forceinline__ Slice slice_of(int rank, int s, int units,
+                                          int n) {
+  if (s * n == units) return {rank * s, s};
+  const int lo = rank * s;
+  const int hi = lo + s < units ? lo + s : units;
+  return {lo, hi > lo ? hi - lo : 0};
+}
+
+// cp.async of a (rows, cols) row-major block (source row stride ld) into
+// shared memory (row stride dld): 16-byte copies where the widths and both
+// bases allow, 4-byte ones otherwise.
+__device__ __forceinline__ void stage_rows(float* dst, int dld,
+                                           const float* src, int ld,
+                                           int rows, int cols) {
+  if (((cols | ld | dld) & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(src) | tc::smem_u32(dst)) & 15) == 0) {
+    const int w = cols >> 2;
+    for_each(rows * w, [&](int e) {
+      const int r = e / w, j = (e - r * w) * 4;
+      cp_async16(dst + r * dld + j, src + static_cast<size_t>(r) * ld + j);
+    });
+  } else {
+    for_each(rows * cols, [&](int e) {
+      const int r = e / cols, j = e - r * cols;
+      cp_async4(dst + r * dld + j, src + static_cast<size_t>(r) * ld + j);
+    });
+  }
+}
+
+// Zero columns [c0, c1) of ``rows`` rows (row stride ld).
+__device__ __forceinline__ void zero_cols(float* p, int ld, int rows, int c0,
+                                          int c1) {
+  const int w = c1 - c0;
+  if (w > 0)
+    for_each(rows * w, [&](int e) {
+      const int r = e / w;
+      p[r * ld + c0 + e - r * w] = 0.f;
+    });
+}
+
+// out[t][j0 + j] (j < 4) for the tile's 4 rows and the CTA's ``w`` output
+// units, summed over k < K4 (a multiple of 4; the pads are zero):
+//   kRowW = false: sum_k in[t][k] W[k][j]  (W: [k][unit], row stride ws)
+//   kRowW = true:  sum_k in[t][k] W[j][k]  (W: [unit][k], row stride ws)
+// plus bias[j] (nullable). A thread computes one row by four units; the
+// K sum is split over KS lanes (chunks of 4 k, chunk = g, g + KS, ...) and
+// reduced by xor shuffles. emit(t, j0, g, KS, out) receives the four
+// units in each of the KS lanes.
+template <bool kRowW, class Emit>
+__device__ __forceinline__ void dense4(const float* in, int pin, int K4,
+                                       const float* W, int ws,
+                                       const float* bias, int w,
+                                       Emit emit) {
+  const int tiles = ((w + 3) >> 2) << kMLPGradTileLog2;
+  int lks = 0;  // log2(KS)
+  while (lks < 5 && (tiles << (lks + 1)) <= kMLPGradThreads) ++lks;
+  const int KS = 1 << lks, chunks = K4 >> 2, span = tiles << lks;
+  const int steps = (chunks + KS - 1) >> lks;
+  for (int base = 0; base < span; base += kMLPGradThreads) {
+    const int e = base + threadIdx.x;
+    const int tile = e >> lks, g = e & (KS - 1);
+    const bool live = tile < tiles;
+    const int t = tile & (kMLPGradTile - 1);
+    const int j0 = (tile >> kMLPGradTileLog2) * 4;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    if (live) {
+      const float* x = in + t * pin;
+#pragma unroll 5
+      for (int m = 0; m < steps; ++m) {
+        const int cc = g + (m << lks);
+        if (cc >= chunks) break;
+        const int k = cc * 4;
+        const float4 v = ld4(x + k);
+        if constexpr (!kRowW) {
+          const float4 w0 = ld4(W + (k + 0) * ws + j0);
+          const float4 w1 = ld4(W + (k + 1) * ws + j0);
+          const float4 w2 = ld4(W + (k + 2) * ws + j0);
+          const float4 w3 = ld4(W + (k + 3) * ws + j0);
+          a0 = fmaf(v.w, w3.x, fmaf(v.z, w2.x, fmaf(v.y, w1.x,
+                                                    fmaf(v.x, w0.x, a0))));
+          a1 = fmaf(v.w, w3.y, fmaf(v.z, w2.y, fmaf(v.y, w1.y,
+                                                    fmaf(v.x, w0.y, a1))));
+          a2 = fmaf(v.w, w3.z, fmaf(v.z, w2.z, fmaf(v.y, w1.z,
+                                                    fmaf(v.x, w0.z, a2))));
+          a3 = fmaf(v.w, w3.w, fmaf(v.z, w2.w, fmaf(v.y, w1.w,
+                                                    fmaf(v.x, w0.w, a3))));
+        } else {
+          const float4 w0 = ld4(W + (j0 + 0) * ws + k);
+          const float4 w1 = ld4(W + (j0 + 1) * ws + k);
+          const float4 w2 = ld4(W + (j0 + 2) * ws + k);
+          const float4 w3 = ld4(W + (j0 + 3) * ws + k);
+          a0 = fmaf(v.w, w0.w, fmaf(v.z, w0.z, fmaf(v.y, w0.y,
+                                                    fmaf(v.x, w0.x, a0))));
+          a1 = fmaf(v.w, w1.w, fmaf(v.z, w1.z, fmaf(v.y, w1.y,
+                                                    fmaf(v.x, w1.x, a1))));
+          a2 = fmaf(v.w, w2.w, fmaf(v.z, w2.z, fmaf(v.y, w2.y,
+                                                    fmaf(v.x, w2.x, a2))));
+          a3 = fmaf(v.w, w3.w, fmaf(v.z, w3.z, fmaf(v.y, w3.y,
+                                                    fmaf(v.x, w3.x, a3))));
+        }
+      }
+    }
+    for (int o = KS >> 1; o > 0; o >>= 1) {
+      a0 += __shfl_xor_sync(kFull, a0, o);
+      a1 += __shfl_xor_sync(kFull, a1, o);
+      a2 += __shfl_xor_sync(kFull, a2, o);
+      a3 += __shfl_xor_sync(kFull, a3, o);
+    }
+    if (live) {
+      if (bias != nullptr) {
+        const float4 b = ld4(bias + j0);
+        a0 += b.x;
+        a1 += b.y;
+        a2 += b.z;
+        a3 += b.w;
+      }
+      emit(t, j0, g, KS, make_float4(a0, a1, a2, a3));
+    }
+  }
+}
+
+// Whether a row source's rows are float32 in device memory (copied by
+// cp.async as they are) or need a dequant in registers.
+template <class Rows>
+constexpr bool kF32Rows = std::is_same_v<
+    decltype(std::declval<typename Rows::Row>().p), const float*>;
+
+// The widths a launch runs at, read from its parameters ...
+struct RuntimeWidths {
+  const MLPNet& net;
+  const MLPGradPlan& p;
+  __device__ RuntimeWidths(const MLPNet& nt, const MLPGradPlan& pl)
+      : net(nt), p(pl) {}
+  __device__ int L() const { return net.layers; }
+  __device__ int dim(int i) const { return net.dim[i]; }
+  __device__ int dx() const { return net.dx; }
+  __device__ int dq() const { return net.dq; }
+  __device__ int n() const { return p.n; }
+  __device__ int s(int i) const { return p.s[i]; }
+  __device__ int ks() const { return p.ks; }
+  __device__ int pw(int i) const { return mlp_grad_align4(net.dim[i + 1]); }
+  __device__ int px() const { return mlp_grad_align4(net.dim[0]); }
+};
+
+// ... or fixed at compile time (equal to the plan's): kD0 inputs, kDx of
+// them x, kL - 1 hidden layers of kH units, kN CTAs. Every loop over
+// layers, units and k then has a constant count and every index folds.
+template <int kD0, int kDx, int kH, int kL, int kN>
+struct FixedWidths {
+  __device__ FixedWidths(const MLPNet&, const MLPGradPlan&) {}
+  __host__ __device__ static constexpr int L() { return kL; }
+  __host__ __device__ static constexpr int dim(int i) {
+    return i == 0 ? kD0 : i == kL ? 1 : kH;
+  }
+  __host__ __device__ static constexpr int dx() { return kDx; }
+  __host__ __device__ static constexpr int dq() { return kD0 - kDx; }
+  __host__ __device__ static constexpr int n() { return kN; }
+  __host__ __device__ static constexpr int s(int) {
+    return mlp_grad_align4((kH + kN - 1) / kN);
+  }
+  __host__ __device__ static constexpr int ks() { return (kDx + kN - 1) / kN; }
+  __host__ __device__ static constexpr int pw(int) {
+    return mlp_grad_align4(kH);
+  }
+  __host__ __device__ static constexpr int px() {
+    return mlp_grad_align4(kD0);
+  }
+  // whether ``net`` launched with ``plan`` runs at these widths
+  static bool matches(const MLPNet& net, const MLPGradPlan& plan) {
+    if (net.layers != kL || net.dx != kDx || plan.n != kN)
+      return false;
+    for (int i = 0; i <= kL; ++i)
+      if (net.dim[i] != dim(i)) return false;
+    return true;
+  }
+};
+
+}  // namespace mlpg
+
+// The serving net, make_family_measure('mlp', ..., 40): 80 -> 64 -> 64 ->
+// 1 at Dx = 40, a cluster of 8.
+using MLPGradServing = mlpg::FixedWidths<80, 40, 64, 3, 8>;
+
+// Value and df/dx of each row; ``xout`` (nullable) receives the float32
+// row the kernel scored (the dequantized frontier rows of the fused form).
+template <class Rows, int Stop, class Widths>
+__global__ void __launch_bounds__(kMLPGradThreads)
+mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
+                        int q_shared, MLPNet net, MLPGradPlan plan,
+                        float* __restrict__ vals, float* __restrict__ grads,
+                        float* __restrict__ xout, int M) {
+  using namespace mlpg;
+  extern __shared__ __align__(16) float sm[];
+  const Widths wd(net, plan);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);
+  const int c = static_cast<int>(cluster_rank());
+  const int n = wd.n();
+  constexpr int T = kMLPGradTile, lt = kMLPGradTileLog2;
+  const int L = wd.L(), Dx = wd.dx(), Dq = wd.dq(), D0 = wd.dim(0);
+  const int tid = threadIdx.x;
+  const int row0 = (blockIdx.x / n) * T;
+  const int nrows = min(T, M - row0);
+  // exchange j < L - 1 fills relu(z_j), exchange L - 1 + j fills g_j
+  if (tid == kMLPGradThreads - kWarp) {
+    for (int j = 0; j + 1 < L; ++j) tc::mbar_init(bars + j, 1);
+    for (int j = 0; j + 2 < L; ++j) tc::mbar_init(bars + L - 1 + j, 1);
+    tc::mbar_fence_init();
+    const uint32_t tile_bytes = sizeof(float) * T;
+    for (int j = 0; j + 1 < L; ++j)
+      tc::mbar_expect_tx(bars + j, tile_bytes * wd.dim(j + 1));
+    for (int j = 0; j + 2 < L; ++j)
+      tc::mbar_expect_tx(bars + L - 1 + j, tile_bytes * wd.dim(j + 1));
+  }
+  // the exchange buffers' pads (never pushed to) are zero
+#pragma unroll
+  for (int i = 0; i + 1 < L; ++i) {
+    const int H = wd.dim(i + 1);
+    zero_cols(sm + plan.a[i], wd.pw(i), T, H, mlp_grad_align4(H));
+    zero_cols(sm + plan.g[i], wd.pw(i), T, H, mlp_grad_align4(H));
+  }
+  // every CTA's mbarriers are set before any push (waited after staging)
+  cluster_arrive_relaxed();
+  if (Stop == 0) {
+    cluster_wait();
+    return;
+  }
+
+  // -- staging: the CTA's slices of the network and the tile's rows,
+  //    every copy in flight at once
+#pragma unroll
+  for (int i = 0; i + 1 < L; ++i) {
+    const int K = wd.dim(i), H = wd.dim(i + 1), si = wd.s(i);
+    const Slice u = slice_of(c, si, H, n);
+    stage_rows(sm + plan.wf[i], si, net.w[i] + u.lo, H, K, u.width);
+    zero_cols(sm + plan.wf[i] + K * si, si, mlp_grad_align4(K) - K, 0, si);
+    stage_rows(sm + plan.bf[i], 0, net.b[i] + u.lo, 0, 1, u.width);
+    // the backward's rows: of W_i the own units of layer i - 1, of W_0
+    // the own x columns
+    const Slice v = i > 0 ? slice_of(c, wd.s(i - 1), K, n)
+                          : slice_of(c, wd.ks(), Dx, n);
+    const int H4 = mlp_grad_align4(H);
+    stage_rows(sm + plan.wb[i], H4, net.w[i] + static_cast<size_t>(v.lo) * H,
+               H, v.width, H);
+    zero_cols(sm + plan.wb[i], H4, v.width, H, H4);
+  }
+  {
+    const int H = wd.dim(L - 1);
+    stage_rows(sm + plan.wl, 0, net.w[L - 1], 0, 1, H);
+    zero_cols(sm + plan.wl, 0, 1, H, mlp_grad_align4(H));
+    if (tid == 0) cp_async4(sm + plan.bl, net.b[L - 1]);
+  }
+  float* X = sm + plan.x;
+  const int px = wd.px();
+  {
+    // [x | q] of rows t < nrows; zeros past them and past D0
+    const int D4 = mlp_grad_align4(D0);
+    zero_cols(X, px, nrows, D0, D4);
+    zero_cols(X + nrows * px, px, T - nrows, 0, D4);
+    if constexpr (kF32Rows<Rows>) {
+      const bool v4 = (Dx & 3) == 0 &&
+                      (reinterpret_cast<uintptr_t>(
+                           rows.row(static_cast<size_t>(row0), Dx).p) &
+                       15) == 0;
+      if (v4) {
+        for_each(nrows * (Dx >> 2), [&](int e) {
+          const int t = e / (Dx >> 2), k = (e - t * (Dx >> 2)) * 4;
+          cp_async16(X + t * px + k,
+                     rows.row(static_cast<size_t>(row0 + t), Dx).p + k);
+        });
+      } else {
+        for_each(nrows * Dx, [&](int e) {
+          const int t = e / Dx, k = e - t * Dx;
+          cp_async4(X + t * px + k,
+                    rows.row(static_cast<size_t>(row0 + t), Dx).p + k);
+        });
+      }
+    } else {
+      constexpr int kBatch = 8;  // loads in flight before any store
+      for (int e0 = tid; e0 < nrows * Dx; e0 += kBatch * kMLPGradThreads) {
+        float v[kBatch];
+        int at[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int e = e0 + j * kMLPGradThreads;
+          const int t = e / Dx, k = e - t * Dx;
+          at[j] = e < nrows * Dx ? t * px + k : -1;
+          if (at[j] >= 0)
+            v[j] = rows.get(rows.row(static_cast<size_t>(row0 + t), Dx), k);
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          if (at[j] >= 0) X[at[j]] = v[j];
+      }
+    }
+    stage_rows(X + Dx, px,
+               query + (q_shared ? 0 : static_cast<size_t>(row0) * Dq),
+               q_shared ? 0 : Dq, nrows, Dq);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  cluster_wait();
+  if (xout != nullptr && c == 0) {
+    const int t = tid >> 3, l = tid & 7;
+    if (t < nrows) {
+#pragma unroll 4
+      for (int k = l; k < Dx; k += 8)
+        xout[static_cast<size_t>(row0 + t) * Dx + k] = X[t * px + k];
+    }
+  }
+  if (Stop == 1) return;
+
+  // -- forward: each CTA's units of every hidden layer, pushed to all
+#pragma unroll
+  for (int i = 0; i + 1 < L; ++i) {
+    const Slice u = slice_of(c, wd.s(i), wd.dim(i + 1), n);
+    if (i > 0) wait_exchange(bars + i - 1);
+    const float* in = i == 0 ? X : sm + plan.a[i - 1];
+    const int pin = i == 0 ? px : wd.pw(i - 1);
+    const int pout = wd.pw(i);
+    const uint32_t dst = tc::smem_u32(sm + plan.a[i] + u.lo);
+    const uint32_t bar = tc::smem_u32(bars + i);
+    dense4<false>(in, pin, mlp_grad_align4(wd.dim(i)), sm + plan.wf[i],
+                  wd.s(i), sm + plan.bf[i], u.width,
+                  [&](int t, int j0, int g, int KS, float4 z) {
+                    z = make_float4(fmaxf(z.x, 0.f), fmaxf(z.y, 0.f),
+                                    fmaxf(z.z, 0.f), fmaxf(z.w, 0.f));
+                    push(dst + 4u * (t * pout + j0), z, min(4, u.width - j0),
+                         bar, g, KS, n);
+                  });
+  }
+  // -- the value: the full top layer (the input if there is none) against
+  //    the last layer's weights, 8 lanes per row (16-byte columns l,
+  //    l + 8, ...), reduced by xor shuffles
+  const int H = wd.dim(L - 1), HC = mlp_grad_align4(H) >> 2;
+  const float* top = L > 1 ? sm + plan.a[L - 2] : X;
+  const int ptop = L > 1 ? wd.pw(L - 2) : px;
+  const float* wl = sm + plan.wl;
+  float* GL = sm + plan.gl;
+  if (L > 1) wait_exchange(bars + L - 2);
+  {
+    const int t = tid >> 3, l = tid & 7;
+    const bool live = t < T;
+    float p = 0.f;
+    if (live) {
+#pragma unroll
+      for (int m = 0; m < (HC + 7) / 8; ++m) {
+        const int cc = l + 8 * m;
+        if (cc >= HC) break;
+        const float4 a = ld4(top + t * ptop + 4 * cc), w = ld4(wl + 4 * cc);
+        p = fmaf(a.w, w.w, fmaf(a.z, w.z, fmaf(a.y, w.y, fmaf(a.x, w.x, p))));
+      }
+    }
+    p += __shfl_xor_sync(kFull, p, 4);
+    p += __shfl_xor_sync(kFull, p, 2);
+    p += __shfl_xor_sync(kFull, p, 1);
+    if (live && l == 0) {
+      const float val = 1.f / (1.f + expf(-(p + sm[plan.bl])));
+      GL[t] = val * (1.f - val);
+      if (c == 0 && t < nrows) vals[row0 + t] = val;
+    }
+  }
+  __syncthreads();
+  if (Stop == 2) return;
+  if (L == 1) {  // no hidden layer (n = 1): gx = f' w[:Dx]
+    const int t = tid >> 3, l = tid & 7;
+    if (t < nrows)
+      for (int k = l; k < Dx; k += 8)
+        grads[static_cast<size_t>(row0 + t) * Dx + k] = GL[t] * wl[k];
+    return;
+  }
+
+  // -- backward: the top layer's cotangent (full, local), then each CTA's
+  //    units of g_{i-1} = mask * (g_i W_i^T), pushed to all
+  {
+    float* G = sm + plan.g[L - 2];
+    for_each(HC << lt, [&](int e) {
+      const int t = e & (T - 1), j = (e >> lt) * 4;
+      const float4 a = ld4(top + t * ptop + j), w = ld4(wl + j);
+      const float f = GL[t];
+      *reinterpret_cast<float4*>(G + t * ptop + j) = make_float4(
+          a.x > 0.f ? f * w.x : 0.f, a.y > 0.f ? f * w.y : 0.f,
+          a.z > 0.f ? f * w.z : 0.f, a.w > 0.f ? f * w.w : 0.f);
+    });
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = L - 2; i >= 1; --i) {
+    if (i < L - 2) wait_exchange(bars + L - 1 + i);
+    const Slice v = slice_of(c, wd.s(i - 1), wd.dim(i), n);
+    const int pout = wd.pw(i - 1);
+    const float* A = sm + plan.a[i - 1] + v.lo;
+    const uint32_t dst = tc::smem_u32(sm + plan.g[i - 1] + v.lo);
+    const uint32_t bar = tc::smem_u32(bars + L - 1 + i - 1);
+    const int H4 = mlp_grad_align4(wd.dim(i + 1));
+    dense4<true>(sm + plan.g[i], wd.pw(i), H4, sm + plan.wb[i], H4,
+                 nullptr, v.width,
+                 [&](int t, int j0, int g, int KS, float4 s) {
+                   const float4 a = ld4(A + t * pout + j0);
+                   const float4 z = make_float4(
+                       a.x > 0.f ? s.x : 0.f, a.y > 0.f ? s.y : 0.f,
+                       a.z > 0.f ? s.z : 0.f, a.w > 0.f ? s.w : 0.f);
+                   push(dst + 4u * (t * pout + j0), z, min(4, v.width - j0),
+                        bar, g, KS, n);
+                 });
+  }
+  if (L > 2) wait_exchange(bars + L - 1);
+  // every push to this CTA has landed: it may leave once all have
+  cluster_arrive_relaxed();
+  // -- gx[:, own columns] from the full g_0 and W_0's own rows
+  const Slice k = slice_of(c, wd.ks(), Dx, n);
+  const int H4 = mlp_grad_align4(wd.dim(1));
+  dense4<true>(sm + plan.g[0], wd.pw(0), H4, sm + plan.wb[0], H4, nullptr,
+               k.width, [&](int t, int j0, int g, int, float4 s) {
+                 if (g != 0 || t >= nrows) return;
+                 float* out =
+                     grads + static_cast<size_t>(row0 + t) * Dx + k.lo + j0;
+                 const int valid = min(4, k.width - j0);
+                 out[0] = s.x;
+                 if (valid > 1) out[1] = s.y;
+                 if (valid > 2) out[2] = s.z;
+                 if (valid > 3) out[3] = s.w;
+               });
+  cluster_wait();
+}
+
+template <class Rows, int Stop, class Widths>
+inline cudaError_t launch_mlp_grad_cluster_as(Rows rows, const void* query,
+                                              int q_shared, const MLPNet& net,
+                                              const MLPGradPlan& plan,
+                                              void* vals, void* grads,
+                                              void* xout, int M,
+                                              void* stream) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(plan.floats);
+  auto kernel = mlp_grad_cluster_kernel<Rows, Stop, Widths>;
+  allow_smem(kernel, smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((M + kMLPGradTile - 1) / kMLPGradTile) * plan.n);
+  cfg.blockDim = dim3(kMLPGradThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, rows, static_cast<const float*>(query), q_shared, net,
+      plan, static_cast<float*>(vals), static_cast<float*>(grads),
+      static_cast<float*>(xout), M);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// One launch over M rows: ceil(M / 4) clusters of n CTAs, at the serving
+// widths by the kernel fixed to them. A refused launch (shared memory,
+// cluster resources) is returned, never rerouted.
+template <class Rows, int Stop = kMLPGradAll>
+inline cudaError_t launch_mlp_grad_cluster(Rows rows, const void* query,
+                                           int q_shared, const MLPNet& net,
+                                           void* vals, void* grads,
+                                           void* xout, int M, void* stream) {
+  if (M <= 0) return cudaGetLastError();
+  MLPGradPlan plan;
+  if (!mlp_grad_plan(plan, net)) return cudaErrorInvalidValue;
+  if (MLPGradServing::matches(net, plan))
+    return launch_mlp_grad_cluster_as<Rows, Stop, MLPGradServing>(
+        rows, query, q_shared, net, plan, vals, grads, xout, M, stream);
+  return launch_mlp_grad_cluster_as<Rows, Stop, mlpg::RuntimeWidths>(
+      rows, query, q_shared, net, plan, vals, grads, xout, M, stream);
+}
+
+}  // namespace repro

@@ -1,6 +1,8 @@
 """Wrapper of the analytic MLP-measure value+gradient kernel
 (``csrc/mlp_grad.cu``): checks its arguments, launches the kernel for CUDA
-tensors, and uses the plain version only for CPU tensors."""
+tensors, and uses the plain version only for CPU tensors. ``mlp_grad_plan``
+mirrors the launch layout of the grad pair's body (``csrc/mlp_grad.cuh``):
+a tile of rows per thread-block cluster."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +12,47 @@ from repro_torch.kernels.mlp_grad.ref import mlp_value_and_grad_ref
 from repro_torch.kernels.mlp_score.ops import (check_mlp,
                                                check_rows_and_query,
                                                net_args)
+
+
+GRAD_THREADS = 256          # kMLPGradThreads in csrc/mlp_grad.cuh
+GRAD_MAX_CLUSTER = 8        # the portable cluster size
+GRAD_UNITS_PER_CTA = 8      # hidden units per CTA the plan aims at
+GRAD_TILE = 4               # rows per cluster
+GRAD_SMEM_CAP = 232_448     # opt-in shared memory per block (H100)
+GRAD_BAR_FLOATS = 32        # the exchanges' mbarriers
+
+
+def _align4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def mlp_grad_plan(dims, d_x: int):
+    """The grad kernels' launch layout for widths ``dims`` = [d_x + d_q,
+    h_1, ..., 1] (mirrors ``mlp_grad_plan`` in csrc/mlp_grad.cuh): n CTAs
+    per cluster of GRAD_TILE rows (a power of two from 2 to
+    GRAD_MAX_CLUSTER with about GRAD_UNITS_PER_CTA hidden units each; 1
+    without a hidden layer), the units of each hidden layer per CTA (a
+    multiple of 4), the d_x gradient columns per CTA and a CTA's shared
+    memory in bytes. None if that does not fit."""
+    L = len(dims) - 1
+    hidden = list(dims[1:L])
+    n = 1
+    if L > 1:
+        n = 2
+        while n < GRAD_MAX_CLUSTER and n * GRAD_UNITS_PER_CTA < max(hidden):
+            n *= 2
+    s = [_align4(-(-h // n)) for h in hidden]
+    ks = -(-d_x // n)
+    floats = GRAD_BAR_FLOATS
+    for i in range(L - 1):
+        floats += _align4(dims[i]) * s[i] + s[i]
+        floats += (s[i - 1] if i else _align4(ks)) * _align4(dims[i + 1])
+    floats += _align4(dims[L - 1]) + _align4(1)
+    floats += GRAD_TILE * (_align4(dims[0]) + 2 * sum(map(_align4, hidden)))
+    floats += GRAD_TILE
+    if 4 * floats > GRAD_SMEM_CAP:
+        return None
+    return {"n": n, "slices": s, "ks": ks, "smem_bytes": 4 * floats}
 
 
 def mlp_value_and_grad(cand: torch.Tensor, query: torch.Tensor,

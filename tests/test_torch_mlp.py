@@ -52,8 +52,13 @@ from repro_torch.core import (EngineOptions, SearchConfig,  # noqa: E402
 from repro_torch.kernels import (launch_counts, mlp_grad_fused,  # noqa: E402
                                  mlp_score, mlp_score_fused,
                                  mlp_value_and_grad)
+from repro_torch.kernels.mlp_grad.ops import (GRAD_THREADS,  # noqa: E402
+                                              GRAD_TILE, mlp_grad_plan)
 from repro_torch.kernels.mlp_score.ops import (MAX_LAYERS,  # noqa: E402
                                                mlp_smem_bytes)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import MLP_NETS  # noqa: E402
 
 DX = 40
 DTYPES = ("float32", "bfloat16", "int8")
@@ -292,6 +297,141 @@ def test_mlp_smem_bytes():
     assert 48 * 1024 < mlp_smem_bytes([80, 64, 64, 1], DX) < 52_000
     assert 128_000 < mlp_smem_bytes([80, 128, 128, 1], DX) < 232_448
     assert mlp_smem_bytes([80, 1], DX) == 4 * (80 + 1 + 8 * (80 + DX))
+
+
+# ---------------------------------------------------------------------------
+# the grad pair's cluster body (csrc/mlp_grad.cuh): its launch plan, and its
+# order of summation emulated and held against the JAX kernel
+# ---------------------------------------------------------------------------
+
+def test_mlp_grad_plan():
+    """``mlp_grad_plan`` mirrors the plan of csrc/mlp_grad.cuh: a cluster
+    of 8 CTAs of 8 units each at the serving width (the widths the kernel
+    is compiled for), every MLP_NETS net within a CTA's 227 KB, and no
+    network refused that the score kernels' layout (``net_args``) takes."""
+    assert mlp_grad_plan([80, 64, 64, 1], DX) == {
+        "n": 8, "slices": [8, 8], "ks": 5,
+        "smem_bytes": 4 * (32 + 80 * 8 + 8 + 8 * 64 + 64 * 8 + 8 + 8 * 64
+                           + 64 + 4 + GRAD_TILE * (80 + 2 * 64 + 2 * 64)
+                           + GRAD_TILE)}
+    assert mlp_grad_plan([80, 1], DX)["n"] == 1
+    for label, dx, dq, hidden in MLP_NETS:
+        plan = mlp_grad_plan([dx + dq, *hidden, 1], dx)
+        assert plan is not None and plan["smem_bytes"] <= 232_448, label
+        assert 2 <= plan["n"] <= 8 if hidden else plan["n"] == 1, label
+    rng = np.random.default_rng(17)
+    taken = 0
+    for _ in range(20_000):
+        L = int(rng.integers(1, MAX_LAYERS + 1))
+        d_in = int(rng.integers(1, 3000))
+        dx = int(rng.integers(1, d_in + 1))
+        dims = [d_in, *rng.integers(1, 600, size=L - 1).tolist(), 1]
+        if mlp_smem_bytes(dims, dx) <= 232_448:
+            taken += 1
+            assert mlp_grad_plan(dims, dx) is not None, (dims, dx)
+    assert taken > 1000
+
+
+def _align4(v):
+    return (v + 3) & ~3
+
+
+def _dense_slices(inp, W, bias, s, units, n):
+    """out = inp @ W (+ bias), unit slice by unit slice (CTA c owns units
+    [c * s, (c + 1) * s)), each in the cluster kernel's order: K in chunks
+    of 4 (zero pads), chunk g, g + KS, ... summed by lane g, the KS lanes'
+    sums added as the xor shuffles add them, then the bias."""
+    K = inp.shape[1]
+    K4 = _align4(K)
+    inp = torch.nn.functional.pad(inp, (0, K4 - K))
+    W = torch.nn.functional.pad(W, (0, 0, 0, K4 - K))
+    outs = []
+    for c in range(n):
+        lo, w = c * s, max(0, min(s, units - c * s))
+        if w == 0:
+            continue
+        tiles = (w + 3) // 4 * GRAD_TILE
+        lks = 0
+        while lks < 5 and tiles << (lks + 1) <= GRAD_THREADS:
+            lks += 1
+        KS = 1 << lks
+        parts = []
+        for g in range(KS):
+            acc = torch.zeros(inp.shape[0], w)
+            for cc in range(g, K4 // 4, KS):
+                for k in range(4 * cc, 4 * cc + 4):
+                    acc = acc + inp[:, k:k + 1] * W[k, lo:lo + w]
+            parts.append(acc)
+        while len(parts) > 1:
+            half = len(parts) // 2
+            parts = [parts[i] + parts[i + half] for i in range(half)]
+        outs.append(parts[0] if bias is None else parts[0] + bias[lo:lo + w])
+    return torch.cat(outs, dim=1)
+
+
+def _emulate_cluster_grad(x, q, Ws, bs):
+    """Value and df/dx as csrc/mlp_grad.cuh sums them, in float32: each
+    hidden layer's units and the gradient columns split over the cluster
+    as ``mlp_grad_plan`` splits them, every slice a ``_dense_slices``
+    (backward products against W^T), the value's dot over 16-byte columns
+    l, l + 8, ... by 8 lanes added by xor shuffles."""
+    dims = [Ws[0].shape[0]] + [w.shape[1] for w in Ws]
+    L, dx = len(Ws), x.shape[1]
+    plan = mlp_grad_plan(dims, dx)
+    n, s, ks = plan["n"], plan["slices"], plan["ks"]
+    acts = [torch.cat([x, q], dim=1)]
+    for i in range(L - 1):
+        acts.append(torch.relu(_dense_slices(acts[-1], Ws[i], bs[i], s[i],
+                                             dims[i + 1], n)))
+    top, wl = acts[-1], Ws[-1][:, 0]
+    H4 = _align4(top.shape[1])
+    top_p = torch.nn.functional.pad(top, (0, H4 - top.shape[1]))
+    wl_p = torch.nn.functional.pad(wl, (0, H4 - wl.shape[0]))
+    lanes = []
+    for lane in range(8):
+        p = torch.zeros(x.shape[0])
+        for cc in range(lane, H4 // 4, 8):
+            for k in range(4 * cc, 4 * cc + 4):
+                p = p + top_p[:, k] * wl_p[k]
+        lanes.append(p)
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+    val = 1.0 / (1.0 + torch.exp(-(lanes[0] + bs[-1][0])))
+    fp = (val * (1.0 - val))[:, None]
+    if L == 1:
+        return val, fp * wl[None, :dx]
+    g = torch.where(top > 0, fp * wl[None, :], torch.zeros(()))
+    for i in range(L - 2, 0, -1):
+        g = _dense_slices(g, Ws[i].T, None, s[i - 1], dims[i], n)
+        g = torch.where(acts[i] > 0, g, torch.zeros(()))
+    return val, _dense_slices(g, Ws[0][:dx].T, None, ks, dx, n)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("net_spec", MLP_NETS, ids=[m[0] for m in MLP_NETS])
+def test_mlp_grad_cluster_order_matches_jax(net_spec, shared):
+    """The cluster kernel's order of summation (column slices over the
+    plan's n CTAs, partial sums in lane order, the K split) keeps the
+    card's 1e-5 / 1e-6 against the JAX Pallas kernel in interpret mode and
+    the jnp reference, at every MLP_NETS net."""
+    label, dx, dq, hidden = net_spec
+    jp, tp = _both(_np_mlp(len(hidden) + dq, dx + dq, hidden))
+    rng = np.random.default_rng(dq + len(hidden))
+    M = 13
+    cand = rng.normal(size=(M, dx)).astype(np.float32)
+    query = rng.normal(size=(dq,) if shared else (M, dq)).astype(np.float32)
+    q_rows = np.broadcast_to(query, (M, dq)).copy()
+    vals, grads = _emulate_cluster_grad(torch.from_numpy(cand),
+                                        torch.from_numpy(q_rows),
+                                        tp["w"], tp["b"])
+    assert vals.dtype == grads.dtype == torch.float32
+    assert grads.shape == (M, dx)
+    for use_pallas in (True, False):
+        wv, wg = j_value_and_grad(jnp.asarray(cand), jnp.asarray(query), jp,
+                                  use_pallas=use_pallas, interpret=True)
+        _close(vals.numpy(), wv, err_msg=f"{label} use_pallas={use_pallas}")
+        _close(grads.numpy(), wg, err_msg=f"{label} use_pallas={use_pallas}")
 
 
 def test_mlp_cpu_calls_launch_no_kernel(net, stores):
