@@ -3,23 +3,23 @@
 the thirteen CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card (the index-fused ones at float32, bfloat16 and
 int8 residency, and bit for bit against the pre-gathered ones at float32;
-the MLP ones at several depths; the library kernels embedding_bag,
-decode_attention and flash_attention at the JAX test shapes and at
-DLRM-RM2 and Yi-9B widths in float32 and bfloat16, driven once each as
-the slice's main path and timed beside one PyTorch call of the same
-function; attention on the tensor cores, bf16 by wgmma and mma.sync and
-float32 in 3xTF32 by both, checked in the SASS, in ptxas's spill report
-and in each launch's path; the MLP grad pair's cluster kernel checked in
-the SASS for its cluster barrier, st.async pushes and mbarrier waits, and
-built without a spill; a launch floor timed beside the search-path
-kernels), runs the engine with the DeepFM and the
-MLP measure on the card against the same engine on the CPU, serves the
-GUITAR search at N=100,000 through the port's oneshot serving path (DeepFM
-unfused, fused at float32, bfloat16 and int8, and int8 with adaptive angle
-sizing; the MLP measure unfused, fused int8 and fused int8 adaptive),
-counting kernel launches in each run, and profiles one served batch of four
-of those runs (device busy share, device events per engine step, device
-time by kernel).
+the MLP ones at several depths, the DeepFM grad pair at six widths; the
+library kernels embedding_bag, decode_attention and flash_attention at
+the JAX test shapes and at DLRM-RM2 and Yi-9B widths in float32 and
+bfloat16, driven once each as the slice's main path and timed beside one
+PyTorch call of the same function; attention on the tensor cores, bf16
+by wgmma and mma.sync and float32 in 3xTF32 by both, checked in the SASS,
+in ptxas's spill report and in each launch's path; the cluster kernel of
+the MLP and DeepFM grad pairs checked in the SASS for its cluster
+barrier, st.async pushes and mbarrier waits, and built without a spill;
+a launch floor timed beside the search-path kernels), runs the engine
+with the DeepFM and the MLP measure on the card against the same engine
+on the CPU, serves the GUITAR search at N=100,000 through the port's
+oneshot serving path (DeepFM unfused, fused at float32, bfloat16 and
+int8, and int8 with adaptive angle sizing; the MLP measure unfused, fused
+int8 and fused int8 adaptive), counting kernel launches in each run, and
+profiles one served batch of four of those runs (device busy share,
+device events per engine step, device time by kernel).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -278,27 +278,14 @@ def check_kernels(torch, dev, measure, fm_dim):
         host_us=host_us(lambda: deepfm_score(c, q, mlp, fm_dim)),
         bound=bound_ms(nbytes, flops))
 
-    # -- deepfm_grad: main path Q=32, a ragged Q, both query forms
-    worst = 0.0
-    for M in (32, 7, 256):
-        for shared in (False, True):
-            c = rows(M, D)
-            q = rows(D) if shared else rows(M, D)
-            v, g = deepfm_value_and_grad(c, q, mlp, fm_dim)
-            torch.cuda.synchronize()
-            pv, pg = plain_grad(c, q)
-            ev, rv = close_err(v, pv, SCORE_RTOL, SCORE_ATOL)
-            eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
-            log(f"deepfm_grad M={M} shared_query={shared}: vals max_abs_err="
-                f"{ev:.3e} (err/tol {rv:.3f}) grads max_abs_err={eg:.3e} "
-                f"(err/tol {rg:.3f})")
-            require(rv <= 1.0 and rg <= 1.0, f"deepfm_grad mismatch at "
-                    f"M={M} shared={shared}: vals {ev:.3e} grads {eg:.3e}")
-            worst = max(worst, ev, eg)
+    # -- deepfm_grad: every net of DEEPFM_NETS at the Q of GRAD_QS (main
+    #    path Q = 32), both query forms
+    worst, by_net = check_deepfm_grad_nets(torch, dev, mlp, fm_dim,
+                                           fused=False)
     c, q = rows(32, D), rows(32, D)
     nbytes, flops = deepfm_costs(32, D, fm_dim, H0, H1, True, True)
     report["deepfm_grad"] = dict(
-        err=worst,
+        err=worst, err_by_net=by_net,
         ms=time_ms(lambda: deepfm_value_and_grad(c, q, mlp, fm_dim)),
         plain_ms=time_ms(lambda: plain_grad(c, q)),
         host_us=host_us(lambda: deepfm_value_and_grad(c, q, mlp, fm_dim)),
@@ -356,8 +343,7 @@ def check_fused_kernels(torch, dev, measure, fm_dim):
     each at f32, bf16 and int8."""
     from repro_torch.core import make_corpus_store
     from repro_torch.kernels import (deepfm_grad_fused, deepfm_score,
-                                     deepfm_score_fused,
-                                     deepfm_value_and_grad, neighbor_rank,
+                                     deepfm_score_fused, neighbor_rank,
                                      neighbor_rank_fused)
     from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
     from repro_torch.kernels.deepfm_grad_fused.ref import \
@@ -453,39 +439,14 @@ def check_fused_kernels(torch, dev, measure, fm_dim):
         "ms_unmasked": time_ms(lambda: deepfm_score_fused(st8, idx_a, q_a,
                                                           mlp, fm_dim))}
 
-    # -- deepfm_grad_fused: main path Q = 32, a ragged Q, 256
-    worst = 0.0
-    for dt, store in stores.items():
-        worst_dt = 0.0
-        for M in (32, 7, 256):
-            for shared in (False, True):
-                idx = ids_of(M)
-                q = rows(D) if shared else rows(M, D)
-                v, g, x = deepfm_grad_fused(store, idx, q, mlp, fm_dim)
-                torch.cuda.synchronize()
-                pv, pg, px = deepfm_grad_fused_ref(store, idx, q, *wb, fm_dim)
-                label = f"deepfm_grad_fused {dt} M={M} shared={shared}"
-                require(torch.equal(x, px), f"{label}: x differs from "
-                        f"CorpusStore.take")
-                ev, rv = close_err(v, pv, SCORE_RTOL, SCORE_ATOL)
-                eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
-                require(rv <= 1.0 and rg <= 1.0,
-                        f"{label}: vals {ev:.3e} grads {eg:.3e}")
-                worst_dt = max(worst_dt, ev, eg)
-                if dt == "float32":
-                    uv, ug = deepfm_value_and_grad(px, q, mlp, fm_dim)
-                    require(torch.equal(v, uv) and torch.equal(g, ug),
-                            f"{label}: differs from deepfm_grad on the "
-                            f"gathered rows")
-        log(f"deepfm_grad_fused {dt}: 6 cases, max_abs_err {worst_dt:.3e}, "
-            f"x equal to CorpusStore.take"
-            + (", equal to deepfm_grad bit for bit" if dt == "float32"
-               else ""))
-        worst = max(worst, worst_dt)
+    # -- deepfm_grad_fused: every net of DEEPFM_NETS at the Q of GRAD_QS
+    #    (main path Q = 32), both query forms, each residency
+    worst, by_net = check_deepfm_grad_nets(torch, dev, mlp, fm_dim,
+                                           fused=True)
     M = 32
     idx, q = ids_of(M), rows(M, D)
-    r = report["deepfm_grad_fused"] = {"err": worst, "ms": {},
-                                       "plain_ms": {}, "bound": {}}
+    r = report["deepfm_grad_fused"] = {"err": worst, "err_by_net": by_net,
+                                       "ms": {}, "plain_ms": {}, "bound": {}}
     for dt, st in stores.items():
         r["ms"][dt] = time_ms(lambda: deepfm_grad_fused(st, idx, q, mlp,
                                                         fm_dim))
@@ -568,6 +529,21 @@ MLP_NETS = (
     ("70-30-17-1 (Dx=37)", 37, 33, (30, 17)),
 )
 
+# the DeepFM nets the DeepFM grad pair is checked at: (D, fm, H0, H1). The
+# first is the serving measure, make_family_measure('deepfm', ..., 40)
+# (configs/guitar_deepfm.py; checked with that measure's weights); the
+# rest narrower and unequal hidden widths, widths that are not multiples
+# of 4 (the grad kernel's 4-byte copies, zero pads and partial slices), a
+# wide and a narrow net.
+DEEPFM_NETS = (
+    (40, 8, 64, 64),
+    (40, 8, 32, 32),
+    (40, 8, 64, 16),
+    (37, 5, 30, 18),
+    (72, 8, 128, 128),
+    (16, 8, 8, 8),
+)
+
 
 def mlp_costs(M, Dx, Dq, dims, per_row_query, grad):
     """Bytes (each input read once, each output written once) and FLOPs
@@ -608,10 +584,88 @@ def random_mlp(torch, dev, d_in, hidden, gen):
     return {k: [t.to(dev) for t in v] for k, v in p.items()}
 
 
-# the frontier sizes the MLP grad pair is checked at (its clusters take
+# the frontier sizes the grad pairs are checked at (their clusters take
 # tiles of 4 rows): the serving Q, a small one with a ragged tile, many
 # tiles with a ragged last one, and a large one
 GRAD_QS = (32, 7, 77, 256)
+
+
+def check_deepfm_grad_nets(torch, dev, serving_mlp, fm_dim, fused):
+    """deepfm_grad (or, ``fused``, deepfm_grad_fused) against its plain
+    version at every net of DEEPFM_NETS (the serving one with the
+    measure's weights ``serving_mlp``, the rest random), the Q of GRAD_QS
+    and both query forms; the fused form at each residency with -1 ids,
+    ``x`` equal to ``CorpusStore.take``, and at float32 bit for bit
+    against deepfm_grad on the gathered rows. Returns the largest error
+    and each net's."""
+    from repro_torch.core import make_corpus_store
+    from repro_torch.kernels import deepfm_grad_fused, deepfm_value_and_grad
+    from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
+    from repro_torch.kernels.deepfm_grad_fused.ref import \
+        deepfm_grad_fused_ref
+
+    N = 5000
+    gen = torch.Generator(device="cpu").manual_seed(789 + int(fused))
+    name = "deepfm_grad_fused" if fused else "deepfm_grad"
+    require(DEEPFM_NETS[0][1] == fm_dim, "the serving net's fm")
+
+    def rows(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def ids_of(M):
+        i = torch.randint(0, N, (M,), generator=gen)
+        i[::13] = -1                          # padding, clamped in-kernel
+        return i.to(dev)
+
+    worst, by_net = 0.0, {}
+    for D, fm, H0, H1 in DEEPFM_NETS:
+        label = f"D={D} fm={fm} {H0}x{H1}"
+        mlp = serving_mlp if (D, fm, H0, H1) == DEEPFM_NETS[0] else \
+            random_mlp(torch, dev, 2 * (D - fm), (H0, H1), gen)
+        wb = [t for pair in zip(mlp["w"], mlp["b"]) for t in pair]
+        stores = {"float32": None}
+        if fused:
+            base = torch.randn((N, D), generator=gen)
+            stores = {dt: make_corpus_store(base, dt, device=dev)
+                      for dt in RESIDENCIES}
+        n_cases, worst_net = 0, 0.0
+        for dt, store in stores.items():
+            for M in GRAD_QS:
+                for shared in (False, True):
+                    q = rows(D) if shared else rows(M, D)
+                    tag = f"{name} {label} {dt} M={M} shared={shared}"
+                    if fused:
+                        idx = ids_of(M)
+                        v, g, x = deepfm_grad_fused(store, idx, q, mlp, fm)
+                        torch.cuda.synchronize()
+                        pv, pg, px = deepfm_grad_fused_ref(store, idx, q,
+                                                           *wb, fm)
+                        require(torch.equal(x, px), f"{tag}: x differs from "
+                                f"CorpusStore.take")
+                    else:
+                        c = rows(M, D)
+                        v, g = deepfm_value_and_grad(c, q, mlp, fm)
+                        torch.cuda.synchronize()
+                        pv, pg = deepfm_value_and_grad_ref(
+                            c, q.expand(M, -1) if shared else q, *wb, fm)
+                    ev, rv = close_err(v, pv, SCORE_RTOL, SCORE_ATOL)
+                    eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
+                    require(rv <= 1.0 and rg <= 1.0,
+                            f"{tag}: vals {ev:.3e} grads {eg:.3e}")
+                    worst_net = max(worst_net, ev, eg)
+                    if fused and dt == "float32":
+                        uv, ug = deepfm_value_and_grad(px, q, mlp, fm)
+                        require(torch.equal(v, uv) and torch.equal(g, ug),
+                                f"{tag}: differs from deepfm_grad on the "
+                                f"gathered rows")
+                    n_cases += 1
+        log(f"{name} {label}: {n_cases} cases match the plain version, "
+            f"max_abs_err {worst_net:.3e}" + (
+                "; x equal to CorpusStore.take, equal to deepfm_grad bit "
+                "for bit at float32" if fused else ""))
+        worst = max(worst, worst_net)
+        by_net[label] = worst_net
+    return worst, by_net
 
 
 def check_mlp_kernels(torch, dev):
@@ -648,6 +702,12 @@ def check_mlp_kernels(torch, dev):
 
     worst = {k: 0.0 for k in ("mlp_score", "mlp_grad", "mlp_score_fused",
                               "mlp_grad_fused")}
+    by_net = {k: {} for k in worst}     # each kernel's largest error per net
+
+    def note(kernel, label, *errs):
+        worst[kernel] = max(worst[kernel], *errs)
+        by_net[kernel][label] = max(by_net[kernel].get(label, 0.0), *errs)
+
     serving = None
     for label, Dx, Dq, hidden in MLP_NETS:
         net = random_mlp(torch, dev, Dx + Dq, hidden, gen)
@@ -670,7 +730,7 @@ def check_mlp_kernels(torch, dev):
                                        SCORE_RTOL, SCORE_ATOL)
                 require(ratio <= 1.0, f"mlp_score {label} M={M} shared="
                         f"{shared}: {err:.3e}")
-                worst["mlp_score"] = max(worst["mlp_score"], err)
+                note("mlp_score", label, err)
                 n_cases += 1
         # -- mlp_grad: the frontier sizes of GRAD_QS
         for M in GRAD_QS:
@@ -683,7 +743,7 @@ def check_mlp_kernels(torch, dev):
                 eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
                 require(rv <= 1.0 and rg <= 1.0, f"mlp_grad {label} M={M} "
                         f"shared={shared}: vals {ev:.3e} grads {eg:.3e}")
-                worst["mlp_grad"] = max(worst["mlp_grad"], ev, eg)
+                note("mlp_grad", label, ev, eg)
                 n_cases += 1
         for dt, store in stores.items():
             # -- mlp_score_fused: the same shapes, masked and not
@@ -710,8 +770,7 @@ def check_mlp_kernels(torch, dev):
                             err, ratio = close_err(got[fin], want[fin],
                                                    SCORE_RTOL, SCORE_ATOL)
                             require(ratio <= 1.0, f"{tag}: {err:.3e}")
-                            worst["mlp_score_fused"] = max(
-                                worst["mlp_score_fused"], err)
+                            note("mlp_score_fused", label, err)
                         if dt == "float32":
                             unf = mlp_score(store.take(idx.clamp_min(0)), q,
                                             net)
@@ -735,8 +794,7 @@ def check_mlp_kernels(torch, dev):
                     eg, rg = close_err(g, pg, GRAD_RTOL, GRAD_ATOL)
                     require(rv <= 1.0 and rg <= 1.0,
                             f"{tag}: vals {ev:.3e} grads {eg:.3e}")
-                    worst["mlp_grad_fused"] = max(worst["mlp_grad_fused"],
-                                                  ev, eg)
+                    note("mlp_grad_fused", label, ev, eg)
                     if dt == "float32":
                         uv, ug = mlp_value_and_grad(px, q, net)
                         require(torch.equal(v, uv) and torch.equal(g, ug),
@@ -745,7 +803,9 @@ def check_mlp_kernels(torch, dev):
                     n_cases += 1
         log(f"mlp kernels {label}: {n_cases} cases match their plain "
             f"versions; the fused pair equals the pre-gathered pair bit for "
-            f"bit at float32, x equal to CorpusStore.take")
+            f"bit at float32, x equal to CorpusStore.take; max_abs_err "
+            + ", ".join(f"{k} {by_net[k].get(label, 0.0):.3e}"
+                        for k in by_net))
     # a network deeper than the kernels take, or too wide for the card's
     # shared memory, is refused with the way to the generic stages
     c, q = rows(8, 40), rows(8, 40)
@@ -776,7 +836,7 @@ def check_mlp_kernels(torch, dev):
         bound=bound_ms(*mlp_costs(256, Dx, Dq, dims, True, False)))
     cg, qg = rows(32, Dx), rows(32, Dq)
     report["mlp_grad"] = dict(
-        err=worst["mlp_grad"],
+        err=worst["mlp_grad"], err_by_net=by_net["mlp_grad"],
         ms=time_ms(lambda: mlp_value_and_grad(cg, qg, net)),
         plain_ms=time_ms(lambda: mlp_value_and_grad_ref(cg, qg, w, b)),
         host_us=host_us(lambda: mlp_value_and_grad(cg, qg, net)),
@@ -802,6 +862,7 @@ def check_mlp_kernels(torch, dev):
                                                        net))}
     idx = ids_of(32)
     r = report["mlp_grad_fused"] = {"err": worst["mlp_grad_fused"],
+                                    "err_by_net": by_net["mlp_grad_fused"],
                                     "ms": {}, "plain_ms": {}, "bound": {}}
     for dt, st in stores.items():
         r["ms"][dt] = time_ms(lambda: mlp_grad_fused(st, idx, qg, net))
@@ -1289,7 +1350,8 @@ def check_library_flash(torch, dev, report):
 # the kernels whose SASS must hold given instructions: the tensor-core
 # attention kernels, wgmma (HGMMA) for bf16 flash, mma.sync (HMMA) for
 # decode, both for float32 flash (S by wgmma, P V by mma.sync, TF32); the
-# MLP grad pair's cluster kernel, its cluster barrier (UCGABAR_ARV), its
+# cluster kernel of the MLP and DeepFM grad pairs (every instantiation,
+# MLPInput and DeepFMInput), its cluster barrier (UCGABAR_ARV), its
 # st.async pushes into the other CTAs' shared memory (STAS) and its
 # mbarrier waits (SYNCS.PHASECHK)
 SASS_KERNELS = {"flash_tc_kernel": ("HGMMA",), "decode_tc_kernel": ("HMMA",),

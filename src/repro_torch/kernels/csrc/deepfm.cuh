@@ -1,13 +1,14 @@
-// DeepFM measure pieces shared by the score and grad kernels.
+// The DeepFM measure's score kernels (deepfm_score, deepfm_score_fused) and
+// their pieces. The grad kernels run on the MLP grad pair's cluster body
+// (mlp_grad.cuh, over its DeepFM input).
 //
 //   f(x, q) = sigmoid(<x_fm, q_fm> + relu(relu([q_deep | x_deep] W0 + b0)
 //                                         W1 + b1) W2 + b2)
 //
 // Layout: the whole measure MLP is staged once per block into shared memory,
-// each weight matrix with a row stride of (cols + 1) floats. With that pad a
-// warp reading one column across 32 rows (the backward's transposed
-// products) hits 32 distinct banks, and a warp reading one row across 32
-// columns (the forward) does too. Each warp then owns one candidate row at a
+// each weight matrix with a row stride of (cols + 1) floats, so that a warp
+// reading one row across 32 columns hits 32 distinct banks (as would one
+// reading a column across 32 rows). Each warp then owns one candidate row at a
 // time; its lanes split the hidden units, and the row's activations live in
 // a per-warp scratch slice of shared memory, never in device memory.
 //
@@ -40,20 +41,17 @@ __host__ __device__ inline size_t deepfm_weight_floats(int K0, int H0,
          static_cast<size_t>(H0) * (H1 + 1) + H1 + H1 + 1;
 }
 
-// Per-warp scratch: deep input (K0), z0 (H0), z1 (H1), for the backward
-// g1 (H1) and g0 (H0), and the row slice (D) an index-fused kernel
-// gathers and dequantizes its row into.
+// Per-warp scratch: deep input (K0), z0 (H0), z1 (H1), and the row slice
+// (D) an index-fused kernel gathers and dequantizes its row into.
 __host__ __device__ inline size_t deepfm_scratch_floats(int K0, int H0,
                                                         int H1, int D) {
-  return static_cast<size_t>(K0) + 2 * H0 + 2 * H1 + D;
+  return static_cast<size_t>(K0) + H0 + H1 + D;
 }
 
 struct DeepFMScratch {
   float* in;
   float* z0;
   float* z1;
-  float* g1;
-  float* g0;
   float* x;
 };
 
@@ -64,9 +62,7 @@ __device__ inline DeepFMScratch deepfm_scratch(float* sm, int warp, int K0,
          warp * deepfm_scratch_floats(K0, H0, H1, D);
   c.z0 = c.in + K0;
   c.z1 = c.z0 + H0;
-  c.g1 = c.z1 + H1;
-  c.g0 = c.g1 + H1;
-  c.x = c.g0 + H0;
+  c.x = c.z1 + H1;
   return c;
 }
 
@@ -166,8 +162,7 @@ __device__ inline void dense_warp(const float* in, int K, const float* W,
 }
 
 // One warp's forward pass over the row (x, q). Leaves the pre-activations
-// z0 (H0) and z1 (H1) in scratch for a backward pass, and returns the
-// score in every lane.
+// z0 (H0) and z1 (H1) in scratch, and returns the score in every lane.
 __device__ inline float deepfm_forward_warp(const DeepFMSmem& s,
                                             const float* __restrict__ x,
                                             const float* __restrict__ q,
@@ -195,9 +190,9 @@ __device__ inline float deepfm_forward_warp(const DeepFMSmem& s,
 }
 
 // ---------------------------------------------------------------------------
-// The score and grad kernels, one body for every row source (rows.cuh):
-// GatheredRows for the pre-gathered kernels, CorpusRows<R> for the
-// index-fused ones. Blocks of kDeepFMRowsPerBlock rows, one warp per row.
+// The score kernel, one body for every row source (rows.cuh): GatheredRows
+// for the pre-gathered kernel, CorpusRows<R> for the index-fused one.
+// Blocks of kDeepFMRowsPerBlock rows, one warp per row.
 // ---------------------------------------------------------------------------
 
 // f(x_r, q_r) for each row r; ``mask`` (nullable) is the adaptive prefix
@@ -243,59 +238,6 @@ deepfm_score_kernel(Rows rows, const float* __restrict__ query, int q_shared,
   }
 }
 
-// Value and df/dx of each row; ``xout`` (nullable) receives the float32
-// row the kernel scored (the dequantized frontier rows of the fused form).
-template <class Rows>
-__global__ void __launch_bounds__(kDeepFMThreads)
-deepfm_grad_kernel(Rows rows, const float* __restrict__ query, int q_shared,
-                   DeepFMWeights w, float* __restrict__ vals,
-                   float* __restrict__ grads, float* __restrict__ xout, int M,
-                   int D, int fm, int H0, int H1) {
-  extern __shared__ float sm[];
-  const int dd = D - fm;
-  const int K0 = 2 * dd;
-  const DeepFMSmem s = deepfm_layout(sm, K0, H0, H1);
-  deepfm_stage(s, w, K0, H0, H1);
-  __syncthreads();
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  const DeepFMScratch c = deepfm_scratch(sm, warp, K0, H0, H1, D);
-  const int row0 = blockIdx.x * kDeepFMRowsPerBlock;
-  const int row1 = min(row0 + kDeepFMRowsPerBlock, M);
-  for (int r = row0 + warp; r < row1; r += nwarps) {
-    __syncwarp();  // the previous row's scratch reads are done
-    const float* x = rows.load(r, D, c.x, lane);
-    const float* q = q_shared ? query : query + static_cast<size_t>(r) * D;
-    const float val =
-        deepfm_forward_warp(s, x, q, c.in, c.z0, c.z1, fm, dd, H0, H1, lane);
-    const float g_logit = val * (1.f - val);
-    for (int u = lane; u < H1; u += kWarp)
-      c.g1[u] = c.z1[u] > 0.f ? g_logit * s.w2[u] : 0.f;
-    __syncwarp();
-    for (int v = lane; v < H0; v += kWarp) {
-      const float* row = s.W1 + v * (H1 + 1);
-      float a = 0.f;
-      for (int u = 0; u < H1; ++u) a = fmaf(c.g1[u], row[u], a);
-      c.g0[v] = c.z0[v] > 0.f ? a : 0.f;
-    }
-    __syncwarp();
-    float* gr = grads + static_cast<size_t>(r) * D;
-    for (int k = lane; k < dd; k += kWarp) {
-      const float* row = s.W0 + (dd + k) * (H0 + 1);
-      float a = 0.f;
-      for (int v = 0; v < H0; ++v) a = fmaf(c.g0[v], row[v], a);
-      gr[fm + k] = a;
-    }
-    for (int k = lane; k < fm; k += kWarp) gr[k] = g_logit * q[k];
-    if (xout != nullptr) {
-      float* xr = xout + static_cast<size_t>(r) * D;
-      for (int d = lane; d < D; d += kWarp) xr[d] = x[d];
-    }
-    if (lane == 0) vals[r] = val;
-  }
-}
-
 template <class Rows>
 inline cudaError_t launch_deepfm_score(Rows rows, const void* query,
                                        int q_shared, const void* mask,
@@ -311,25 +253,6 @@ inline cudaError_t launch_deepfm_score(Rows rows, const void* query,
         rows, static_cast<const float*>(query), q_shared,
         static_cast<const unsigned char*>(mask), w, static_cast<float*>(out),
         M, D, fm, H0, H1);
-  }
-  return cudaGetLastError();
-}
-
-template <class Rows>
-inline cudaError_t launch_deepfm_grad(Rows rows, const void* query,
-                                      int q_shared, const DeepFMWeights& w,
-                                      void* vals, void* grads, void* xout,
-                                      int M, int D, int fm, int H0, int H1,
-                                      void* stream) {
-  if (M > 0) {
-    const size_t smem = deepfm_smem_bytes(D, fm, H0, H1);
-    allow_smem(deepfm_grad_kernel<Rows>, smem);
-    const int grid = (M + kDeepFMRowsPerBlock - 1) / kDeepFMRowsPerBlock;
-    deepfm_grad_kernel<Rows><<<grid, kDeepFMThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-        rows, static_cast<const float*>(query), q_shared, w,
-        static_cast<float*>(vals), static_cast<float*>(grads),
-        static_cast<float*>(xout), M, D, fm, H0, H1);
   }
   return cudaGetLastError();
 }

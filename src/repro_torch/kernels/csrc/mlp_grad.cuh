@@ -1,14 +1,29 @@
-// The MLP measure's value and analytic df/dx (mlp_grad, mlp_grad_fused):
-// a tile of 4 rows per thread-block cluster of n CTAs.
+// The value and analytic df/dx of the MLP measure (mlp_grad,
+// mlp_grad_fused) and of the DeepFM measure (deepfm_grad,
+// deepfm_grad_fused): a tile of 4 rows per thread-block cluster of n CTAs.
 //
-//   f(x, q) = sigmoid(MLP([x | q])), df/dx by the hand-derived backward
+//   MLP:    f(x, q) = sigmoid(MLP([x | q]))
+//   DeepFM: f(x, q) = sigmoid(MLP([q_deep | x_deep]) + <x_fm, q_fm>)
+//
+// df/dx by the hand-derived backward. One body serves both, over an input
+// policy (MLPInput, DeepFMInput): the DeepFM measure's deep part is an MLP
+// (D = fm + dd: [q[fm:] | x[fm:]], 2 dd -> H0 -> H1 -> 1) whose input has
+// the x half second, so its backward reads W_0's rows [dd, 2 dd); the FM
+// term is local to a row: every CTA adds <x_fm, q_fm> to its tile's
+// logits after the top layer's dot and bias, and CTA 0 writes the
+// gradient's first fm columns, g_logit * q_fm. The policy's branches are
+// resolved at compile time, so the MLP instantiations keep their
+// arithmetic and its order (and, but for the run-time-width copy over
+// pre-gathered rows, their SASS opcode counts; PERF.md).
 //
 // Layout. The host plans n from the widths: about 8 hidden units per CTA,
 // a power of two from 2 to the portable cluster size of 8 (n = 8 at 80 ->
-// 64 -> 64 -> 1; 1 without a hidden layer). CTA c owns a contiguous slice
-// of the units of every hidden layer (a multiple of 4 units) and of the Dx
-// gradient columns, and computes only those outputs, in both directions,
-// from full inputs:
+// 64 -> 64 -> 1, and at the serving DeepFM's 64 -> 64 -> 64 -> 1,
+// configs/guitar_deepfm.py; 1 without a hidden layer). CTA c owns a
+// contiguous slice of the units of every hidden layer (a multiple of 4
+// units) and of the Dx gradient columns (Dx = dd for DeepFM: 4 of 32 at
+// serving), and computes only those outputs, in both directions, from
+// full inputs:
 //
 //  - forward: relu(z_i)[:, own units] from the full relu(z_{i-1}), with
 //    the columns W_i[:, own units];
@@ -370,6 +385,24 @@ template <class Rows>
 constexpr bool kF32Rows = std::is_same_v<
     decltype(std::declval<typename Rows::Row>().p), const float*>;
 
+// How a launch's rows and queries make the network's input, and what a
+// gradient row holds (the kernel's last parameter, so that the MLP's
+// parameters lie where they did before there was a policy):
+//  - MLPInput: the input [x | q]; rows and gradients Dx wide, queries Dq;
+//  - DeepFMInput: the input [q[fm:] | x[fm:]] (Dq = Dx = dd); rows,
+//    queries and gradients D = fm + dd wide; the FM term <x_fm, q_fm> in
+//    the logit and g_logit * q_fm as the gradient's first fm columns. The
+//    tile's x[:fm] and q[:fm] (4 x align4(fm) floats each) lie at xf and
+//    qf in shared memory, past the plan's buffers.
+struct MLPInput {
+  static constexpr bool kFM = false;
+  static constexpr int fm = 0, xf = 0, qf = 0;
+};
+struct DeepFMInput {
+  static constexpr bool kFM = true;
+  int fm, xf, qf;
+};
+
 // The widths a launch runs at, read from its parameters ...
 struct RuntimeWidths {
   const MLPNet& net;
@@ -385,12 +418,17 @@ struct RuntimeWidths {
   __device__ int ks() const { return p.ks; }
   __device__ int pw(int i) const { return mlp_grad_align4(net.dim[i + 1]); }
   __device__ int px() const { return mlp_grad_align4(net.dim[0]); }
+  template <class In>
+  __device__ int fm(const In& in) const {
+    return in.fm;
+  }
 };
 
 // ... or fixed at compile time (equal to the plan's): kD0 inputs, kDx of
-// them x, kL - 1 hidden layers of kH units, kN CTAs. Every loop over
-// layers, units and k then has a constant count and every index folds.
-template <int kD0, int kDx, int kH, int kL, int kN>
+// them x, kL - 1 hidden layers of kH units, kN CTAs, kFm FM columns
+// (DeepFM). Every loop over layers, units and k then has a constant count
+// and every index folds.
+template <int kD0, int kDx, int kH, int kL, int kN, int kFm = 0>
 struct FixedWidths {
   __device__ FixedWidths(const MLPNet&, const MLPGradPlan&) {}
   __host__ __device__ static constexpr int L() { return kL; }
@@ -410,9 +448,15 @@ struct FixedWidths {
   __host__ __device__ static constexpr int px() {
     return mlp_grad_align4(kD0);
   }
-  // whether ``net`` launched with ``plan`` runs at these widths
-  static bool matches(const MLPNet& net, const MLPGradPlan& plan) {
-    if (net.layers != kL || net.dx != kDx || plan.n != kN)
+  template <class In>
+  __host__ __device__ static constexpr int fm(const In&) {
+    return kFm;
+  }
+  // whether ``net`` launched with ``plan`` (and ``fm`` FM columns) runs
+  // at these widths
+  static bool matches(const MLPNet& net, const MLPGradPlan& plan,
+                      int fm = 0) {
+    if (net.layers != kL || net.dx != kDx || plan.n != kN || fm != kFm)
       return false;
     for (int i = 0; i <= kL; ++i)
       if (net.dim[i] != dim(i)) return false;
@@ -422,18 +466,21 @@ struct FixedWidths {
 
 }  // namespace mlpg
 
-// The serving net, make_family_measure('mlp', ..., 40): 80 -> 64 -> 64 ->
-// 1 at Dx = 40, a cluster of 8.
+// The serving nets: make_family_measure('mlp', ..., 40), 80 -> 64 -> 64 ->
+// 1 at Dx = 40, and make_family_measure('deepfm', ..., 40), D = 40 with
+// fm = 8 (configs/guitar_deepfm.py): a deep part of 64 -> 64 -> 64 -> 1 at
+// dd = 32; each a cluster of 8.
 using MLPGradServing = mlpg::FixedWidths<80, 40, 64, 3, 8>;
+using DeepFMGradServing = mlpg::FixedWidths<64, 32, 64, 3, 8, 8>;
 
 // Value and df/dx of each row; ``xout`` (nullable) receives the float32
 // row the kernel scored (the dequantized frontier rows of the fused form).
-template <class Rows, int Stop, class Widths>
+template <class Rows, int Stop, class Widths, class In>
 __global__ void __launch_bounds__(kMLPGradThreads)
 mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
                         int q_shared, MLPNet net, MLPGradPlan plan,
                         float* __restrict__ vals, float* __restrict__ grads,
-                        float* __restrict__ xout, int M) {
+                        float* __restrict__ xout, int M, In in) {
   using namespace mlpg;
   extern __shared__ __align__(16) float sm[];
   const Widths wd(net, plan);
@@ -442,6 +489,13 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   const int n = wd.n();
   constexpr int T = kMLPGradTile, lt = kMLPGradTileLog2;
   const int L = wd.L(), Dx = wd.dx(), Dq = wd.dq(), D0 = wd.dim(0);
+  // the input policy's widths: FM columns (0 for an MLP), a row's (and a
+  // gradient row's) width, where x and q start in the network's input,
+  // and a query row's width and first column there
+  const int fm = wd.fm(in), pf = mlp_grad_align4(fm);
+  const int D = fm + Dx;
+  const int xo = In::kFM ? Dq : 0, qo = In::kFM ? 0 : Dx;
+  const int qld = In::kFM ? D : Dq;
   const int tid = threadIdx.x;
   const int row0 = (blockIdx.x / n) * T;
   const int nrows = min(T, M - row0);
@@ -480,11 +534,12 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
     zero_cols(sm + plan.wf[i] + K * si, si, mlp_grad_align4(K) - K, 0, si);
     stage_rows(sm + plan.bf[i], 0, net.b[i] + u.lo, 0, 1, u.width);
     // the backward's rows: of W_i the own units of layer i - 1, of W_0
-    // the own x columns
+    // the own x columns (rows xo + own columns)
     const Slice v = i > 0 ? slice_of(c, wd.s(i - 1), K, n)
                           : slice_of(c, wd.ks(), Dx, n);
     const int H4 = mlp_grad_align4(H);
-    stage_rows(sm + plan.wb[i], H4, net.w[i] + static_cast<size_t>(v.lo) * H,
+    stage_rows(sm + plan.wb[i], H4,
+               net.w[i] + static_cast<size_t>(v.lo + (i > 0 ? 0 : xo)) * H,
                H, v.width, H);
     zero_cols(sm + plan.wb[i], H4, v.width, H, H4);
   }
@@ -495,51 +550,74 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
     if (tid == 0) cp_async4(sm + plan.bl, net.b[L - 1]);
   }
   float* X = sm + plan.x;
+  float* XF = sm + in.xf;  // DeepFM: x[:fm] and q[:fm] of the tile
+  float* QF = sm + in.qf;
   const int px = wd.px();
   {
-    // [x | q] of rows t < nrows; zeros past them and past D0
+    // the input of rows t < nrows; zeros past them and past D0. Column k
+    // of row t goes to X at xo + k - fm, or (DeepFM, k < fm) to XF at k:
+    // to_x gives the address, at_x its offset from X (the float32 copies
+    // take addresses and the dequant offsets, as before the policy, so
+    // that the MLP's code does not change)
+    auto to_x = [&](int t, int k) {
+      return In::kFM && k < fm ? XF + t * pf + k : X + t * px + xo + k - fm;
+    };
+    const int xf = in.xf - plan.x;
+    auto at_x = [&](int t, int k) {
+      return In::kFM && k < fm ? xf + t * pf + k : t * px + xo + k - fm;
+    };
     const int D4 = mlp_grad_align4(D0);
     zero_cols(X, px, nrows, D0, D4);
     zero_cols(X + nrows * px, px, T - nrows, 0, D4);
+    if constexpr (In::kFM) {
+      zero_cols(XF + nrows * pf, pf, T - nrows, 0, pf);
+      zero_cols(QF + nrows * pf, pf, T - nrows, 0, pf);
+    }
     if constexpr (kF32Rows<Rows>) {
-      const bool v4 = (Dx & 3) == 0 &&
+      const bool v4 = ((fm | Dx) & 3) == 0 &&
                       (reinterpret_cast<uintptr_t>(
-                           rows.row(static_cast<size_t>(row0), Dx).p) &
+                           rows.row(static_cast<size_t>(row0), D).p) &
                        15) == 0;
       if (v4) {
-        for_each(nrows * (Dx >> 2), [&](int e) {
-          const int t = e / (Dx >> 2), k = (e - t * (Dx >> 2)) * 4;
-          cp_async16(X + t * px + k,
-                     rows.row(static_cast<size_t>(row0 + t), Dx).p + k);
+        for_each(nrows * (D >> 2), [&](int e) {
+          const int t = e / (D >> 2), k = (e - t * (D >> 2)) * 4;
+          cp_async16(to_x(t, k),
+                     rows.row(static_cast<size_t>(row0 + t), D).p + k);
         });
       } else {
-        for_each(nrows * Dx, [&](int e) {
-          const int t = e / Dx, k = e - t * Dx;
-          cp_async4(X + t * px + k,
-                    rows.row(static_cast<size_t>(row0 + t), Dx).p + k);
+        for_each(nrows * D, [&](int e) {
+          const int t = e / D, k = e - t * D;
+          cp_async4(to_x(t, k),
+                    rows.row(static_cast<size_t>(row0 + t), D).p + k);
         });
       }
     } else {
-      constexpr int kBatch = 8;  // loads in flight before any store
-      for (int e0 = tid; e0 < nrows * Dx; e0 += kBatch * kMLPGradThreads) {
+      // loads in flight before any store; 4 for DeepFM, whose two
+      // destinations cost the registers that 8 would need (ptxas keeps
+      // the kernel at 32 and spilled the id pointer at 8; at the serving
+      // widths a thread stages one element either way)
+      constexpr int kBatch = In::kFM ? 4 : 8;
+      for (int e0 = tid; e0 < nrows * D; e0 += kBatch * kMLPGradThreads) {
         float v[kBatch];
         int at[kBatch];
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
           const int e = e0 + j * kMLPGradThreads;
-          const int t = e / Dx, k = e - t * Dx;
-          at[j] = e < nrows * Dx ? t * px + k : -1;
+          const int t = e / D, k = e - t * D;
+          at[j] = e < nrows * D ? at_x(t, k) : -1;
           if (at[j] >= 0)
-            v[j] = rows.get(rows.row(static_cast<size_t>(row0 + t), Dx), k);
+            v[j] = rows.get(rows.row(static_cast<size_t>(row0 + t), D), k);
         }
 #pragma unroll
         for (int j = 0; j < kBatch; ++j)
           if (at[j] >= 0) X[at[j]] = v[j];
       }
     }
-    stage_rows(X + Dx, px,
-               query + (q_shared ? 0 : static_cast<size_t>(row0) * Dq),
-               q_shared ? 0 : Dq, nrows, Dq);
+    const float* qrow =
+        query + (q_shared ? 0 : static_cast<size_t>(row0) * qld);
+    stage_rows(X + qo, px, qrow + fm, q_shared ? 0 : qld, nrows, Dq);
+    if constexpr (In::kFM)
+      stage_rows(QF, pf, qrow, q_shared ? 0 : qld, nrows, fm);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -548,8 +626,9 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
     const int t = tid >> 3, l = tid & 7;
     if (t < nrows) {
 #pragma unroll 4
-      for (int k = l; k < Dx; k += 8)
-        xout[static_cast<size_t>(row0 + t) * Dx + k] = X[t * px + k];
+      for (int k = l; k < D; k += 8)
+        xout[static_cast<size_t>(row0 + t) * D + k] =
+            In::kFM && k < fm ? XF[t * pf + k] : X[t * px + xo + k - fm];
     }
   }
   if (Stop == 1) return;
@@ -581,6 +660,20 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   const int ptop = L > 1 ? wd.pw(L - 2) : px;
   const float* wl = sm + plan.wl;
   float* GL = sm + plan.gl;
+  // DeepFM: the FM term of row t = tid / 8, lane l = tid % 8 taking
+  // columns l, l + 8, ..., reduced by xor shuffles (before the wait: it
+  // needs no exchange)
+  float fmt = 0.f;
+  if constexpr (In::kFM) {
+    const int t = tid >> 3, l = tid & 7;
+    if (t < T) {
+      for (int k = l; k < fm; k += 8)
+        fmt = fmaf(XF[t * pf + k], QF[t * pf + k], fmt);
+    }
+    fmt += __shfl_xor_sync(kFull, fmt, 4);
+    fmt += __shfl_xor_sync(kFull, fmt, 2);
+    fmt += __shfl_xor_sync(kFull, fmt, 1);
+  }
   if (L > 1) wait_exchange(bars + L - 2);
   {
     const int t = tid >> 3, l = tid & 7;
@@ -599,18 +692,27 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
     p += __shfl_xor_sync(kFull, p, 2);
     p += __shfl_xor_sync(kFull, p, 1);
     if (live && l == 0) {
-      const float val = 1.f / (1.f + expf(-(p + sm[plan.bl])));
+      const float logit =
+          In::kFM ? (p + sm[plan.bl]) + fmt : p + sm[plan.bl];
+      const float val = 1.f / (1.f + expf(-logit));
       GL[t] = val * (1.f - val);
       if (c == 0 && t < nrows) vals[row0 + t] = val;
     }
   }
   __syncthreads();
   if (Stop == 2) return;
-  if (L == 1) {  // no hidden layer (n = 1): gx = f' w[:Dx]
+  if constexpr (In::kFM) {  // CTA 0: the FM columns, g_logit * q_fm
+    const int t = tid >> 3, l = tid & 7;
+    if (c == 0 && t < nrows)
+      for (int k = l; k < fm; k += 8)
+        grads[static_cast<size_t>(row0 + t) * D + k] = GL[t] * QF[t * pf + k];
+  }
+  if (L == 1) {  // no hidden layer (n = 1): gx = f' w[x columns]
     const int t = tid >> 3, l = tid & 7;
     if (t < nrows)
       for (int k = l; k < Dx; k += 8)
-        grads[static_cast<size_t>(row0 + t) * Dx + k] = GL[t] * wl[k];
+        grads[static_cast<size_t>(row0 + t) * D + fm + k] =
+            GL[t] * wl[xo + k];
     return;
   }
 
@@ -657,8 +759,8 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   dense4<true>(sm + plan.g[0], wd.pw(0), H4, sm + plan.wb[0], H4, nullptr,
                k.width, [&](int t, int j0, int g, int, float4 s) {
                  if (g != 0 || t >= nrows) return;
-                 float* out =
-                     grads + static_cast<size_t>(row0 + t) * Dx + k.lo + j0;
+                 float* out = grads + static_cast<size_t>(row0 + t) * D +
+                              fm + k.lo + j0;
                  const int valid = min(4, k.width - j0);
                  out[0] = s.x;
                  if (valid > 1) out[1] = s.y;
@@ -668,15 +770,15 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   cluster_wait();
 }
 
-template <class Rows, int Stop, class Widths>
+template <class Rows, int Stop, class Widths, class In>
 inline cudaError_t launch_mlp_grad_cluster_as(Rows rows, const void* query,
                                               int q_shared, const MLPNet& net,
                                               const MLPGradPlan& plan,
                                               void* vals, void* grads,
-                                              void* xout, int M,
+                                              void* xout, int M, In in,
                                               void* stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(plan.floats);
-  auto kernel = mlp_grad_cluster_kernel<Rows, Stop, Widths>;
+  auto kernel = mlp_grad_cluster_kernel<Rows, Stop, Widths, In>;
   allow_smem(kernel, smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((M + kMLPGradTile - 1) / kMLPGradTile) * plan.n);
@@ -693,7 +795,7 @@ inline cudaError_t launch_mlp_grad_cluster_as(Rows rows, const void* query,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, rows, static_cast<const float*>(query), q_shared, net,
       plan, static_cast<float*>(vals), static_cast<float*>(grads),
-      static_cast<float*>(xout), M);
+      static_cast<float*>(xout), M, in);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -709,11 +811,47 @@ inline cudaError_t launch_mlp_grad_cluster(Rows rows, const void* query,
   if (M <= 0) return cudaGetLastError();
   MLPGradPlan plan;
   if (!mlp_grad_plan(plan, net)) return cudaErrorInvalidValue;
+  const mlpg::MLPInput in;
   if (MLPGradServing::matches(net, plan))
     return launch_mlp_grad_cluster_as<Rows, Stop, MLPGradServing>(
-        rows, query, q_shared, net, plan, vals, grads, xout, M, stream);
+        rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
   return launch_mlp_grad_cluster_as<Rows, Stop, mlpg::RuntimeWidths>(
-      rows, query, q_shared, net, plan, vals, grads, xout, M, stream);
+      rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
+}
+
+// The same for the DeepFM measure (rows and queries D wide, fm FM
+// columns, the deep part 2 (D - fm) -> H0 -> H1 -> 1): the cluster body
+// over DeepFMInput, at the serving widths by the kernel fixed to them
+// (the plan mirrored by deepfm_grad_plan in kernels/deepfm_grad/ops.py).
+template <class Rows, int Stop = kMLPGradAll>
+inline cudaError_t launch_deepfm_grad_cluster(Rows rows, const void* query,
+                                              int q_shared,
+                                              const DeepFMWeights& w,
+                                              void* vals, void* grads,
+                                              void* xout, int M, int D,
+                                              int fm, int H0, int H1,
+                                              void* stream) {
+  if (M <= 0) return cudaGetLastError();
+  const int dd = D - fm;
+  const void* ws[3] = {w.w0, w.w1, w.w2};
+  const void* bs[3] = {w.b0, w.b1, w.b2};
+  const int dims[4] = {2 * dd, H0, H1, 1};
+  MLPNet net;
+  MLPGradPlan plan;
+  if (fm <= 0 || dd <= 0 || !mlp_net(net, ws, bs, dims, 3, dd, dd) ||
+      !mlp_grad_plan(plan, net))
+    return cudaErrorInvalidValue;
+  // the tile's x[:fm] and q[:fm] past the plan's buffers
+  const int f4 = kMLPGradTile * mlp_grad_align4(fm);
+  const mlpg::DeepFMInput in{fm, plan.floats, plan.floats + f4};
+  plan.floats += 2 * f4;
+  if (sizeof(float) * plan.floats > kMLPGradSmemCap)
+    return cudaErrorInvalidValue;
+  if (DeepFMGradServing::matches(net, plan, fm))
+    return launch_mlp_grad_cluster_as<Rows, Stop, DeepFMGradServing>(
+        rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
+  return launch_mlp_grad_cluster_as<Rows, Stop, mlpg::RuntimeWidths>(
+      rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
 }
 
 }  // namespace repro

@@ -1,6 +1,9 @@
 """Wrapper of the analytic DeepFM value+gradient kernel
 (``csrc/deepfm_grad.cu``): checks its arguments, launches the kernel for
-CUDA tensors, and uses the plain version only for CPU tensors."""
+CUDA tensors, and uses the plain version only for CPU tensors.
+``deepfm_grad_plan`` gives the launch layout of the grad pair's body (the
+MLP grad pair's cluster body, ``csrc/mlp_grad.cuh``, over the DeepFM
+input)."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +12,16 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
 from repro_torch.kernels.deepfm_score.ops import (check_deepfm_mlp,
                                                   check_rows_and_query)
+from repro_torch.kernels.mlp_grad.ops import mlp_grad_plan
+
+
+def deepfm_grad_plan(D: int, fm_dim: int, h0: int, h1: int):
+    """The DeepFM grad kernels' launch layout (``mlp_grad_plan`` of the
+    deep part [q_deep | x_deep] -> h0 -> h1 -> 1, d_x = D - fm_dim, with
+    the tile's FM columns), or None if a CTA's shared memory does not
+    fit."""
+    dd = D - fm_dim
+    return mlp_grad_plan([2 * dd, h0, h1, 1], dd, fm_dim)
 
 
 def deepfm_value_and_grad(cand: torch.Tensor, query: torch.Tensor,

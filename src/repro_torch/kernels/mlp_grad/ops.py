@@ -26,14 +26,16 @@ def _align4(v: int) -> int:
     return (v + 3) & ~3
 
 
-def mlp_grad_plan(dims, d_x: int):
+def mlp_grad_plan(dims, d_x: int, fm: int = 0):
     """The grad kernels' launch layout for widths ``dims`` = [d_x + d_q,
     h_1, ..., 1] (mirrors ``mlp_grad_plan`` in csrc/mlp_grad.cuh): n CTAs
     per cluster of GRAD_TILE rows (a power of two from 2 to
     GRAD_MAX_CLUSTER with about GRAD_UNITS_PER_CTA hidden units each; 1
     without a hidden layer), the units of each hidden layer per CTA (a
     multiple of 4), the d_x gradient columns per CTA and a CTA's shared
-    memory in bytes. None if that does not fit."""
+    memory in bytes. None if that does not fit. ``fm`` > 0 plans the deep
+    part of a DeepFM net with fm FM columns, whose tile also holds x[:fm]
+    and q[:fm] (``deepfm_grad_plan``)."""
     L = len(dims) - 1
     hidden = list(dims[1:L])
     n = 1
@@ -50,6 +52,8 @@ def mlp_grad_plan(dims, d_x: int):
     floats += _align4(dims[L - 1]) + _align4(1)
     floats += GRAD_TILE * (_align4(dims[0]) + 2 * sum(map(_align4, hidden)))
     floats += GRAD_TILE
+    if fm > 0:
+        floats += 2 * GRAD_TILE * _align4(fm)
     if 4 * floats > GRAD_SMEM_CAP:
         return None
     return {"n": n, "slices": s, "ks": ks, "smem_bytes": 4 * floats}
