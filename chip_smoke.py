@@ -668,17 +668,34 @@ def check_deepfm_grad_nets(torch, dev, serving_mlp, fm_dim, fused):
     return worst, by_net
 
 
+def score_plan_on_card(dims, d_x) -> dict:
+    """The plan the MLP score kernels launch at widths ``dims`` on the card
+    (``mlp_score_plan_info``): rows and CTAs per cluster, shared memory per
+    CTA and ``cudaOccupancyMaxActiveClusters`` of the kernel."""
+    import ctypes
+    from repro_torch.kernels import _lib
+    L = len(dims) - 1
+    info = (ctypes.c_int * 4)()
+    _lib.check(_lib.load().mlp_score_plan_info(
+        (ctypes.c_int * (L + 1))(*dims), L, d_x, dims[0] - d_x, info),
+        "mlp_score_plan_info")
+    return dict(zip(("rows", "ctas", "smem_bytes", "max_active_clusters"),
+                    info))
+
+
 def check_mlp_kernels(torch, dev):
     """The four MLP kernels against their plain versions at every net of
-    MLP_NETS: mlp_score at M = 256, 512, 77, 1 and mlp_grad at the Q of
-    GRAD_QS, both query forms; the fused pair at each residency (with and
-    without a prefix mask, -1 ids), ``x`` of the grad form equal to
-    ``CorpusStore.take``, and at float32 bit for bit against the
-    pre-gathered pair on the gathered rows. Times each at the serving
-    net and shape."""
+    MLP_NETS: mlp_score at M = 256, 512, 77, 1 and 8 tiles of its plan and
+    3 rows, and mlp_grad at the Q of GRAD_QS, both query forms; the fused
+    pair at each residency (with and without a prefix mask, -1 ids; the
+    score at M = 512 also with every row masked, all -inf), ``x`` of the
+    grad form equal to ``CorpusStore.take``, and at float32 bit for bit
+    against the pre-gathered pair on the gathered rows. Times each at the
+    serving net and shape."""
     from repro_torch.core import make_corpus_store
     from repro_torch.kernels import (mlp_grad_fused, mlp_score,
                                      mlp_score_fused, mlp_value_and_grad)
+    from repro_torch.kernels.mlp_grad.ops import mlp_score_plan
     from repro_torch.kernels.mlp_grad.ref import mlp_value_and_grad_ref
     from repro_torch.kernels.mlp_grad_fused.ref import mlp_grad_fused_ref
     from repro_torch.kernels.mlp_score.ops import mlp_dims
@@ -687,13 +704,16 @@ def check_mlp_kernels(torch, dev):
 
     N = 5000
     gen = torch.Generator(device="cpu").manual_seed(456)
+    # the score's ragged and all-masked cases draw from their own stream,
+    # so every other case keeps its inputs
+    extra = torch.Generator(device="cpu").manual_seed(457)
     neg_inf = float("-inf")
 
-    def rows(*shape):
-        return torch.randn(shape, generator=gen).to(dev)
+    def rows(*shape, g=gen):
+        return torch.randn(shape, generator=g).to(dev)
 
-    def ids_of(*shape):
-        i = torch.randint(0, N, shape, generator=gen)
+    def ids_of(*shape, g=gen):
+        i = torch.randint(0, N, shape, generator=g)
         i.view(-1)[::13] = -1                 # padding, clamped in-kernel
         return i.to(dev)
 
@@ -708,8 +728,21 @@ def check_mlp_kernels(torch, dev):
         worst[kernel] = max(worst[kernel], *errs)
         by_net[kernel][label] = max(by_net[kernel].get(label, 0.0), *errs)
 
+    plans = {label: score_plan_on_card([Dx + Dq, *hidden, 1], Dx)
+             for label, Dx, Dq, hidden in MLP_NETS}
+    for label, Dx, Dq, hidden in MLP_NETS:     # the CPU tests' mirror
+        p, m = plans[label], mlp_score_plan([Dx + Dq, *hidden, 1], Dx)
+        require((p["rows"], p["ctas"], p["smem_bytes"]) == (
+            m["rows"], m["n"], m["smem_bytes"]), f"mlp_score {label}: the "
+            f"plan {p} differs from kernels/mlp_grad/ops.py's {m}")
+    log("mlp_score plans (rows x CTAs per cluster, shared memory per CTA, "
+        "cudaOccupancyMaxActiveClusters): " + "; ".join(
+            f"{label} {p['rows']} x {p['ctas']}, {p['smem_bytes']} B, "
+            f"{p['max_active_clusters']}" for label, p in plans.items()))
     serving = None
     for label, Dx, Dq, hidden in MLP_NETS:
+        # a ragged M: 8 tiles of the net's plan and 3 rows
+        ragged = 8 * plans[label]["rows"] + 3
         net = random_mlp(torch, dev, Dx + Dq, hidden, gen)
         w, b = net["w"], net["b"]
         base = torch.randn((N, Dx), generator=gen)
@@ -719,10 +752,12 @@ def check_mlp_kernels(torch, dev):
             serving = (net, Dx, Dq, stores)
         n_cases = 0
         # -- mlp_score: M = Q*C = 256 (C = 8), 512 (adaptive c_max = 16),
-        #    a ragged M, one row
-        for M in (256, 512, 77, 1):
+        #    ragged Ms, one row
+        for M in (256, 512, 77, 1, ragged):
+            g = extra if M == ragged else gen
             for shared in (False, True):
-                c, q = rows(M, Dx), (rows(Dq) if shared else rows(M, Dq))
+                c = rows(M, Dx, g=g)
+                q = rows(Dq, g=g) if shared else rows(M, Dq, g=g)
                 got = mlp_score(c, q, net)
                 torch.cuda.synchronize()
                 err, ratio = close_err(got, mlp_score_ref(c, expand(q, M), w,
@@ -747,15 +782,17 @@ def check_mlp_kernels(torch, dev):
                 n_cases += 1
         for dt, store in stores.items():
             # -- mlp_score_fused: the same shapes, masked and not
-            for M, C in ((256, 8), (512, 16), (77, None), (1, None)):
+            for M, C in ((256, 8), (512, 16), (77, None), (1, None),
+                         (ragged, None)):
+                g = extra if M == ragged else gen
                 for shared in (False, True):
                     for masked in (False, True):
-                        idx = ids_of(M)
-                        q = rows(Dq) if shared else rows(M, Dq)
+                        idx = ids_of(M, g=g)
+                        q = rows(Dq, g=g) if shared else rows(M, Dq, g=g)
                         mask = None
                         if masked:
-                            mask = (prefix_mask(torch, M // C, C, gen) if C
-                                    else torch.rand(M, generator=gen) < 0.5)
+                            mask = (prefix_mask(torch, M // C, C, g) if C
+                                    else torch.rand(M, generator=g) < 0.5)
                             mask = mask.to(dev)
                         got = mlp_score_fused(store, idx, q, net, mask=mask)
                         torch.cuda.synchronize()
@@ -779,6 +816,16 @@ def check_mlp_kernels(torch, dev):
                             require(torch.equal(got, unf), f"{tag}: differs "
                                     f"from mlp_score on the gathered rows")
                         n_cases += 1
+            # every row masked: every tile skipped, all -inf
+            got = mlp_score_fused(store, ids_of(512, g=extra),
+                                  rows(512, Dq, g=extra), net,
+                                  mask=torch.zeros(512, dtype=torch.bool,
+                                                   device=dev))
+            torch.cuda.synchronize()
+            require(bool(torch.isneginf(got).all()),
+                    f"mlp_score_fused {label} {dt} M=512 all masked: "
+                    f"{int((~torch.isneginf(got)).sum())} rows not -inf")
+            n_cases += 1
             # -- mlp_grad_fused: the same Q
             for M in GRAD_QS:
                 for shared in (False, True):
@@ -830,6 +877,7 @@ def check_mlp_kernels(torch, dev):
     report = {}
     c, q = rows(256, Dx), rows(256, Dq)
     report["mlp_score"] = dict(
+        plan=plans[MLP_NETS[0][0]],
         err=worst["mlp_score"], ms=time_ms(lambda: mlp_score(c, q, net)),
         plain_ms=time_ms(lambda: mlp_score_ref(c, q, w, b)),
         host_us=host_us(lambda: mlp_score(c, q, net)),
@@ -1350,16 +1398,19 @@ def check_library_flash(torch, dev, report):
 # the kernels whose SASS must hold given instructions: the tensor-core
 # attention kernels, wgmma (HGMMA) for bf16 flash, mma.sync (HMMA) for
 # decode, both for float32 flash (S by wgmma, P V by mma.sync, TF32); the
-# cluster kernel of the MLP and DeepFM grad pairs (every instantiation,
-# MLPInput and DeepFMInput), its cluster barrier (UCGABAR_ARV), its
-# st.async pushes into the other CTAs' shared memory (STAS) and its
-# mbarrier waits (SYNCS.PHASECHK)
+# cluster body's kernels, of the MLP and DeepFM grad pairs (every
+# instantiation, MLPInput and DeepFMInput) and of the MLP score pair,
+# their cluster barrier (UCGABAR_ARV), their st.async pushes into the
+# other CTAs' shared memory (STAS) and their mbarrier waits
+# (SYNCS.PHASECHK)
+CLUSTER_SASS = ("UCGABAR_ARV", "STAS", "SYNCS.PHASECHK")
 SASS_KERNELS = {"flash_tc_kernel": ("HGMMA",), "decode_tc_kernel": ("HMMA",),
                 "flash_tf32_kernel": ("HGMMA", "HMMA"),
-                "mlp_grad_cluster_kernel": ("UCGABAR_ARV", "STAS",
-                                            "SYNCS.PHASECHK")}
+                "mlp_grad_cluster_kernel": CLUSTER_SASS,
+                "mlp_score_cluster_kernel": CLUSTER_SASS}
 # those whose every instantiation must build without a spill
-NO_SPILL = ("flash_tf32_kernel", "mlp_grad_cluster_kernel")
+NO_SPILL = ("flash_tf32_kernel", "mlp_grad_cluster_kernel",
+            "mlp_score_cluster_kernel")
 
 
 def check_kernel_build(lib_path):

@@ -1,25 +1,29 @@
-// The value and analytic df/dx of the MLP measure (mlp_grad,
-// mlp_grad_fused) and of the DeepFM measure (deepfm_grad,
-// deepfm_grad_fused): a tile of 4 rows per thread-block cluster of n CTAs.
+// The MLP measure's kernels (mlp_score, mlp_score_fused, mlp_grad,
+// mlp_grad_fused) and the DeepFM measure's grad pair (deepfm_grad,
+// deepfm_grad_fused): one body, a tile of T rows per thread-block cluster
+// of n CTAs, run as the value and analytic df/dx (mlp_grad_cluster_kernel,
+// T = 4) or forward only as the score (mlp_score_cluster_kernel).
 //
 //   MLP:    f(x, q) = sigmoid(MLP([x | q]))
 //   DeepFM: f(x, q) = sigmoid(MLP([q_deep | x_deep]) + <x_fm, q_fm>)
 //
-// df/dx by the hand-derived backward. One body serves both, over an input
-// policy (MLPInput, DeepFMInput): the DeepFM measure's deep part is an MLP
-// (D = fm + dd: [q[fm:] | x[fm:]], 2 dd -> H0 -> H1 -> 1) whose input has
-// the x half second, so its backward reads W_0's rows [dd, 2 dd); the FM
-// term is local to a row: every CTA adds <x_fm, q_fm> to its tile's
-// logits after the top layer's dot and bias, and CTA 0 writes the
-// gradient's first fm columns, g_logit * q_fm. The policy's branches are
-// resolved at compile time, so the MLP instantiations keep their
-// arithmetic and its order (and, but for the run-time-width copy over
-// pre-gathered rows, their SASS opcode counts; PERF.md).
+// df/dx by the hand-derived backward. The body serves both measures over
+// an input policy (MLPInput, DeepFMInput): the DeepFM measure's deep part
+// is an MLP (D = fm + dd: [q[fm:] | x[fm:]], 2 dd -> H0 -> H1 -> 1) whose
+// input has the x half second, so its backward reads W_0's rows [dd, 2
+// dd); the FM term is local to a row: every CTA adds <x_fm, q_fm> to its
+// tile's logits after the top layer's dot and bias, and CTA 0 writes the
+// gradient's first fm columns, g_logit * q_fm. The policy's branches, the
+// tile and the score's dropping of the backward are resolved at compile
+// time, so the MLP grad instantiations keep their arithmetic and its order
+// (and, but for the run-time-width copy over pre-gathered rows, their SASS
+// opcode counts; PERF.md).
 //
 // Layout. The host plans n from the widths: about 8 hidden units per CTA,
-// a power of two from 2 to the portable cluster size of 8 (n = 8 at 80 ->
-// 64 -> 64 -> 1, and at the serving DeepFM's 64 -> 64 -> 64 -> 1,
-// configs/guitar_deepfm.py; 1 without a hidden layer). CTA c owns a
+// a power of two from 2 to the portable cluster size of 8 for the grad,
+// to 4 for the score (the grad's n = 8 at 80 -> 64 -> 64 -> 1, and at the
+// serving DeepFM's 64 -> 64 -> 64 -> 1, configs/guitar_deepfm.py; 1
+// without a hidden layer). CTA c owns a
 // contiguous slice of the units of every hidden layer (a multiple of 4
 // units) and of the Dx gradient columns (Dx = dd for DeepFM: 4 of 32 at
 // serving), and computes only those outputs, in both directions, from
@@ -27,11 +31,14 @@
 //
 //  - forward: relu(z_i)[:, own units] from the full relu(z_{i-1}), with
 //    the columns W_i[:, own units];
-//  - backward: g_{i-1}[:, own units] = mask * (g_i W_i^T) from the full
-//    g_i, with the rows W_i[own units, :], and at the end gx[:, own
+//  - backward (grad): g_{i-1}[:, own units] = mask * (g_i W_i^T) from the
+//    full g_i, with the rows W_i[own units, :], and at the end gx[:, own
 //    columns] from the full g_0 and the rows W_0[own columns, :];
-//  - the value: every CTA takes the full dot of the top layer with the
-//    last layer's weights for the tile's rows.
+//  - the value: for the grad, the full dot of the top layer with the last
+//    layer's weights for the tile's rows in every CTA (each needs f');
+//    for the score, each CTA's partial dot over its own units of the top
+//    layer, which it keeps rather than pushes, sent to CTA 0, which adds
+//    the n partials in rank order and writes the score.
 //
 // Each slice a CTA computes is pushed to every CTA of the cluster (itself
 // included) by st.async into the receivers' shared memory, each push
@@ -39,27 +46,35 @@
 // waits only for the data it reads: no cluster-wide barrier and no fence
 // between layers (one with release semantics cost ~0.65 us per layer).
 // Every exchange buffer is written once per launch. There are 2L - 3
-// exchanges for L layers (3 at serving), a cluster barrier before the
-// first (the mbarriers are initialised) and one before exit (no CTA leaves
-// while pushes to it are in flight).
+// exchanges for L layers (3 at serving) in the grad, L - 1 (2) in the
+// score, the last of them the partial dots; a cluster barrier before the
+// first (the mbarriers are initialised) and one before exit (no CTA
+// leaves while pushes to it are in flight).
 //
 // The kernel is a chain of dependent steps (stage, layer, exchange, ...)
 // run by few threads, so its time is latency: 4 rows per cluster put the
-// serving Q = 32 on 8 clusters of 8 CTAs, and at the serving widths the
-// kernel is compiled for them (FixedWidths), every loop of constant length
-// and every index folded. Tiles of 32, 16 and 8 rows on clusters of 4, and
-// the same body at run-time widths, were slower (tools/mlp_grad_split.py,
-// PERF.md). Activations are [row][unit], weights as they lie in device
-// memory (the forward's column slices [k][unit], the backward's row slices
-// [unit][k]), so every staging copy is a 16-byte cp.async where the widths
-// allow (4-byte otherwise), all of them in flight at once, and a thread
-// computes one row by four units from one 16-byte load of inputs and four
-// of weights per 16 FMAs, the K sum split over KS lanes (chunks of 4 k,
-// chunk = g mod KS) and reduced by xor shuffles. Pads to a multiple of 4
-// are zero. bf16/int8 rows are loaded and dequantized with rows.cuh's
-// rounding. Every sum runs in a fixed order, so the index-fused form (the
-// same body over CorpusRows) equals the pre-gathered one bit for bit at
-// float32.
+// grad's serving Q = 32 on 8 clusters of 8 CTAs; the score's M = Q * C =
+// 256 (512 adaptive) takes 8 rows per cluster of 4 CTAs (kMLPScoreTile,
+// kMLPScoreCluster; both from sweeps of rows x CTAs per cluster,
+// PERF.md); at the serving widths the kernel is compiled for them
+// (FixedWidths), every loop of constant length and every index folded,
+// beside a copy at run-time widths. Activations are [row][unit], weights
+// as they lie in device memory (the forward's column slices [k][unit],
+// the backward's row slices [unit][k]), so every staging copy is a 16-byte
+// cp.async where the widths allow (4-byte otherwise), all of them in
+// flight at once, and a thread computes one row by four units from one
+// 16-byte load of inputs and four of weights per 16 FMAs, the K sum split
+// over KS threads (chunks of 4 k, chunk = g mod KS): for the grad KS
+// neighbouring lanes added by xor shuffles, for the score, whose tiles
+// have more rows, KS warps added through shared memory, so that a warp's
+// lanes read distinct rows at one chunk (dense4). Pads to a multiple of 4
+// are zero. bf16/int8 rows are
+// loaded and dequantized with rows.cuh's rounding. Every sum runs in a
+// fixed order, so the index-fused forms (the same body over CorpusRows)
+// equal the pre-gathered ones bit for bit at float32.
+//
+// The score's adaptive prefix mask: a masked row scores -inf, and a tile
+// whose rows are all masked writes -inf and leaves before its staging.
 //
 // Stop cuts the kernel short for timing its phases
 // (tools/mlp_grad_split.py): 0 the launch, 1 staging, 2 through the value.
@@ -70,7 +85,9 @@
 #include <type_traits>
 #include <utility>
 
+#include "deepfm.cuh"
 #include "mlp.cuh"
+#include "rows.cuh"
 #include "tc.cuh"
 
 namespace repro {
@@ -78,8 +95,7 @@ namespace repro {
 constexpr int kMLPGradThreads = 256;
 constexpr int kMLPGradMaxCluster = 8;      // the portable cluster size
 constexpr int kMLPGradUnitsPerCTA = 8;     // hidden units per CTA aimed at
-constexpr int kMLPGradTile = 4;            // rows per cluster
-constexpr int kMLPGradTileLog2 = 2;
+constexpr int kMLPGradTile = 4;            // the grad's rows per cluster
 constexpr size_t kMLPGradSmemCap = 232448; // opt-in shared memory per block
 constexpr int kMLPGradBarFloats = 32;      // 2 * kMaxMLPLayers - 3 mbarriers
 constexpr int kMLPGradAll = 3;
@@ -89,7 +105,7 @@ __host__ __device__ constexpr int mlp_grad_align4(int v) {
 }
 
 // A launch's layout: cluster size, slice widths and shared-memory
-// offsets in floats. Mirrored by mlp_grad_plan in
+// offsets in floats. Mirrored by mlp_grad_plan and mlp_score_plan in
 // kernels/mlp_grad/ops.py.
 struct MLPGradPlan {
   int n;                     // CTAs per cluster
@@ -100,32 +116,37 @@ struct MLPGradPlan {
   int wb[kMaxMLPLayers];     // i >= 1: W_i[own units of layer i - 1, :],
                              // s[i - 1] x align4(dim[i + 1]); i = 0:
                              // W_0[own x columns, :], align4(ks) x
-                             // align4(dim[1])
+                             // align4(dim[1]) (grad only)
   int wl, bl;                // the last layer's weights and bias
-  int x;                     // the tile's [x | q], 4 x align4(dim[0])
+  int x;                     // the tile's [x | q], T x align4(dim[0])
+                             // (the score's row pitches: mlp_cluster_plan)
   int a[kMaxMLPLayers];      // hidden layer i's relu(z) and
-  int g[kMaxMLPLayers];      // cotangent, 4 x align4(dim[i + 1]) each
-  int gl;                    // f * (1 - f) per row
+  int g[kMaxMLPLayers];      // cotangent (grad), T x align4(dim[i + 1])
+                             // each; the score's g[0]: dense4's partial
+                             // sums
+  int gl;                    // grad: f * (1 - f) per row; score: the top
+                             // layer's partial dots, n x T (CTA 0's)
   int floats;
 };
 
-// Plan a launch for ``net``; false if a CTA's shared memory does not fit
-// (never for a network the score kernels' layout fits:
-// tests/test_torch_mlp.py).
-inline bool mlp_grad_plan(MLPGradPlan& p, const MLPNet& net) {
+// Plan a launch for ``net`` at a tile of T rows on at most n_max CTAs
+// per cluster, with the backward's buffers (``grad``) or without them;
+// false if a CTA's shared memory does not fit. The grad's plan (T = 4)
+// and the score's at T <= 8 fit every network the MLP kernels admit
+// (mlp_smem_bytes; tests/test_torch_mlp.py).
+inline bool mlp_cluster_plan(MLPGradPlan& p, const MLPNet& net, int T,
+                             int n_max, bool grad) {
   const int L = net.layers;
   int n = 1;
   if (L > 1) {
     n = 2;
-    while (n < kMLPGradMaxCluster && n * kMLPGradUnitsPerCTA < net.gmax)
-      n *= 2;
+    while (n < n_max && n * kMLPGradUnitsPerCTA < net.gmax) n *= 2;
   }
   p.n = n;
   for (int i = 0; i + 1 < L; ++i) {
     p.s[i] = mlp_grad_align4((net.dim[i + 1] + n - 1) / n);
   }
   p.ks = (net.dx + n - 1) / n;
-  constexpr int T = kMLPGradTile;
   int off = kMLPGradBarFloats;
   auto take = [&off](int floats) {
     const int o = off;
@@ -135,19 +156,35 @@ inline bool mlp_grad_plan(MLPGradPlan& p, const MLPNet& net) {
   for (int i = 0; i + 1 < L; ++i) {
     p.wf[i] = take(mlp_grad_align4(net.dim[i]) * p.s[i]);
     p.bf[i] = take(p.s[i]);
-    p.wb[i] = take((i > 0 ? p.s[i - 1] : mlp_grad_align4(p.ks)) *
-                   mlp_grad_align4(net.dim[i + 1]));
+    p.wb[i] = grad ? take((i > 0 ? p.s[i - 1] : mlp_grad_align4(p.ks)) *
+                          mlp_grad_align4(net.dim[i + 1]))
+                   : 0;
   }
   p.wl = take(mlp_grad_align4(net.dim[L - 1]));
   p.bl = take(1);
-  p.x = take(T * mlp_grad_align4(net.dim[0]));
+  // the score's row pitches are odd multiples of 4 floats (dense4's
+  // kWarpK), and its g[0] holds dense4's partial sums
+  auto pitch = [grad](int d) {
+    return grad ? mlp_grad_align4(d) : mlp_grad_align4(d) | 4;
+  };
+  p.x = take(T * pitch(net.dim[0]));
   for (int i = 0; i + 1 < L; ++i) {
-    p.a[i] = take(T * mlp_grad_align4(net.dim[i + 1]));
-    p.g[i] = take(T * mlp_grad_align4(net.dim[i + 1]));
+    p.a[i] = take(T * pitch(net.dim[i + 1]));
+    p.g[i] = grad ? take(T * mlp_grad_align4(net.dim[i + 1])) : 0;
   }
-  p.gl = take(T);
+  if (!grad && L > 1) p.g[0] = take(4 * kMLPGradThreads);
+  p.gl = take(grad ? T : n * T);
   p.floats = off;
   return sizeof(float) * off <= kMLPGradSmemCap;
+}
+
+inline bool mlp_grad_plan(MLPGradPlan& p, const MLPNet& net) {
+  return mlp_cluster_plan(p, net, kMLPGradTile, kMLPGradMaxCluster, true);
+}
+
+inline bool mlp_score_plan(MLPGradPlan& p, const MLPNet& net, int T,
+                           int n_max) {
+  return mlp_cluster_plan(p, net, T, n_max, false);
 }
 
 namespace mlpg {
@@ -298,30 +335,118 @@ __device__ __forceinline__ void zero_cols(float* p, int ld, int rows, int c0,
     });
 }
 
-// out[t][j0 + j] (j < 4) for the tile's 4 rows and the CTA's ``w`` output
-// units, summed over k < K4 (a multiple of 4; the pads are zero):
-//   kRowW = false: sum_k in[t][k] W[k][j]  (W: [k][unit], row stride ws)
-//   kRowW = true:  sum_k in[t][k] W[j][k]  (W: [unit][k], row stride ws)
-// plus bias[j] (nullable). A thread computes one row by four units; the
-// K sum is split over KS lanes (chunks of 4 k, chunk = g, g + KS, ...) and
-// reduced by xor shuffles. emit(t, j0, g, KS, out) receives the four
-// units in each of the KS lanes.
-template <bool kRowW, class Emit>
+// log2 of a power of two
+__host__ __device__ constexpr int ilog2(int v) {
+  return v > 1 ? 1 + ilog2(v >> 1) : 0;
+}
+
+// a0..a3 (units j0 + 0..3) += sum over k' in [k, k + 4) of v[k' - k] times
+//   kRowW = false: W[k'][j0 + j]  (W: [k][unit], row stride ws)
+//   kRowW = true:  W[j0 + j][k']  (W: [unit][k], row stride ws)
+template <bool kRowW>
+__device__ __forceinline__ void fma4x4(float4 v, const float* W, int ws, int k,
+                                       int j0, float& a0, float& a1,
+                                       float& a2, float& a3) {
+  if constexpr (!kRowW) {
+    const float4 w0 = ld4(W + (k + 0) * ws + j0);
+    const float4 w1 = ld4(W + (k + 1) * ws + j0);
+    const float4 w2 = ld4(W + (k + 2) * ws + j0);
+    const float4 w3 = ld4(W + (k + 3) * ws + j0);
+    a0 = fmaf(v.w, w3.x, fmaf(v.z, w2.x, fmaf(v.y, w1.x,
+                                              fmaf(v.x, w0.x, a0))));
+    a1 = fmaf(v.w, w3.y, fmaf(v.z, w2.y, fmaf(v.y, w1.y,
+                                              fmaf(v.x, w0.y, a1))));
+    a2 = fmaf(v.w, w3.z, fmaf(v.z, w2.z, fmaf(v.y, w1.z,
+                                              fmaf(v.x, w0.z, a2))));
+    a3 = fmaf(v.w, w3.w, fmaf(v.z, w2.w, fmaf(v.y, w1.w,
+                                              fmaf(v.x, w0.w, a3))));
+  } else {
+    const float4 w0 = ld4(W + (j0 + 0) * ws + k);
+    const float4 w1 = ld4(W + (j0 + 1) * ws + k);
+    const float4 w2 = ld4(W + (j0 + 2) * ws + k);
+    const float4 w3 = ld4(W + (j0 + 3) * ws + k);
+    a0 = fmaf(v.w, w0.w, fmaf(v.z, w0.z, fmaf(v.y, w0.y,
+                                              fmaf(v.x, w0.x, a0))));
+    a1 = fmaf(v.w, w1.w, fmaf(v.z, w1.z, fmaf(v.y, w1.y,
+                                              fmaf(v.x, w1.x, a1))));
+    a2 = fmaf(v.w, w2.w, fmaf(v.z, w2.z, fmaf(v.y, w2.y,
+                                              fmaf(v.x, w2.x, a2))));
+    a3 = fmaf(v.w, w3.w, fmaf(v.z, w3.z, fmaf(v.y, w3.y,
+                                              fmaf(v.x, w3.x, a3))));
+  }
+}
+
+// out[t][j0 + j] (j < 4) for the tile's T rows and the CTA's ``w`` output
+// units, summed over k < K4 (a multiple of 4; the pads are zero) of
+// in[t][k] times W (fma4x4), plus bias[j] (nullable). A thread computes
+// one row by four units; the K sum is split over KS threads (chunks of 4
+// k, chunk = g, g + KS, ...), their sums added pairwise, g + KS / 2 into
+// g first, then g + KS / 4, ... emit(t, j0, g, KS, out) receives the four
+// units in each of the KS threads. The KS threads of a tile are
+//  - kWarpK = false: KS neighbouring lanes, added by xor shuffles;
+//  - kWarpK = true: threads tile, tile + tp, ... (tp: the tiles rounded up
+//    to a power of two), so that a warp's lanes take rows t at one chunk
+//    (one 16-byte load of W for the warp, and of inputs one per row: with
+//    a row pitch of an odd multiple of 4 floats, 32 rows hit 32 distinct
+//    banks), added through ``red`` (KS x tp float4) in shared memory.
+//    The same sums in the same order as kWarpK = false.
+template <int T, bool kRowW, bool kWarpK, class Emit>
 __device__ __forceinline__ void dense4(const float* in, int pin, int K4,
                                        const float* W, int ws,
-                                       const float* bias, int w,
-                                       Emit emit) {
-  const int tiles = ((w + 3) >> 2) << kMLPGradTileLog2;
+                                       const float* bias, int w, Emit emit,
+                                       float4* red) {
+  constexpr int lt = ilog2(T);
+  const int tiles = ((w + 3) >> 2) << lt;
   int lks = 0;  // log2(KS)
   while (lks < 5 && (tiles << (lks + 1)) <= kMLPGradThreads) ++lks;
   const int KS = 1 << lks, chunks = K4 >> 2, span = tiles << lks;
   const int steps = (chunks + KS - 1) >> lks;
+  if constexpr (kWarpK) {
+    if (KS > 1) {  // then KS * tp <= kMLPGradThreads: one round
+      int ltp = 0;
+      while ((1 << ltp) < tiles) ++ltp;
+      const int e = threadIdx.x;
+      const int tile = e & ((1 << ltp) - 1), g = e >> ltp;
+      const bool live = tile < tiles && g < KS;
+      const int t = tile & (T - 1);
+      const int j0 = (tile >> lt) * 4;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      if (live) {
+        const float* x = in + t * pin;
+#pragma unroll 5
+        for (int m = 0; m < steps; ++m) {
+          const int cc = g + (m << lks);
+          if (cc >= chunks) break;
+          fma4x4<kRowW>(ld4(x + cc * 4), W, ws, cc * 4, j0, a0, a1, a2, a3);
+        }
+      }
+      __syncthreads();  // the previous call's sums are read
+      if (g < KS) red[e] = make_float4(a0, a1, a2, a3);
+      __syncthreads();
+      for (int h = KS >> 1; h > 0; h >>= 1) {
+        if (g < h) {
+          const float4 p = red[e], q = red[e + (h << ltp)];
+          red[e] = make_float4(p.x + q.x, p.y + q.y, p.z + q.z, p.w + q.w);
+        }
+        __syncthreads();
+      }
+      if (live) {
+        float4 r = red[tile];
+        if (bias != nullptr) {
+          const float4 b = ld4(bias + j0);
+          r = make_float4(r.x + b.x, r.y + b.y, r.z + b.z, r.w + b.w);
+        }
+        emit(t, j0, g, KS, r);
+      }
+      return;
+    }
+  }
   for (int base = 0; base < span; base += kMLPGradThreads) {
     const int e = base + threadIdx.x;
     const int tile = e >> lks, g = e & (KS - 1);
     const bool live = tile < tiles;
-    const int t = tile & (kMLPGradTile - 1);
-    const int j0 = (tile >> kMLPGradTileLog2) * 4;
+    const int t = tile & (T - 1);
+    const int j0 = (tile >> lt) * 4;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     if (live) {
       const float* x = in + t * pin;
@@ -330,34 +455,7 @@ __device__ __forceinline__ void dense4(const float* in, int pin, int K4,
         const int cc = g + (m << lks);
         if (cc >= chunks) break;
         const int k = cc * 4;
-        const float4 v = ld4(x + k);
-        if constexpr (!kRowW) {
-          const float4 w0 = ld4(W + (k + 0) * ws + j0);
-          const float4 w1 = ld4(W + (k + 1) * ws + j0);
-          const float4 w2 = ld4(W + (k + 2) * ws + j0);
-          const float4 w3 = ld4(W + (k + 3) * ws + j0);
-          a0 = fmaf(v.w, w3.x, fmaf(v.z, w2.x, fmaf(v.y, w1.x,
-                                                    fmaf(v.x, w0.x, a0))));
-          a1 = fmaf(v.w, w3.y, fmaf(v.z, w2.y, fmaf(v.y, w1.y,
-                                                    fmaf(v.x, w0.y, a1))));
-          a2 = fmaf(v.w, w3.z, fmaf(v.z, w2.z, fmaf(v.y, w1.z,
-                                                    fmaf(v.x, w0.z, a2))));
-          a3 = fmaf(v.w, w3.w, fmaf(v.z, w2.w, fmaf(v.y, w1.w,
-                                                    fmaf(v.x, w0.w, a3))));
-        } else {
-          const float4 w0 = ld4(W + (j0 + 0) * ws + k);
-          const float4 w1 = ld4(W + (j0 + 1) * ws + k);
-          const float4 w2 = ld4(W + (j0 + 2) * ws + k);
-          const float4 w3 = ld4(W + (j0 + 3) * ws + k);
-          a0 = fmaf(v.w, w0.w, fmaf(v.z, w0.z, fmaf(v.y, w0.y,
-                                                    fmaf(v.x, w0.x, a0))));
-          a1 = fmaf(v.w, w1.w, fmaf(v.z, w1.z, fmaf(v.y, w1.y,
-                                                    fmaf(v.x, w1.x, a1))));
-          a2 = fmaf(v.w, w2.w, fmaf(v.z, w2.z, fmaf(v.y, w2.y,
-                                                    fmaf(v.x, w2.x, a2))));
-          a3 = fmaf(v.w, w3.w, fmaf(v.z, w3.z, fmaf(v.y, w3.y,
-                                                    fmaf(v.x, w3.x, a3))));
-        }
+        fma4x4<kRowW>(ld4(x + k), W, ws, k, j0, a0, a1, a2, a3);
       }
     }
     for (int o = KS >> 1; o > 0; o >>= 1) {
@@ -472,22 +570,34 @@ struct FixedWidths {
 // dd = 32; each a cluster of 8.
 using MLPGradServing = mlpg::FixedWidths<80, 40, 64, 3, 8>;
 using DeepFMGradServing = mlpg::FixedWidths<64, 32, 64, 3, 8, 8>;
+// The score's tile: rows and at most CTAs per cluster, from the sweep of
+// both at the serving MLP (tools/mlp_grad_split.py --sweep, PERF.md), at
+// every width (a tile of 8 rows fits every network the MLP kernels admit).
+constexpr int kMLPScoreTile = 8;
+constexpr int kMLPScoreCluster = 4;
+using MLPScoreServing = mlpg::FixedWidths<80, 40, 64, 3, kMLPScoreCluster>;
 
-// Value and df/dx of each row; ``xout`` (nullable) receives the float32
-// row the kernel scored (the dequantized frontier rows of the fused form).
-template <class Rows, int Stop, class Widths, class In>
-__global__ void __launch_bounds__(kMLPGradThreads)
-mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
-                        int q_shared, MLPNet net, MLPGradPlan plan,
-                        float* __restrict__ vals, float* __restrict__ grads,
-                        float* __restrict__ xout, int M, In in) {
-  using namespace mlpg;
+namespace mlpg {
+
+// One tile of T rows per cluster, as the top of this file sets out. kGrad:
+// the value and df/dx (``vals``, ``grads``, ``xout``); otherwise the score
+// alone (``vals``): no row slices of W, no cotangents, no backward
+// exchanges, a row that ``mask`` (nullable) clears scored -inf, and a tile
+// that it clears entirely skipped, staging and all.
+template <class Rows, int Stop, class Widths, class In, int T, bool kGrad>
+__device__ __forceinline__ void cluster_body(
+    Rows rows, const float* __restrict__ query, int q_shared,
+    const MLPNet& net, const MLPGradPlan& plan, float* __restrict__ vals,
+    float* __restrict__ grads, float* __restrict__ xout,
+    const unsigned char* __restrict__ mask, int M, In in) {
+  static_assert((T & (T - 1)) == 0 && T * 8 <= kMLPGradThreads,
+                "a tile is a power of two of at most 32 rows");
   extern __shared__ __align__(16) float sm[];
   const Widths wd(net, plan);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm);
   const int c = static_cast<int>(cluster_rank());
   const int n = wd.n();
-  constexpr int T = kMLPGradTile, lt = kMLPGradTileLog2;
+  constexpr int lt = ilog2(T);
   const int L = wd.L(), Dx = wd.dx(), Dq = wd.dq(), D0 = wd.dim(0);
   // the input policy's widths: FM columns (0 for an MLP), a row's (and a
   // gradient row's) width, where x and q start in the network's input,
@@ -497,25 +607,50 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   const int xo = In::kFM ? Dq : 0, qo = In::kFM ? 0 : Dx;
   const int qld = In::kFM ? D : Dq;
   const int tid = threadIdx.x;
+  // the tile's row pitches: the grad's as the widths give them; the
+  // score's padded to an odd multiple of 4 floats (dense4's kWarpK)
+  auto pitch = [](int v) { return kGrad ? v : v | 4; };
   const int row0 = (blockIdx.x / n) * T;
   const int nrows = min(T, M - row0);
-  // exchange j < L - 1 fills relu(z_j), exchange L - 1 + j fills g_j
+  // the score's mask, read for row tid (the row whose score this thread
+  // writes): a tile with no live row writes -inf and leaves before its
+  // staging, in every CTA of the cluster alike (they read the same
+  // bytes), so before any cluster barrier
+  [[maybe_unused]] bool live_row = true;
+  if constexpr (!kGrad) {
+    if (mask != nullptr) {
+      live_row = tid < nrows && mask[row0 + tid] != 0;
+      if (!__syncthreads_or(live_row)) {
+        if (c == 0 && tid < nrows) vals[row0 + tid] = -INFINITY;
+        return;
+      }
+    }
+  }
+  // exchange j < L - 1 fills relu(z_j), exchange L - 1 + j fills g_j;
+  // the score's exchange L - 2 brings CTA 0 the top layer's partial dots,
+  // n per row, in place of relu(z_{L-2})
   if (tid == kMLPGradThreads - kWarp) {
     for (int j = 0; j + 1 < L; ++j) tc::mbar_init(bars + j, 1);
-    for (int j = 0; j + 2 < L; ++j) tc::mbar_init(bars + L - 1 + j, 1);
+    if constexpr (kGrad)
+      for (int j = 0; j + 2 < L; ++j) tc::mbar_init(bars + L - 1 + j, 1);
     tc::mbar_fence_init();
     const uint32_t tile_bytes = sizeof(float) * T;
-    for (int j = 0; j + 1 < L; ++j)
+    for (int j = 0; j + (kGrad ? 1 : 2) < L; ++j)
       tc::mbar_expect_tx(bars + j, tile_bytes * wd.dim(j + 1));
-    for (int j = 0; j + 2 < L; ++j)
-      tc::mbar_expect_tx(bars + L - 1 + j, tile_bytes * wd.dim(j + 1));
+    if constexpr (kGrad) {
+      for (int j = 0; j + 2 < L; ++j)
+        tc::mbar_expect_tx(bars + L - 1 + j, tile_bytes * wd.dim(j + 1));
+    } else {
+      if (L > 1 && c == 0) tc::mbar_expect_tx(bars + L - 2, tile_bytes * n);
+    }
   }
   // the exchange buffers' pads (never pushed to) are zero
 #pragma unroll
   for (int i = 0; i + 1 < L; ++i) {
     const int H = wd.dim(i + 1);
-    zero_cols(sm + plan.a[i], wd.pw(i), T, H, mlp_grad_align4(H));
-    zero_cols(sm + plan.g[i], wd.pw(i), T, H, mlp_grad_align4(H));
+    zero_cols(sm + plan.a[i], pitch(wd.pw(i)), T, H, mlp_grad_align4(H));
+    if constexpr (kGrad)
+      zero_cols(sm + plan.g[i], wd.pw(i), T, H, mlp_grad_align4(H));
   }
   // every CTA's mbarriers are set before any push (waited after staging)
   cluster_arrive_relaxed();
@@ -533,15 +668,17 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
     stage_rows(sm + plan.wf[i], si, net.w[i] + u.lo, H, K, u.width);
     zero_cols(sm + plan.wf[i] + K * si, si, mlp_grad_align4(K) - K, 0, si);
     stage_rows(sm + plan.bf[i], 0, net.b[i] + u.lo, 0, 1, u.width);
-    // the backward's rows: of W_i the own units of layer i - 1, of W_0
-    // the own x columns (rows xo + own columns)
-    const Slice v = i > 0 ? slice_of(c, wd.s(i - 1), K, n)
-                          : slice_of(c, wd.ks(), Dx, n);
-    const int H4 = mlp_grad_align4(H);
-    stage_rows(sm + plan.wb[i], H4,
-               net.w[i] + static_cast<size_t>(v.lo + (i > 0 ? 0 : xo)) * H,
-               H, v.width, H);
-    zero_cols(sm + plan.wb[i], H4, v.width, H, H4);
+    if constexpr (kGrad) {
+      // the backward's rows: of W_i the own units of layer i - 1, of W_0
+      // the own x columns (rows xo + own columns)
+      const Slice v = i > 0 ? slice_of(c, wd.s(i - 1), K, n)
+                            : slice_of(c, wd.ks(), Dx, n);
+      const int H4 = mlp_grad_align4(H);
+      stage_rows(sm + plan.wb[i], H4,
+                 net.w[i] + static_cast<size_t>(v.lo + (i > 0 ? 0 : xo)) * H,
+                 H, v.width, H);
+      zero_cols(sm + plan.wb[i], H4, v.width, H, H4);
+    }
   }
   {
     const int H = wd.dim(L - 1);
@@ -552,7 +689,7 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   float* X = sm + plan.x;
   float* XF = sm + in.xf;  // DeepFM: x[:fm] and q[:fm] of the tile
   float* QF = sm + in.qf;
-  const int px = wd.px();
+  const int px = pitch(wd.px());
   {
     // the input of rows t < nrows; zeros past them and past D0. Column k
     // of row t goes to X at xo + k - fm, or (DeepFM, k < fm) to XF at k:
@@ -622,7 +759,7 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   cp_async_wait_all();
   __syncthreads();
   cluster_wait();
-  if (xout != nullptr && c == 0) {
+  if (kGrad && xout != nullptr && c == 0) {
     const int t = tid >> 3, l = tid & 7;
     if (t < nrows) {
 #pragma unroll 4
@@ -634,31 +771,75 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   if (Stop == 1) return;
 
   // -- forward: each CTA's units of every hidden layer, pushed to all
+  //    (the score keeps its units of the top hidden layer)
 #pragma unroll
   for (int i = 0; i + 1 < L; ++i) {
     const Slice u = slice_of(c, wd.s(i), wd.dim(i + 1), n);
     if (i > 0) wait_exchange(bars + i - 1);
     const float* in = i == 0 ? X : sm + plan.a[i - 1];
-    const int pin = i == 0 ? px : wd.pw(i - 1);
-    const int pout = wd.pw(i);
-    const uint32_t dst = tc::smem_u32(sm + plan.a[i] + u.lo);
+    const int pin = i == 0 ? px : pitch(wd.pw(i - 1));
+    const int pout = pitch(wd.pw(i));
+    float* own = sm + plan.a[i] + u.lo;
+    const uint32_t dst = tc::smem_u32(own);
     const uint32_t bar = tc::smem_u32(bars + i);
-    dense4<false>(in, pin, mlp_grad_align4(wd.dim(i)), sm + plan.wf[i],
-                  wd.s(i), sm + plan.bf[i], u.width,
-                  [&](int t, int j0, int g, int KS, float4 z) {
-                    z = make_float4(fmaxf(z.x, 0.f), fmaxf(z.y, 0.f),
-                                    fmaxf(z.z, 0.f), fmaxf(z.w, 0.f));
-                    push(dst + 4u * (t * pout + j0), z, min(4, u.width - j0),
-                         bar, g, KS, n);
-                  });
+    const bool keep = !kGrad && i + 2 == L;
+    dense4<T, false, !kGrad>(
+        in, pin, mlp_grad_align4(wd.dim(i)), sm + plan.wf[i], wd.s(i),
+        sm + plan.bf[i], u.width,
+        [&](int t, int j0, int g, int KS, float4 z) {
+          z = make_float4(fmaxf(z.x, 0.f), fmaxf(z.y, 0.f), fmaxf(z.z, 0.f),
+                          fmaxf(z.w, 0.f));
+          if (!keep)
+            push(dst + 4u * (t * pout + j0), z, min(4, u.width - j0), bar, g,
+                 KS, n);
+          else if (g == 0)
+            *reinterpret_cast<float4*>(own + t * pout + j0) = z;
+        },
+        reinterpret_cast<float4*>(sm + plan.g[0]));
   }
   // -- the value: the full top layer (the input if there is none) against
   //    the last layer's weights, 8 lanes per row (16-byte columns l,
   //    l + 8, ...), reduced by xor shuffles
   const int H = wd.dim(L - 1), HC = mlp_grad_align4(H) >> 2;
   const float* top = L > 1 ? sm + plan.a[L - 2] : X;
-  const int ptop = L > 1 ? wd.pw(L - 2) : px;
+  const int ptop = L > 1 ? pitch(wd.pw(L - 2)) : px;
   const float* wl = sm + plan.wl;
+  if constexpr (!kGrad) {
+    // -- the score: each CTA's partial dot of its units of the top layer
+    //    (the whole input without a hidden layer, n = 1) with the last
+    //    layer's weights, one row per thread, pushed to CTA 0, which adds
+    //    the n partials in rank order and the bias and writes the sigmoid
+    //    (-inf for a masked row)
+    const Slice u = L > 1 ? slice_of(c, wd.s(L - 2), H, n) : Slice{0, H};
+    __syncthreads();  // this CTA's units of the top layer are in
+    float p = 0.f;
+    if (tid < T)
+      for (int j = u.lo; j < u.lo + u.width; ++j)
+        p = fmaf(top[tid * ptop + j], wl[j], p);
+    if (L > 1) {
+      if (tid < T)
+        st_async1(map_rank(tc::smem_u32(sm + plan.gl + c * T + tid), 0), p,
+                  map_rank(tc::smem_u32(bars + L - 2), 0));
+      // every push to this CTA has landed (to CTA 0, once the partials
+      // have): it may leave once all have
+      if (c != 0) {
+        cluster_arrive_relaxed();
+        cluster_wait();
+        return;
+      }
+      wait_exchange(bars + L - 2);
+      cluster_arrive_relaxed();
+      if (tid < T) {
+        p = 0.f;
+        for (int r = 0; r < n; ++r) p += sm[plan.gl + r * T + tid];
+      }
+    }
+    if (tid < nrows)
+      vals[row0 + tid] =
+          live_row ? 1.f / (1.f + expf(-(p + sm[plan.bl]))) : -INFINITY;
+    if (L > 1) cluster_wait();
+    return;
+  }
   float* GL = sm + plan.gl;
   // DeepFM: the FM term of row t = tid / 8, lane l = tid % 8 taking
   // columns l, l + 8, ..., reduced by xor shuffles (before the wait: it
@@ -739,16 +920,17 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
     const uint32_t dst = tc::smem_u32(sm + plan.g[i - 1] + v.lo);
     const uint32_t bar = tc::smem_u32(bars + L - 1 + i - 1);
     const int H4 = mlp_grad_align4(wd.dim(i + 1));
-    dense4<true>(sm + plan.g[i], wd.pw(i), H4, sm + plan.wb[i], H4,
-                 nullptr, v.width,
-                 [&](int t, int j0, int g, int KS, float4 s) {
-                   const float4 a = ld4(A + t * pout + j0);
-                   const float4 z = make_float4(
-                       a.x > 0.f ? s.x : 0.f, a.y > 0.f ? s.y : 0.f,
-                       a.z > 0.f ? s.z : 0.f, a.w > 0.f ? s.w : 0.f);
-                   push(dst + 4u * (t * pout + j0), z, min(4, v.width - j0),
-                        bar, g, KS, n);
-                 });
+    dense4<T, true, false>(
+        sm + plan.g[i], wd.pw(i), H4, sm + plan.wb[i], H4, nullptr, v.width,
+        [&](int t, int j0, int g, int KS, float4 s) {
+          const float4 a = ld4(A + t * pout + j0);
+          const float4 z =
+              make_float4(a.x > 0.f ? s.x : 0.f, a.y > 0.f ? s.y : 0.f,
+                          a.z > 0.f ? s.z : 0.f, a.w > 0.f ? s.w : 0.f);
+          push(dst + 4u * (t * pout + j0), z, min(4, v.width - j0), bar, g,
+               KS, n);
+        },
+        nullptr);
   }
   if (L > 2) wait_exchange(bars + L - 1);
   // every push to this CTA has landed: it may leave once all have
@@ -756,18 +938,67 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
   // -- gx[:, own columns] from the full g_0 and W_0's own rows
   const Slice k = slice_of(c, wd.ks(), Dx, n);
   const int H4 = mlp_grad_align4(wd.dim(1));
-  dense4<true>(sm + plan.g[0], wd.pw(0), H4, sm + plan.wb[0], H4, nullptr,
-               k.width, [&](int t, int j0, int g, int, float4 s) {
-                 if (g != 0 || t >= nrows) return;
-                 float* out = grads + static_cast<size_t>(row0 + t) * D +
-                              fm + k.lo + j0;
-                 const int valid = min(4, k.width - j0);
-                 out[0] = s.x;
-                 if (valid > 1) out[1] = s.y;
-                 if (valid > 2) out[2] = s.z;
-                 if (valid > 3) out[3] = s.w;
-               });
+  dense4<T, true, false>(
+      sm + plan.g[0], wd.pw(0), H4, sm + plan.wb[0], H4, nullptr, k.width,
+      [&](int t, int j0, int g, int, float4 s) {
+        if (g != 0 || t >= nrows) return;
+        float* out =
+            grads + static_cast<size_t>(row0 + t) * D + fm + k.lo + j0;
+        const int valid = min(4, k.width - j0);
+        out[0] = s.x;
+        if (valid > 1) out[1] = s.y;
+        if (valid > 2) out[2] = s.z;
+        if (valid > 3) out[3] = s.w;
+      },
+      nullptr);
   cluster_wait();
+}
+
+// The launch of ``clusters`` clusters of plan.n CTAs (used in place: cfg
+// points at attr).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int clusters, const MLPGradPlan& plan, void* stream) {
+    cfg.gridDim = dim3(clusters * plan.n);
+    cfg.blockDim = dim3(kMLPGradThreads);
+    cfg.dynamicSmemBytes = sizeof(float) * static_cast<size_t>(plan.floats);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = plan.n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+}  // namespace mlpg
+
+// Value and df/dx of each row; ``xout`` (nullable) receives the float32
+// row the kernel scored (the dequantized frontier rows of the fused form).
+template <class Rows, int Stop, class Widths, class In>
+__global__ void __launch_bounds__(kMLPGradThreads)
+mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
+                        int q_shared, MLPNet net, MLPGradPlan plan,
+                        float* __restrict__ vals, float* __restrict__ grads,
+                        float* __restrict__ xout, int M, In in) {
+  mlpg::cluster_body<Rows, Stop, Widths, In, kMLPGradTile, true>(
+      rows, query, q_shared, net, plan, vals, grads, xout, nullptr, M, in);
+}
+
+// The score of each row (-inf where ``mask``, nullable, clears it): the
+// same body, forward only, T rows per cluster.
+template <class Rows, int Stop, class Widths, int T>
+__global__ void __launch_bounds__(kMLPGradThreads)
+mlp_score_cluster_kernel(Rows rows, const float* __restrict__ query,
+                         int q_shared, const unsigned char* __restrict__ mask,
+                         MLPNet net, MLPGradPlan plan,
+                         float* __restrict__ out, int M) {
+  mlpg::cluster_body<Rows, Stop, Widths, mlpg::MLPInput, T, false>(
+      rows, query, q_shared, net, plan, out, nullptr, nullptr, mask, M,
+      mlpg::MLPInput{});
 }
 
 template <class Rows, int Stop, class Widths, class In>
@@ -777,24 +1008,13 @@ inline cudaError_t launch_mlp_grad_cluster_as(Rows rows, const void* query,
                                               void* vals, void* grads,
                                               void* xout, int M, In in,
                                               void* stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(plan.floats);
   auto kernel = mlp_grad_cluster_kernel<Rows, Stop, Widths, In>;
-  allow_smem(kernel, smem);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((M + kMLPGradTile - 1) / kMLPGradTile) * plan.n);
-  cfg.blockDim = dim3(kMLPGradThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = plan.n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const mlpg::ClusterLaunch launch((M + kMLPGradTile - 1) / kMLPGradTile,
+                                   plan, stream);
+  allow_smem(kernel, launch.cfg.dynamicSmemBytes);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, rows, static_cast<const float*>(query), q_shared, net,
-      plan, static_cast<float*>(vals), static_cast<float*>(grads),
+      &launch.cfg, kernel, rows, static_cast<const float*>(query), q_shared,
+      net, plan, static_cast<float*>(vals), static_cast<float*>(grads),
       static_cast<float*>(xout), M, in);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
@@ -852,6 +1072,74 @@ inline cudaError_t launch_deepfm_grad_cluster(Rows rows, const void* query,
         rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
   return launch_mlp_grad_cluster_as<Rows, Stop, mlpg::RuntimeWidths>(
       rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
+}
+
+// The score's launch at a plan, T rows per cluster.
+template <class Rows, int Stop, class Widths, int T>
+inline cudaError_t launch_mlp_score_cluster_as(Rows rows, const void* query,
+                                               int q_shared, const void* mask,
+                                               const MLPNet& net,
+                                               const MLPGradPlan& plan,
+                                               void* out, int M,
+                                               void* stream) {
+  auto kernel = mlp_score_cluster_kernel<Rows, Stop, Widths, T>;
+  const mlpg::ClusterLaunch launch((M + T - 1) / T, plan, stream);
+  allow_smem(kernel, launch.cfg.dynamicSmemBytes);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &launch.cfg, kernel, rows, static_cast<const float*>(query), q_shared,
+      static_cast<const unsigned char*>(mask), net, plan,
+      static_cast<float*>(out), M);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// cudaOccupancyMaxActiveClusters of the score's kernel at ``plan``.
+template <class Rows, class Widths, int T>
+inline cudaError_t mlp_score_max_clusters(const MLPGradPlan& plan,
+                                          int* clusters) {
+  auto kernel = mlp_score_cluster_kernel<Rows, kMLPGradAll, Widths, T>;
+  const mlpg::ClusterLaunch launch(1, plan, nullptr);
+  allow_smem(kernel, launch.cfg.dynamicSmemBytes);
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(clusters, kernel, &launch.cfg);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// A copy of the score's kernel: its widths and its tile.
+template <class W, int T>
+struct ScoreCopy {
+  using Widths = W;
+  static constexpr int kTile = T;
+};
+
+// fn(plan, ScoreCopy<...>{}) with the copy that scores ``net`` and its
+// plan: the serving widths compiled in, or the run-time-width copy.
+template <class Fn>
+inline cudaError_t with_score_copy(const MLPNet& net, Fn fn) {
+  MLPGradPlan plan;
+  if (!mlp_score_plan(plan, net, kMLPScoreTile, kMLPScoreCluster))
+    return cudaErrorInvalidValue;
+  if (MLPScoreServing::matches(net, plan))
+    return fn(plan, ScoreCopy<MLPScoreServing, kMLPScoreTile>{});
+  return fn(plan, ScoreCopy<mlpg::RuntimeWidths, kMLPScoreTile>{});
+}
+
+// The score of M rows (-inf where ``mask``, nullable, clears a row): one
+// launch of ceil(M / T) clusters. A refused launch is returned, never
+// rerouted.
+template <class Rows, int Stop = kMLPGradAll>
+inline cudaError_t launch_mlp_score_cluster(Rows rows, const void* query,
+                                            int q_shared, const void* mask,
+                                            const MLPNet& net, void* out,
+                                            int M, void* stream) {
+  if (M <= 0) return cudaGetLastError();
+  return with_score_copy(net, [&](const MLPGradPlan& plan, auto copy) {
+    using C = decltype(copy);
+    return launch_mlp_score_cluster_as<Rows, Stop, typename C::Widths,
+                                       C::kTile>(
+        rows, query, q_shared, mask, net, plan, out, M, stream);
+  });
 }
 
 }  // namespace repro

@@ -10,17 +10,18 @@
 // 512 under adaptive c_max = 16, Dx = Dq = 40, MLP 80 -> 64 -> 64 -> 1)
 // one call reads M rows of 160 B (f32), 80 B (bf16) or 40 B + a 4 B scale
 // (int8), M ids, the queries and ~38 KB of weights, and does ~4.8 MFLOP:
-// under 0.1 us of either bytes or fp32 FMA, so launch latency and the
-// per-block weight staging bound it, as they bound mlp_score.
-// The design is mlp_score's kernel body (mlp.cuh) with another row source
-// (rows.cuh): each warp gathers its candidate row by id (clamping -1
-// padding to 0), dequantizes it into its shared-memory slice with the
-// rounding of CorpusStore.take, and runs the same forward on it, so at
-// float32 residency it equals mlp_score bit for bit. The Pallas tile skip
-// becomes: a masked row writes -inf and its warp skips the MLP, and a
-// block of 8 all-masked rows skips the weight staging too. The (M, Dx)
-// candidate block never exists in device memory.
-#include "mlp.cuh"
+// under 0.1 us of either bytes or fp32 FMA, so latency bounds it, as it
+// bounds mlp_score.
+// The design is mlp_score's kernel body (mlp_grad.cuh, forward only) with
+// the corpus row source (rows.cuh): each CTA gathers the tile's candidate
+// rows by id (clamping -1 padding to 0) and dequantizes them into its
+// shared memory with the rounding of CorpusStore.take (float32 rows are
+// copied by cp.async as they are), so at float32 residency it equals
+// mlp_score bit for bit. The Pallas tile skip becomes: a masked row
+// scores -inf, and a tile of rows that the mask covers entirely writes
+// -inf and stages nothing. The (M, Dx) candidate block never exists in
+// device memory.
+#include "mlp_grad.cuh"
 
 extern "C" int mlp_score_fused(const void* data, const void* scales,
                                const void* ids, int residency,
@@ -36,8 +37,8 @@ extern "C" int mlp_score_fused(const void* data, const void* scales,
   cudaError_t err = cudaSuccess;
   const cudaError_t bad =
       with_corpus_rows(residency, data, scales, ids, [&](auto rows) {
-        err = launch_mlp_score(rows, query, q_shared, mask, net, out, M,
-                               stream);
+        err = launch_mlp_score_cluster(rows, query, q_shared, mask, net, out,
+                                       M, stream);
       });
   return static_cast<int>(bad != cudaSuccess ? bad : err);
 }

@@ -1,7 +1,8 @@
 """Wrapper of the MLP-measure scoring kernel (``csrc/mlp_score.cu``):
 checks its arguments, launches the kernel for CUDA tensors, and uses the
-plain version only for CPU tensors. The network checks and the kernels'
-shared-memory sizing live here for all four MLP kernels."""
+plain version only for CPU tensors. The network checks and the admission
+rule (which networks the kernels take) live here for all four MLP
+kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -12,7 +13,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.mlp_score.ref import mlp_score_ref
 
 MAX_LAYERS = 8          # kMaxMLPLayers in csrc/mlp.cuh
-WARPS_PER_BLOCK = 8     # kMLPThreads / 32
+WARPS_PER_BLOCK = 8     # kMLPAdmitWarps in csrc/mlp.cuh
 GENERIC = ("force the generic stages via EngineOptions(measure_impl='vmap', "
            "grad_impl='vmap')")
 
@@ -43,11 +44,14 @@ def mlp_dims(w) -> list:
 
 
 def mlp_smem_bytes(dims, d_x: int) -> int:
-    """Dynamic shared memory of one MLP kernel block (mirrors ``mlp_net``
-    in csrc/mlp.cuh): every hidden layer's weights padded to cols + 1 plus
-    its bias, the last layer's vector and bias; then per warp the input,
-    every hidden pre-activation, two gradient buffers of the widest hidden
-    layer and the row slice."""
+    """The admission rule's bytes (mirrors ``mlp_net`` and
+    ``mlp_smem_bytes`` in csrc/mlp.cuh): the layout of the port's first
+    MLP kernels, one block staging every hidden layer's weights padded to
+    cols + 1 plus its bias, the last layer's vector and bias, then per
+    warp of 8 the input, every hidden pre-activation, two gradient buffers
+    of the widest hidden layer and the row slice. The kernels' cluster
+    body needs less per CTA for every network this admits
+    (``mlp_grad_plan``, ``mlp_score_plan``)."""
     L = len(dims) - 1
     weights = sum(dims[i] * (dims[i + 1] + 1) + dims[i + 1]
                   for i in range(L - 1)) + dims[L - 1] + 1
@@ -58,14 +62,15 @@ def mlp_smem_bytes(dims, d_x: int) -> int:
 
 def net_args(w, b, d_x: int, device):
     """The network as the C entry points take it: (ws, bs, dims, L) as
-    ctypes arrays. Raises if its staged form does not fit the card's
-    opt-in shared memory."""
+    ctypes arrays. Raises if the admission rule (``mlp_smem_bytes``)
+    does not fit the card's opt-in shared memory."""
     dims = mlp_dims(w)
     need, have = mlp_smem_bytes(dims, d_x), _lib.smem_optin(device.index)
     if need > have:
-        raise ValueError(f"the mlp kernels stage the whole network in "
-                         f"shared memory: {need} bytes for widths {dims}, "
-                         f"but {device} allows {have}; {GENERIC}")
+        raise ValueError(f"the mlp kernels take networks whose one-block "
+                         f"layout fits shared memory: {need} bytes for "
+                         f"widths {dims}, but {device} allows {have}; "
+                         f"{GENERIC}")
     L = len(w)
     return ((ctypes.c_void_p * L)(*[t.data_ptr() for t in w]),
             (ctypes.c_void_p * L)(*[t.data_ptr() for t in b]),

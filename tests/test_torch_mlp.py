@@ -15,6 +15,9 @@ the CPU.
   ones exactly (ids, scores, counters).
 - Whole searches with a JAX ``mlp_measure`` carried across by
   ``params_from_jax`` hold the JAX engine's recall@10 within 0.01.
+- The kernels' cluster body (``csrc/mlp_grad.cuh``): its launch plans
+  (grad and score) mirrored, and its orders of summation emulated in
+  float32 and held against the JAX kernels at every ``MLP_NETS`` net.
 
 On the CPU every wrapper runs its plain version; the CUDA kernels are held
 against those on the card (``test_mlp_kernels_match_plain_on_card`` and
@@ -53,7 +56,9 @@ from repro_torch.kernels import (launch_counts, mlp_grad_fused,  # noqa: E402
                                  mlp_score, mlp_score_fused,
                                  mlp_value_and_grad)
 from repro_torch.kernels.mlp_grad.ops import (GRAD_THREADS,  # noqa: E402
-                                              GRAD_TILE, mlp_grad_plan)
+                                              GRAD_TILE, SCORE_CLUSTER,
+                                              SCORE_TILE, mlp_grad_plan,
+                                              mlp_score_plan)
 from repro_torch.kernels.mlp_score.ops import (MAX_LAYERS,  # noqa: E402
                                                mlp_smem_bytes)
 
@@ -336,11 +341,13 @@ def _align4(v):
     return (v + 3) & ~3
 
 
-def _dense_slices(inp, W, bias, s, units, n):
+def _dense_slices(inp, W, bias, s, units, n, tile=GRAD_TILE):
     """out = inp @ W (+ bias), unit slice by unit slice (CTA c owns units
-    [c * s, (c + 1) * s)), each in the cluster kernel's order: K in chunks
-    of 4 (zero pads), chunk g, g + KS, ... summed by lane g, the KS lanes'
-    sums added as the xor shuffles add them, then the bias."""
+    [c * s, (c + 1) * s)), each in the cluster kernel's order at ``tile``
+    rows per cluster: K in chunks of 4 (zero pads), chunk g, g + KS, ...
+    summed by lane g (KS from the tile's rows by the slice's groups of 4
+    units), the KS lanes' sums added as the xor shuffles add them, then the
+    bias."""
     K = inp.shape[1]
     K4 = _align4(K)
     inp = torch.nn.functional.pad(inp, (0, K4 - K))
@@ -350,7 +357,7 @@ def _dense_slices(inp, W, bias, s, units, n):
         lo, w = c * s, max(0, min(s, units - c * s))
         if w == 0:
             continue
-        tiles = (w + 3) // 4 * GRAD_TILE
+        tiles = (w + 3) // 4 * tile
         lks = 0
         while lks < 5 and tiles << (lks + 1) <= GRAD_THREADS:
             lks += 1
@@ -369,20 +376,19 @@ def _dense_slices(inp, W, bias, s, units, n):
     return torch.cat(outs, dim=1)
 
 
-def _emulate_cluster_grad(x, q, Ws, bs):
-    """Value and df/dx as csrc/mlp_grad.cuh sums them, in float32: each
-    hidden layer's units and the gradient columns split over the cluster
-    as ``mlp_grad_plan`` splits them, every slice a ``_dense_slices``
-    (backward products against W^T), the value's dot over 16-byte columns
-    l, l + 8, ... by 8 lanes added by xor shuffles."""
+def _emulate_forward(x, q, Ws, bs, plan, tile):
+    """The forward and value as csrc/mlp_grad.cuh sums them, in float32:
+    each hidden layer's units split over the cluster as ``plan`` splits
+    them, every slice a ``_dense_slices`` at ``tile`` rows, the value's dot
+    over 16-byte columns l, l + 8, ... by 8 lanes added by xor shuffles.
+    Returns (every layer's activations, the value)."""
     dims = [Ws[0].shape[0]] + [w.shape[1] for w in Ws]
-    L, dx = len(Ws), x.shape[1]
-    plan = mlp_grad_plan(dims, dx)
-    n, s, ks = plan["n"], plan["slices"], plan["ks"]
+    L = len(Ws)
+    n, s = plan["n"], plan["slices"]
     acts = [torch.cat([x, q], dim=1)]
     for i in range(L - 1):
         acts.append(torch.relu(_dense_slices(acts[-1], Ws[i], bs[i], s[i],
-                                             dims[i + 1], n)))
+                                             dims[i + 1], n, tile)))
     top, wl = acts[-1], Ws[-1][:, 0]
     H4 = _align4(top.shape[1])
     top_p = torch.nn.functional.pad(top, (0, H4 - top.shape[1]))
@@ -397,7 +403,20 @@ def _emulate_cluster_grad(x, q, Ws, bs):
     while len(lanes) > 1:
         half = len(lanes) // 2
         lanes = [lanes[i] + lanes[i + half] for i in range(half)]
-    val = 1.0 / (1.0 + torch.exp(-(lanes[0] + bs[-1][0])))
+    return acts, 1.0 / (1.0 + torch.exp(-(lanes[0] + bs[-1][0])))
+
+
+def _emulate_cluster_grad(x, q, Ws, bs):
+    """Value and df/dx as csrc/mlp_grad.cuh sums them, in float32: the
+    forward of ``_emulate_forward`` at the grad's tile, the gradient
+    columns split over the cluster as ``mlp_grad_plan`` splits them, the
+    backward's products against W^T each a ``_dense_slices``."""
+    dims = [Ws[0].shape[0]] + [w.shape[1] for w in Ws]
+    L, dx = len(Ws), x.shape[1]
+    plan = mlp_grad_plan(dims, dx)
+    n, s, ks = plan["n"], plan["slices"], plan["ks"]
+    acts, val = _emulate_forward(x, q, Ws, bs, plan, GRAD_TILE)
+    top, wl = acts[-1], Ws[-1][:, 0]
     fp = (val * (1.0 - val))[:, None]
     if L == 1:
         return val, fp * wl[None, :dx]
@@ -432,6 +451,115 @@ def test_mlp_grad_cluster_order_matches_jax(net_spec, shared):
                                   use_pallas=use_pallas, interpret=True)
         _close(vals.numpy(), wv, err_msg=f"{label} use_pallas={use_pallas}")
         _close(grads.numpy(), wg, err_msg=f"{label} use_pallas={use_pallas}")
+
+
+def test_mlp_score_plan():
+    """``mlp_score_plan`` mirrors the score's plan in csrc/mlp_grad.cuh
+    (``with_score_copy``; chip_smoke.py holds it against the C plan on the
+    card): SCORE_TILE rows on up to SCORE_CLUSTER CTAs, 16 units each at
+    the serving net, without the backward's row slices, cotangents and f'
+    but with rows at odd multiples of 4 floats, dense4's partial sums and
+    CTA 0's partial dots (21,008 bytes per CTA); every MLP_NETS net within
+    a CTA's 227 KB, and no network refused that the admission rule
+    (``net_args``) takes."""
+    assert mlp_score_plan([80, 64, 64, 1], DX) == {
+        "n": SCORE_CLUSTER, "slices": [16, 16], "ks": 10, "rows": SCORE_TILE,
+        "smem_bytes": 4 * (32 + 80 * 16 + 16 + 64 * 16 + 16 + 64 + 4
+                           + SCORE_TILE * (84 + 68 + 68) + 4 * GRAD_THREADS
+                           + SCORE_CLUSTER * SCORE_TILE)}
+    assert mlp_score_plan([80, 1], DX) == {
+        "n": 1, "slices": [], "ks": DX, "rows": SCORE_TILE,
+        "smem_bytes": 4 * (32 + 80 + 4 + SCORE_TILE * 84 + SCORE_TILE)}
+    for label, dx, dq, hidden in MLP_NETS:
+        dims = [dx + dq, *hidden, 1]
+        plan = mlp_score_plan(dims, dx)
+        assert plan is not None and plan["smem_bytes"] <= 232_448, label
+        assert plan["rows"] == SCORE_TILE and plan["n"] <= SCORE_CLUSTER, \
+            label
+    rng = np.random.default_rng(17)
+    taken = 0
+    for _ in range(20_000):
+        L = int(rng.integers(1, MAX_LAYERS + 1))
+        d_in = int(rng.integers(1, 3000))
+        dx = int(rng.integers(1, d_in + 1))
+        dims = [d_in, *rng.integers(1, 600, size=L - 1).tolist(), 1]
+        if mlp_smem_bytes(dims, dx) <= 232_448:
+            taken += 1
+            assert mlp_score_plan(dims, dx) is not None, (dims, dx)
+    assert taken > 1000
+
+
+def _emulate_cluster_score(x, q, Ws, bs):
+    """The score as csrc/mlp_grad.cuh's score kernel sums it, in float32:
+    the hidden layers of ``_emulate_forward`` over ``mlp_score_plan``'s
+    slices at its tile, then each CTA's partial dot of its units of the
+    top layer (the whole input without a hidden layer) with the last
+    layer's weights, unit by unit, the n partials added in rank order, the
+    bias last."""
+    dims = [Ws[0].shape[0]] + [w.shape[1] for w in Ws]
+    plan = mlp_score_plan(dims, x.shape[1])
+    top = _emulate_forward(x, q, Ws, bs, plan, plan["rows"])[0][-1]
+    wl, n, H = Ws[-1][:, 0], plan["n"], dims[-2]
+    s = plan["slices"][-1] if len(Ws) > 1 else H
+    logit = torch.zeros(x.shape[0])
+    for c in range(n):
+        p = torch.zeros(x.shape[0])
+        for j in range(c * s, min(H, (c + 1) * s)):
+            p = p + top[:, j] * wl[j]
+        logit = logit + p
+    return 1.0 / (1.0 + torch.exp(-(logit + bs[-1][0])))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("net_spec", MLP_NETS, ids=[m[0] for m in MLP_NETS])
+def test_mlp_score_cluster_order_matches_jax(net_spec, shared):
+    """The score kernel's order of summation (column slices over the
+    plan's n CTAs, the K split over lanes from its tile of rows, the
+    value's lanes) keeps the card's 1e-5 / 1e-6 against the JAX Pallas
+    kernel in interpret mode and the jnp reference, at every MLP_NETS net
+    and an M that is not a multiple of the tile."""
+    label, dx, dq, hidden = net_spec
+    jp, tp = _both(_np_mlp(len(hidden) + dq + 1, dx + dq, hidden))
+    M = 2 * mlp_score_plan([dx + dq, *hidden, 1], dx)["rows"] + 3
+    rng = np.random.default_rng(dq + len(hidden) + 1)
+    cand = rng.normal(size=(M, dx)).astype(np.float32)
+    query = rng.normal(size=(dq,) if shared else (M, dq)).astype(np.float32)
+    q_rows = np.broadcast_to(query, (M, dq)).copy()
+    got = _emulate_cluster_score(torch.from_numpy(cand),
+                                 torch.from_numpy(q_rows), tp["w"], tp["b"])
+    assert got.shape == (M,) and got.dtype == torch.float32
+    for use_pallas in (True, False):
+        want = j_score(jnp.asarray(cand), jnp.asarray(query), jp,
+                       use_pallas=use_pallas, interpret=True)
+        _close(got.numpy(), want, err_msg=f"{label} use_pallas={use_pallas}")
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mlp_score_fused_cluster_order_matches_jax(net, stores, dtype,
+                                                   shared):
+    """The fused score's order of summation over the port's ``take`` of
+    the JAX store's payload (-1 ids clamped to row 0), masked rows -inf,
+    held against the JAX fused reference: -inf rows exactly, the rest at
+    1e-5 / 1e-6; M = 5 lanes of c_max = 16, not a multiple of the tile."""
+    jp, tp = net
+    js, ts = stores[dtype]
+    M = 80
+    rng = np.random.default_rng(12)
+    idx = rng.integers(0, 500, size=M)
+    idx[[2, 33, 34]] = -1
+    query = rng.normal(size=(DX,) if shared else (M, DX)).astype(np.float32)
+    mask = _prefix_mask(rng, 5, 16)
+    rows = ts.take(torch.from_numpy(idx).clamp_min(0))
+    q_rows = torch.from_numpy(np.broadcast_to(query, (M, DX)).copy())
+    got = _emulate_cluster_score(rows, q_rows, tp["w"], tp["b"])
+    got = got.masked_fill(~torch.from_numpy(mask), float("-inf")).numpy()
+    want = np.asarray(j_score_fused(
+        js, jnp.asarray(idx.astype(np.int32)), jnp.asarray(query), jp,
+        use_pallas=False, mask=jnp.asarray(mask)))
+    np.testing.assert_array_equal(np.isneginf(got), ~mask)
+    np.testing.assert_array_equal(got[~mask], want[~mask])
+    _close(got[mask], want[mask])
 
 
 def test_mlp_cpu_calls_launch_no_kernel(net, stores):

@@ -9,9 +9,10 @@ phase, ~36 GB of device memory). The kernels are driven through this
 checkout's ``chip_smoke`` phases (``check_kernels``,
 ``check_fused_kernels``, ``check_mlp_kernels``,
 ``check_library_kernels``), so each is held against its plain version
-before it is timed, at the shapes those phases time it (µs per call),
-and each kernel's largest error against it (per net for the grad pairs,
-where the phase reports it).
+before it is timed, at the shapes those phases time it (µs per call; the
+fused MLP score also at the adaptive M = 512, masked and not), and each
+kernel's largest error against it (per net for the grad pairs, where the
+phase reports it).
 
 Times the port of the checkout this file sits in. To compare two commits
 on one card, unpack the other with ``git archive`` into a directory that
@@ -109,6 +110,11 @@ def main() -> int:
             out["us"][name] = ({dt: t * 1e3 for dt, t in ms.items()}
                                if isinstance(ms, dict) else ms * 1e3)
             out["err"][name] = r.get("err_by_net", r["err"])
+            if "adaptive_int8" in r:    # the adaptive M = 512 masked call
+                a = r["adaptive_int8"]
+                out["us"][f"{name} adaptive_int8"] = {
+                    "masked": a["ms"] * 1e3,
+                    "unmasked": a["ms_unmasked"] * 1e3}
     if opts.library:
         for name, r in chip_smoke.check_library_kernels(torch, dev).items():
             for label, e in r["shapes"].items():

@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
-"""Where a grad kernel's time goes: device µs per call of cut-down copies
-of it, timed in turns in one process at the serving shape (Q = 32 frontier
-rows, per-row queries; ``--measure mlp``: Dx = Dq = 40, MLP 80 -> 64 -> 64
--> 1; ``--measure deepfm``: D = 40, fm = 8, deep input 64 -> 64 -> 64 ->
-1), each under CUDA-graph replay as ``chip_smoke.time_ms`` times the
-kernels.
+"""Where an MLP or DeepFM kernel's time goes: device µs per call of
+cut-down copies of it, timed in turns in one process at the serving shape
+(``--kernel grad``: Q = 32 frontier rows; ``--kernel score``: M = Q * C =
+256 candidate rows; per-row queries; ``--measure mlp``: Dx = Dq = 40, MLP
+80 -> 64 -> 64 -> 1; ``--measure deepfm`` (grad only): D = 40, fm = 8,
+deep input 64 -> 64 -> 64 -> 1), each under CUDA-graph replay as
+``chip_smoke.time_ms`` times the kernels.
 
-Variants of the one-warp-per-row layout (``mlp_stage`` and
-``mlp_forward_warp`` of ``csrc/mlp.cuh``, the score path's, at its grid of
-Q / 8 blocks of 256 threads and its shared memory):
+Variants of the one-warp-per-row layout, compiled only from sources whose
+``mlp.cuh`` still has it (``mlp_stage`` and ``mlp_forward_warp``, the
+score body before it moved onto the cluster body), at its grid of M / 8
+blocks of 256 threads and its shared memory:
 
 - ``warp_empty``: the launch alone, nothing done;
 - ``warp_stage``: the whole network staged into shared memory;
 - ``warp_forward``: staging and the forward pass of every row;
 
-(for DeepFM the same over ``deepfm_stage`` and ``deepfm_forward_warp`` of
-``csrc/deepfm.cuh``, the one-warp-per-row grad kernel's pieces), or, where
-the sources run the measure's grad on the cluster kernel of
-``mlp_grad.cuh``, its ``Stop`` phases at its own cluster launch:
-``cluster_empty``, ``cluster_stage``, ``cluster_forward`` (through the
-value); then ``kernel``: the sources' own ``mlp_grad_f32`` (or
-``deepfm_grad_f32``) entry, whatever body it launches; and ``floor``, an
-in-place add on a one-element tensor.
+(for the DeepFM grad the same over ``deepfm_stage`` and
+``deepfm_forward_warp`` of ``csrc/deepfm.cuh``); where the sources run
+the kernel on the cluster body of ``mlp_grad.cuh``, its ``Stop`` phases at
+its own cluster launch: ``cluster_empty``, ``cluster_stage``,
+``cluster_forward`` (through the value); then ``kernel``: the sources' own
+``mlp_grad_f32`` (``deepfm_grad_f32``, ``mlp_score_f32``) entry,
+whatever body it launches; and ``floor``, an in-place add on a
+one-element tensor. The grad splits the warp layout only where the
+sources have no cluster body; the score splits both where it finds them.
+
+``--sweep`` (score, cluster body) also times the score's tile at every
+point of ``SWEEP`` (rows × CTAs per cluster, the serving widths compiled
+in), each held against the plain version first: at M = 256 pre-gathered,
+and at the adaptive M = 512 over int8 corpus rows with and without a
+prefix mask (c_max = 16), with each point's shared memory per CTA and
+``cudaOccupancyMaxActiveClusters``.
 
 Splits this checkout's kernel, or each kernel source directory given with
 ``--csrc`` (another commit's ``src/repro_torch/kernels/csrc`` unpacked
@@ -31,13 +41,15 @@ library with plain C entry points). Prints one JSON line: per variant the
 median over the rounds and each round's time, each copy's largest error
 against the plain version, its ptxas lines and its SASS opcode counts,
 and for a copy instrumented with clock64 stamps (one that defines
-``extern "C" int mlp_grad_stamps(unsigned long long*)``, 32 counters) the
-stamps of one run (MLP only). The parents' splits in PERF.md are this
+``extern "C" int mlp_grad_stamps(unsigned long long*)``, up to 128
+counters) the stamps of one run (MLP only). The parents' splits in PERF.md are this
 tool on the parent's sources (``--csrc
 build/parent/src/repro_torch/kernels/csrc``).
 
-    python3 tools/mlp_grad_split.py [--measure mlp|deepfm] [--rounds 5]
-                                    [--csrc DIR ...] [--sass-dir DIR]
+    python3 tools/mlp_grad_split.py [--measure mlp|deepfm]
+                                    [--kernel grad|score] [--sweep]
+                                    [--rounds 5] [--csrc DIR ...]
+                                    [--sass-dir DIR]
 """
 from __future__ import annotations
 
@@ -54,13 +66,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 Q, DX, DQ, HIDDEN = 32, 40, 40, (64, 64)
+M_SCORE = 256          # the score's candidate rows, Q * C
 D, FM = 40, 8          # the DeepFM measure (configs/guitar_deepfm.py)
 
-# cut-down copies of the grad kernel, over the score path's pieces; each
-# entry takes the arguments of mlp_grad_f32 and launches one variant
-VARIANTS_CU = r"""
-#include "mlp.cuh"
+# what every copy compiles: the entry files of the MLP grad and score pairs
+# (and through them the headers), a sink and an empty kernel
+HEAD_CU = r"""
 #include "mlp_grad.cu"
+#include "mlp_score.cu"
 using namespace repro;
 
 // keep a variant's shared-memory work alive without writing anything
@@ -68,11 +81,14 @@ __device__ inline void sink(const float* sm, float* out, int M) {
   if (threadIdx.x == 0 && sm[M & 7] == 1234.5f) out[0] = sm[1];
 }
 
-__global__ void __launch_bounds__(kMLPThreads)
-warp_empty(float* vals, int M) {
+__global__ void __launch_bounds__(256) warp_empty(float* vals, int M) {
   if (M < 0) vals[0] = 0.f;
 }
+"""
 
+# cut-down copies of the one-warp-per-row layout (compiled only from
+# sources whose mlp.cuh still defines mlp_stage and mlp_forward_warp)
+WARP_CU = r"""
 __global__ void __launch_bounds__(kMLPThreads)
 warp_stage(MLPNet net, float* vals, int M) {
   extern __shared__ float sm[];
@@ -102,11 +118,12 @@ warp_forward(GatheredRows rows, const float* __restrict__ query,
   }
 }
 
-extern "C" int split_run(int variant, const void* cand, const void* query,
-                         int q_shared, const void* const* ws,
-                         const void* const* bs, const int* dims, int layers,
-                         void* vals, void* grads, int M, int Dx, int Dq,
-                         void* stream) {
+// variant 0 the launch, 1 staging, 2 staging and the forward, at the
+// layout's grid of M / 8 blocks and its shared memory
+static int warp_variant(int variant, const void* cand, const void* query,
+                        int q_shared, const void* const* ws,
+                        const void* const* bs, const int* dims, int layers,
+                        void* vals, int M, int Dx, int Dq, void* stream) {
   MLPNet net;
   if (!mlp_net(net, ws, bs, dims, layers, Dx, Dq))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -123,17 +140,46 @@ extern "C" int split_run(int variant, const void* cand, const void* query,
       allow_smem(warp_stage, smem);
       warp_stage<<<grid, kMLPThreads, smem, s>>>(net, v, M);
       break;
-    case 2:
+    default:
       allow_smem(warp_forward, smem);
       warp_forward<<<grid, kMLPThreads, smem, s>>>(
           GatheredRows{static_cast<const float*>(cand)},
           static_cast<const float*>(query), q_shared, net, v, M);
-      break;
-    default:
-      return mlp_grad_f32(cand, query, q_shared, ws, bs, dims, layers, vals,
-                          grads, M, Dx, Dq, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# the entries: variants 0-2 of the one-warp-per-row layout, 3 the
+# sources' own mlp_grad_f32 (split_run) or mlp_score_f32 (split_score),
+# whatever body it launches; each takes the arguments of mlp_grad_f32
+ENTRY_CU = r"""
+extern "C" int split_run(int variant, const void* cand, const void* query,
+                         int q_shared, const void* const* ws,
+                         const void* const* bs, const int* dims, int layers,
+                         void* vals, void* grads, int M, int Dx, int Dq,
+                         void* stream) {
+#if SPLIT_WARP
+  if (variant < 3)
+    return warp_variant(variant, cand, query, q_shared, ws, bs, dims, layers,
+                        vals, M, Dx, Dq, stream);
+#endif
+  return mlp_grad_f32(cand, query, q_shared, ws, bs, dims, layers, vals,
+                      grads, M, Dx, Dq, stream);
+}
+
+extern "C" int split_score(int variant, const void* cand, const void* query,
+                           int q_shared, const void* const* ws,
+                           const void* const* bs, const int* dims,
+                           int layers, void* vals, void*, int M, int Dx,
+                           int Dq, void* stream) {
+#if SPLIT_WARP
+  if (variant < 3)
+    return warp_variant(variant, cand, query, q_shared, ws, bs, dims, layers,
+                        vals, M, Dx, Dq, stream);
+#endif
+  return mlp_score_f32(cand, query, q_shared, ws, bs, dims, layers, vals, M,
+                       Dx, Dq, stream);
 }
 """
 
@@ -262,22 +308,136 @@ extern "C" int split_deepfm_cluster(int stop, const void* cand,
 """
 
 
-def build(csrc, out_dir, measure):
-    """Compile the variants of ``measure``'s grad kernel against the kernel
-    sources in ``csrc`` into one library with the port's nvcc flags;
-    returns (library, whether the grad runs on the cluster kernel, nvcc's
-    output, the library's SASS)."""
+# the score on the cluster kernel's phases, where the checkout has it
+SCORE_CLUSTER_CU = r"""
+extern "C" int split_score_cluster(int stop, const void* cand,
+                                   const void* query, int q_shared,
+                                   const void* const* ws,
+                                   const void* const* bs, const int* dims,
+                                   int layers, void* vals, void*, int M,
+                                   int Dx, int Dq, void* stream) {
+  MLPNet net;
+  if (!mlp_net(net, ws, bs, dims, layers, Dx, Dq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GatheredRows rows{static_cast<const float*>(cand)};
+  switch (stop) {
+    case 0:
+      return static_cast<int>(launch_mlp_score_cluster<GatheredRows, 0>(
+          rows, query, q_shared, nullptr, net, vals, M, stream));
+    case 1:
+      return static_cast<int>(launch_mlp_score_cluster<GatheredRows, 1>(
+          rows, query, q_shared, nullptr, net, vals, M, stream));
+    default:
+      return static_cast<int>(launch_mlp_score_cluster<GatheredRows, 2>(
+          rows, query, q_shared, nullptr, net, vals, M, stream));
+  }
+}
+"""
+
+# the score's tile swept: rows per cluster x CTAs per cluster (SWEEP), each
+# point the serving widths compiled in, over pre-gathered rows or (fused)
+# int8 corpus rows with an optional prefix mask; info (nullable) receives
+# the point's rows, CTAs, shared memory per CTA and
+# cudaOccupancyMaxActiveClusters instead of a launch
+SWEEP = ((4, 4), (4, 8), (8, 4), (8, 8), (16, 4), (16, 8), (32, 4), (32, 8),
+         (16, 2), (32, 2))
+SWEEP_CU = r"""
+template <int T, int N>
+static int sweep_at(int fused, const void* data, const void* scales,
+                    const void* ids, const void* cand, const void* query,
+                    int q_shared, const void* mask, const void* const* ws,
+                    const void* const* bs, const int* dims, int layers,
+                    void* out, int M, int Dx, int Dq, void* stream,
+                    int* info) {
+  MLPNet net;
+  MLPGradPlan plan;
+  using W = mlpg::FixedWidths<80, 40, 64, 3, N>;
+  if (!mlp_net(net, ws, bs, dims, layers, Dx, Dq) ||
+      !mlp_score_plan(plan, net, T, N) || !W::matches(net, plan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using I8 = CorpusRows<kI8>;
+  if (info != nullptr) {
+    info[0] = T;
+    info[1] = plan.n;
+    info[2] = static_cast<int>(sizeof(float) * plan.floats);
+    return static_cast<int>(
+        fused ? mlp_score_max_clusters<I8, W, T>(plan, info + 3)
+              : mlp_score_max_clusters<GatheredRows, W, T>(plan, info + 3));
+  }
+  if (fused)
+    return static_cast<int>(launch_mlp_score_cluster_as<I8, kMLPGradAll, W,
+                                                        T>(
+        I8{static_cast<const signed char*>(data),
+           static_cast<const float*>(scales),
+           static_cast<const int64_t*>(ids)},
+        query, q_shared, mask, net, plan, out, M, stream));
+  return static_cast<int>(launch_mlp_score_cluster_as<GatheredRows,
+                                                      kMLPGradAll, W, T>(
+      GatheredRows{static_cast<const float*>(cand)}, query, q_shared,
+      nullptr, net, plan, out, M, stream));
+}
+
+extern "C" int score_sweep(int point, int fused, const void* data,
+                           const void* scales, const void* ids,
+                           const void* cand, const void* query, int q_shared,
+                           const void* mask, const void* const* ws,
+                           const void* const* bs, const int* dims,
+                           int layers, void* out, int M, int Dx, int Dq,
+                           void* stream, int* info) {
+#define SWEEP_AT(T, N)                                                  \
+  sweep_at<T, N>(fused, data, scales, ids, cand, query, q_shared, mask, \
+                 ws, bs, dims, layers, out, M, Dx, Dq, stream, info)
+  switch (point) {
+    case 0: return SWEEP_AT(4, 4);
+    case 1: return SWEEP_AT(4, 8);
+    case 2: return SWEEP_AT(8, 4);
+    case 3: return SWEEP_AT(8, 8);
+    case 4: return SWEEP_AT(16, 4);
+    case 5: return SWEEP_AT(16, 8);
+    case 6: return SWEEP_AT(32, 4);
+    case 7: return SWEEP_AT(32, 8);
+    case 8: return SWEEP_AT(16, 2);
+    case 9: return SWEEP_AT(32, 2);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SWEEP_AT
+}
+"""
+
+
+def _defines(csrc, name, word):
+    """Whether ``csrc``'s file ``name`` exists and mentions ``word``."""
+    path = os.path.join(csrc, name)
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        return word in f.read()
+
+
+def build(csrc, out_dir, measure, kernel="grad", sweep=False):
+    """Compile the variants of ``measure``'s ``kernel`` (grad or score)
+    against the kernel sources in ``csrc`` into one library with the
+    port's nvcc flags; returns (library, whether the kernel runs on the
+    cluster body, whether the sources have the one-warp-per-row layout,
+    nvcc's output, the library's SASS)."""
     from repro_torch.kernels import _lib
     os.makedirs(out_dir, exist_ok=True)
-    cuh = os.path.join(csrc, "mlp_grad.cuh")
-    has_cluster = os.path.exists(cuh)
+    has_warp = _defines(csrc, "mlp.cuh", "mlp_forward_warp")
+    cu = f"#define SPLIT_WARP {int(has_warp)}\n" + HEAD_CU + (
+        WARP_CU if has_warp else "") + ENTRY_CU
     if measure == "deepfm":
-        with open(cuh if has_cluster else os.devnull) as f:
-            has_cluster = "launch_deepfm_grad_cluster" in f.read()
-        cu = VARIANTS_CU + DEEPFM_CU + (DEEPFM_CLUSTER_CU if has_cluster
-                                        else "")
+        has_cluster = _defines(csrc, "mlp_grad.cuh",
+                               "launch_deepfm_grad_cluster")
+        cu += DEEPFM_CU + (DEEPFM_CLUSTER_CU if has_cluster else "")
+    elif kernel == "score":
+        has_cluster = _defines(csrc, "mlp_grad.cuh",
+                               "launch_mlp_score_cluster")
+        cu += (SCORE_CLUSTER_CU + (SWEEP_CU if sweep else "")
+               if has_cluster else "")
     else:
-        cu = VARIANTS_CU + (CLUSTER_CU if has_cluster else "")
+        has_cluster = _defines(csrc, "mlp_grad.cuh",
+                               "launch_mlp_grad_cluster")
+        cu += CLUSTER_CU if has_cluster else ""
     src = os.path.join(out_dir, "mlp_grad_split.cu")
     with open(src, "w") as f:
         f.write(cu)
@@ -297,32 +457,41 @@ def build(csrc, out_dir, measure):
                                     else [])
         argtypes = [I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
     else:
-        names = ["split_run"] + (["split_cluster"] if has_cluster else [])
+        names = ["split_run", "split_score"] + (
+            [("split_score_cluster" if kernel == "score" else
+              "split_cluster")] if has_cluster else [])
         argtypes = [I, P, P, I, P, P, P, I, P, P, I, I, I, P]
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = I
-    return lib, has_cluster, out.stdout + out.stderr, sass
+    if kernel == "score" and has_cluster and sweep:
+        lib.score_sweep.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P, I, P,
+                                    I, I, I, P, P]
+        lib.score_sweep.restype = I
+    return lib, has_cluster, has_warp, out.stdout + out.stderr, sass
 
 
-def is_grad_kernel(fn: str, measure: str) -> bool:
-    """Whether SASS function ``fn`` is a grad kernel of ``measure``: the
-    cluster kernel's instantiations for that measure's input, or the
-    one-warp-per-row kernel."""
+def is_kernel(fn: str, measure: str, kernel: str) -> bool:
+    """Whether SASS function ``fn`` is a ``kernel`` (grad or score) kernel
+    of ``measure``: for the grad, the cluster kernel's instantiations for
+    that measure's input or the one-warp-per-row kernel; for the score,
+    the MLP score kernels."""
+    if kernel == "score":
+        return "mlp_score" in fn
     if measure == "deepfm":
         return "deepfm_grad_kernel" in fn or (
             "mlp_grad_cluster_kernel" in fn and "DeepFMInput" in fn)
     return "mlp_grad" in fn and "DeepFMInput" not in fn
 
 
-def sass_opcodes(sass: str, measure: str) -> dict:
-    """Opcode counts of each grad kernel of ``measure``."""
+def sass_opcodes(sass: str, measure: str, kernel: str = "grad") -> dict:
+    """Opcode counts of each ``kernel`` kernel of ``measure``."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            fn = fn if is_grad_kernel(fn, measure) else None
+            fn = fn if is_kernel(fn, measure, kernel) else None
         elif fn and "/*" in line and ";" in line:
             op = line.split("*/", 1)[1].strip().split()
             if op and op[0].startswith("@"):
@@ -337,49 +506,68 @@ def sass_opcodes(sass: str, measure: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--measure", choices=("mlp", "deepfm"), default="mlp")
+    ap.add_argument("--kernel", choices=("grad", "score"), default="grad",
+                    help="split the grad kernel (Q = 32) or, for the MLP "
+                         "measure, the score kernel (M = 256)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --kernel score, also time the cluster "
+                         "body's tile at every rows x CTAs point of SWEEP, "
+                         "at M = 256 and at the adaptive M = 512 (int8 "
+                         "rows, c_max = 16) masked and not")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--csrc", nargs="*", default=None,
                     help="kernel source directories to split, each timed "
                          "in turns with the others (default: this "
                          "checkout's)")
     ap.add_argument("--sass-dir", default=None,
-                    help="also write each copy's SASS of the grad kernels "
+                    help="also write each copy's SASS of the split kernels "
                          "to this directory")
     opts = ap.parse_args()
+    if opts.kernel == "score" and opts.measure != "mlp":
+        ap.error("--kernel score splits the MLP measure's score")
     import torch
     if not torch.cuda.is_available():
         print("mlp_grad_split: needs a CUDA card", file=sys.stderr)
         return 2
     import chip_smoke
+    from repro_torch.core import make_corpus_store
     from repro_torch.kernels import _lib
     from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
     from repro_torch.kernels.mlp_grad.ref import mlp_value_and_grad_ref
     from repro_torch.kernels.mlp_score.ops import net_args
+    from repro_torch.kernels.mlp_score.ref import mlp_score_ref
+    from repro_torch.kernels.mlp_score_fused.ref import mlp_score_fused_ref
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device="cpu").manual_seed(456)
     deepfm = opts.measure == "deepfm"
+    score = opts.kernel == "score"
+    M = M_SCORE if score else Q
     if deepfm:
         dd = D - FM
         net = chip_smoke.random_mlp(torch, dev, 2 * dd, HIDDEN, gen)
-        c = torch.randn((Q, D), generator=gen).to(dev)
-        q = torch.randn((Q, D), generator=gen).to(dev)
+        c = torch.randn((M, D), generator=gen).to(dev)
+        q = torch.randn((M, D), generator=gen).to(dev)
         wb = [t for pair in zip(net["w"], net["b"]) for t in pair]
         args = [t.data_ptr() for t in wb]
-        widths = (Q, D, FM, *HIDDEN)
-        grads = torch.empty((Q, D), device=dev)
+        widths = (M, D, FM, *HIDDEN)
+        grads = torch.empty((M, D), device=dev)
         pv, pg = deepfm_value_and_grad_ref(c, q, *wb, FM)
-        shape = f"Q={Q} D={D} fm={FM} hidden={HIDDEN}"
+        shape = f"Q={M} D={D} fm={FM} hidden={HIDDEN}"
     else:
         net = chip_smoke.random_mlp(torch, dev, DX + DQ, HIDDEN, gen)
-        c = torch.randn((Q, DX), generator=gen).to(dev)
-        q = torch.randn((Q, DQ), generator=gen).to(dev)
+        c = torch.randn((M, DX), generator=gen).to(dev)
+        q = torch.randn((M, DQ), generator=gen).to(dev)
         args = net_args(net["w"], net["b"], DX, dev)
-        widths = (Q, DX, DQ)
-        grads = torch.empty((Q, DX), device=dev)
-        pv, pg = mlp_value_and_grad_ref(c, q, net["w"], net["b"])
-        shape = f"Q={Q} Dx={DX} Dq={DQ} hidden={HIDDEN}"
-    vals = torch.empty((Q,), device=dev)
+        widths = (M, DX, DQ)
+        grads = torch.empty((M, DX), device=dev)
+        if score:
+            pv, pg = mlp_score_ref(c, q, net["w"], net["b"]), None
+        else:
+            pv, pg = mlp_value_and_grad_ref(c, q, net["w"], net["b"])
+        shape = (f"{'M' if score else 'Q'}={M} Dx={DX} Dq={DQ} "
+                 f"hidden={HIDDEN}")
+    vals = torch.empty((M,), device=dev)
 
     def call(fn, variant):
         def run():       # on the current stream: time_ms captures a graph
@@ -390,46 +578,60 @@ def main() -> int:
         return run
 
     out = {"device": chip_smoke.nvidia_smi_line(), "unit": "us",
-           "measure": opts.measure, "shape": shape, "err": {},
-           "ptxas": {}, "sass_opcodes": {}}
+           "measure": opts.measure, "kernel": opts.kernel, "shape": shape,
+           "err": {}, "ptxas": {}, "sass_opcodes": {}}
     calls = {}
+    sweeps = []
     for i, csrc in enumerate(opts.csrc or [str(_lib.CSRC)]):
         label = os.path.basename(os.path.normpath(csrc)) + (
             f"#{i}" if opts.csrc else "")
-        lib, has_cluster, log, sass = build(
+        lib, has_cluster, has_warp, log, sass = build(
             csrc, os.path.join(ROOT, "build", "mlp_grad_split", str(i)),
-            opts.measure)
-        whole = lib.split_deepfm if deepfm else lib.split_run
-        if has_cluster:
-            names = ("cluster_empty", "cluster_stage", "cluster_forward")
-            fn = lib.split_deepfm_cluster if deepfm else lib.split_cluster
+            opts.measure, opts.kernel, opts.sweep)
+        if deepfm:
+            whole = lib.split_deepfm
         else:
-            names = ("warp_empty", "warp_stage", "warp_forward")
-            fn = whole
-        for v, name in enumerate(names):
-            calls[f"{label}:{name}"] = call(fn, v)
+            whole = lib.split_score if score else lib.split_run
+        phases = ("empty", "stage", "forward")
+        if (score and has_warp) or (not score and not has_cluster):
+            for v, name in enumerate(phases):
+                calls[f"{label}:warp_{name}"] = call(whole, v)
+        if has_cluster:
+            fn = (lib.split_deepfm_cluster if deepfm else
+                  lib.split_score_cluster if score else lib.split_cluster)
+            for v, name in enumerate(phases):
+                calls[f"{label}:cluster_{name}"] = call(fn, v)
         calls[f"{label}:kernel"] = call(whole, 3)
         calls[f"{label}:kernel"]()
         torch.cuda.synchronize()
         out["err"][label] = max(float((vals - pv).abs().max()),
+                                0.0 if pg is None else
                                 float((grads - pg).abs().max()))
         out["ptxas"][label] = [
             ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-        out["sass_opcodes"][label] = sass_opcodes(sass, opts.measure)
+        out["sass_opcodes"][label] = sass_opcodes(sass, opts.measure,
+                                                  opts.kernel)
         if opts.sass_dir:
             os.makedirs(opts.sass_dir, exist_ok=True)
             with open(os.path.join(opts.sass_dir, f"{label}.sass"), "w") as f:
                 f.write(sass)
+        if score and has_cluster and opts.sweep:
+            sweeps.append((label, lib))
         try:            # a copy instrumented with clock64 stamps
             stamps = lib.mlp_grad_stamps
         except AttributeError:
             continue
-        buf = (ctypes.c_ulonglong * 32)()
+        buf = (ctypes.c_ulonglong * 128)()
         calls[f"{label}:kernel"]()
         torch.cuda.synchronize()
         _lib.check(stamps(buf), "mlp_grad_stamps")
         out.setdefault("stamps", {})[label] = list(buf)
+    if sweeps:
+        calls.update(sweep_calls(torch, dev, gen, net, c, q, sweeps, out,
+                                 make_corpus_store, mlp_score_ref,
+                                 mlp_score_fused_ref, chip_smoke, _lib,
+                                 net_args))
     one = torch.zeros(1, device=dev)
     calls["floor"] = lambda: one.add_(1.0)
     times = {k: [] for k in calls}
@@ -440,6 +642,78 @@ def main() -> int:
     out["rounds_us"] = times
     print(json.dumps(out))
     return 0
+
+
+def sweep_calls(torch, dev, gen, net, c, q, sweeps, out, make_corpus_store,
+                mlp_score_ref, mlp_score_fused_ref, chip_smoke, _lib,
+                net_args):
+    """The sweep's calls, each point checked against the plain version
+    first: at M = 256 over pre-gathered rows (``c``, ``q``), and at the
+    adaptive M = 512 over int8 corpus rows with and without its prefix
+    mask (32 lanes of c_max = 16). Records each point's plan and errors
+    in ``out["sweep"]``."""
+    N = 5000
+    store = make_corpus_store(torch.randn((N, DX), generator=gen), "int8",
+                              device=dev)
+    ids = torch.randint(0, N, (2 * M_SCORE,), generator=gen).to(dev)
+    qa = torch.randn((2 * M_SCORE, DQ), generator=gen).to(dev)
+    mask = chip_smoke.prefix_mask(torch, 32, 16, gen).to(dev)
+    args = net_args(net["w"], net["b"], DX, dev)
+    w, b = net["w"], net["b"]
+    data, scales, _ = _lib.corpus_args(store)
+    want = {"m256": mlp_score_ref(c, q, w, b),
+            "m512": mlp_score_fused_ref(store, ids, qa, w, b, None),
+            "m512_masked": mlp_score_fused_ref(store, ids, qa, w, b, mask)}
+    outs = {k: torch.empty_like(v) for k, v in want.items()}
+    calls = {}
+    for label, lib in sweeps:
+        for point, (rows, ctas) in enumerate(SWEEP):
+            tag = f"{label}:sweep_t{rows}_n{ctas}"
+            info = (ctypes.c_int * 4)()
+            _lib.check(lib.score_sweep(point, 0, None, None, None, None, None,
+                                       0, None, *args, None, M_SCORE, DX, DQ,
+                                       _lib.stream_of(dev), info),
+                       f"{tag} plan")
+            info_g = list(info)
+            _lib.check(lib.score_sweep(point, 1, None, None, None, None, None,
+                                       0, None, *args, None, M_SCORE, DX, DQ,
+                                       _lib.stream_of(dev), info),
+                       f"{tag} plan")
+            rec = {"rows": info_g[0], "ctas": info_g[1],
+                   "smem_bytes": info_g[2],
+                   "max_active_clusters": info_g[3],
+                   "max_active_clusters_int8": info[3], "err": {}}
+
+            def one(point=point, key="m256", tag=tag, lib=lib):
+                fused = key != "m256"
+                M = 2 * M_SCORE if fused else M_SCORE
+                m = mask.data_ptr() if key == "m512_masked" else None
+
+                def run():
+                    rc = lib.score_sweep(
+                        point, int(fused), data, scales, ids.data_ptr(),
+                        c.data_ptr(), (qa if fused else q).data_ptr(), 0, m,
+                        *args, outs[key].data_ptr(), M, DX, DQ,
+                        _lib.stream_of(dev), None)
+                    _lib.check(rc, f"{tag} {key}")
+                return run
+            for key in want:
+                fn = one(key=key)
+                fn()
+                torch.cuda.synchronize()
+                got, ref = outs[key], want[key]
+                if not torch.equal(torch.isneginf(got), torch.isneginf(ref)):
+                    raise RuntimeError(f"{tag} {key}: masked rows differ")
+                fin = torch.isfinite(ref)
+                err, ratio = chip_smoke.close_err(
+                    got[fin], ref[fin], chip_smoke.SCORE_RTOL,
+                    chip_smoke.SCORE_ATOL)
+                if ratio > 1.0:
+                    raise RuntimeError(f"{tag} {key}: {err:.3e}")
+                rec["err"][key] = err
+                calls[f"{tag}:{key}"] = fn
+            out.setdefault("sweep", {})[tag] = rec
+    return calls
 
 
 if __name__ == "__main__":
