@@ -3,14 +3,14 @@
 the thirteen CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card (the index-fused ones at float32, bfloat16 and
 int8 residency, and bit for bit against the pre-gathered ones at float32;
-the MLP ones at several depths, the DeepFM grad pair at six widths; the
+the MLP ones at several depths, the DeepFM pairs at six widths; the
 library kernels embedding_bag, decode_attention and flash_attention at
 the JAX test shapes and at DLRM-RM2 and Yi-9B widths in float32 and
 bfloat16, driven once each as the slice's main path and timed beside one
 PyTorch call of the same function; attention on the tensor cores, bf16
 by wgmma and mma.sync and float32 in 3xTF32 by both, checked in the SASS,
-in ptxas's spill report and in each launch's path; the cluster kernel of
-the MLP and DeepFM grad pairs checked in the SASS for its cluster
+in ptxas's spill report and in each launch's path; the cluster kernels
+of the MLP and DeepFM pairs checked in the SASS for their cluster
 barrier, st.async pushes and mbarrier waits, and built without a spill;
 a launch floor timed beside the search-path kernels), runs the engine
 with the DeepFM and the MLP measure on the card against the same engine
@@ -270,10 +270,15 @@ def check_kernels(torch, dev, measure, fm_dim):
             require(ratio <= 1.0, f"deepfm_score mismatch at M={M} "
                     f"shared={shared}: {err:.3e}")
             worst = max(worst, err)
+    # every net of DEEPFM_NETS at the Ms of SCORE_MS, and the plans
+    net_worst, by_net, plans = check_deepfm_score_nets(torch, dev, mlp,
+                                                       fm_dim, fused=False)
     c, q = rows(256, D), rows(256, D)
     nbytes, flops = deepfm_costs(256, D, fm_dim, H0, H1, True, False)
     report["deepfm_score"] = dict(
-        err=worst, ms=time_ms(lambda: deepfm_score(c, q, mlp, fm_dim)),
+        plan=plans[DEEPFM_NETS[0]], err=max(worst, net_worst),
+        err_by_net=by_net,
+        ms=time_ms(lambda: deepfm_score(c, q, mlp, fm_dim)),
         plain_ms=time_ms(lambda: plain_score(c, q)),
         host_us=host_us(lambda: deepfm_score(c, q, mlp, fm_dim)),
         bound=bound_ms(nbytes, flops))
@@ -420,7 +425,12 @@ def check_fused_kernels(torch, dev, measure, fm_dim):
     idx, q = ids_of(M), rows(M, D)
     idx_a, q_a = ids_of(512), rows(512, D)
     mask_a = prefix_mask(torch, 32, 16, gen).to(dev)
-    r = report["deepfm_score_fused"] = {"err": worst, "ms": {},
+    # every net of DEEPFM_NETS at each residency (drawn from their own
+    # stream, after the cases above)
+    net_worst, by_net, _ = check_deepfm_score_nets(torch, dev, mlp, fm_dim,
+                                                   fused=True)
+    r = report["deepfm_score_fused"] = {"err": max(worst, net_worst),
+                                        "err_by_net": by_net, "ms": {},
                                         "plain_ms": {}, "bound": {}}
     for dt, st in stores.items():
         r["ms"][dt] = time_ms(lambda: deepfm_score_fused(st, idx, q, mlp,
@@ -666,6 +676,144 @@ def check_deepfm_grad_nets(torch, dev, serving_mlp, fm_dim, fused):
         worst = max(worst, worst_net)
         by_net[label] = worst_net
     return worst, by_net
+
+
+def deepfm_score_plan_on_card(net) -> dict:
+    """The plan the DeepFM score kernels launch for ``net`` = (D, fm, H0,
+    H1) on the card (``deepfm_score_plan_info``): rows and CTAs per
+    cluster, shared memory per CTA, ``cudaOccupancyMaxActiveClusters`` of
+    the kernel, and whether the copy compiled for the serving widths runs
+    it."""
+    import ctypes
+    from repro_torch.kernels import _lib
+    info = (ctypes.c_int * 5)()
+    _lib.check(_lib.load().deepfm_score_plan_info(*net, info),
+               "deepfm_score_plan_info")
+    return dict(zip(("rows", "ctas", "smem_bytes", "max_active_clusters",
+                     "serving_widths"), info))
+
+
+def check_deepfm_score_nets(torch, dev, serving_mlp, fm_dim, fused):
+    """deepfm_score (or, ``fused``, deepfm_score_fused) against its plain
+    version at every net of DEEPFM_NETS (the serving one with the
+    measure's weights ``serving_mlp``, the rest random) and both query
+    forms: the score at M = 256, 512, 77, 1 and 8 tiles of its plan and 3
+    rows; the fused form at each residency with -1 ids, with and without
+    a prefix mask, at M = 512 also with every row masked (all -inf), and
+    at float32 bit for bit against deepfm_score on the gathered rows. The
+    card's plans must equal ``deepfm_score_plan``'s, the serving net's run
+    by the copy compiled for its widths. Returns the largest error, each
+    net's, and each net's plan on the card."""
+    from repro_torch.core import make_corpus_store
+    from repro_torch.kernels import deepfm_score, deepfm_score_fused
+    from repro_torch.kernels.deepfm_score.ops import deepfm_score_plan
+    from repro_torch.kernels.deepfm_score.ref import deepfm_score_ref
+    from repro_torch.kernels.deepfm_score_fused.ref import \
+        deepfm_score_fused_ref
+
+    N = 5000
+    gen = torch.Generator(device="cpu").manual_seed(987 + int(fused))
+    name = "deepfm_score_fused" if fused else "deepfm_score"
+    neg_inf = float("-inf")
+    require(DEEPFM_NETS[0][1] == fm_dim, "the serving net's fm")
+    plans = {net: deepfm_score_plan_on_card(net) for net in DEEPFM_NETS}
+    for net, p in plans.items():             # the CPU tests' mirror
+        m = deepfm_score_plan(*net)
+        require(m is not None and (p["rows"], p["ctas"], p["smem_bytes"]) ==
+                (m["rows"], m["n"], m["smem_bytes"]), f"deepfm_score {net}: "
+                f"the plan {p} differs from kernels/deepfm_score/ops.py's {m}")
+        require(p["serving_widths"] == int(net == DEEPFM_NETS[0]),
+                f"deepfm_score {net}: serving widths {p['serving_widths']}")
+    if not fused:
+        log("deepfm_score plans (rows x CTAs per cluster, shared memory per "
+            "CTA, cudaOccupancyMaxActiveClusters, copy): " + "; ".join(
+                f"D={D} fm={fm} {H0}x{H1} {p['rows']} x {p['ctas']}, "
+                f"{p['smem_bytes']} B, {p['max_active_clusters']}, "
+                + ("DeepFMScoreServing" if p["serving_widths"]
+                   else "run-time widths")
+                for (D, fm, H0, H1), p in plans.items()))
+
+    def rows(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def ids_of(M):
+        i = torch.randint(0, N, (M,), generator=gen)
+        i[::13] = -1                          # padding, clamped in-kernel
+        return i.to(dev)
+
+    worst, by_net = 0.0, {}
+    for D, fm, H0, H1 in DEEPFM_NETS:
+        label = f"D={D} fm={fm} {H0}x{H1}"
+        mlp = serving_mlp if (D, fm, H0, H1) == DEEPFM_NETS[0] else \
+            random_mlp(torch, dev, 2 * (D - fm), (H0, H1), gen)
+        wb = [t for pair in zip(mlp["w"], mlp["b"]) for t in pair]
+        ragged = 8 * plans[(D, fm, H0, H1)]["rows"] + 3
+        Ms = ((256, 8), (512, 16), (77, None), (1, None), (ragged, None))
+        stores = {"float32": None}
+        if fused:
+            base = torch.randn((N, D), generator=gen)
+            stores = {dt: make_corpus_store(base, dt, device=dev)
+                      for dt in RESIDENCIES}
+        n_cases, worst_net = 0, 0.0
+        for dt, store in stores.items():
+            for M, C in Ms:
+                for shared in (False, True):
+                    for masked in ((False, True) if fused else (False,)):
+                        q = rows(D) if shared else rows(M, D)
+                        tag = (f"{name} {label} {dt} M={M} shared={shared}"
+                               f" masked={masked}")
+                        if not fused:
+                            c = rows(M, D)
+                            got = deepfm_score(c, q, mlp, fm)
+                            torch.cuda.synchronize()
+                            want = deepfm_score_ref(
+                                c, q.expand(M, -1) if shared else q, *wb, fm)
+                        else:
+                            idx, mask = ids_of(M), None
+                            if masked:
+                                mask = (prefix_mask(torch, M // C, C, gen)
+                                        if C else
+                                        torch.rand(M, generator=gen) < 0.5)
+                                mask = mask.to(dev)
+                            got = deepfm_score_fused(store, idx, q, mlp, fm,
+                                                     mask=mask)
+                            torch.cuda.synchronize()
+                            want = deepfm_score_fused_ref(store, idx, q, *wb,
+                                                          fm, mask)
+                            if dt == "float32":
+                                unf = deepfm_score(store.take(
+                                    idx.clamp_min(0)), q, mlp, fm)
+                                if mask is not None:
+                                    unf = unf.masked_fill(~mask, neg_inf)
+                                require(torch.equal(got, unf), f"{tag}: "
+                                        f"differs from deepfm_score on the "
+                                        f"gathered rows")
+                        require(torch.equal(torch.isneginf(got),
+                                            torch.isneginf(want)),
+                                f"{tag}: masked rows differ")
+                        fin = torch.isfinite(want)
+                        if bool(fin.any()):
+                            err, ratio = close_err(got[fin], want[fin],
+                                                   SCORE_RTOL, SCORE_ATOL)
+                            require(ratio <= 1.0, f"{tag}: {err:.3e}")
+                            worst_net = max(worst_net, err)
+                        n_cases += 1
+            if fused:    # every row masked: every tile skipped, all -inf
+                got = deepfm_score_fused(
+                    store, ids_of(512), rows(512, D), mlp, fm,
+                    mask=torch.zeros(512, dtype=torch.bool, device=dev))
+                torch.cuda.synchronize()
+                require(bool(torch.isneginf(got).all()),
+                        f"{name} {label} {dt} M=512 all masked: "
+                        f"{int((~torch.isneginf(got)).sum())} rows not -inf")
+                n_cases += 1
+        log(f"{name} {label}: {n_cases} cases match the plain version, "
+            f"max_abs_err {worst_net:.3e}" + (
+                "; all-masked tiles -inf, equal to deepfm_score bit for bit "
+                "at float32" if fused else ""))
+        worst = max(worst, worst_net)
+        by_net[label] = worst_net
+    return worst, by_net, plans
 
 
 def score_plan_on_card(dims, d_x) -> dict:
@@ -1398,8 +1546,8 @@ def check_library_flash(torch, dev, report):
 # the kernels whose SASS must hold given instructions: the tensor-core
 # attention kernels, wgmma (HGMMA) for bf16 flash, mma.sync (HMMA) for
 # decode, both for float32 flash (S by wgmma, P V by mma.sync, TF32); the
-# cluster body's kernels, of the MLP and DeepFM grad pairs (every
-# instantiation, MLPInput and DeepFMInput) and of the MLP score pair,
+# cluster body's kernels, of the MLP and DeepFM grad and score pairs
+# (every instantiation, MLPInput and DeepFMInput),
 # their cluster barrier (UCGABAR_ARV), their st.async pushes into the
 # other CTAs' shared memory (STAS) and their mbarrier waits
 # (SYNCS.PHASECHK)

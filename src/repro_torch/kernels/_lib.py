@@ -69,6 +69,9 @@ SIGNATURES = {
                         _I, _I, _P],
     # dims, L, Dx, Dq, info (int[4]): the score's plan at these widths
     "mlp_score_plan_info": [_P, _I, _I, _I, _P],
+    # D, fm_dim, H0, H1, info (int[5]): the DeepFM score's plan at these
+    # widths
+    "deepfm_score_plan_info": [_I, _I, _I, _I, _P],
     # data, scales, ids(i64), residency, query, q_shared, ws, bs, dims, L,
     # vals, grads, x, M, Dx, Dq, stream
     "mlp_grad_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,

@@ -8,22 +8,22 @@
 // adaptive mask covers entirely).
 //
 // What bounds it on an H100: at the serving shape (M = Q*C = 256 rows, or
-// 512 under adaptive c_max = 16, D = 40, hidden 64x64) one call reads
-// M rows of 160 B (f32), 80 B (bf16) or 40 B + a 4 B scale (int8), M ids,
-// the queries and 34 KB of weights, and does ~4 MFLOP: under 0.1 us of
-// either bytes or fp32 FMA, so launch latency and the per-block weight
-// staging bound it, as they bound deepfm_score.
-// The design is deepfm_score's kernel body (deepfm.cuh) with another row
-// source (rows.cuh): each warp gathers its candidate row by id (clamping
-// -1 padding to 0), dequantizes it into its shared-memory slice with the
-// rounding of CorpusStore.take, and runs the same forward on it. At
-// float32 residency that is the unfused kernel's arithmetic on the same
-// values, so the two agree bit for bit. The mask is the Hopper form of the
-// Pallas tile skip: a masked row writes -inf and its warp skips the FM and
-// MLP, and a block of 8 rows that are all masked skips the weight staging
-// too. Neither the (M, D) candidate block nor its float32 copy ever
-// exists in device memory.
-#include "deepfm.cuh"
+// 512 under adaptive c_max = 16, D = 40, fm = 8, deep part 64 -> 64 -> 64
+// -> 1) one call reads M rows of 160 B (f32), 80 B (bf16) or 40 B + a 4 B
+// scale (int8), M ids, the queries and 34 KB of weights, and does ~4.3
+// MFLOP: under 0.1 us of either bytes or fp32 FMA, so latency bounds it,
+// as it bounds deepfm_score.
+// The design is deepfm_score's kernel body (mlp_grad.cuh, forward only,
+// over the DeepFM input) with the corpus row source (rows.cuh): each CTA
+// gathers the tile's candidate rows by id (clamping -1 padding to 0) and
+// dequantizes them into its shared memory with the rounding of
+// CorpusStore.take (float32 rows are copied by cp.async as they are), the
+// FM columns beside the deep input as in deepfm_score, so at float32
+// residency it equals deepfm_score bit for bit. The Pallas tile skip
+// becomes: a masked row scores -inf, and a tile of rows that the mask
+// covers entirely writes -inf and stages nothing. The (M, D) candidate
+// block never exists in device memory.
+#include "mlp_grad.cuh"
 
 extern "C" int deepfm_score_fused(const void* data, const void* scales,
                                   const void* ids, int residency,
@@ -38,8 +38,8 @@ extern "C" int deepfm_score_fused(const void* data, const void* scales,
   cudaError_t err = cudaSuccess;
   const cudaError_t bad =
       with_corpus_rows(residency, data, scales, ids, [&](auto rows) {
-        err = launch_deepfm_score(rows, query, q_shared, mask, w, out, M, D,
-                                  fm, H0, H1, stream);
+        err = launch_deepfm_score_cluster(rows, query, q_shared, mask, w, out,
+                                          M, D, fm, H0, H1, stream);
       });
   return static_cast<int>(bad != cudaSuccess ? bad : err);
 }

@@ -1,8 +1,9 @@
 // The MLP measure's kernels (mlp_score, mlp_score_fused, mlp_grad,
-// mlp_grad_fused) and the DeepFM measure's grad pair (deepfm_grad,
-// deepfm_grad_fused): one body, a tile of T rows per thread-block cluster
-// of n CTAs, run as the value and analytic df/dx (mlp_grad_cluster_kernel,
-// T = 4) or forward only as the score (mlp_score_cluster_kernel).
+// mlp_grad_fused) and the DeepFM measure's (deepfm_score,
+// deepfm_score_fused, deepfm_grad, deepfm_grad_fused): one body, a tile of
+// T rows per thread-block cluster of n CTAs, run as the value and
+// analytic df/dx (mlp_grad_cluster_kernel, T = 4) or forward only as the
+// score (mlp_score_cluster_kernel, T = 8).
 //
 //   MLP:    f(x, q) = sigmoid(MLP([x | q]))
 //   DeepFM: f(x, q) = sigmoid(MLP([q_deep | x_deep]) + <x_fm, q_fm>)
@@ -11,19 +12,20 @@
 // an input policy (MLPInput, DeepFMInput): the DeepFM measure's deep part
 // is an MLP (D = fm + dd: [q[fm:] | x[fm:]], 2 dd -> H0 -> H1 -> 1) whose
 // input has the x half second, so its backward reads W_0's rows [dd, 2
-// dd); the FM term is local to a row: every CTA adds <x_fm, q_fm> to its
-// tile's logits after the top layer's dot and bias, and CTA 0 writes the
-// gradient's first fm columns, g_logit * q_fm. The policy's branches, the
-// tile and the score's dropping of the backward are resolved at compile
-// time, so the MLP grad instantiations keep their arithmetic and its order
-// (and, but for the run-time-width copy over pre-gathered rows, their SASS
-// opcode counts; PERF.md).
+// dd); the FM term is local to a row: the grad's CTAs each add <x_fm,
+// q_fm> to their tile's logits after the top layer's dot and bias, and
+// CTA 0 writes the gradient's first fm columns, g_logit * q_fm; the
+// score's CTA 0 adds it after the partial dots and the bias. The policy's
+// branches, the tile and the score's dropping of the backward are
+// resolved at compile time, so the MLP instantiations keep their
+// arithmetic and its order (and, but for the grad's run-time-width copy
+// over pre-gathered rows, their SASS opcode counts; PERF.md).
 //
 // Layout. The host plans n from the widths: about 8 hidden units per CTA,
 // a power of two from 2 to the portable cluster size of 8 for the grad,
 // to 4 for the score (the grad's n = 8 at 80 -> 64 -> 64 -> 1, and at the
-// serving DeepFM's 64 -> 64 -> 64 -> 1, configs/guitar_deepfm.py; 1
-// without a hidden layer). CTA c owns a
+// serving DeepFM's 64 -> 64 -> 64 -> 1, configs/guitar_deepfm.py; the
+// score's 4 at both; 1 without a hidden layer). CTA c owns a
 // contiguous slice of the units of every hidden layer (a multiple of 4
 // units) and of the Dx gradient columns (Dx = dd for DeepFM: 4 of 32 at
 // serving), and computes only those outputs, in both directions, from
@@ -38,46 +40,8 @@
 //    layer's weights for the tile's rows in every CTA (each needs f');
 //    for the score, each CTA's partial dot over its own units of the top
 //    layer, which it keeps rather than pushes, sent to CTA 0, which adds
-//    the n partials in rank order and writes the score.
-//
-// Each slice a CTA computes is pushed to every CTA of the cluster (itself
-// included) by st.async into the receivers' shared memory, each push
-// counted in bytes on the receiver's mbarrier of that exchange, so a CTA
-// waits only for the data it reads: no cluster-wide barrier and no fence
-// between layers (one with release semantics cost ~0.65 us per layer).
-// Every exchange buffer is written once per launch. There are 2L - 3
-// exchanges for L layers (3 at serving) in the grad, L - 1 (2) in the
-// score, the last of them the partial dots; a cluster barrier before the
-// first (the mbarriers are initialised) and one before exit (no CTA
-// leaves while pushes to it are in flight).
-//
-// The kernel is a chain of dependent steps (stage, layer, exchange, ...)
-// run by few threads, so its time is latency: 4 rows per cluster put the
-// grad's serving Q = 32 on 8 clusters of 8 CTAs; the score's M = Q * C =
-// 256 (512 adaptive) takes 8 rows per cluster of 4 CTAs (kMLPScoreTile,
-// kMLPScoreCluster; both from sweeps of rows x CTAs per cluster,
-// PERF.md); at the serving widths the kernel is compiled for them
-// (FixedWidths), every loop of constant length and every index folded,
-// beside a copy at run-time widths. Activations are [row][unit], weights
-// as they lie in device memory (the forward's column slices [k][unit],
-// the backward's row slices [unit][k]), so every staging copy is a 16-byte
-// cp.async where the widths allow (4-byte otherwise), all of them in
-// flight at once, and a thread computes one row by four units from one
-// 16-byte load of inputs and four of weights per 16 FMAs, the K sum split
-// over KS threads (chunks of 4 k, chunk = g mod KS): for the grad KS
-// neighbouring lanes added by xor shuffles, for the score, whose tiles
-// have more rows, KS warps added through shared memory, so that a warp's
-// lanes read distinct rows at one chunk (dense4). Pads to a multiple of 4
-// are zero. bf16/int8 rows are
-// loaded and dequantized with rows.cuh's rounding. Every sum runs in a
-// fixed order, so the index-fused forms (the same body over CorpusRows)
-// equal the pre-gathered ones bit for bit at float32.
-//
-// The score's adaptive prefix mask: a masked row scores -inf, and a tile
-// whose rows are all masked writes -inf and leaves before its staging.
-//
-// Stop cuts the kernel short for timing its phases
-// (tools/mlp_grad_split.py): 0 the launch, 1 staging, 2 through the value.
+//    the n partials in rank order, the bias and (DeepFM) the FM term, and
+//    writes the score.
 #pragma once
 
 #include <stdint.h>
@@ -490,8 +454,8 @@ constexpr bool kF32Rows = std::is_same_v<
 //  - DeepFMInput: the input [q[fm:] | x[fm:]] (Dq = Dx = dd); rows,
 //    queries and gradients D = fm + dd wide; the FM term <x_fm, q_fm> in
 //    the logit and g_logit * q_fm as the gradient's first fm columns. The
-//    tile's x[:fm] and q[:fm] (4 x align4(fm) floats each) lie at xf and
-//    qf in shared memory, past the plan's buffers.
+//    tile's x[:fm] and q[:fm] (T x align4(fm) floats each) lie at xf and
+//    qf in shared memory, past the plan's buffers (deepfm_cluster_plan).
 struct MLPInput {
   static constexpr bool kFM = false;
   static constexpr int fm = 0, xf = 0, qf = 0;
@@ -567,15 +531,21 @@ struct FixedWidths {
 // The serving nets: make_family_measure('mlp', ..., 40), 80 -> 64 -> 64 ->
 // 1 at Dx = 40, and make_family_measure('deepfm', ..., 40), D = 40 with
 // fm = 8 (configs/guitar_deepfm.py): a deep part of 64 -> 64 -> 64 -> 1 at
-// dd = 32; each a cluster of 8.
+// dd = 32; the grad's a cluster of 8.
 using MLPGradServing = mlpg::FixedWidths<80, 40, 64, 3, 8>;
 using DeepFMGradServing = mlpg::FixedWidths<64, 32, 64, 3, 8, 8>;
 // The score's tile: rows and at most CTAs per cluster, from the sweep of
 // both at the serving MLP (tools/mlp_grad_split.py --sweep, PERF.md), at
-// every width (a tile of 8 rows fits every network the MLP kernels admit).
+// every width of both measures (a tile of 8 rows fits every network the
+// MLP kernels admit, and every DeepFM net of up to 512 FM columns that the
+// one-warp-per-row score layout took; above that, the tile's staged
+// x[:fm] and q[:fm] can refuse a net with few first-layer units:
+// tests/test_torch_deepfm_score.py).
 constexpr int kMLPScoreTile = 8;
 constexpr int kMLPScoreCluster = 4;
 using MLPScoreServing = mlpg::FixedWidths<80, 40, 64, 3, kMLPScoreCluster>;
+using DeepFMScoreServing =
+    mlpg::FixedWidths<64, 32, 64, 3, kMLPScoreCluster, 8>;
 
 namespace mlpg {
 
@@ -808,14 +778,23 @@ __device__ __forceinline__ void cluster_body(
     // -- the score: each CTA's partial dot of its units of the top layer
     //    (the whole input without a hidden layer, n = 1) with the last
     //    layer's weights, one row per thread, pushed to CTA 0, which adds
-    //    the n partials in rank order and the bias and writes the sigmoid
-    //    (-inf for a masked row)
+    //    the n partials in rank order, then the bias, then (DeepFM) the
+    //    row's FM term, and writes the sigmoid (-inf for a masked row)
     const Slice u = L > 1 ? slice_of(c, wd.s(L - 2), H, n) : Slice{0, H};
     __syncthreads();  // this CTA's units of the top layer are in
     float p = 0.f;
-    if (tid < T)
+    [[maybe_unused]] float fmt = 0.f;
+    if (tid < T) {
       for (int j = u.lo; j < u.lo + u.width; ++j)
         p = fmaf(top[tid * ptop + j], wl[j], p);
+      // DeepFM: CTA 0's FM term of row tid, one fmaf chain over k = 0, 1,
+      // ..., fm - 1 of x[k] q[k] (before the wait: it needs no exchange)
+      if constexpr (In::kFM) {
+        if (c == 0)
+          for (int k = 0; k < fm; ++k)
+            fmt = fmaf(XF[tid * pf + k], QF[tid * pf + k], fmt);
+      }
+    }
     if (L > 1) {
       if (tid < T)
         st_async1(map_rank(tc::smem_u32(sm + plan.gl + c * T + tid), 0), p,
@@ -834,9 +813,11 @@ __device__ __forceinline__ void cluster_body(
         for (int r = 0; r < n; ++r) p += sm[plan.gl + r * T + tid];
       }
     }
-    if (tid < nrows)
-      vals[row0 + tid] =
-          live_row ? 1.f / (1.f + expf(-(p + sm[plan.bl]))) : -INFINITY;
+    if (tid < nrows) {
+      float logit = p + sm[plan.bl];
+      if constexpr (In::kFM) logit += fmt;
+      vals[row0 + tid] = live_row ? 1.f / (1.f + expf(-logit)) : -INFINITY;
+    }
     if (L > 1) cluster_wait();
     return;
   }
@@ -990,15 +971,14 @@ mlp_grad_cluster_kernel(Rows rows, const float* __restrict__ query,
 
 // The score of each row (-inf where ``mask``, nullable, clears it): the
 // same body, forward only, T rows per cluster.
-template <class Rows, int Stop, class Widths, int T>
+template <class Rows, int Stop, class Widths, int T, class In>
 __global__ void __launch_bounds__(kMLPGradThreads)
 mlp_score_cluster_kernel(Rows rows, const float* __restrict__ query,
                          int q_shared, const unsigned char* __restrict__ mask,
                          MLPNet net, MLPGradPlan plan,
-                         float* __restrict__ out, int M) {
-  mlpg::cluster_body<Rows, Stop, Widths, mlpg::MLPInput, T, false>(
-      rows, query, q_shared, net, plan, out, nullptr, nullptr, mask, M,
-      mlpg::MLPInput{});
+                         float* __restrict__ out, int M, In in) {
+  mlpg::cluster_body<Rows, Stop, Widths, In, T, false>(
+      rows, query, q_shared, net, plan, out, nullptr, nullptr, mask, M, in);
 }
 
 template <class Rows, int Stop, class Widths, class In>
@@ -1039,10 +1019,31 @@ inline cudaError_t launch_mlp_grad_cluster(Rows rows, const void* query,
       rows, query, q_shared, net, plan, vals, grads, xout, M, in, stream);
 }
 
-// The same for the DeepFM measure (rows and queries D wide, fm FM
-// columns, the deep part 2 (D - fm) -> H0 -> H1 -> 1): the cluster body
-// over DeepFMInput, at the serving widths by the kernel fixed to them
-// (the plan mirrored by deepfm_grad_plan in kernels/deepfm_grad/ops.py).
+// The DeepFM measure's net (rows and queries D wide, fm FM columns, the
+// deep part 2 (D - fm) -> H0 -> H1 -> 1 at Dx = Dq = D - fm) planned at a
+// tile of T rows on at most n_max CTAs, with the backward's buffers
+// (``grad``) or without, and the tile's x[:fm] and q[:fm] past the plan's
+// buffers (``in``); false if refused. Mirrored by deepfm_grad_plan and
+// deepfm_score_plan (kernels/deepfm_grad/ops.py, deepfm_score/ops.py).
+inline bool deepfm_cluster_plan(MLPNet& net, MLPGradPlan& plan,
+                                mlpg::DeepFMInput& in, const DeepFMWeights& w,
+                                int D, int fm, int H0, int H1, int T,
+                                int n_max, bool grad) {
+  const int dd = D - fm;
+  const void* ws[3] = {w.w0, w.w1, w.w2};
+  const void* bs[3] = {w.b0, w.b1, w.b2};
+  const int dims[4] = {2 * dd, H0, H1, 1};
+  if (fm <= 0 || dd <= 0 || !mlp_net(net, ws, bs, dims, 3, dd, dd) ||
+      !mlp_cluster_plan(plan, net, T, n_max, grad))
+    return false;
+  const int f4 = T * mlp_grad_align4(fm);
+  in = mlpg::DeepFMInput{fm, plan.floats, plan.floats + f4};
+  plan.floats += 2 * f4;
+  return sizeof(float) * plan.floats <= kMLPGradSmemCap;
+}
+
+// The grad for the DeepFM measure: the cluster body over DeepFMInput, at
+// the serving widths by the kernel fixed to them.
 template <class Rows, int Stop = kMLPGradAll>
 inline cudaError_t launch_deepfm_grad_cluster(Rows rows, const void* query,
                                               int q_shared,
@@ -1052,20 +1053,11 @@ inline cudaError_t launch_deepfm_grad_cluster(Rows rows, const void* query,
                                               int fm, int H0, int H1,
                                               void* stream) {
   if (M <= 0) return cudaGetLastError();
-  const int dd = D - fm;
-  const void* ws[3] = {w.w0, w.w1, w.w2};
-  const void* bs[3] = {w.b0, w.b1, w.b2};
-  const int dims[4] = {2 * dd, H0, H1, 1};
   MLPNet net;
   MLPGradPlan plan;
-  if (fm <= 0 || dd <= 0 || !mlp_net(net, ws, bs, dims, 3, dd, dd) ||
-      !mlp_grad_plan(plan, net))
-    return cudaErrorInvalidValue;
-  // the tile's x[:fm] and q[:fm] past the plan's buffers
-  const int f4 = kMLPGradTile * mlp_grad_align4(fm);
-  const mlpg::DeepFMInput in{fm, plan.floats, plan.floats + f4};
-  plan.floats += 2 * f4;
-  if (sizeof(float) * plan.floats > kMLPGradSmemCap)
+  mlpg::DeepFMInput in;
+  if (!deepfm_cluster_plan(net, plan, in, w, D, fm, H0, H1, kMLPGradTile,
+                           kMLPGradMaxCluster, true))
     return cudaErrorInvalidValue;
   if (DeepFMGradServing::matches(net, plan, fm))
     return launch_mlp_grad_cluster_as<Rows, Stop, DeepFMGradServing>(
@@ -1075,29 +1067,30 @@ inline cudaError_t launch_deepfm_grad_cluster(Rows rows, const void* query,
 }
 
 // The score's launch at a plan, T rows per cluster.
-template <class Rows, int Stop, class Widths, int T>
+template <class Rows, int Stop, class Widths, int T,
+          class In = mlpg::MLPInput>
 inline cudaError_t launch_mlp_score_cluster_as(Rows rows, const void* query,
                                                int q_shared, const void* mask,
                                                const MLPNet& net,
                                                const MLPGradPlan& plan,
                                                void* out, int M,
-                                               void* stream) {
-  auto kernel = mlp_score_cluster_kernel<Rows, Stop, Widths, T>;
+                                               void* stream, In in = In{}) {
+  auto kernel = mlp_score_cluster_kernel<Rows, Stop, Widths, T, In>;
   const mlpg::ClusterLaunch launch((M + T - 1) / T, plan, stream);
   allow_smem(kernel, launch.cfg.dynamicSmemBytes);
   const cudaError_t err = cudaLaunchKernelEx(
       &launch.cfg, kernel, rows, static_cast<const float*>(query), q_shared,
       static_cast<const unsigned char*>(mask), net, plan,
-      static_cast<float*>(out), M);
+      static_cast<float*>(out), M, in);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
 // cudaOccupancyMaxActiveClusters of the score's kernel at ``plan``.
-template <class Rows, class Widths, int T>
+template <class Rows, class Widths, int T, class In = mlpg::MLPInput>
 inline cudaError_t mlp_score_max_clusters(const MLPGradPlan& plan,
                                           int* clusters) {
-  auto kernel = mlp_score_cluster_kernel<Rows, kMLPGradAll, Widths, T>;
+  auto kernel = mlp_score_cluster_kernel<Rows, kMLPGradAll, Widths, T, In>;
   const mlpg::ClusterLaunch launch(1, plan, nullptr);
   allow_smem(kernel, launch.cfg.dynamicSmemBytes);
   const cudaError_t err =
@@ -1125,6 +1118,22 @@ inline cudaError_t with_score_copy(const MLPNet& net, Fn fn) {
   return fn(plan, ScoreCopy<mlpg::RuntimeWidths, kMLPScoreTile>{});
 }
 
+// The same for a DeepFM net: fn(net, plan, in, ScoreCopy<...>{}) at
+// deepfm_cluster_plan's score plan.
+template <class Fn>
+inline cudaError_t with_deepfm_score_copy(const DeepFMWeights& w, int D,
+                                          int fm, int H0, int H1, Fn fn) {
+  MLPNet net;
+  MLPGradPlan plan;
+  mlpg::DeepFMInput in;
+  if (!deepfm_cluster_plan(net, plan, in, w, D, fm, H0, H1, kMLPScoreTile,
+                           kMLPScoreCluster, false))
+    return cudaErrorInvalidValue;
+  if (DeepFMScoreServing::matches(net, plan, fm))
+    return fn(net, plan, in, ScoreCopy<DeepFMScoreServing, kMLPScoreTile>{});
+  return fn(net, plan, in, ScoreCopy<mlpg::RuntimeWidths, kMLPScoreTile>{});
+}
+
 // The score of M rows (-inf where ``mask``, nullable, clears a row): one
 // launch of ceil(M / T) clusters. A refused launch is returned, never
 // rerouted.
@@ -1140,6 +1149,26 @@ inline cudaError_t launch_mlp_score_cluster(Rows rows, const void* query,
                                        C::kTile>(
         rows, query, q_shared, mask, net, plan, out, M, stream);
   });
+}
+
+// The same for the DeepFM measure: the score body over DeepFMInput.
+template <class Rows, int Stop = kMLPGradAll>
+inline cudaError_t launch_deepfm_score_cluster(Rows rows, const void* query,
+                                               int q_shared, const void* mask,
+                                               const DeepFMWeights& w,
+                                               void* out, int M, int D,
+                                               int fm, int H0, int H1,
+                                               void* stream) {
+  if (M <= 0) return cudaGetLastError();
+  return with_deepfm_score_copy(
+      w, D, fm, H0, H1,
+      [&](const MLPNet& net, const MLPGradPlan& plan,
+          const mlpg::DeepFMInput& in, auto copy) {
+        using C = decltype(copy);
+        return launch_mlp_score_cluster_as<Rows, Stop, typename C::Widths,
+                                           C::kTile>(
+            rows, query, q_shared, mask, net, plan, out, M, stream, in);
+      });
 }
 
 }  // namespace repro

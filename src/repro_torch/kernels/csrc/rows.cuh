@@ -52,10 +52,6 @@ struct GatheredRows {
   };
   __device__ Row row(size_t i, int D) const { return {rows + i * D}; }
   __device__ float get(const Row& r, int d) const { return r.p[d]; }
-  // The warp's row as a float32 pointer: read in place, no copy.
-  __device__ const float* load(size_t i, int D, float*, int) const {
-    return rows + i * D;
-  }
 };
 
 // Rows by id from the resident corpus: row i is corpus row max(ids[i], 0)
@@ -76,15 +72,6 @@ struct CorpusRows {
   }
   __device__ float get(const Row& r, int d) const {
     return CorpusElem<R>::get(r.p, r.s, d);
-  }
-  // The warp gathers and dequantizes its row into its shared slice
-  // (D floats) and returns it.
-  __device__ const float* load(size_t i, int D, float* slice,
-                               int lane) const {
-    const Row r = row(i, D);
-    for (int d = lane; d < D; d += kWarp) slice[d] = get(r, d);
-    __syncwarp();
-    return slice;
   }
 };
 

@@ -1,12 +1,28 @@
 """Wrapper of the DeepFM scoring kernel (``csrc/deepfm_score.cu``): checks
 its arguments, launches the kernel for CUDA tensors, and uses the plain
-version only for CPU tensors."""
+version only for CPU tensors. ``deepfm_score_plan`` gives the launch
+layout of the score pair's body (the MLP score's cluster body,
+``csrc/mlp_grad.cuh``, over the DeepFM input)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.deepfm_score.ref import deepfm_score_ref
+from repro_torch.kernels.mlp_grad.ops import (SCORE_CLUSTER, SCORE_TILE,
+                                              cluster_plan)
+
+
+def deepfm_score_plan(D: int, fm_dim: int, h0: int, h1: int):
+    """The DeepFM score kernels' launch layout (``deepfm_cluster_plan`` in
+    csrc/mlp_grad.cuh at the score's tile: SCORE_TILE rows per cluster of
+    up to SCORE_CLUSTER CTAs, forward only, of the deep part [q_deep |
+    x_deep] -> h0 -> h1 -> 1 with the tile's FM columns), with its
+    ``rows``, or None if a CTA's shared memory does not fit."""
+    dd = D - fm_dim
+    plan = cluster_plan([2 * dd, h0, h1, 1], dd, SCORE_TILE, SCORE_CLUSTER,
+                        False, fm_dim)
+    return None if plan is None else {**plan, "rows": SCORE_TILE}
 
 
 def check_deepfm_mlp(mlp_params: dict, d_deep_in: int):

@@ -70,9 +70,11 @@ def _close(got, want, **kw):
 
 
 def _score_layout_bytes(D, fm, h0, h1):
-    """Shared memory of the DeepFM score kernels' block (``deepfm_smem_bytes``
-    in csrc/deepfm.cuh): the network staged in rows padded to cols + 1 and
-    eight warps' scratch (deep input, z0, z1, the row)."""
+    """Shared memory of the block of the one-warp-per-row DeepFM score
+    kernels that the cluster body replaced (their ``deepfm_smem_bytes``):
+    the network staged in rows padded to cols + 1 and eight warps' scratch
+    (deep input, z0, z1, the row). The rule the cluster plans are held
+    to."""
     k0 = 2 * (D - fm)
     weights = k0 * (h0 + 1) + h0 + h0 * (h1 + 1) + h1 + h1 + 1
     return 4 * (weights + 8 * (k0 + h0 + h1 + D))

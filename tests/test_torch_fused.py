@@ -502,3 +502,5 @@ def test_fused_kernels_match_plain_on_card(mlp):
     report = chip_smoke.check_fused_kernels(torch, dev, measure, FM)
     assert set(report) == {"deepfm_score_fused", "neighbor_rank_fused",
                            "deepfm_grad_fused"}
+    assert set(report["deepfm_score_fused"]["err_by_net"]) == \
+        set(report["deepfm_grad_fused"]["err_by_net"])

@@ -183,3 +183,5 @@ def test_kernels_match_plain_on_card(mlp):
                                   D, device=dev)
     report = chip_smoke.check_kernels(torch, dev, measure, FM)
     assert set(report) == {"deepfm_score", "deepfm_grad", "neighbor_rank"}
+    assert set(report["deepfm_score"]["err_by_net"]) == \
+        set(report["deepfm_grad"]["err_by_net"])

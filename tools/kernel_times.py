@@ -10,9 +10,8 @@ checkout's ``chip_smoke`` phases (``check_kernels``,
 ``check_fused_kernels``, ``check_mlp_kernels``,
 ``check_library_kernels``), so each is held against its plain version
 before it is timed, at the shapes those phases time it (µs per call; the
-fused MLP score also at the adaptive M = 512, masked and not), and each
-kernel's largest error against it (per net for the grad pairs, where the
-phase reports it).
+fused scores also at the adaptive M = 512, masked and not), and each
+kernel's largest error against it (per net where the phase reports it).
 
 Times the port of the checkout this file sits in. To compare two commits
 on one card, unpack the other with ``git archive`` into a directory that

@@ -3,35 +3,35 @@
 cut-down copies of it, timed in turns in one process at the serving shape
 (``--kernel grad``: Q = 32 frontier rows; ``--kernel score``: M = Q * C =
 256 candidate rows; per-row queries; ``--measure mlp``: Dx = Dq = 40, MLP
-80 -> 64 -> 64 -> 1; ``--measure deepfm`` (grad only): D = 40, fm = 8,
-deep input 64 -> 64 -> 64 -> 1), each under CUDA-graph replay as
+80 -> 64 -> 64 -> 1; ``--measure deepfm``: D = 40, fm = 8, deep input
+64 -> 64 -> 64 -> 1), each under CUDA-graph replay as
 ``chip_smoke.time_ms`` times the kernels.
 
-Variants of the one-warp-per-row layout, compiled only from sources whose
-``mlp.cuh`` still has it (``mlp_stage`` and ``mlp_forward_warp``, the
-score body before it moved onto the cluster body), at its grid of M / 8
-blocks of 256 threads and its shared memory:
+Variants of the one-warp-per-row layout, compiled only from sources that
+still have it (for the MLP, ``mlp_stage`` and ``mlp_forward_warp`` of
+``mlp.cuh``; for DeepFM, ``deepfm_stage`` and ``deepfm_forward_warp`` of
+``deepfm.cuh``, the score body before it moved onto the cluster body), at
+its grid of M / 8 blocks of 256 threads and its shared memory:
 
 - ``warp_empty``: the launch alone, nothing done;
 - ``warp_stage``: the whole network staged into shared memory;
-- ``warp_forward``: staging and the forward pass of every row;
+- ``warp_forward``: staging and the forward pass (the score) of every row;
 
-(for the DeepFM grad the same over ``deepfm_stage`` and
-``deepfm_forward_warp`` of ``csrc/deepfm.cuh``); where the sources run
-the kernel on the cluster body of ``mlp_grad.cuh``, its ``Stop`` phases at
-its own cluster launch: ``cluster_empty``, ``cluster_stage``,
-``cluster_forward`` (through the value); then ``kernel``: the sources' own
-``mlp_grad_f32`` (``deepfm_grad_f32``, ``mlp_score_f32``) entry,
-whatever body it launches; and ``floor``, an in-place add on a
-one-element tensor. The grad splits the warp layout only where the
-sources have no cluster body; the score splits both where it finds them.
+where the sources run the kernel on the cluster body of ``mlp_grad.cuh``,
+its ``Stop`` phases at its own cluster launch: ``cluster_empty``,
+``cluster_stage``, ``cluster_forward`` (through the value); then
+``kernel``: the sources' own entry (``mlp_grad_f32``, ``mlp_score_f32``,
+``deepfm_grad_f32``, ``deepfm_score_f32``), whatever body it launches; and
+``floor``, an in-place add on a one-element tensor. The grad splits the
+warp layout only where the sources have no cluster body; the score splits
+both where it finds them.
 
 ``--sweep`` (score, cluster body) also times the score's tile at every
-point of ``SWEEP`` (rows × CTAs per cluster, the serving widths compiled
-in), each held against the plain version first: at M = 256 pre-gathered,
-and at the adaptive M = 512 over int8 corpus rows with and without a
-prefix mask (c_max = 16), with each point's shared memory per CTA and
-``cudaOccupancyMaxActiveClusters``.
+point of ``SWEEP`` (rows × CTAs per cluster, the measure's serving widths
+compiled in), each held against the plain version first: at M = 256
+pre-gathered, and at the adaptive M = 512 over int8 corpus rows with and
+without a prefix mask (c_max = 16), with each point's shared memory per
+CTA and ``cudaOccupancyMaxActiveClusters``.
 
 Splits this checkout's kernel, or each kernel source directory given with
 ``--csrc`` (another commit's ``src/repro_torch/kernels/csrc`` unpacked
@@ -183,11 +183,10 @@ extern "C" int split_score(int variant, const void* cand, const void* query,
 }
 """
 
-# the same for the DeepFM grad kernel, over the pieces of its one-warp-per-
-# row body that the score path keeps (csrc/deepfm.cuh)
-DEEPFM_CU = r"""
-#include "deepfm_grad.cu"
-
+# cut-down copies of the DeepFM one-warp-per-row score layout (compiled
+# only from sources whose deepfm.cuh still defines deepfm_stage and
+# deepfm_forward_warp)
+DEEPFM_WARP_CU = r"""
 __global__ void __launch_bounds__(kDeepFMThreads)
 dfm_stage(DeepFMWeights w, float* vals, int M, int K0, int H0, int H1) {
   extern __shared__ float sm[];
@@ -219,12 +218,12 @@ dfm_forward(GatheredRows rows, const float* __restrict__ query, int q_shared,
   }
 }
 
-extern "C" int split_deepfm(int variant, const void* cand, const void* query,
-                            int q_shared, const void* w0, const void* b0,
-                            const void* w1, const void* b1, const void* w2,
-                            const void* b2, void* vals, void* grads, int M,
-                            int D, int fm, int H0, int H1, void* stream) {
-  const DeepFMWeights w = deepfm_weights(w0, b0, w1, b1, w2, b2);
+// variant 0 the launch, 1 staging, 2 staging and the forward, at the
+// layout's grid of M / 8 blocks and its shared memory
+static int dfm_warp_variant(int variant, const void* cand, const void* query,
+                            int q_shared, const DeepFMWeights& w, void* vals,
+                            int M, int D, int fm, int H0, int H1,
+                            void* stream) {
   const size_t smem = deepfm_smem_bytes(D, fm, H0, H1);
   const int grid = (M + kDeepFMRowsPerBlock - 1) / kDeepFMRowsPerBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -239,17 +238,53 @@ extern "C" int split_deepfm(int variant, const void* cand, const void* query,
       dfm_stage<<<grid, kDeepFMThreads, smem, s>>>(w, v, M, 2 * (D - fm), H0,
                                                    H1);
       break;
-    case 2:
+    default:
       allow_smem(dfm_forward, smem);
       dfm_forward<<<grid, kDeepFMThreads, smem, s>>>(
           GatheredRows{static_cast<const float*>(cand)},
           static_cast<const float*>(query), q_shared, w, v, M, D, fm, H0, H1);
-      break;
-    default:
-      return deepfm_grad_f32(cand, query, q_shared, w0, b0, w1, b1, w2, b2,
-                             vals, grads, M, D, fm, H0, H1, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# the DeepFM entries: variants 0-2 of the one-warp-per-row score layout, 3
+# the sources' own deepfm_grad_f32 (split_deepfm) or deepfm_score_f32
+# (split_deepfm_score); each takes the arguments of deepfm_grad_f32
+DEEPFM_CU = r"""
+#include "deepfm_grad.cu"
+#include "deepfm_score.cu"
+
+extern "C" int split_deepfm(int variant, const void* cand, const void* query,
+                            int q_shared, const void* w0, const void* b0,
+                            const void* w1, const void* b1, const void* w2,
+                            const void* b2, void* vals, void* grads, int M,
+                            int D, int fm, int H0, int H1, void* stream) {
+#if SPLIT_DFM_WARP
+  if (variant < 3)
+    return dfm_warp_variant(variant, cand, query, q_shared,
+                            deepfm_weights(w0, b0, w1, b1, w2, b2), vals, M,
+                            D, fm, H0, H1, stream);
+#endif
+  return deepfm_grad_f32(cand, query, q_shared, w0, b0, w1, b1, w2, b2, vals,
+                         grads, M, D, fm, H0, H1, stream);
+}
+
+extern "C" int split_deepfm_score(int variant, const void* cand,
+                                  const void* query, int q_shared,
+                                  const void* w0, const void* b0,
+                                  const void* w1, const void* b1,
+                                  const void* w2, const void* b2, void* vals,
+                                  void*, int M, int D, int fm, int H0, int H1,
+                                  void* stream) {
+#if SPLIT_DFM_WARP
+  if (variant < 3)
+    return dfm_warp_variant(variant, cand, query, q_shared,
+                            deepfm_weights(w0, b0, w1, b1, w2, b2), vals, M,
+                            D, fm, H0, H1, stream);
+#endif
+  return deepfm_score_f32(cand, query, q_shared, w0, b0, w1, b1, w2, b2, vals,
+                          M, D, fm, H0, H1, stream);
 }
 """
 
@@ -334,6 +369,32 @@ extern "C" int split_score_cluster(int stop, const void* cand,
 }
 """
 
+# the DeepFM score on the cluster kernel's phases, where the checkout has it
+DEEPFM_SCORE_CLUSTER_CU = r"""
+extern "C" int split_deepfm_score_cluster(int stop, const void* cand,
+                                          const void* query, int q_shared,
+                                          const void* w0, const void* b0,
+                                          const void* w1, const void* b1,
+                                          const void* w2, const void* b2,
+                                          void* vals, void*, int M, int D,
+                                          int fm, int H0, int H1,
+                                          void* stream) {
+  const DeepFMWeights w = deepfm_weights(w0, b0, w1, b1, w2, b2);
+  const GatheredRows rows{static_cast<const float*>(cand)};
+  switch (stop) {
+    case 0:
+      return static_cast<int>(launch_deepfm_score_cluster<GatheredRows, 0>(
+          rows, query, q_shared, nullptr, w, vals, M, D, fm, H0, H1, stream));
+    case 1:
+      return static_cast<int>(launch_deepfm_score_cluster<GatheredRows, 1>(
+          rows, query, q_shared, nullptr, w, vals, M, D, fm, H0, H1, stream));
+    default:
+      return static_cast<int>(launch_deepfm_score_cluster<GatheredRows, 2>(
+          rows, query, q_shared, nullptr, w, vals, M, D, fm, H0, H1, stream));
+  }
+}
+"""
+
 # the score's tile swept: rows per cluster x CTAs per cluster (SWEEP), each
 # point the serving widths compiled in, over pre-gathered rows or (fused)
 # int8 corpus rows with an optional prefix mask; info (nullable) receives
@@ -388,21 +449,79 @@ extern "C" int score_sweep(int point, int fused, const void* data,
   sweep_at<T, N>(fused, data, scales, ids, cand, query, q_shared, mask, \
                  ws, bs, dims, layers, out, M, Dx, Dq, stream, info)
   switch (point) {
-    case 0: return SWEEP_AT(4, 4);
-    case 1: return SWEEP_AT(4, 8);
-    case 2: return SWEEP_AT(8, 4);
-    case 3: return SWEEP_AT(8, 8);
-    case 4: return SWEEP_AT(16, 4);
-    case 5: return SWEEP_AT(16, 8);
-    case 6: return SWEEP_AT(32, 4);
-    case 7: return SWEEP_AT(32, 8);
-    case 8: return SWEEP_AT(16, 2);
-    case 9: return SWEEP_AT(32, 2);
+SWEEP_CASES
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SWEEP_AT
 }
 """
+
+
+# the same sweep at the DeepFM serving widths (D 40, fm 8, 64 x 64), the
+# plan of deepfm_cluster_plan at each point
+DEEPFM_SWEEP_CU = r"""
+template <int T, int N>
+static int dfm_sweep_at(int fused, const void* data, const void* scales,
+                        const void* ids, const void* cand, const void* query,
+                        int q_shared, const void* mask, const DeepFMWeights& w,
+                        void* out, int M, int D, int fm, int H0, int H1,
+                        void* stream, int* info) {
+  MLPNet net;
+  MLPGradPlan plan;
+  mlpg::DeepFMInput in;
+  using W = mlpg::FixedWidths<64, 32, 64, 3, N, 8>;
+  if (!deepfm_cluster_plan(net, plan, in, w, D, fm, H0, H1, T, N, false) ||
+      !W::matches(net, plan, fm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using I8 = CorpusRows<kI8>;
+  using In = mlpg::DeepFMInput;
+  if (info != nullptr) {
+    info[0] = T;
+    info[1] = plan.n;
+    info[2] = static_cast<int>(sizeof(float) * plan.floats);
+    return static_cast<int>(
+        fused ? mlp_score_max_clusters<I8, W, T, In>(plan, info + 3)
+              : mlp_score_max_clusters<GatheredRows, W, T, In>(plan,
+                                                               info + 3));
+  }
+  if (fused)
+    return static_cast<int>(launch_mlp_score_cluster_as<I8, kMLPGradAll, W,
+                                                        T>(
+        I8{static_cast<const signed char*>(data),
+           static_cast<const float*>(scales),
+           static_cast<const int64_t*>(ids)},
+        query, q_shared, mask, net, plan, out, M, stream, in));
+  return static_cast<int>(launch_mlp_score_cluster_as<GatheredRows,
+                                                      kMLPGradAll, W, T>(
+      GatheredRows{static_cast<const float*>(cand)}, query, q_shared,
+      nullptr, net, plan, out, M, stream, in));
+}
+
+extern "C" int deepfm_sweep(int point, int fused, const void* data,
+                            const void* scales, const void* ids,
+                            const void* cand, const void* query, int q_shared,
+                            const void* mask, const void* w0, const void* b0,
+                            const void* w1, const void* b1, const void* w2,
+                            const void* b2, void* out, int M, int D, int fm,
+                            int H0, int H1, void* stream, int* info) {
+  const DeepFMWeights w = deepfm_weights(w0, b0, w1, b1, w2, b2);
+#define SWEEP_AT(T, N)                                                      \
+  dfm_sweep_at<T, N>(fused, data, scales, ids, cand, query, q_shared, mask, \
+                     w, out, M, D, fm, H0, H1, stream, info)
+  switch (point) {
+SWEEP_CASES
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SWEEP_AT
+}
+"""
+
+
+# each point of SWEEP a case of the sweep entries' switch
+SWEEP_CASES = "\n".join(f"    case {i}: return SWEEP_AT({t}, {n});"
+                        for i, (t, n) in enumerate(SWEEP))
+SWEEP_CU, DEEPFM_SWEEP_CU = (cu.replace("SWEEP_CASES", SWEEP_CASES)
+                             for cu in (SWEEP_CU, DEEPFM_SWEEP_CU))
 
 
 def _defines(csrc, name, word):
@@ -418,17 +537,27 @@ def build(csrc, out_dir, measure, kernel="grad", sweep=False):
     """Compile the variants of ``measure``'s ``kernel`` (grad or score)
     against the kernel sources in ``csrc`` into one library with the
     port's nvcc flags; returns (library, whether the kernel runs on the
-    cluster body, whether the sources have the one-warp-per-row layout,
-    nvcc's output, the library's SASS)."""
+    cluster body, whether the sources have the measure's one-warp-per-row
+    layout, nvcc's output, the library's SASS)."""
     from repro_torch.kernels import _lib
     os.makedirs(out_dir, exist_ok=True)
     has_warp = _defines(csrc, "mlp.cuh", "mlp_forward_warp")
     cu = f"#define SPLIT_WARP {int(has_warp)}\n" + HEAD_CU + (
         WARP_CU if has_warp else "") + ENTRY_CU
     if measure == "deepfm":
-        has_cluster = _defines(csrc, "mlp_grad.cuh",
-                               "launch_deepfm_grad_cluster")
-        cu += DEEPFM_CU + (DEEPFM_CLUSTER_CU if has_cluster else "")
+        has_warp = _defines(csrc, "deepfm.cuh", "deepfm_forward_warp")
+        cu += f"#define SPLIT_DFM_WARP {int(has_warp)}\n" + (
+            DEEPFM_WARP_CU if has_warp else "") + DEEPFM_CU
+        if kernel == "score":
+            has_cluster = _defines(csrc, "mlp_grad.cuh",
+                                   "launch_deepfm_score_cluster")
+            cu += (DEEPFM_SCORE_CLUSTER_CU + (DEEPFM_SWEEP_CU if sweep
+                                              else "")
+                   if has_cluster else "")
+        else:
+            has_cluster = _defines(csrc, "mlp_grad.cuh",
+                                   "launch_deepfm_grad_cluster")
+            cu += DEEPFM_CLUSTER_CU if has_cluster else ""
     elif kernel == "score":
         has_cluster = _defines(csrc, "mlp_grad.cuh",
                                "launch_mlp_score_cluster")
@@ -453,8 +582,10 @@ def build(csrc, out_dir, measure, kernel="grad", sweep=False):
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
     if measure == "deepfm":
-        names = ["split_deepfm"] + (["split_deepfm_cluster"] if has_cluster
-                                    else [])
+        score = kernel == "score"
+        names = ["split_deepfm", "split_deepfm_score"] + (
+            [("split_deepfm_score_cluster" if score else
+              "split_deepfm_cluster")] if has_cluster else [])
         argtypes = [I, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
     else:
         names = ["split_run", "split_score"] + (
@@ -466,23 +597,27 @@ def build(csrc, out_dir, measure, kernel="grad", sweep=False):
         fn.argtypes = argtypes
         fn.restype = I
     if kernel == "score" and has_cluster and sweep:
-        lib.score_sweep.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P, I, P,
-                                    I, I, I, P, P]
-        lib.score_sweep.restype = I
+        if measure == "deepfm":
+            lib.deepfm_sweep.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P,
+                                         P, P, P, P, I, I, I, I, I, P, P]
+            lib.deepfm_sweep.restype = I
+        else:
+            lib.score_sweep.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P,
+                                        I, P, I, I, I, P, P]
+            lib.score_sweep.restype = I
     return lib, has_cluster, has_warp, out.stdout + out.stderr, sass
 
 
 def is_kernel(fn: str, measure: str, kernel: str) -> bool:
     """Whether SASS function ``fn`` is a ``kernel`` (grad or score) kernel
-    of ``measure``: for the grad, the cluster kernel's instantiations for
-    that measure's input or the one-warp-per-row kernel; for the score,
-    the MLP score kernels."""
-    if kernel == "score":
-        return "mlp_score" in fn
+    of ``measure``: the cluster kernel's instantiations for that measure's
+    input (``DeepFMInput`` in the name for DeepFM) or its one-warp-per-row
+    kernel."""
+    cluster = f"mlp_{kernel}_cluster_kernel"
     if measure == "deepfm":
-        return "deepfm_grad_kernel" in fn or (
-            "mlp_grad_cluster_kernel" in fn and "DeepFMInput" in fn)
-    return "mlp_grad" in fn and "DeepFMInput" not in fn
+        return f"deepfm_{kernel}_kernel" in fn or (
+            cluster in fn and "DeepFMInput" in fn)
+    return f"mlp_{kernel}" in fn and "DeepFMInput" not in fn
 
 
 def sass_opcodes(sass: str, measure: str, kernel: str = "grad") -> dict:
@@ -507,8 +642,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--measure", choices=("mlp", "deepfm"), default="mlp")
     ap.add_argument("--kernel", choices=("grad", "score"), default="grad",
-                    help="split the grad kernel (Q = 32) or, for the MLP "
-                         "measure, the score kernel (M = 256)")
+                    help="split the grad kernel (Q = 32) or the score "
+                         "kernel (M = 256)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --kernel score, also time the cluster "
                          "body's tile at every rows x CTAs point of SWEEP, "
@@ -523,8 +658,6 @@ def main() -> int:
                     help="also write each copy's SASS of the split kernels "
                          "to this directory")
     opts = ap.parse_args()
-    if opts.kernel == "score" and opts.measure != "mlp":
-        ap.error("--kernel score splits the MLP measure's score")
     import torch
     if not torch.cuda.is_available():
         print("mlp_grad_split: needs a CUDA card", file=sys.stderr)
@@ -533,6 +666,9 @@ def main() -> int:
     from repro_torch.core import make_corpus_store
     from repro_torch.kernels import _lib
     from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
+    from repro_torch.kernels.deepfm_score.ref import deepfm_score_ref
+    from repro_torch.kernels.deepfm_score_fused.ref import \
+        deepfm_score_fused_ref
     from repro_torch.kernels.mlp_grad.ref import mlp_value_and_grad_ref
     from repro_torch.kernels.mlp_score.ops import net_args
     from repro_torch.kernels.mlp_score.ref import mlp_score_ref
@@ -546,33 +682,38 @@ def main() -> int:
     if deepfm:
         dd = D - FM
         net = chip_smoke.random_mlp(torch, dev, 2 * dd, HIDDEN, gen)
-        c = torch.randn((M, D), generator=gen).to(dev)
-        q = torch.randn((M, D), generator=gen).to(dev)
+        dx, dq = D, D
         wb = [t for pair in zip(net["w"], net["b"]) for t in pair]
         args = [t.data_ptr() for t in wb]
-        widths = (M, D, FM, *HIDDEN)
-        grads = torch.empty((M, D), device=dev)
-        pv, pg = deepfm_value_and_grad_ref(c, q, *wb, FM)
-        shape = f"Q={M} D={D} fm={FM} hidden={HIDDEN}"
+        widths = (D, FM, *HIDDEN)
+        plain = {"score": lambda c, q: deepfm_score_ref(c, q, *wb, FM),
+                 "fused": lambda st, i, q, m: deepfm_score_fused_ref(
+                     st, i, q, *wb, FM, m),
+                 "grad": lambda c, q: deepfm_value_and_grad_ref(c, q, *wb,
+                                                                FM)}
+        shape = f"{'M' if score else 'Q'}={M} D={D} fm={FM} hidden={HIDDEN}"
     else:
         net = chip_smoke.random_mlp(torch, dev, DX + DQ, HIDDEN, gen)
-        c = torch.randn((M, DX), generator=gen).to(dev)
-        q = torch.randn((M, DQ), generator=gen).to(dev)
-        args = net_args(net["w"], net["b"], DX, dev)
-        widths = (M, DX, DQ)
-        grads = torch.empty((M, DX), device=dev)
-        if score:
-            pv, pg = mlp_score_ref(c, q, net["w"], net["b"]), None
-        else:
-            pv, pg = mlp_value_and_grad_ref(c, q, net["w"], net["b"])
+        dx, dq = DX, DQ
+        w, b = net["w"], net["b"]
+        args = net_args(w, b, DX, dev)
+        widths = (DX, DQ)
+        plain = {"score": lambda c, q: mlp_score_ref(c, q, w, b),
+                 "fused": lambda st, i, q, m: mlp_score_fused_ref(
+                     st, i, q, w, b, m),
+                 "grad": lambda c, q: mlp_value_and_grad_ref(c, q, w, b)}
         shape = (f"{'M' if score else 'Q'}={M} Dx={DX} Dq={DQ} "
                  f"hidden={HIDDEN}")
+    c = torch.randn((M, dx), generator=gen).to(dev)
+    q = torch.randn((M, dq), generator=gen).to(dev)
+    grads = torch.empty((M, dx), device=dev)
+    pv, pg = (plain["score"](c, q), None) if score else plain["grad"](c, q)
     vals = torch.empty((M,), device=dev)
 
     def call(fn, variant):
         def run():       # on the current stream: time_ms captures a graph
             rc = fn(variant, c.data_ptr(), q.data_ptr(), 0, *args,
-                    vals.data_ptr(), grads.data_ptr(), *widths,
+                    vals.data_ptr(), grads.data_ptr(), M, *widths,
                     _lib.stream_of(dev))
             _lib.check(rc, f"variant {variant}")
         return run
@@ -589,7 +730,7 @@ def main() -> int:
             csrc, os.path.join(ROOT, "build", "mlp_grad_split", str(i)),
             opts.measure, opts.kernel, opts.sweep)
         if deepfm:
-            whole = lib.split_deepfm
+            whole = lib.split_deepfm_score if score else lib.split_deepfm
         else:
             whole = lib.split_score if score else lib.split_run
         phases = ("empty", "stage", "forward")
@@ -597,8 +738,8 @@ def main() -> int:
             for v, name in enumerate(phases):
                 calls[f"{label}:warp_{name}"] = call(whole, v)
         if has_cluster:
-            fn = (lib.split_deepfm_cluster if deepfm else
-                  lib.split_score_cluster if score else lib.split_cluster)
+            fn = getattr(lib, ("split_deepfm" if deepfm else "split")
+                         + ("_score" if score else "") + "_cluster")
             for v, name in enumerate(phases):
                 calls[f"{label}:cluster_{name}"] = call(fn, v)
         calls[f"{label}:kernel"] = call(whole, 3)
@@ -628,10 +769,16 @@ def main() -> int:
         _lib.check(stamps(buf), "mlp_grad_stamps")
         out.setdefault("stamps", {})[label] = list(buf)
     if sweeps:
-        calls.update(sweep_calls(torch, dev, gen, net, c, q, sweeps, out,
-                                 make_corpus_store, mlp_score_ref,
-                                 mlp_score_fused_ref, chip_smoke, _lib,
-                                 net_args))
+        entry = "deepfm_sweep" if deepfm else "score_sweep"
+
+        def sweep(lib, point, fused, data, scales, ids, cand, query, mask,
+                  res, rows, info):
+            return getattr(lib, entry)(
+                point, fused, data, scales, ids, cand, query, 0, mask, *args,
+                res, rows, *widths, _lib.stream_of(dev), info)
+        calls.update(sweep_calls(torch, dev, gen, c, q, dx, dq, sweeps, out,
+                                 sweep, plain, make_corpus_store, chip_smoke,
+                                 _lib))
     one = torch.zeros(1, device=dev)
     calls["floor"] = lambda: one.add_(1.0)
     times = {k: [] for k in calls}
@@ -644,41 +791,35 @@ def main() -> int:
     return 0
 
 
-def sweep_calls(torch, dev, gen, net, c, q, sweeps, out, make_corpus_store,
-                mlp_score_ref, mlp_score_fused_ref, chip_smoke, _lib,
-                net_args):
+def sweep_calls(torch, dev, gen, c, q, dx, dq, sweeps, out, sweep, plain,
+                make_corpus_store, chip_smoke, _lib):
     """The sweep's calls, each point checked against the plain version
     first: at M = 256 over pre-gathered rows (``c``, ``q``), and at the
-    adaptive M = 512 over int8 corpus rows with and without its prefix
-    mask (32 lanes of c_max = 16). Records each point's plan and errors
-    in ``out["sweep"]``."""
+    adaptive M = 512 over int8 corpus rows (``dx`` wide, queries ``dq``)
+    with and without its prefix mask (32 lanes of c_max = 16). ``sweep``
+    calls a library's sweep entry, ``plain`` holds the plain versions.
+    Records each point's plan and errors in ``out["sweep"]``."""
     N = 5000
-    store = make_corpus_store(torch.randn((N, DX), generator=gen), "int8",
+    store = make_corpus_store(torch.randn((N, dx), generator=gen), "int8",
                               device=dev)
     ids = torch.randint(0, N, (2 * M_SCORE,), generator=gen).to(dev)
-    qa = torch.randn((2 * M_SCORE, DQ), generator=gen).to(dev)
+    qa = torch.randn((2 * M_SCORE, dq), generator=gen).to(dev)
     mask = chip_smoke.prefix_mask(torch, 32, 16, gen).to(dev)
-    args = net_args(net["w"], net["b"], DX, dev)
-    w, b = net["w"], net["b"]
     data, scales, _ = _lib.corpus_args(store)
-    want = {"m256": mlp_score_ref(c, q, w, b),
-            "m512": mlp_score_fused_ref(store, ids, qa, w, b, None),
-            "m512_masked": mlp_score_fused_ref(store, ids, qa, w, b, mask)}
+    want = {"m256": plain["score"](c, q),
+            "m512": plain["fused"](store, ids, qa, None),
+            "m512_masked": plain["fused"](store, ids, qa, mask)}
     outs = {k: torch.empty_like(v) for k, v in want.items()}
     calls = {}
     for label, lib in sweeps:
         for point, (rows, ctas) in enumerate(SWEEP):
             tag = f"{label}:sweep_t{rows}_n{ctas}"
             info = (ctypes.c_int * 4)()
-            _lib.check(lib.score_sweep(point, 0, None, None, None, None, None,
-                                       0, None, *args, None, M_SCORE, DX, DQ,
-                                       _lib.stream_of(dev), info),
-                       f"{tag} plan")
+            _lib.check(sweep(lib, point, 0, None, None, None, None, None,
+                             None, None, M_SCORE, info), f"{tag} plan")
             info_g = list(info)
-            _lib.check(lib.score_sweep(point, 1, None, None, None, None, None,
-                                       0, None, *args, None, M_SCORE, DX, DQ,
-                                       _lib.stream_of(dev), info),
-                       f"{tag} plan")
+            _lib.check(sweep(lib, point, 1, None, None, None, None, None,
+                             None, None, M_SCORE, info), f"{tag} plan")
             rec = {"rows": info_g[0], "ctas": info_g[1],
                    "smem_bytes": info_g[2],
                    "max_active_clusters": info_g[3],
@@ -690,11 +831,10 @@ def sweep_calls(torch, dev, gen, net, c, q, sweeps, out, make_corpus_store,
                 m = mask.data_ptr() if key == "m512_masked" else None
 
                 def run():
-                    rc = lib.score_sweep(
-                        point, int(fused), data, scales, ids.data_ptr(),
-                        c.data_ptr(), (qa if fused else q).data_ptr(), 0, m,
-                        *args, outs[key].data_ptr(), M, DX, DQ,
-                        _lib.stream_of(dev), None)
+                    rc = sweep(lib, point, int(fused), data, scales,
+                               ids.data_ptr(), c.data_ptr(),
+                               (qa if fused else q).data_ptr(), m,
+                               outs[key].data_ptr(), M, None)
                     _lib.check(rc, f"{tag} {key}")
                 return run
             for key in want:
