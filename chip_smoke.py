@@ -3,7 +3,9 @@
 the thirteen CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card (the index-fused ones at float32, bfloat16 and
 int8 residency, and bit for bit against the pre-gathered ones at float32;
-the MLP ones at several depths, the DeepFM pairs at six widths; the
+the MLP ones at several depths, the DeepFM pairs at six widths, the
+rank pair at six shapes with its plans held against their CPU mirror;
+each DeepFM wrapper refusing a net its cluster plan cannot place; the
 library kernels embedding_bag, decode_attention and flash_attention at
 the JAX test shapes and at DLRM-RM2 and Yi-9B widths in float32 and
 bfloat16, driven once each as the slice's main path and timed beside one
@@ -296,27 +298,32 @@ def check_kernels(torch, dev, measure, fm_dim):
         host_us=host_us(lambda: deepfm_value_and_grad(c, q, mlp, fm_dim)),
         bound=bound_ms(nbytes, flops))
 
-    # -- neighbor_rank: main path (Q, B, D) = (32, 48, D), a ragged shape,
-    #    both rank modes; gradients from the grad kernel's plain version
+    # -- neighbor_rank: main path (Q, B, D) = (32, 48, D), and every shape
+    #    of RANK_SHAPES, both rank modes; gradients from the grad kernel's
+    #    plain version at the serving width; the plans on the card
     alpha = 1.01
     worst = 0.0
-    for Q, B in ((32, 48), (5, 37)):
-        x = rows(Q, D)
-        nv = x[:, None, :] + 0.5 * rows(Q, B, D)
-        g = plain_grad(x, rows(Q, D))[1].contiguous()
+    require(RANK_SHAPES[0][2] == D, "the serving shape's width")
+    rank_plans = check_rank_plans()
+    for Q, B, Dr in RANK_SHAPES:
+        x = rows(Q, Dr)
+        nv = x[:, None, :] + 0.5 * rows(Q, B, Dr)
+        g = plain_grad(x, rows(Q, D))[1].contiguous() if Dr == D else \
+            rows(Q, Dr)
         valid = (torch.rand((Q, B), generator=gen) < 0.7).to(dev)
         valid[0] = False                                 # an all-invalid lane
+        nv[1, 2] = x[1]                                  # a zero diff
         for rank_by in ("angle", "projection"):
             key, mask = neighbor_rank(x, g, nv, valid, alpha, rank_by)
             torch.cuda.synchronize()
             pk, pm = neighbor_rank_ref(x, g, nv, valid, alpha, rank_by)
             err, ratio, n_diff = rank_close(torch, key, mask, pk, pm, alpha,
                                             rank_by, "neighbor_rank")
-            log(f"neighbor_rank Q={Q} B={B} {rank_by}: key max_abs_err="
-                f"{err:.3e} (err/tol {ratio:.3f}) mask mismatches away from "
-                f"the band edge: {n_diff}")
-            require(ratio <= 1.0 and n_diff == 0,
-                    f"neighbor_rank {rank_by} mismatch at Q={Q} B={B}")
+            log(f"neighbor_rank Q={Q} B={B} D={Dr} {rank_by}: key "
+                f"max_abs_err={err:.3e} (err/tol {ratio:.3f}) mask "
+                f"mismatches away from the band edge: {n_diff}")
+            require(ratio <= 1.0 and n_diff == 0, f"neighbor_rank {rank_by} "
+                    f"mismatch at Q={Q} B={B} D={Dr}")
             worst = max(worst, err)
     Q, B = 32, 48
     x, gq = rows(Q, D), rows(Q, D)
@@ -325,11 +332,56 @@ def check_kernels(torch, dev, measure, fm_dim):
     valid = (torch.rand((Q, B), generator=gen) < 0.7).to(dev)
     nbytes, flops = rank_costs(Q, B, D)
     report["neighbor_rank"] = dict(
-        err=worst, ms=time_ms(lambda: neighbor_rank(x, g, nv, valid, alpha)),
+        plan=rank_plans[(B, D)], err=worst,
+        ms=time_ms(lambda: neighbor_rank(x, g, nv, valid, alpha)),
         plain_ms=time_ms(lambda: neighbor_rank_ref(x, g, nv, valid, alpha)),
         host_us=host_us(lambda: neighbor_rank(x, g, nv, valid, alpha)),
         bound=bound_ms(nbytes, flops))
     return report
+
+
+# the shapes the rank pair is checked at: (Q, B, D). The first is the
+# serving shape (the copy compiled for D = 40); then a ragged B, rows that
+# are not 16-byte aligned (4-byte copies; bf16 and int8 rows through
+# registers; the run-time-width copy), more rows than one pass takes (2
+# passes), a wider D (16 threads per row) and more columns than one chunk
+# (2 passes of 2 chunks).
+RANK_SHAPES = ((32, 48, 40), (5, 37, 40), (3, 17, 33), (2, 300, 40),
+               (4, 48, 128), (2, 20, 1100))
+
+
+def check_rank_plans() -> dict:
+    """The plan the rank pair launches at each (B, D) of RANK_SHAPES on the
+    card (``neighbor_rank_plan_info``) must equal ``neighbor_rank_plan``'s,
+    the serving width run by the copy compiled for it; logs each with its
+    blocks per SM. Returns the plans by (B, D)."""
+    import ctypes
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.neighbor_rank.ops import neighbor_rank_plan
+    keys = ("threads_per_row", "lanes", "rows", "cols", "pitch", "threads",
+            "smem_bytes", "blocks_per_sm", "serving_width")
+    plans = {}
+    for _, B, D in RANK_SHAPES:
+        info = (ctypes.c_int * len(keys))()
+        _lib.check(_lib.load().neighbor_rank_plan_info(B, D, info),
+                   "neighbor_rank_plan_info")
+        p = plans[(B, D)] = dict(zip(keys, info))
+        m = neighbor_rank_plan(B, D)
+        require(all(p[k] == m[k] for k in keys[:7]), f"neighbor_rank B={B} "
+                f"D={D}: the plan {p} differs from kernels/neighbor_rank/"
+                f"ops.py's {m}")
+        require(p["serving_width"] == int(D == RANK_SHAPES[0][2]),
+                f"neighbor_rank B={B} D={D}: serving width "
+                f"{p['serving_width']}")
+    log("neighbor_rank plans (threads per row x rows per pass, lanes per "
+        "CTA, threads, shared memory per CTA, blocks per SM, copy): "
+        + "; ".join(
+            f"B={B} D={D} {p['threads_per_row']} x {p['rows']}, "
+            f"{p['lanes']}, {p['threads']}, {p['smem_bytes']} B, "
+            f"{p['blocks_per_sm']}, "
+            + ("RankServing" if p["serving_width"] else "run-time width")
+            for (B, D), p in plans.items()))
+    return plans
 
 
 def prefix_mask(torch, lanes, C, gen):
@@ -467,40 +519,50 @@ def check_fused_kernels(torch, dev, measure, fm_dim):
     r["host_us"] = host_us(lambda: deepfm_grad_fused(st8, idx, q, mlp,
                                                      fm_dim))
 
-    # -- neighbor_rank_fused: main path (Q, B) = (32, 48), a ragged shape,
-    #    both rank modes; frontier rows and gradients as the engine has them
+    # -- neighbor_rank_fused: main path (Q, B) = (32, 48), and every shape
+    #    of RANK_SHAPES, both rank modes; frontier rows and gradients as
+    #    the engine has them at the serving width
     alpha = 1.01
     worst = 0.0
+    base_of = {D: base}
     for dt, store in stores.items():
         worst_dt = 0.0
-        for Q, B in ((32, 48), (5, 37)):
-            x = store.take(ids_of(Q).clamp_min(0))
+        for Q, B, Dr in RANK_SHAPES:
+            st = store
+            if Dr != D:
+                if Dr not in base_of:
+                    base_of[Dr] = torch.randn((N, Dr), generator=gen)
+                st = make_corpus_store(base_of[Dr], dt, device=dev)
+            x = st.take(ids_of(Q).clamp_min(0))
             g = deepfm_value_and_grad_ref(x, rows(Q, D), *wb,
-                                          fm_dim)[1].contiguous()
+                                          fm_dim)[1].contiguous() \
+                if Dr == D else rows(Q, Dr)
             idx = ids_of(Q, B)
             valid = (torch.rand((Q, B), generator=gen) < 0.7).to(dev) \
                 & (idx >= 0)
             valid[0] = False                    # an all-invalid lane
             for rank_by in ("angle", "projection"):
-                key, mask = neighbor_rank_fused(x, g, store, idx, valid,
+                key, mask = neighbor_rank_fused(x, g, st, idx, valid,
                                                 alpha, rank_by)
                 torch.cuda.synchronize()
-                pk, pm = neighbor_rank_fused_ref(x, g, store, idx, valid,
+                pk, pm = neighbor_rank_fused_ref(x, g, st, idx, valid,
                                                  alpha, rank_by)
-                label = f"neighbor_rank_fused {dt} Q={Q} B={B} {rank_by}"
+                label = (f"neighbor_rank_fused {dt} Q={Q} B={B} D={Dr} "
+                         f"{rank_by}")
                 err, ratio, n_diff = rank_close(torch, key, mask, pk, pm,
                                                 alpha, rank_by, label)
                 require(ratio <= 1.0 and n_diff == 0,
                         f"{label}: key {err:.3e}, {n_diff} mask mismatches")
                 worst_dt = max(worst_dt, err)
                 if dt == "float32":
-                    uk, um = neighbor_rank(x, g, store.take(idx.clamp_min(0)),
+                    uk, um = neighbor_rank(x, g, st.take(idx.clamp_min(0)),
                                            valid, alpha, rank_by)
                     require(torch.equal(key, uk) and torch.equal(mask, um),
                             f"{label}: differs from neighbor_rank on the "
                             f"gathered rows")
-        log(f"neighbor_rank_fused {dt}: 4 cases, key max_abs_err "
-            f"{worst_dt:.3e}, no mask mismatch away from the band edge"
+        log(f"neighbor_rank_fused {dt}: {2 * len(RANK_SHAPES)} cases, key "
+            f"max_abs_err {worst_dt:.3e}, no mask mismatch away from the "
+            f"band edge"
             + (", equal to neighbor_rank bit for bit" if dt == "float32"
                else ""))
         worst = max(worst, worst_dt)
@@ -553,6 +615,53 @@ DEEPFM_NETS = (
     (72, 8, 128, 128),
     (16, 8, 8, 8),
 )
+
+
+# DeepFM nets (D, fm, H0, H1) whose cluster plan does not fit a CTA: the
+# score's plan stages the tile's x[:fm] and q[:fm] beside the deep part,
+# the grad's the W slices of two 512-wide layers
+DEEPFM_SCORE_REFUSED = (2485, 1008, 1, 556)
+DEEPFM_GRAD_REFUSED = (40, 8, 512, 512)
+
+
+def check_deepfm_refusals(torch, dev) -> None:
+    """Each of the four DeepFM wrappers, given a net its cluster plan
+    cannot place, raises before any launch the ValueError that names the
+    generic stages, not the C launcher's bare CUDA error."""
+    from repro_torch.core import make_corpus_store
+    from repro_torch.kernels import (deepfm_grad_fused, deepfm_score,
+                                     deepfm_score_fused,
+                                     deepfm_value_and_grad, launch_counts)
+    gen = torch.Generator(device="cpu").manual_seed(246)
+    before = launch_counts()
+    calls = {}
+    for pair, (D, fm, H0, H1) in (("score", DEEPFM_SCORE_REFUSED),
+                                  ("grad", DEEPFM_GRAD_REFUSED)):
+        mlp = random_mlp(torch, dev, 2 * (D - fm), (H0, H1), gen)
+        c = torch.randn((8, D), generator=gen).to(dev)
+        store = make_corpus_store(torch.randn((16, D), generator=gen),
+                                  "int8", device=dev)
+        idx = torch.arange(8, device=dev)
+        unfused, fused = ((deepfm_score, deepfm_score_fused) if pair ==
+                          "score" else (deepfm_value_and_grad,
+                                        deepfm_grad_fused))
+        calls[unfused.__name__] = (unfused, (c, c, mlp, fm))
+        calls[fused.__name__] = (fused, (store, idx, c, mlp, fm))
+    for name, (fn, args) in calls.items():
+        try:
+            fn(*args)
+        except ValueError as e:
+            require("measure_impl='vmap'" in str(e), f"{name}: refused "
+                    f"without naming the generic stages: {e}")
+        else:
+            raise SmokeFailure(f"{name}: a net its plan cannot place was "
+                               f"not refused")
+    require(launch_counts() == before, "a refused DeepFM call launched")
+    nets = ["D={} fm={} {}x{}".format(*n)
+            for n in (DEEPFM_SCORE_REFUSED, DEEPFM_GRAD_REFUSED)]
+    log(f"deepfm kernels: {', '.join(calls)} refuse {nets[0]} (score) and "
+        f"{nets[1]} (grad) before any launch, naming EngineOptions("
+        f"measure_impl='vmap', grad_impl='vmap')")
 
 
 def mlp_costs(M, Dx, Dq, dims, per_row_query, grad):
@@ -2167,6 +2276,7 @@ def main() -> int:
         results["fused_kernels"] = check_fused_kernels(torch, dev, measure,
                                                        measure.meta[1])
         log_kernels(results["fused_kernels"], results["launch_floor_ms"])
+        check_deepfm_refusals(torch, dev)
         results["mlp_kernels"] = check_mlp_kernels(torch, dev)
         log_kernels(results["mlp_kernels"], results["launch_floor_ms"])
         results["kernel_build"] = check_kernel_build(_lib.BUILD_INFO["path"])

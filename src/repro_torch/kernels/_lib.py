@@ -72,6 +72,8 @@ SIGNATURES = {
     # D, fm_dim, H0, H1, info (int[5]): the DeepFM score's plan at these
     # widths
     "deepfm_score_plan_info": [_I, _I, _I, _I, _P],
+    # B, D, info (int[9]): the rank pair's plan at these widths
+    "neighbor_rank_plan_info": [_I, _I, _P],
     # data, scales, ids(i64), residency, query, q_shared, ws, bs, dims, L,
     # vals, grads, x, M, Dx, Dq, stream
     "mlp_grad_fused": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,

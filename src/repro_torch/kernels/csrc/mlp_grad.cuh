@@ -153,20 +153,6 @@ inline bool mlp_score_plan(MLPGradPlan& p, const MLPNet& net, int T,
 
 namespace mlpg {
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(tc::smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(tc::smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
@@ -440,12 +426,6 @@ __device__ __forceinline__ void dense4(const float* in, int pin, int K4,
     }
   }
 }
-
-// Whether a row source's rows are float32 in device memory (copied by
-// cp.async as they are) or need a dequant in registers.
-template <class Rows>
-constexpr bool kF32Rows = std::is_same_v<
-    decltype(std::declval<typename Rows::Row>().p), const float*>;
 
 // How a launch's rows and queries make the network's input, and what a
 // gradient row holds (the kernel's last parameter, so that the MLP's

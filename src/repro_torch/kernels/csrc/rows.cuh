@@ -13,6 +13,9 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 #include "common.cuh"
 
 namespace repro {
@@ -46,18 +49,24 @@ struct CorpusElem<kI8> {
 
 // Pre-gathered float32 rows: row i is rows[i * D, (i + 1) * D).
 struct GatheredRows {
+  static constexpr bool kById = false, kScaled = false;
   const float* __restrict__ rows;
   struct Row {
     const float* p;
   };
-  __device__ Row row(size_t i, int D) const { return {rows + i * D}; }
+  __device__ Row at(size_t i, int D) const { return {rows + i * D}; }
+  __device__ Row row(size_t i, int D) const { return at(i, D); }
   __device__ float get(const Row& r, int d) const { return r.p[d]; }
+  __host__ __device__ const void* base() const { return rows; }
 };
 
 // Rows by id from the resident corpus: row i is corpus row max(ids[i], 0)
-// (-1 padding is clamped here), dequantized per residency R.
+// (-1 padding is clamped by id()), dequantized per residency R. ``at``
+// takes the clamped id, so a kernel can read a block's ids once.
 template <int R>
 struct CorpusRows {
+  static constexpr bool kById = true;
+  static constexpr bool kScaled = R == kI8;
   using T = typename CorpusElem<R>::T;
   const T* __restrict__ data;
   const float* __restrict__ scales;  // (N, 1), int8 only
@@ -66,14 +75,26 @@ struct CorpusRows {
     const T* p;
     float s;
   };
-  __device__ Row row(size_t i, int D) const {
-    const int64_t id = ids[i] > 0 ? ids[i] : 0;
-    return {data + static_cast<size_t>(id) * D, R == kI8 ? scales[id] : 1.f};
+  __device__ int64_t id(size_t i) const { return ids[i] > 0 ? ids[i] : 0; }
+  __device__ Row at(int64_t id, int D) const {
+    return {data + static_cast<size_t>(id) * D, kScaled ? scales[id] : 1.f};
   }
+  __device__ Row row(size_t i, int D) const { return at(id(i), D); }
   __device__ float get(const Row& r, int d) const {
     return CorpusElem<R>::get(r.p, r.s, d);
   }
+  __host__ __device__ const void* base() const { return data; }
 };
+
+// Whether a row source's rows are float32 in device memory (copied by
+// cp.async as they are) or need a dequant.
+template <class Rows>
+constexpr bool kF32Rows = std::is_same_v<
+    decltype(std::declval<typename Rows::Row>().p), const float*>;
+
+// Bytes of one stored element of a row source.
+template <class Rows>
+constexpr int kRowElemBytes = sizeof(*std::declval<typename Rows::Row>().p);
 
 // Call fn(rows) with the CorpusRows<R> for a runtime residency; returns
 // cudaErrorInvalidValue for an unknown one.

@@ -6,22 +6,26 @@ MLP grad pair's cluster body, ``csrc/mlp_grad.cuh``, over the DeepFM
 input)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.deepfm_grad.ref import deepfm_value_and_grad_ref
 from repro_torch.kernels.deepfm_score.ops import (check_deepfm_mlp,
+                                                  check_deepfm_plan,
                                                   check_rows_and_query)
-from repro_torch.kernels.mlp_grad.ops import mlp_grad_plan
+from repro_torch.kernels.mlp_grad.ops import GRAD_SMEM_CAP, mlp_grad_plan
 
 
-def deepfm_grad_plan(D: int, fm_dim: int, h0: int, h1: int):
+def deepfm_grad_plan(D: int, fm_dim: int, h0: int, h1: int,
+                     cap: Optional[int] = GRAD_SMEM_CAP):
     """The DeepFM grad kernels' launch layout (``mlp_grad_plan`` of the
     deep part [q_deep | x_deep] -> h0 -> h1 -> 1, d_x = D - fm_dim, with
     the tile's FM columns), or None if a CTA's shared memory does not
-    fit."""
+    fit ``cap``."""
     dd = D - fm_dim
-    return mlp_grad_plan([2 * dd, h0, h1, 1], dd, fm_dim)
+    return mlp_grad_plan([2 * dd, h0, h1, 1], dd, fm_dim, cap)
 
 
 def deepfm_value_and_grad(cand: torch.Tensor, query: torch.Tensor,
@@ -40,6 +44,8 @@ def deepfm_value_and_grad(cand: torch.Tensor, query: torch.Tensor,
     if cand.device.type != "cuda":
         raise ValueError(f"deepfm_value_and_grad: no kernel for "
                          f"{cand.device}")
+    check_deepfm_plan(deepfm_grad_plan, "grad", D, fm_dim, w[0].shape[1],
+                      w[1].shape[1])
     vals = torch.empty((M,), dtype=torch.float32, device=cand.device)
     grads = torch.empty((M, D), dtype=torch.float32, device=cand.device)
     lib = _lib.load()

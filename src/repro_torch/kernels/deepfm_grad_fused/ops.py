@@ -7,7 +7,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels.deepfm_grad.ops import deepfm_grad_plan
 from repro_torch.kernels.deepfm_grad_fused.ref import deepfm_grad_fused_ref
+from repro_torch.kernels.deepfm_score.ops import check_deepfm_plan
 from repro_torch.kernels.deepfm_score_fused.ops import check_fused_rows
 
 
@@ -25,6 +27,8 @@ def deepfm_grad_fused(store, idx: torch.Tensor, query: torch.Tensor,
                                      b[1], w[2], b[2], fm_dim)
     if dev.type != "cuda":
         raise ValueError(f"deepfm_grad_fused: no kernel for {dev}")
+    check_deepfm_plan(deepfm_grad_plan, "grad", D, fm_dim, w[0].shape[1],
+                      w[1].shape[1])
     vals = torch.empty((M,), dtype=torch.float32, device=dev)
     grads = torch.empty((M, D), dtype=torch.float32, device=dev)
     x = torch.empty((M, D), dtype=torch.float32, device=dev)

@@ -5,24 +5,41 @@ layout of the score pair's body (the MLP score's cluster body,
 ``csrc/mlp_grad.cuh``, over the DeepFM input)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.deepfm_score.ref import deepfm_score_ref
-from repro_torch.kernels.mlp_grad.ops import (SCORE_CLUSTER, SCORE_TILE,
-                                              cluster_plan)
+from repro_torch.kernels.mlp_grad.ops import (GRAD_SMEM_CAP, SCORE_CLUSTER,
+                                              SCORE_TILE, cluster_plan)
+from repro_torch.kernels.mlp_score.ops import GENERIC
 
 
-def deepfm_score_plan(D: int, fm_dim: int, h0: int, h1: int):
+def deepfm_score_plan(D: int, fm_dim: int, h0: int, h1: int,
+                      cap: Optional[int] = GRAD_SMEM_CAP):
     """The DeepFM score kernels' launch layout (``deepfm_cluster_plan`` in
     csrc/mlp_grad.cuh at the score's tile: SCORE_TILE rows per cluster of
     up to SCORE_CLUSTER CTAs, forward only, of the deep part [q_deep |
     x_deep] -> h0 -> h1 -> 1 with the tile's FM columns), with its
-    ``rows``, or None if a CTA's shared memory does not fit."""
+    ``rows``, or None if a CTA's shared memory does not fit ``cap``."""
     dd = D - fm_dim
     plan = cluster_plan([2 * dd, h0, h1, 1], dd, SCORE_TILE, SCORE_CLUSTER,
-                        False, fm_dim)
+                        False, fm_dim, cap)
     return None if plan is None else {**plan, "rows": SCORE_TILE}
+
+
+def check_deepfm_plan(plan_of, kernel: str, D: int, fm_dim: int, h0: int,
+                      h1: int) -> None:
+    """Raise ValueError, naming the generic stages, where the cluster plan
+    ``plan_of`` (``deepfm_score_plan`` or ``deepfm_grad_plan``) refuses the
+    net: the C launcher would refuse it too, with only a CUDA error."""
+    if plan_of(D, fm_dim, h0, h1) is None:
+        need = plan_of(D, fm_dim, h0, h1, cap=None)["smem_bytes"]
+        raise ValueError(
+            f"the deepfm {kernel} kernels' cluster plan does not fit a CTA: "
+            f"D={D}, fm={fm_dim}, hidden {h0}x{h1} need {need} bytes of "
+            f"shared memory per CTA, more than {GRAD_SMEM_CAP}; {GENERIC}")
 
 
 def check_deepfm_mlp(mlp_params: dict, d_deep_in: int):
@@ -71,6 +88,8 @@ def deepfm_score(cand: torch.Tensor, query: torch.Tensor, mlp_params: dict,
                                 fm_dim)
     if cand.device.type != "cuda":
         raise ValueError(f"deepfm_score: no kernel for {cand.device}")
+    check_deepfm_plan(deepfm_score_plan, "score", D, fm_dim, w[0].shape[1],
+                      w[1].shape[1])
     out = torch.empty((M,), dtype=torch.float32, device=cand.device)
     lib = _lib.load()
     rc = lib.deepfm_score_f32(

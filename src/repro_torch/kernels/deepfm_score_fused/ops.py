@@ -9,7 +9,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.deepfm_score.ops import check_deepfm_mlp
+from repro_torch.kernels.deepfm_score.ops import (check_deepfm_mlp,
+                                                  check_deepfm_plan,
+                                                  deepfm_score_plan)
 from repro_torch.kernels.deepfm_score_fused.ref import deepfm_score_fused_ref
 
 
@@ -47,6 +49,8 @@ def deepfm_score_fused(store, idx: torch.Tensor, query: torch.Tensor,
                                       b[1], w[2], b[2], fm_dim, mask)
     if dev.type != "cuda":
         raise ValueError(f"deepfm_score_fused: no kernel for {dev}")
+    check_deepfm_plan(deepfm_score_plan, "score", D, fm_dim, w[0].shape[1],
+                      w[1].shape[1])
     out = torch.empty((M,), dtype=torch.float32, device=dev)
     data, scales, residency = _lib.corpus_args(store)
     rc = _lib.load().deepfm_score_fused(

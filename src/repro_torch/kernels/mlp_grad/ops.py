@@ -5,6 +5,8 @@ and ``mlp_score_plan`` mirror the launch layouts of the MLP kernels' body
 (``csrc/mlp_grad.cuh``): a tile of rows per thread-block cluster."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _lib
@@ -31,7 +33,7 @@ def _align4(v: int) -> int:
 
 
 def cluster_plan(dims, d_x: int, tile: int, n_max: int, grad: bool,
-                 fm: int = 0):
+                 fm: int = 0, cap: Optional[int] = GRAD_SMEM_CAP):
     """The cluster body's launch layout for widths ``dims`` = [d_x + d_q,
     h_1, ..., 1] at ``tile`` rows per cluster (mirrors
     ``mlp_cluster_plan`` in csrc/mlp_grad.cuh): n CTAs per cluster (a power
@@ -41,7 +43,8 @@ def cluster_plan(dims, d_x: int, tile: int, n_max: int, grad: bool,
     shared memory in bytes, with the backward's buffers (``grad``) or
     without. None if that does not fit. ``fm`` > 0 plans the deep part of
     a DeepFM net with fm FM columns, whose tile also holds x[:fm] and
-    q[:fm] (``deepfm_grad_plan``)."""
+    q[:fm] (``deepfm_grad_plan``). ``cap=None`` returns the plan whatever
+    its shared memory, for a refusal that names the bytes it would need."""
     L = len(dims) - 1
     hidden = list(dims[1:L])
     n = 1
@@ -65,15 +68,17 @@ def cluster_plan(dims, d_x: int, tile: int, n_max: int, grad: bool,
     floats += _align4(tile if grad else n * tile)
     if fm > 0:
         floats += 2 * tile * _align4(fm)
-    if 4 * floats > GRAD_SMEM_CAP:
+    if cap is not None and 4 * floats > cap:
         return None
     return {"n": n, "slices": s, "ks": ks, "smem_bytes": 4 * floats}
 
 
-def mlp_grad_plan(dims, d_x: int, fm: int = 0):
+def mlp_grad_plan(dims, d_x: int, fm: int = 0,
+                  cap: Optional[int] = GRAD_SMEM_CAP):
     """The grad kernels' plan: GRAD_TILE rows per cluster of up to
     GRAD_MAX_CLUSTER CTAs (``mlp_grad_plan`` in csrc/mlp_grad.cuh)."""
-    return cluster_plan(dims, d_x, GRAD_TILE, GRAD_MAX_CLUSTER, True, fm)
+    return cluster_plan(dims, d_x, GRAD_TILE, GRAD_MAX_CLUSTER, True, fm,
+                        cap)
 
 
 def mlp_score_plan(dims, d_x: int):
