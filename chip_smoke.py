@@ -16,12 +16,23 @@ of the MLP and DeepFM pairs checked in the SASS for their cluster
 barrier, st.async pushes and mbarrier waits, and built without a spill;
 a launch floor timed beside the search-path kernels), runs the engine
 with the DeepFM and the MLP measure on the card against the same engine
-on the CPU, serves the GUITAR search at N=100,000 through the port's
-oneshot serving path (DeepFM unfused, fused at float32, bfloat16 and
-int8, and int8 with adaptive angle sizing; the MLP measure unfused, fused
-int8 and fused int8 adaptive), counting kernel launches in each run, and
-profiles one served batch of four of those runs (device busy share,
-device events per engine step, device time by kernel).
+on the CPU, holds the search's captured programs (CUDA graphs of init and
+of 8 steps) against the eager ``search_debug`` and the eager host loop at
+N=5,000 on every engine path (bit for bit; the same launches, captured
+ones counted once per replay; one eager step of each path free of host
+syncs), serves the GUITAR search at N=100,000 through the port's oneshot
+serving path on the captured programs (DeepFM unfused, fused at float32,
+bfloat16 and int8, and int8 with adaptive angle sizing; the MLP measure
+unfused, fused int8 and fused int8 adaptive), counting kernel launches in
+each run, serves each of those runs again through the eager host loop and
+the captured programs in turns (eager, captured, captured, eager: QPS,
+p50/p95, host us per step, program runs per batch, recall), profiles one
+served batch of four of those runs through each loop (device busy share,
+device events per engine step, device time by kernel and by kind), and
+runs the continuous runtime at N=100,000 (DeepFM and MLP fused int8, 32
+lanes, 8 steps per tick: a backlog run for capacity, then Poisson
+arrivals at 0.8x of it; each request's result = the oneshot captured
+search's bit for bit).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -1906,6 +1917,118 @@ def check_engine(torch, np, dev, family, N=5000):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the engine's search as captured programs
+# ---------------------------------------------------------------------------
+
+def eager_step_sync_free(torch, eng, params, store, nbrs, qt, entries):
+    """One eager ``step`` of ``eng`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in it
+    raises."""
+    from repro_torch.core.engine import _repeat_rows
+    state = eng.init_state(params, store, nbrs, qt, entries)
+    qs_flat = _repeat_rows(qt, eng.n_candidates(nbrs.shape[1]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step(params, store, nbrs, qt, qs_flat, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def check_graph(torch, np, dev, family, N=5000):
+    """At N=5,000 with the ``family`` measure, every ENGINE_MODES label
+    and adaptive angle sizing, each without and with per-query iter_caps
+    (and taus where adaptive): the captured search returns the eager
+    ``search_debug``'s ids, scores and counters bit for bit (its first,
+    capturing, call and a replay), and the eager host loop's too; the
+    captured search's launch counts (replays x captured, warm-up apart)
+    equal the eager host loop's, kernel by kernel; one eager step of each
+    path makes no host sync."""
+    from repro_torch.core import (EngineOptions, SearchConfig, build_engine,
+                                  make_corpus_store, make_family_measure)
+    from repro_torch.graph import build_l2_graph
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     warmup_launch_counts)
+    D, Q = 40, 256
+    rng = np.random.default_rng(2)
+    base = rng.normal(size=(N, D)).astype(np.float32)
+    qt = torch.as_tensor(rng.normal(size=(Q, D)).astype(np.float32),
+                         device=dev)
+    caps = torch.as_tensor(rng.integers(4, 200, size=Q).astype(np.int32))
+    taus = torch.as_tensor(rng.uniform(1.2, 2.0, size=Q).astype(np.float32))
+    graph = build_l2_graph(base, m=24, k_construction=100, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    entries = torch.full((Q,), graph.entry, device=dev)
+    measure = make_family_measure(family, torch.Generator().manual_seed(0),
+                                  D, device=dev)
+    cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01, mode="guitar",
+                       rank_by="angle")
+    cfg_a = SearchConfig(k=10, ef=64, budget=8, alpha=1.2, mode="guitar",
+                         rank_by="angle")
+    adapt = dict(adaptive="angle", c_max=16, angle_tau=1.8)
+    modes = {"unfused": (cfg, EngineOptions()),
+             "fused_f32": (cfg, EngineOptions(fused=True)),
+             "fused_int8": (cfg, EngineOptions(fused=True,
+                                               corpus_dtype="int8")),
+             "adaptive_int8": (cfg_a, EngineOptions(
+                 fused=True, corpus_dtype="int8", **adapt))}
+    labels = ENGINE_MODES[family] + ("adaptive_int8",)
+    out = {"family": family, "n": N, "queries": Q}
+    for label in labels:
+        c, options = modes[label]
+        eng = build_engine(measure, c, options)
+        store = make_corpus_store(base, options.corpus_dtype, device=dev)
+        eager_step_sync_free(torch, eng, measure.params, store, nbrs, qt,
+                             entries)
+        for case, kw in (("plain", {}),
+                         ("caps", {"iter_caps": caps,
+                                   **({"taus": taus} if options.adaptive
+                                      == "angle" else {})})):
+            name = f"graph {family} N={N} {label} {case}"
+            debug = eng.search_debug(measure.params, store, nbrs, qt,
+                                     entries, **kw)
+            reset_launch_counts()
+            host = eng.search(measure.params, store, nbrs, qt, entries,
+                              capture=False, **kw)
+            torch.cuda.synchronize()
+            host_counts = launch_counts()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            first = eng.search(measure.params, store, nbrs, qt, entries,
+                               **kw)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            cap_counts, warm = launch_counts(), warmup_launch_counts()
+            prog = eng.search_program(measure.params, store, nbrs, qt)
+            per_chunk = prog.captured_launches("chunk")
+            replay = eng.search(measure.params, store, nbrs, qt, entries,
+                                **kw)
+            torch.cuda.synchronize()
+            for lbl, r in (("eager host loop", host),
+                           ("captured (capturing call)", first),
+                           ("captured (replay)", replay)):
+                require(same_result(torch, r, debug),
+                        f"{name}: the {lbl} search differs from "
+                        f"search_debug")
+            require(cap_counts == host_counts,
+                    f"{name}: captured launches {cap_counts} differ from "
+                    f"the eager host loop's {host_counts}")
+            require(any(host_counts.values()),
+                    f"{name}: no kernel launched")
+            log(f"{name}: captured search = search_debug = host loop bit "
+                f"for bit (ids, scores, counters); launches {cap_counts} "
+                f"= host loop's (warm-up apart: {warm}); one chunk "
+                f"replays {per_chunk}; first call with capture "
+                f"{capture_s:.2f}s; one eager step made no host sync")
+            out[f"{label} {case}"] = {
+                "launches": cap_counts, "warmup_launches": warm,
+                "chunk_launches": per_chunk, "capture_s": capture_s,
+                "n_iters_max": int(debug.n_iters.max())}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serve N = 100,000 through the oneshot path
 # ---------------------------------------------------------------------------
 
@@ -1935,12 +2058,60 @@ SERVE_RUNS = (
 )
 
 
+def serve_compare(torch, np, serve, common, family, extra, graph, measure,
+                  cfg, store, nbrs, base_t, rng, query_stream, qt, entries,
+                  label):
+    """The captured serve and the eager host-loop serve of one SERVE_RUNS
+    run in turns (eager, captured, captured, eager) over the same query
+    stream: QPS, p50/p95 per batch, host us per step and program runs per
+    batch of each; each serve's launch counts equal the eager one's, and
+    the 64 recall queries return the same ids, scores and counters in both
+    loops."""
+    from repro_torch.core import search_measure
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    turns = []
+    for loop in ("host", "captured", "captured", "host"):
+        flags = ["--host-loop"] if loop == "host" else []
+        args = serve.parse_args(common + ["--measure", family] + extra
+                                + flags)
+        options = serve.engine_options(args)
+        rng.bit_generator.state = query_stream
+        reset_launch_counts()
+        summ = serve.serve_oneshot(args, graph, measure, cfg, options, store,
+                                   nbrs, base_t, rng, qt.device)
+        c = launch_counts()
+        if not turns:
+            host_counts = c
+        require(c == host_counts, f"serve {label}: the {loop} serve "
+                f"launched {c}, the eager host loop {host_counts}")
+        turns.append({k: summ[k] for k in (
+            "loop", "qps", "p50_ms", "p95_ms", "host_us_per_step",
+            "runs_per_batch", "steps_per_batch", "recall")})
+    res = {loop: search_measure(measure, store, nbrs, qt, entries, cfg,
+                                options, capture=(loop == "captured"))
+           for loop in ("host", "captured")}
+    require(same_result(torch, res["host"], res["captured"]),
+            f"serve {label}: the captured search of the 64 recall queries "
+            f"differs from the eager host loop's")
+    for t in turns:
+        log(f"serve {label} compare: {t['loop']:8s} QPS={t['qps']:.1f} "
+            f"p50={t['p50_ms']:.3f}ms p95={t['p95_ms']:.3f}ms, "
+            f"{t['host_us_per_step']:.1f}us host issue per step, "
+            f"{t['runs_per_batch']:.1f} program runs per batch "
+            f"({t['steps_per_batch']:.0f} steps), recall@10 (16) "
+            f"{t['recall']:.4f}")
+    require(len({t["recall"] for t in turns}) == 1,
+            f"serve {label}: recall differs between the loops: {turns}")
+    return {"turns": turns, "launches": host_counts}
+
+
 def check_serve(torch, np, dev, items=100_000):
     """One graph at N=100,000, served through the launcher's oneshot path
-    per SERVE_RUNS with the DeepFM and the MLP measure; each run must
-    launch every kernel of its path and no other, each result must score
-    its ids as the plain measure scores their resident rows, and recall is
-    labelled on the float32 base."""
+    (captured programs) per SERVE_RUNS with the DeepFM and the MLP
+    measure; each run must launch every kernel of its path and no other,
+    each result must score its ids as the plain measure scores their
+    resident rows, and recall is labelled on the float32 base. Then each
+    run's captured and eager serves in turns (``serve_compare``)."""
     from repro_torch.core import (SearchConfig, brute_force_topk,
                                   make_corpus_store, make_family_measure,
                                   recall, search_measure)
@@ -2004,6 +2175,12 @@ def check_serve(torch, np, dev, items=100_000):
         check_result(torch, measure, store, qt, res, cfg.k,
                      f"serve {label} N={args.items}")
         rec = recall(res.ids, true_ids[family])
+        cmp = serve_compare(torch, np, serve, common, family, extra, graph,
+                            measure, cfg, store, nbrs, base_t, rng,
+                            query_stream, qt, entries, label)
+        require(cmp["launches"] == counts, f"serve {label}: the compare "
+                f"phase's launches {cmp['launches']} differ from the serve "
+                f"phase's {counts}")
         log(f"serve {label}: recall@10 on 64 queries = {rec:.4f} (labels on "
             f"the float32 base); evals/query "
             f"{float(res.n_eval.float().mean()):.1f}, iterations mean "
@@ -2016,15 +2193,19 @@ def check_serve(torch, np, dev, items=100_000):
             f"corpus {store.nbytes() / 2**20:.1f} MiB")
         out[label] = {**summary, "family": family, "recall64": rec,
                       "launches": counts,
-                      "corpus_mib": store.nbytes() / 2**20}
+                      "corpus_mib": store.nbytes() / 2**20,
+                      "compare": cmp["turns"]}
         ctx[label] = (measure, store, nbrs, graph, cfg, options)
     return out, ctx
 
 
-def profile_serve(torch, np, dev, ctx, label):
-    """torch.profiler over one served batch of 32 at N=100,000: the share
-    of the batch's wall time in which the card runs a kernel, and device
-    time by kernel. It reports and checks nothing."""
+def profile_serve(torch, np, dev, ctx, label, capture=False):
+    """torch.profiler over one served batch of 32 at N=100,000, through
+    the eager host loop or (``capture``) the captured programs: the share
+    of the batch's wall time in which the card runs a kernel (against the
+    profiled batch's wall and against the same batch's wall without the
+    profiler), and device time by kernel and by kind (the port's kernels,
+    copies, the PyTorch glue). It reports and checks nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import search_measure
@@ -2042,20 +2223,29 @@ def profile_serve(torch, np, dev, ctx, label):
                                           mlp_value_and_grad,
                                           mlp_grad_fused))
 
-    search_measure(measure, store, nbrs, q, entries, cfg, options)
+    search_measure(measure, store, nbrs, q, entries, cfg, options,
+                   capture=capture)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search_measure(measure, store, nbrs, q, entries, cfg, options,
+                   capture=capture)
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
     launches0 = steps()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        search_measure(measure, store, nbrs, q, entries, cfg, options)
+        search_measure(measure, store, nbrs, q, entries, cfg, options,
+                       capture=capture)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n_steps = steps() - launches0
+    loop = "captured" if capture else "host loop"
+    label = f"{label} ({loop})"
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         log(f"profile {label}: the profiler recorded no device events")
-        return {"wall_us": wall_us, "device_events": 0}
+        return {"wall_us": wall_us, "device_events": 0, "loop": loop}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s0, e0 in spans[1:]:
@@ -2069,17 +2259,120 @@ def profile_serve(torch, np, dev, ctx, label):
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    kinds = {"port kernels": 0.0, "copies": 0.0, "PyTorch glue": 0.0}
+    for name, (n, t) in by_name.items():
+        kind = ("port kernels" if "repro::" in name else
+                "copies" if "emcpy" in name or "memset" in name.lower()
+                else "PyTorch glue")
+        kinds[kind] += t
     log(f"profile {label}: one batch of 32 at N={store.n}: wall "
         f"{wall_us:.0f}us, device busy {busy:.0f}us ({busy / wall_us:.1%}), "
         f"idle {1 - busy / wall_us:.1%}; {len(kern)} device events over "
         f"{n_steps} engine steps ({len(kern) / max(n_steps, 1):.1f} per "
-        f"step)")
+        f"step); without the profiler the batch takes {plain_wall_us:.0f}us "
+        f"(busy {min(busy / plain_wall_us, 1.0):.1%}); device time "
+        + ", ".join(f"{k} {t:.0f}us" for k, t in kinds.items()))
     for name, (n, t) in top:
         log(f"profile {label}:   {t:9.1f}us {n:6d}x  {name[:90]}")
     return {"wall_us": wall_us, "busy_us": busy, "device_events": len(kern),
             "idle_share": 1 - busy / wall_us, "steps": n_steps,
-            "top": [(name, n, t) for name, (n, t) in top]}
+            "plain_wall_us": plain_wall_us,
+            "plain_idle_share": max(1 - busy / plain_wall_us, 0.0),
+            "kinds_us": kinds,
+            "loop": loop, "top": [(name, n, t) for name, (n, t) in top],
+            "by_name": {name: [n, t] for name, (n, t) in by_name.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the continuous runtime at N = 100,000
+# ---------------------------------------------------------------------------
+
+CONTINUOUS_RUNS = ("fused int8", "mlp fused int8")
+CONTINUOUS_LANES, CONTINUOUS_SPT, CONTINUOUS_N = 32, 8, 320
+CONTINUOUS_PARITY = 64      # requests held against the oneshot search
+
+
+def check_continuous(torch, np, dev, ctx, label):
+    """The continuous runtime over a SERVE_RUNS run's corpus, graph and
+    engine: 32 lanes, 8 steps per tick, captured reset and tick. A backlog
+    run (every request due at t=0) measures its capacity; then Poisson
+    arrivals at 0.8x that capacity for 320 requests. Each run launches
+    every kernel of its path and no other; every ok completion of the
+    first 64 requests of each run equals the oneshot captured search of
+    the same query bit for bit (ids, scores, counters)."""
+    from repro_torch.core import build_engine, search_measure
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ContinuousRuntime, Request,
+                                     ServingMetrics, poisson_arrivals)
+    measure, store, nbrs, graph, cfg, options = ctx
+    family = measure.meta[0]
+    path = KERNELS_OF[(family, options.fused)]
+    queries = np.random.default_rng(11).normal(
+        size=(CONTINUOUS_N, store.dim)).astype(np.float32)
+    qt = torch.as_tensor(queries[:CONTINUOUS_PARITY], device=dev)
+    ref = search_measure(measure, store, nbrs, qt,
+                         torch.full((CONTINUOUS_PARITY,), graph.entry,
+                                    device=dev), cfg, options)
+    ref = {f: getattr(ref, f).cpu().numpy() for f in ref._fields}
+    rt = ContinuousRuntime(build_engine(measure, cfg, options),
+                           measure.params, store, nbrs,
+                           n_lanes=CONTINUOUS_LANES, query_dim=store.dim,
+                           entry=graph.entry,
+                           steps_per_tick=CONTINUOUS_SPT, device=dev)
+    t0 = time.perf_counter()
+    rt.warmup(queries[0])
+    warm_s = time.perf_counter() - t0
+    out = {"lanes": CONTINUOUS_LANES, "steps_per_tick": CONTINUOUS_SPT,
+           "requests": CONTINUOUS_N, "warmup_s": warm_s}
+    capacity = None
+    for run in ("backlog", "poisson"):
+        offsets = (np.zeros(CONTINUOUS_N) if run == "backlog" else
+                   poisson_arrivals(CONTINUOUS_N, 0.8 * capacity, seed=1))
+        stream = [Request(rid=i, query=queries[i],
+                          t_arrive=float(offsets[i]))
+                  for i in range(CONTINUOUS_N)]
+        rt.metrics = ServingMetrics(CONTINUOUS_LANES)
+        reset_launch_counts()
+        comps = rt.run_stream(stream)
+        counts = launch_counts()
+        for name, n in counts.items():
+            require(n > 0 if name in path else n == 0,
+                    f"continuous {label} {run}: kernel {name} launched {n} "
+                    f"times; the path's kernels are {path}")
+        by = {c.rid: c for c in comps}
+        require(len(by) == CONTINUOUS_N and all(
+            c.status == "ok" for c in comps),
+            f"continuous {label} {run}: {len(by)} of {CONTINUOUS_N} "
+            f"requests resolved, statuses "
+            f"{sorted({c.status for c in comps})}")
+        for i in range(CONTINUOUS_PARITY):
+            c = by[i]
+            got = (c.ids, c.scores, c.n_eval, c.n_grad, c.n_iters)
+            want = tuple(ref[f][i] for f in ("ids", "scores", "n_eval",
+                                              "n_grad", "n_iters"))
+            require(all(np.array_equal(np.asarray(g), w)
+                        for g, w in zip(got, want)),
+                    f"continuous {label} {run}: request {i} differs from "
+                    f"the oneshot captured search")
+        m = rt.metrics.summary()
+        if run == "backlog":
+            capacity = m["qps"]
+        out[run] = {"offered_qps": (None if run == "backlog"
+                                    else 0.8 * capacity),
+                    "launches": counts, **m}
+        log(f"continuous {label} {run}: {CONTINUOUS_N} requests, "
+            f"throughput {m['qps']:.1f} QPS"
+            + ("" if run == "backlog" else
+               f" at offered {0.8 * capacity:.1f}")
+            + f", latency p50={m['p50_ms']:.3f}ms p95={m['p95_ms']:.3f}ms "
+            f"p99={m['p99_ms']:.3f}ms, queue p50={m['queue_p50_ms']:.3f}ms "
+            f"p95={m['queue_p95_ms']:.3f}ms, lane occupancy "
+            f"{m['occupancy']:.3f}, evals/query {m['evals_per_query']:.1f}; "
+            f"the first {CONTINUOUS_PARITY} requests = oneshot captured "
+            f"search bit for bit; launches {counts}")
+    out["capacity_qps"] = capacity
+    return out
 
 
 KERNEL_META = {
@@ -2284,11 +2577,21 @@ def main() -> int:
         log_library(results["library_kernels"])
         results["engine"] = check_engine(torch, np, dev, "deepfm")
         results["engine_mlp"] = check_engine(torch, np, dev, "mlp")
+        results["graph"] = check_graph(torch, np, dev, "deepfm")
+        results["graph_mlp"] = check_graph(torch, np, dev, "mlp")
         results["serve"], ctx = check_serve(torch, np, dev)
+        profiled = ("unfused float32", "fused float32",
+                    "fused int8 adaptive", "mlp fused int8 adaptive")
         results["profile"] = {
             label: profile_serve(torch, np, dev, ctx[label], label)
-            for label in ("unfused float32", "fused float32",
-                          "fused int8 adaptive", "mlp fused int8 adaptive")}
+            for label in profiled}
+        results["profile_replayed"] = {
+            label: profile_serve(torch, np, dev, ctx[label], label,
+                                 capture=True)
+            for label in profiled}
+        results["continuous"] = {
+            label: check_continuous(torch, np, dev, ctx[label], label)
+            for label in CONTINUOUS_RUNS}
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

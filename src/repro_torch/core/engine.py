@@ -31,24 +31,40 @@ gather per step, there to stop XLA:CPU re-inlining gathers) is not ported:
 the port always gathers in the kernels, as the Pallas kernels do. A store
 with tombstones scores deleted entries and candidates -inf.
 
-``ExpansionEngine.search`` is a host loop over the fixed-shape ``step``
-(the JAX package runs it as a ``lax.while_loop``). It asks the device
-whether every lane is done only every ``SYNC_EVERY`` steps; the steps run
-after a lane is done are no-ops for it, because ``_freeze_done`` keeps its
-state and its pop is inactive.
+Two execution paths share the same stage code, as in the JAX package:
+
+- ``ExpansionEngine.search`` runs the search as device programs (the
+  counterpart of the JAX ``_run_jit`` while loop): one CUDA graph of
+  ``init_state`` and one of ``SYNC_EVERY`` consecutive ``step`` +
+  ``_freeze_done`` calls, over static buffers (``core/program.py``),
+  cached on the engine per batch shape and per params, corpus and graph
+  (``PROGRAM_CACHE`` programs at most). The host replays the chunk and
+  reads ``done.all()`` once per replay; the steps a chunk runs after a
+  lane is done are no-ops for it, because ``_freeze_done`` keeps its state
+  and its pop is inactive. ``capture=False``, and every CPU run, runs the
+  same chunks eagerly (the host loop the port had before).
+- ``ExpansionEngine.search_debug``: one eager ``step`` per Python call,
+  with ``max_steps``, ``on_step``, ``iter_caps`` and ``taus`` (JAX's
+  ``jit_steps=False``), the yardstick the captured search is held
+  against; both return the same ids, scores and counters bit for bit.
+
+The continuous runtime's lane lifecycle is ``reset_lanes`` (a lane-masked
+``init_state``) and ``idle_state`` (every lane parked, ``done``).
 
 Counters follow the paper's Table-2 accounting: ``n_eval`` counts effective
 (mask-surviving) measure evaluations, ``n_grad`` gradients, ``n_iters``
 expansions. Ids are int64 (torch's index type); the visited bitmap holds
 32-bit words in int64 lanes.
 
-Not ported yet: paged residency, the ``tile`` plan and autotune, and the
-continuous runtime's lane lifecycle (``reset_lanes``, ``idle_state``); see
+Not ported yet: paged residency and the ``tile`` plan and autotune; see
 ROADMAP.md.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -56,13 +72,15 @@ import torch
 from repro_torch.core.bundles import resolve_stages
 from repro_torch.core.corpus import (CORPUS_DTYPES, CorpusStore,
                                      as_corpus_store, bit_test_global)
+from repro_torch.core.program import StateProgram
 from repro_torch.kernels.neighbor_rank import neighbor_rank
 from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
 from repro_torch.kernels.neighbor_rank_fused import neighbor_rank_fused
 from repro_torch.kernels.neighbor_rank_fused.ref import \
     neighbor_rank_fused_ref
 
-SYNC_EVERY = 8   # steps between host checks of ``done.all()``
+SYNC_EVERY = 8       # steps per chunk: between host checks of done.all()
+PROGRAM_CACHE = 8    # search programs an engine keeps (least recent out)
 _NEG_INF = float("-inf")
 
 
@@ -156,15 +174,37 @@ def bit_set_rows(bitmap: torch.Tensor, ids: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """Set bits rowwise (returns a new bitmap). Within a row the masked-in
     ids are distinct and unset (neighbor lists are duplicate-free and only
-    fresh ids are set), so a scatter-add acts as OR."""
+    fresh ids are set), so a scatter-add over the flattened words acts as
+    OR (integer adds: the order does not matter)."""
     safe = ids.clamp_min(0).long()
     updates = torch.where(mask, torch.ones_like(safe) << (safe & 31),
                           torch.zeros_like(safe))
-    rows = torch.arange(bitmap.shape[0], device=bitmap.device)[:, None]
-    out = bitmap.clone()
-    out.index_put_((rows.expand_as(safe), safe >> 5), updates,
-                   accumulate=True)
-    return out
+    Q, W = bitmap.shape
+    rows = torch.arange(Q, device=bitmap.device)[:, None] * W
+    flat = bitmap.reshape(-1).clone()
+    flat.scatter_add_(0, (rows + (safe >> 5)).reshape(-1),
+                      updates.reshape(-1))
+    return flat.view(Q, W)
+
+
+def _repeat_rows(x: torch.Tensor, C: int) -> torch.Tensor:
+    """Each row of x C times in a row, as ``repeat_interleave(C, 0)``,
+    through a view (no repeat count goes to the device)."""
+    Q, D = x.shape
+    return x[:, None, :].expand(Q, C, D).contiguous().view(Q * C, D)
+
+
+def _tensor_ptrs(tree) -> tuple:
+    """The data pointers of the tensors in a pytree of dicts, lists and
+    tuples: part of a program's key, so that a params dict whose tensors
+    were rebound does not replay a graph over the old ones."""
+    if isinstance(tree, torch.Tensor):
+        return (tree.data_ptr(),)
+    if isinstance(tree, dict):
+        return tuple(p for k in sorted(tree) for p in _tensor_ptrs(tree[k]))
+    if isinstance(tree, (list, tuple)):
+        return tuple(p for v in tree for p in _tensor_ptrs(v))
+    return ()
 
 
 def _freeze_done(done: torch.Tensor, new: EngineState,
@@ -186,14 +226,12 @@ def _freeze_done(done: torch.Tensor, new: EngineState,
 # ---------------------------------------------------------------------------
 
 def default_pop_stage(state: EngineState) -> Tuple[EngineState, PopOut]:
-    Q = state.pool_scores.shape[0]
     cand = state.pool_scores.masked_fill(state.pool_expanded, _NEG_INF)
     slot = torch.argmax(cand, dim=1)       # first maximum, as jnp.argmax
     best = cand.gather(1, slot[:, None])[:, 0]
     active = torch.isfinite(best) & ~state.done
     fid = state.pool_ids.gather(1, slot[:, None])[:, 0].clamp_min(0)
-    marked = state.pool_expanded.clone()
-    marked[torch.arange(Q, device=slot.device), slot] = True
+    marked = state.pool_expanded.scatter(1, slot[:, None], True)
     expanded = torch.where(active[:, None], marked, state.pool_expanded)
     return state._replace(pool_expanded=expanded), PopOut(slot, fid, active)
 
@@ -426,20 +464,177 @@ class ExpansionEngine:
             | ~pop.active
         return s._replace(done=done)
 
+    # -- lane-scoped lifecycle (the continuous runtime's lanes are slots):
+    #    the masked lanes get exactly the state ``init_state`` would give
+    #    them, every other lane passes through; parked lanes are done, so
+    #    their pop is inactive and a step leaves them as they are
+    def reset_lanes(self, params, store: CorpusStore, queries, entries,
+                    state: EngineState, mask: torch.Tensor, iter_caps=None,
+                    taus=None) -> EngineState:
+        """queries (Q, Dq) / entries (Q,) (and optional per-lane
+        ``iter_caps`` / ``taus``) hold the NEW values in the masked rows;
+        mask: (Q,) bool, True lanes are re-initialized. Lane for lane equal
+        to ``init_state`` on the masked rows."""
+        fresh = self.init_state(params, store, None, queries, entries,
+                                iter_caps, taus)
+
+        def pick(n, o):
+            return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
+        return EngineState(*(pick(n, o) for n, o in zip(fresh, state)))
+
+    def idle_state(self, n_lanes: int, n_corpus: int,
+                   device="cpu") -> EngineState:
+        """Every lane parked (``done``): ``init_state``'s shapes and dtypes,
+        each field its own tensor (the programs copy into them in place)."""
+        ef = self.cfg.ef
+        nwords = (n_corpus + 31) // 32
+
+        def zeros(dtype=torch.int32):
+            return torch.zeros((n_lanes,), dtype=dtype, device=device)
+        return EngineState(
+            pool_scores=torch.full((n_lanes, ef), _NEG_INF,
+                                   dtype=torch.float32, device=device),
+            pool_ids=torch.full((n_lanes, ef), -1, dtype=torch.int64,
+                                device=device),
+            pool_expanded=torch.ones((n_lanes, ef), dtype=torch.bool,
+                                     device=device),
+            visited=torch.zeros((n_lanes, nwords), dtype=torch.int64,
+                                device=device),
+            n_eval=zeros(), n_grad=zeros(), n_iters=zeros(),
+            done=torch.ones((n_lanes,), dtype=torch.bool, device=device),
+            iter_cap=zeros(), angle_tau=zeros(torch.float32))
+
     def _result(self, final: EngineState) -> SearchResult:
+        """The result, copied out of ``final`` (a program's state buffers
+        are overwritten by its next run)."""
         k = self.cfg.k
-        return SearchResult(ids=final.pool_ids[:, :k],
-                            scores=final.pool_scores[:, :k],
-                            n_eval=final.n_eval, n_grad=final.n_grad,
-                            n_iters=final.n_iters)
+        return SearchResult(ids=final.pool_ids[:, :k].clone(),
+                            scores=final.pool_scores[:, :k].clone(),
+                            n_eval=final.n_eval.clone(),
+                            n_grad=final.n_grad.clone(),
+                            n_iters=final.n_iters.clone())
+
+    def step_routine(self, params, store, neighbors, steps: int):
+        """A program routine of ``steps`` consecutive step + freeze calls
+        over the state, the queries read from the ``queries`` buffer."""
+        C = self.n_candidates(neighbors.shape[1])
+
+        def run(bufs, s):
+            q = bufs["queries"]
+            qs_flat = _repeat_rows(q, C)
+            for _ in range(steps):
+                s = _freeze_done(s.done, self.step(params, store, neighbors,
+                                                   q, qs_flat, s), s)
+            return s, {}
+        return run
+
+    @functools.cached_property
+    def _programs(self) -> collections.OrderedDict:
+        return collections.OrderedDict()
+
+    @functools.cached_property
+    def stats(self) -> dict:
+        """Totals over this engine's ``search`` calls: searches, steps,
+        program runs (graph replays on the card: one init + the chunks per
+        search) and the host seconds spent issuing them (the blocking
+        ``done`` reads left out)."""
+        return {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0}
+
+    def search_program(self, params, base, neighbors, queries,
+                       capture: bool = True) -> StateProgram:
+        """The cached program for this batch shape and these params, corpus
+        and graph (by identity, and the params' tensors by pointer: pass
+        the same objects unchanged between calls; a changed corpus or graph
+        is a new object). The program holds them, so their ids stay
+        theirs while it is cached."""
+        dev = queries.device
+        Q, Dq = queries.shape
+        key = (Q, Dq, str(dev), bool(capture), id(params), id(base),
+               id(neighbors), _tensor_ptrs(params))
+        progs = self._programs
+        if key in progs:
+            progs.move_to_end(key)
+            return progs[key]
+        store = as_corpus_store(base, self.corpus_dtype, device=dev)
+        if store.device != dev:
+            raise ValueError(f"corpus on {store.device}, queries on {dev}")
+        nbrs = torch.as_tensor(neighbors, device=dev)
+        bufs = {"queries": torch.zeros((Q, Dq), dtype=torch.float32,
+                                       device=dev),
+                "entries": torch.zeros((Q,), dtype=torch.int64, device=dev),
+                "caps": torch.zeros((Q,), dtype=torch.int32, device=dev),
+                "taus": torch.zeros((Q,), dtype=torch.float32, device=dev)}
+        prog = StateProgram(self.idle_state(Q, store.n, dev), bufs, capture)
+        prog.held = (params, base, neighbors, store, nbrs)
+
+        def init(b, s):
+            return self.init_state(params, store, nbrs, b["queries"],
+                                   b["entries"], b["caps"], b["taus"]), {}
+        prog.add("init", init)
+        prog.add("chunk", self.step_routine(params, store, nbrs,
+                                            SYNC_EVERY))
+        progs[key] = prog
+        while len(progs) > PROGRAM_CACHE:
+            progs.popitem(last=False)
+        return prog
 
     def search(self, params, base, neighbors, queries: torch.Tensor,
-               entries, iter_caps=None, taus=None) -> SearchResult:
+               entries, iter_caps=None, taus=None,
+               capture: bool = True) -> SearchResult:
         """base: (N, D) tensor/array or a ``CorpusStore``; neighbors: (N, B)
         int -1-padded; queries: (Q, Dq) tensor on the search device;
         entries: (Q,) entry ids; iter_caps: optional (Q,) per-query
         expansion budgets; taus: optional (Q,) adaptive angle cutoffs.
-        Everything runs on ``queries.device``."""
+        Everything runs on ``queries.device``: on the card as captured
+        programs (``capture=False``: the same chunks eagerly)."""
+        prog = self.search_program(params, base, neighbors, queries,
+                                   capture)
+        t0 = time.perf_counter()
+        prog.load(queries=queries, entries=entries)
+        if iter_caps is None:
+            prog.fill(caps=self.cfg.iters())
+            cap_max = self.cfg.iters()
+        else:
+            caps = torch.as_tensor(iter_caps)
+            prog.load(caps=caps)
+            cap_max = int(caps.max())
+        if taus is None:
+            prog.fill(taus=self.angle_tau)
+        else:
+            prog.load(taus=taus)
+        prog.run("init")
+        issue = time.perf_counter() - t0
+        # every live lane expands or finishes each step, so all lanes are
+        # done after max(iter_cap) + 1 steps; the check is a guard
+        limit = cap_max + 1 + SYNC_EVERY
+        steps = runs = 0
+        while True:
+            t0 = time.perf_counter()
+            prog.run("chunk")
+            issue += time.perf_counter() - t0
+            steps += SYNC_EVERY
+            runs += 1
+            if bool(prog.state.done.all()):
+                break
+            if steps >= limit:
+                raise RuntimeError(f"search did not converge in {steps} "
+                                   f"steps (iter cap {limit - 1})")
+        st = self.stats
+        st["searches"] += 1
+        st["steps"] += steps
+        st["runs"] += runs + 1
+        st["issue_s"] += issue
+        return self._result(prog.state)
+
+    def search_debug(self, params, base, neighbors, queries: torch.Tensor,
+                     entries, max_steps: Optional[int] = None,
+                     on_step: Optional[Callable[[int, EngineState], None]]
+                     = None, iter_caps=None, taus=None) -> SearchResult:
+        """The eager host loop: one ``step`` per Python call, ``done``
+        read after every step, ``on_step(steps, state)`` after each;
+        ``max_steps`` cuts it (default: the config's cap + 1, extended to
+        the largest ``iter_caps`` + 1). Same arguments and results as
+        ``search``."""
         dev = queries.device
         store = as_corpus_store(base, self.corpus_dtype, device=dev)
         if store.device != dev:
@@ -449,25 +644,23 @@ class ExpansionEngine:
         queries = queries.float().contiguous()
         state = self.init_state(params, store, neighbors, queries, entries,
                                 iter_caps, taus)
-        C = self.n_candidates(neighbors.shape[1])
-        qs_flat = queries.repeat_interleave(C, dim=0)
-        # every live lane expands or finishes each step, so all lanes are
-        # done after max(iter_cap) + 1 steps; the check is a guard
-        limit = int(state.iter_cap.max()) + 1 + SYNC_EVERY
+        qs_flat = _repeat_rows(queries,
+                               self.n_candidates(neighbors.shape[1]))
+        if max_steps is not None:
+            limit = max_steps
+        else:
+            limit = self.cfg.iters() + 1
+            if iter_caps is not None:
+                limit = max(limit, int(torch.as_tensor(iter_caps).max()) + 1)
         steps = 0
-        while True:
-            for _ in range(SYNC_EVERY):
-                state = _freeze_done(
-                    state.done,
-                    self.step(params, store, neighbors, queries, qs_flat,
-                              state),
-                    state)
-            steps += SYNC_EVERY
-            if bool(state.done.all()):
-                break
-            if steps >= limit:
-                raise RuntimeError(f"search did not converge in {steps} "
-                                   f"steps (iter cap {limit - 1})")
+        while steps < limit and not bool(state.done.all()):
+            state = _freeze_done(
+                state.done,
+                self.step(params, store, neighbors, queries, qs_flat, state),
+                state)
+            steps += 1
+            if on_step is not None:
+                on_step(steps, state)
         return self._result(state)
 
 
@@ -500,13 +693,11 @@ def _check_options(cfg: SearchConfig, options: EngineOptions) -> None:
             f"rank_by={cfg.rank_by!r}")
 
 
-def build_engine_from_fn(score_fn, cfg: SearchConfig,
-                         options: EngineOptions = EngineOptions(),
-                         meta: Optional[Tuple] = None) -> ExpansionEngine:
-    """Engine for a bare ``score_fn``; ``meta`` resolves its kernel
-    bundle. Stage selection flows only through ``resolve_stages``."""
+def _build(score_fn, meta, cfg: SearchConfig,
+           options: EngineOptions) -> ExpansionEngine:
+    """Assemble an engine; stage selection flows only through
+    ``resolve_stages``."""
     _check_options(cfg, options)
-    meta = tuple(meta) if meta is not None else None
     stages = resolve_stages(score_fn, meta, options)
     if cfg.mode == "guitar":
         grad, grad_fused = stages.grad, stages.grad_fused
@@ -528,10 +719,33 @@ def build_engine_from_fn(score_fn, cfg: SearchConfig,
                            angle_tau=options.angle_tau)
 
 
+@functools.lru_cache(maxsize=128)
+def _build_cached(score_fn, meta, cfg, options):
+    return _build(score_fn, meta, cfg, options)
+
+
+def build_engine_from_fn(score_fn, cfg: SearchConfig,
+                         options: EngineOptions = EngineOptions(),
+                         meta: Optional[Tuple] = None) -> ExpansionEngine:
+    """Engine for a bare ``score_fn``; ``meta`` resolves its kernel
+    bundle. Cached per (score_fn, meta, cfg, options), as in the JAX
+    package, so repeated calls reuse the engine and its captured
+    programs."""
+    meta = tuple(meta) if meta is not None else None
+    return _build_cached(score_fn, meta, cfg, options)
+
+
 def build_engine(measure, cfg: SearchConfig,
                  options: EngineOptions = EngineOptions()) -> ExpansionEngine:
-    """Engine for a ``Measure``: its ``meta`` resolves the kernel bundle."""
+    """Engine for a ``Measure``: its ``meta`` resolves the kernel bundle
+    (cached as ``build_engine_from_fn``)."""
     return build_engine_from_fn(measure.score_fn, cfg, options,
                                 getattr(measure, "meta", None))
 
 
+def engine_search(measure, base, neighbors, queries, entries,
+                  cfg: SearchConfig,
+                  options: EngineOptions = EngineOptions()) -> SearchResult:
+    """One-call convenience: build (cached) + run."""
+    eng = build_engine(measure, cfg, options)
+    return eng.search(measure.params, base, neighbors, queries, entries)

@@ -15,11 +15,15 @@ from repro_torch.core.measures import Measure
 
 def search_measure(measure: Measure, base, neighbors, queries, entries,
                    cfg: SearchConfig,
-                   options: Optional[EngineOptions] = None) -> SearchResult:
+                   options: Optional[EngineOptions] = None,
+                   capture: bool = True) -> SearchResult:
     """Batched GUITAR/SL2G search with the measure's registered kernels;
-    ``options`` selects the fused stages and the corpus residency."""
+    ``options`` selects the fused stages and the corpus residency. On the
+    card the search runs as captured programs (``capture=False``: the
+    eager host loop)."""
     eng = build_engine(measure, cfg, options or EngineOptions())
-    return eng.search(measure.params, base, neighbors, queries, entries)
+    return eng.search(measure.params, base, neighbors, queries, entries,
+                      capture=capture)
 
 
 def brute_force_topk(measure: Measure, base: torch.Tensor,

@@ -6,7 +6,19 @@ generic MLP measure; the ``*_fused`` kernels take row ids into a resident
 ``CorpusStore`` (float32, bfloat16 or int8) and gather and dequantize the
 rows themselves. ``embedding_bag``, ``decode_attention`` and
 ``flash_attention`` are the library kernels of the recommendation and
-language models (off the search path), float32 or bfloat16."""
+language models (off the search path), float32 or bfloat16. On the CPU
+the search-path wrappers run their plain versions over fixed blocks of
+rows (``_lib.cpu_row_blocks``), so a row's value does not depend on how
+many rows share the call.
+
+Launch accounting: a wrapper adds one to its ``launches`` where it
+launches its kernel. Under a CUDA graph (``core/program.py``) the wrappers
+run once, while the graph is captured, and the graph then replays their
+kernels: the program moves the launches of its eager warm-up to
+``warmup_launches``, takes the capture's own back out, and adds the
+captured launches once per replay. So ``launch_counts()`` reads eager
+launches plus captured launches x replays, and ``warmup_launch_counts()``
+the warm-ups apart."""
 from repro_torch.kernels.decode_attn import decode_attention  # noqa: F401
 from repro_torch.kernels.deepfm_grad import deepfm_value_and_grad  # noqa: F401
 from repro_torch.kernels.deepfm_grad_fused import deepfm_grad_fused  # noqa: F401
@@ -27,15 +39,46 @@ KERNELS = (deepfm_score, neighbor_rank, deepfm_value_and_grad,
            embedding_bag, decode_attention, flash_attention)
 
 
+for _fn in KERNELS:
+    _fn.warmup_launches = 0
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.warmup_launches = 0
         for path in getattr(fn, "path_launches", ()):
             fn.path_launches[path] = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def warmup_launch_counts() -> dict:
+    """Launches of the eager warm-up runs before each graph capture."""
+    return {fn.__name__: fn.warmup_launches for fn in KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    """{name: launches} counted since ``before = launch_counts()``, the
+    kernels that launched only."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``delta`` x ``times`` to the counts (a negative ``times`` takes
+    it back out)."""
+    for fn in KERNELS:
+        fn.launches += delta.get(fn.__name__, 0) * times
+
+
+def move_to_warmup(delta: dict) -> None:
+    """Move ``delta`` from the counts to ``warmup_launches``."""
+    add_launches(delta, -1)
+    for fn in KERNELS:
+        fn.warmup_launches += delta.get(fn.__name__, 0)
 
 
 def path_launch_counts() -> dict:

@@ -246,6 +246,38 @@ def smem_optin(index: int) -> int:
     return n
 
 
+CPU_ROW_BLOCK = 64   # rows per call of a plain version on the CPU
+
+
+def cpu_row_blocks(fn, *rows, block: int = CPU_ROW_BLOCK):
+    """``fn(*rows)`` for a wrapper's CPU path, run over fixed blocks of
+    ``block`` rows (dim 0 of each of ``rows``, the last block zero-padded;
+    None passes through), its outputs (a tensor or a tuple) concatenated
+    and cut back to the rows given. The CPU's BLAS picks its order of
+    summation by the number of rows, so without the blocks a row's value
+    would depend on how many rows came with it, and the continuous runtime
+    and the oneshot search, which hand one query's rows over in batches of
+    different sizes, could part by an ulp. The blocks run on one intra-op
+    thread: they are small, and a team of BLAS threads spinning beside
+    other processes cost the CPU tests far more than it gave."""
+    import torch
+    n = next(r.shape[0] for r in rows if r is not None)
+    pad = -n % block
+    if pad:
+        rows = tuple(None if r is None else torch.cat(
+            [r, r.new_zeros((pad,) + tuple(r.shape[1:]))]) for r in rows)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        outs = [fn(*(None if r is None else r[i:i + block] for r in rows))
+                for i in range(0, max(n + pad, 1), block)]
+    finally:
+        torch.set_num_threads(threads)
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts)[:n] for parts in zip(*outs))
+    return torch.cat(outs)[:n]
+
+
 def stream_of(device) -> int:
     """The current CUDA stream's handle on ``device``, for a C launcher."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -39,8 +39,9 @@ def deepfm_value_and_grad(cand: torch.Tensor, query: torch.Tensor,
         raise ValueError(f"weights on {w[0].device}, rows on {cand.device}")
     if cand.device.type == "cpu":
         q = query.expand(M, D) if query.dim() == 1 else query
-        return deepfm_value_and_grad_ref(cand, q, w[0], b[0], w[1], b[1],
-                                         w[2], b[2], fm_dim)
+        return _lib.cpu_row_blocks(
+            lambda c, qq: deepfm_value_and_grad_ref(
+                c, qq, w[0], b[0], w[1], b[1], w[2], b[2], fm_dim), cand, q)
     if cand.device.type != "cuda":
         raise ValueError(f"deepfm_value_and_grad: no kernel for "
                          f"{cand.device}")

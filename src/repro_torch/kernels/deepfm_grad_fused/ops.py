@@ -23,8 +23,12 @@ def deepfm_grad_fused(store, idx: torch.Tensor, query: torch.Tensor,
     M, D, w, b = check_fused_rows(store, idx, query, fm_dim, mlp_params)
     dev = store.device
     if dev.type == "cpu":
-        return deepfm_grad_fused_ref(store, idx, query, w[0], b[0], w[1],
-                                     b[1], w[2], b[2], fm_dim)
+        shared = query if query.dim() == 1 else None
+        return _lib.cpu_row_blocks(
+            lambda i, q: deepfm_grad_fused_ref(
+                store, i, shared if q is None else q, w[0], b[0], w[1], b[1],
+                w[2], b[2], fm_dim),
+            idx, None if query.dim() == 1 else query)
     if dev.type != "cuda":
         raise ValueError(f"deepfm_grad_fused: no kernel for {dev}")
     check_deepfm_plan(deepfm_grad_plan, "grad", D, fm_dim, w[0].shape[1],

@@ -84,8 +84,9 @@ def deepfm_score(cand: torch.Tensor, query: torch.Tensor, mlp_params: dict,
         raise ValueError(f"weights on {w[0].device}, rows on {cand.device}")
     if cand.device.type == "cpu":
         q = query.expand(M, D) if query.dim() == 1 else query
-        return deepfm_score_ref(cand, q, w[0], b[0], w[1], b[1], w[2], b[2],
-                                fm_dim)
+        return _lib.cpu_row_blocks(
+            lambda c, qq: deepfm_score_ref(c, qq, w[0], b[0], w[1], b[1],
+                                           w[2], b[2], fm_dim), cand, q)
     if cand.device.type != "cuda":
         raise ValueError(f"deepfm_score: no kernel for {cand.device}")
     check_deepfm_plan(deepfm_score_plan, "score", D, fm_dim, w[0].shape[1],

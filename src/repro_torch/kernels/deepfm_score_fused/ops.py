@@ -45,8 +45,12 @@ def deepfm_score_fused(store, idx: torch.Tensor, query: torch.Tensor,
     if mask is not None:
         _lib.require(mask, "mask", dev, (M,), dtype=torch.bool)
     if dev.type == "cpu":
-        return deepfm_score_fused_ref(store, idx, query, w[0], b[0], w[1],
-                                      b[1], w[2], b[2], fm_dim, mask)
+        shared = query if query.dim() == 1 else None
+        return _lib.cpu_row_blocks(
+            lambda i, q, m: deepfm_score_fused_ref(
+                store, i, shared if q is None else q, w[0], b[0], w[1], b[1],
+                w[2], b[2], fm_dim, m),
+            idx, None if query.dim() == 1 else query, mask)
     if dev.type != "cuda":
         raise ValueError(f"deepfm_score_fused: no kernel for {dev}")
     check_deepfm_plan(deepfm_score_plan, "score", D, fm_dim, w[0].shape[1],

@@ -98,7 +98,8 @@ def mlp_value_and_grad(cand: torch.Tensor, query: torch.Tensor,
     w, b = check_mlp(mlp_params, Dx, Dq, cand.device)
     if cand.device.type == "cpu":
         q = query.expand(M, Dq) if query.dim() == 1 else query
-        return mlp_value_and_grad_ref(cand, q, w, b)
+        return _lib.cpu_row_blocks(
+            lambda c, qq: mlp_value_and_grad_ref(c, qq, w, b), cand, q)
     if cand.device.type != "cuda":
         raise ValueError(f"mlp_value_and_grad: no kernel for {cand.device}")
     net = net_args(w, b, Dx, cand.device)

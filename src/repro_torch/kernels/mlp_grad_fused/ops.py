@@ -22,7 +22,11 @@ def mlp_grad_fused(store, idx: torch.Tensor, query: torch.Tensor,
     M, Dx, Dq, w, b = check_fused_rows(store, idx, query, mlp_params)
     dev = store.device
     if dev.type == "cpu":
-        return mlp_grad_fused_ref(store, idx, query, w, b)
+        shared = query if query.dim() == 1 else None
+        return _lib.cpu_row_blocks(
+            lambda i, q: mlp_grad_fused_ref(store, i,
+                                            shared if q is None else q, w, b),
+            idx, None if query.dim() == 1 else query)
     if dev.type != "cuda":
         raise ValueError(f"mlp_grad_fused: no kernel for {dev}")
     net = net_args(w, b, Dx, dev)

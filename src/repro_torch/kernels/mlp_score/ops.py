@@ -99,7 +99,8 @@ def mlp_score(cand: torch.Tensor, query: torch.Tensor,
     w, b = check_mlp(mlp_params, Dx, Dq, cand.device)
     if cand.device.type == "cpu":
         q = query.expand(M, Dq) if query.dim() == 1 else query
-        return mlp_score_ref(cand, q, w, b)
+        return _lib.cpu_row_blocks(lambda c, qq: mlp_score_ref(c, qq, w, b),
+                                   cand, q)
     if cand.device.type != "cuda":
         raise ValueError(f"mlp_score: no kernel for {cand.device}")
     net = net_args(w, b, Dx, cand.device)

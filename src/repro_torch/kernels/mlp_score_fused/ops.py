@@ -41,7 +41,11 @@ def mlp_score_fused(store, idx: torch.Tensor, query: torch.Tensor,
     if mask is not None:
         _lib.require(mask, "mask", dev, (M,), dtype=torch.bool)
     if dev.type == "cpu":
-        return mlp_score_fused_ref(store, idx, query, w, b, mask)
+        shared = query if query.dim() == 1 else None
+        return _lib.cpu_row_blocks(
+            lambda i, q, m: mlp_score_fused_ref(
+                store, i, shared if q is None else q, w, b, m),
+            idx, None if query.dim() == 1 else query, mask)
     if dev.type != "cuda":
         raise ValueError(f"mlp_score_fused: no kernel for {dev}")
     net = net_args(w, b, Dx, dev)

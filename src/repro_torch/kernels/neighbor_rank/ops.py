@@ -63,7 +63,9 @@ def neighbor_rank(x, grad, nvecs, valid, alpha: float = 1.01,
     _lib.require(grad, "grad", dev, (Q, D))
     _lib.require(valid, "valid", dev, (Q, B), dtype=torch.bool)
     if dev.type == "cpu":
-        return neighbor_rank_ref(x, grad, nvecs, valid, alpha, rank_by)
+        return _lib.cpu_row_blocks(
+            lambda *a: neighbor_rank_ref(*a, alpha, rank_by),
+            x, grad, nvecs, valid)
     if dev.type != "cuda":
         raise ValueError(f"neighbor_rank: no kernel for {dev}")
     key = torch.empty((Q, B), dtype=torch.float32, device=dev)

@@ -27,8 +27,10 @@ def neighbor_rank_fused(x, grad, store, idx, valid, alpha: float = 1.01,
     _lib.require(grad, "grad", dev, (Q, D))
     _lib.require(valid, "valid", dev, (Q, B), dtype=torch.bool)
     if dev.type == "cpu":
-        return neighbor_rank_fused_ref(x, grad, store, idx, valid, alpha,
-                                       rank_by)
+        return _lib.cpu_row_blocks(
+            lambda xx, g, i, v: neighbor_rank_fused_ref(xx, g, store, i, v,
+                                                        alpha, rank_by),
+            x, grad, idx, valid)
     if dev.type != "cuda":
         raise ValueError(f"neighbor_rank_fused: no kernel for {dev}")
     key = torch.empty((Q, B), dtype=torch.float32, device=dev)

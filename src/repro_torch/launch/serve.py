@@ -1,22 +1,34 @@
 """Serving launcher of the port: stand up a GUITAR ranking service (a
 registered measure family, DeepFM or the generic MLP, + l2 graph index) on
-one device and answer batches of queries through the expansion engine
-(closed-loop "oneshot" serving: each bucket-padded batch steps until every
-lane converges).
+one device and answer queries through the expansion engine. ``--runtime``
+picks the serving discipline:
+
+- ``oneshot``      closed-loop batch jobs: each bucket-padded batch steps
+  until every lane converges, as captured programs on the card
+  (``--host-loop``: the eager host loop, for comparison).
+- ``continuous``   open-loop traffic: Poisson arrivals at
+  ``--offered-qps`` feed an admission queue; the lane-recycling runtime
+  (``serving/runtime.py``) swaps queued queries into free lanes, and
+  per-request completions stream out with SLA metrics (p50/p95/p99
+  latency, time in queue, lane occupancy, evals/query).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --items 10000 \
         --queries 128 [--measure deepfm|mlp] [--fused] \
         [--corpus-dtype float32|bfloat16|int8] \
         [--adaptive angle --c-max 16] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --runtime continuous \
+        --lanes 32 --offered-qps 200 --queries 256 [--sla default]
     PYTHONPATH=src python -m repro_torch.launch.serve --list-measures
 
 It takes the JAX launcher's flags that the port supports (``--items --dim
---queries --batch --mode --measure --list-measures --k --ef --alpha
---budget --fused --corpus-dtype --adaptive --c-max --angle-tau``) plus
-``--device``; any other flag of the JAX launcher exits with a "not ported
-yet" message. As there, a non-float32 ``--corpus-dtype`` implies the
-index-fused path; the store is quantized once at start-up, and recall is
-labelled against the float32 base.
+--queries --batch --mode --measure --list-measures --runtime --lanes
+--offered-qps --steps-per-tick --deadline --max-queue --sla --sla-mix --k
+--ef --alpha --budget --fused --corpus-dtype --adaptive --c-max
+--angle-tau``, with the JAX defaults) plus ``--device`` and
+``--host-loop``; any other flag of the JAX launcher exits with a "not
+ported yet" message. As there, a non-float32 ``--corpus-dtype`` implies
+the index-fused path; the store is quantized once at start-up, and recall
+is labelled against the float32 base.
 """
 from __future__ import annotations
 
@@ -33,16 +45,16 @@ from repro_torch.core import (MEASURE_FAMILIES, EngineOptions, SearchConfig,
                               list_families, make_corpus_store,
                               make_family_measure, recall, search_measure)
 from repro_torch.graph import build_l2_graph
-from repro_torch.serving import bucket_pad, latency_summary
+from repro_torch.serving import (ContinuousRuntime, Request, bucket_pad,
+                                 latency_summary, load_policy,
+                                 poisson_arrivals)
 
-# flags of the JAX launcher (repro.launch.serve) this slice does not serve
+# flags of the JAX launcher (repro.launch.serve) the port does not serve
 JAX_ONLY_FLAGS = (
-    "--searcher", "--runtime", "--lanes", "--offered-qps",
-    "--steps-per-tick", "--deadline", "--max-queue", "--sla", "--sla-mix",
-    "--chaos", "--health-every", "--trace-sample", "--trace-out",
-    "--metrics-out", "--metrics-json", "--profile-dir", "--tile",
-    "--autotune", "--index", "--save-index", "--residency", "--page-rows",
-    "--cache-mb")
+    "--searcher", "--chaos", "--health-every", "--trace-sample",
+    "--trace-out", "--metrics-out", "--metrics-json", "--profile-dir",
+    "--tile", "--autotune", "--index", "--save-index", "--residency",
+    "--page-rows", "--cache-mb")
 
 
 def _sync(device: torch.device) -> None:
@@ -57,21 +69,33 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
     allocations) and is left out of the steady-state numbers. ``store`` is
     the resident corpus the search runs on; ``base_t`` is the float32 (N, D)
     base that recall is labelled against. Returns the summary it prints."""
-    lat_ms, evals, iters_all = [], [], []
+    capture = not args.host_loop
+    engine = build_engine(measure, cfg, options)
+    lat_ms, evals, iters_all, host = [], [], [], []
     first_recall = None
     shapes_seen = set()
     n_batches = 0
+
+    def run_batch(qt, entries):
+        st0 = dict(engine.stats)
+        _sync(device)
+        t0 = time.perf_counter()
+        res = search_measure(measure, store, nbrs, qt, entries, cfg, options,
+                             capture=capture)
+        _sync(device)
+        dt = (time.perf_counter() - t0) * 1e3
+        st = {k: engine.stats[k] - st0[k] for k in st0}
+        return res, dt, st
+
     for s in range(0, args.queries, args.batch):
         n = min(args.batch, args.queries - s)   # ragged tail exercises
         q = rng.normal(size=(n, args.dim)).astype(np.float32)  # bucketing
         qt, entries, n = bucket_pad(q, graph.entry, device)
         n_batches += 1
         shapes_seen.add(tuple(qt.shape))
-        _sync(device)
-        t0 = time.perf_counter()
-        res = search_measure(measure, store, nbrs, qt, entries, cfg, options)
-        _sync(device)
-        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        res, dt, st = run_batch(qt, entries)
+        lat_ms.append(dt)
+        host.append(st)
         evals.append(float(res.n_eval[:n].float().mean()))
         iters_all.extend(res.n_iters[:n].tolist())
         if s == 0:
@@ -82,25 +106,29 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
 
     # guard the single-batch (--queries <= --batch) case: re-run the warm
     # batch so the report never divides by zero or quotes the warm-up
-    steady = lat_ms[1:]
+    steady, steady_host = lat_ms[1:], host[1:]
     if not steady:
         q = rng.normal(size=(args.batch, args.dim)).astype(np.float32)
         qt, entries, _ = bucket_pad(q, graph.entry, device)
-        _sync(device)
-        t0 = time.perf_counter()
-        res = search_measure(measure, store, nbrs, qt, entries, cfg, options)
-        _sync(device)
-        steady = [(time.perf_counter() - t0) * 1e3]
+        res, dt, st = run_batch(qt, entries)
+        steady, steady_host = [dt], [st]
         evals.append(float(res.n_eval.float().mean()))
     qps = args.batch * len(steady) / (sum(steady) / 1e3)
     lat = latency_summary(steady)
     iters = np.asarray(iters_all) if iters_all else np.asarray([0])
+    steps = sum(st["steps"] for st in steady_host)
+    host_us = 1e6 * sum(st["issue_s"] for st in steady_host) / steps
+    runs = sum(st["runs"] for st in steady_host) / len(steady_host)
     summary = {"runtime": "oneshot", "device": str(device),
+               "loop": ("captured" if capture and device.type == "cuda"
+                        else "host"),
                "fused": options.fused, "corpus_dtype": options.corpus_dtype,
                "adaptive": options.adaptive, "qps": qps,
                **lat, "evals_per_query": float(np.mean(evals)),
                "iters_mean": float(iters.mean()),
                "iters_max": float(iters.max()),
+               "steps_per_batch": steps / len(steady_host),
+               "host_us_per_step": host_us, "runs_per_batch": runs,
                "recall": first_recall, "n_batches": n_batches,
                "bucket_shapes": len(shapes_seen)}
     print(f"[serve] device={device} mode={args.mode} measure={args.measure} "
@@ -112,12 +140,95 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
           f"({len(shapes_seen)} bucket shapes) "
           f"effective-evals/query={np.mean(evals):.0f} "
           f"iters mean={iters.mean():.0f} max={iters.max()}")
+    print(f"[serve] {summary['loop']} loop: "
+          f"{summary['steps_per_batch']:.0f} steps and "
+          f"{runs:.0f} program runs per batch, {host_us:.1f}us of host "
+          f"issue per step")
+    return summary
+
+
+def _parse_sla_mix(spec: str, policy) -> list:
+    """'premium:0.2,standard:0.5,economy:0.3' -> tier-name list of 100
+    slots (request i takes slot i % 100): a deterministic traffic mix."""
+    names = {c.name for c in policy.classes}
+    slots = []
+    for part in spec.split(","):
+        name, _, frac = part.partition(":")
+        name = name.strip()
+        if name not in names:
+            raise SystemExit(f"--sla-mix tier {name!r} not in policy "
+                             f"(have {sorted(names)})")
+        slots += [name] * max(1, round(float(frac or 1) * 100))
+    return slots[:100] or [policy.classes[0].name]
+
+
+def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
+                     base_t, rng, device: torch.device) -> dict:
+    """Open-loop continuous batching: Poisson arrivals at --offered-qps
+    into the lane-recycling runtime; per-request SLA metrics out. Recall
+    is labelled on the float32 base over the first 16 requests' ok
+    completions. Returns the summary it prints."""
+    engine = build_engine(measure, cfg, options)
+    sla_policy = None
+    if args.sla != "off":
+        sla_policy = load_policy(args.sla)
+        print("[serve] SLA tiers (richest first; each tier overrides the "
+              "request's iter_cap + angle_tau, corpus_dtype is advisory):")
+        for line in sla_policy.table():
+            print(f"[serve]   {line}")
+        if options.adaptive == "off" \
+                and any(c.angle_tau > 0 for c in sla_policy.classes):
+            print("[serve] note: tiers carry angle_tau cutoffs but "
+                  "--adaptive is off: taus are inert; pass --adaptive "
+                  "angle to let tiers shrink |C|")
+    runtime = ContinuousRuntime(engine, measure.params, store, nbrs,
+                                n_lanes=args.lanes, query_dim=args.dim,
+                                entry=graph.entry,
+                                steps_per_tick=args.steps_per_tick,
+                                max_queue=args.max_queue,
+                                sla_policy=sla_policy, device=device)
+    queries = rng.normal(size=(args.queries, args.dim)).astype(np.float32)
+    runtime.warmup(queries[0])      # capture reset + tick off the clock
+    arrivals = poisson_arrivals(args.queries, args.offered_qps, seed=1)
+    mix = (_parse_sla_mix(args.sla_mix, sla_policy)
+           if sla_policy is not None and args.sla_mix else None)
+    stream = [Request(rid=i, query=queries[i], t_arrive=float(arrivals[i]),
+                      deadline=args.deadline,
+                      sla=mix[i % len(mix)] if mix else None)
+              for i in range(args.queries)]
+    completions = runtime.run_stream(stream)
+    summary = {"runtime": "continuous", "device": str(device),
+               "lanes": args.lanes, "steps_per_tick": args.steps_per_tick,
+               "offered_qps": args.offered_qps,
+               **runtime.metrics.summary(),
+               "health": runtime.health_snapshot(), "recall": None}
+    by_rid = {c.rid: c for c in completions}
+    nr = min(16, args.queries)
+    ok_rids = [i for i in range(nr) if by_rid[i].status == "ok"]
+    if not ok_rids:
+        print(f"[serve] runtime=continuous lanes={args.lanes} "
+              f"offered={args.offered_qps:.0f} QPS: no ok completions in "
+              f"the recall window (degraded run)")
+    else:
+        true_ids, _ = brute_force_topk(
+            measure, base_t, torch.as_tensor(queries[:nr], device=device),
+            args.k)
+        got = np.stack([by_rid[i].ids for i in ok_rids])
+        summary["recall"] = recall(got, true_ids.cpu().numpy()[ok_rids])
+        print(f"[serve] runtime=continuous device={device} "
+              f"lanes={args.lanes} steps_per_tick={args.steps_per_tick} "
+              f"offered={args.offered_qps:.0f} QPS mode={args.mode} "
+              f"measure={args.measure} "
+              f"corpus_dtype={options.corpus_dtype} fused={options.fused} "
+              f"recall@{args.k}={summary['recall']:.3f}")
+    print(runtime.format_health())
+    print(runtime.metrics.report())
     return summary
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="GUITAR oneshot serving on one device (PyTorch port)")
+        description="GUITAR serving on one device (PyTorch port)")
     ap.add_argument("--items", type=int, default=10000)
     ap.add_argument("--dim", type=int, default=32)
     ap.add_argument("--queries", type=int, default=128)
@@ -130,6 +241,36 @@ def build_parser() -> argparse.ArgumentParser:
                          "sigmoid(MLP([x, q])) measure")
     ap.add_argument("--list-measures", action="store_true",
                     help="print the measure-kernel bundle registry and exit")
+    ap.add_argument("--runtime", choices=["oneshot", "continuous"],
+                    default="oneshot",
+                    help="batch-scoped vs lane-recycling serving")
+    ap.add_argument("--lanes", type=int, default=32,
+                    help="continuous runtime: engine lanes (slots)")
+    ap.add_argument("--offered-qps", type=float, default=200.0,
+                    help="continuous runtime: open-loop Poisson arrival rate")
+    ap.add_argument("--steps-per-tick", type=int, default=8,
+                    help="continuous runtime: engine steps per scheduler "
+                         "round (latency quantum vs host overhead)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="continuous runtime: max seconds in queue before a "
+                         "request is dropped as timed out")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="continuous runtime: bounded admission queue; "
+                         "submits beyond this depth are shed (with --sla "
+                         "this depth degrades to the floor tier and 2x "
+                         "this depth sheds)")
+    ap.add_argument("--sla", type=str, default="off",
+                    metavar="off|default|POLICY.json",
+                    help="continuous runtime: SLA-tiered serving; each tier "
+                         "sets a request's iter_cap and angle_tau (active "
+                         "under --adaptive angle only); 'default' is the "
+                         "premium/standard/economy ladder, a JSON path a "
+                         "custom one (serving/sla.py)")
+    ap.add_argument("--sla-mix", type=str, default=None,
+                    metavar="TIER:FRAC,...",
+                    help="with --sla: pin requests to tiers in this "
+                         "proportion (e.g. 'premium:0.2,standard:0.5,"
+                         "economy:0.3') instead of deadline classification")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--ef", type=int, default=64)
     ap.add_argument("--alpha", type=float, default=1.01)
@@ -154,6 +295,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(<=0 disables)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="oneshot: run the search as the eager host loop "
+                         "(one launch per op, done read every 8 steps) "
+                         "instead of the captured programs; for comparison")
     return ap
 
 
@@ -168,6 +313,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              f"has it; see ROADMAP.md)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.host_loop and args.runtime != "oneshot":
+        raise SystemExit("[serve] --host-loop is a oneshot option (the "
+                         "continuous runtime always runs its programs)")
+    if args.sla != "off" and args.runtime != "continuous":
+        raise SystemExit("[serve] --sla needs --runtime continuous (tiers "
+                         "are admission policy on the lane scheduler)")
     return args
 
 
@@ -235,8 +386,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"{store.nbytes() / 2**20:.1f} MiB "
           f"({'fused' if options.fused else 'unfused'} path)")
     nbrs = torch.as_tensor(graph.neighbors, device=device)
-    return serve_oneshot(args, graph, measure, cfg, options, store, nbrs,
-                         base_t, rng, device)
+    serve = serve_continuous if args.runtime == "continuous" \
+        else serve_oneshot
+    return serve(args, graph, measure, cfg, options, store, nbrs, base_t,
+                 rng, device)
 
 
 if __name__ == "__main__":
