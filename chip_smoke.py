@@ -32,7 +32,18 @@ device events per engine step, device time by kernel and by kind), and
 runs the continuous runtime at N=100,000 (DeepFM and MLP fused int8, 32
 lanes, 8 steps per tick: a backlog run for capacity, then Poisson
 arrivals at 0.8x of it; each request's result = the oneshot captured
-search's bit for bit).
+search's bit for bit), and runs the index lifecycle: NN-descent on the
+card against its CPU path at N=61,000 (recall within 0.01), an l2 graph
+at Twitch's N=739,991 (D=40) built through NN-descent (each stage timed;
+the graph and NN-descent's lists checked, their recall against the exact
+kNN of 1,000 rows logged, and an exact-kNN build of the same items timed
+beside it), the index saved and loaded in float32, bfloat16 and int8
+(exact round trips; the loaded stores byte for byte ``make_corpus_store``'s),
+``serve --index`` from the saved files (DeepFM unfused float32 and fused
+int8 adaptive: bit for bit the in-memory serve, the path's kernels
+launched as often), and a 4-shard search of the N=100,000 corpus on the
+one card (duplicate-free, padded rows never returned, scores the plain
+measure's, launches the four shards' searches' sum).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -2375,6 +2386,410 @@ def check_continuous(torch, np, dev, ctx, label):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the index lifecycle (build, save, load, serve; sharded search)
+# ---------------------------------------------------------------------------
+
+# Twitch's item count (configs/guitar_deepfm.py, Table 1) at the DeepFM
+# width; above exact_threshold, so the build takes NN-descent
+INDEX_N = 739_991
+# NN-descent on the card against the port's CPU path (held against the JAX
+# nn_descent by tests/test_torch_graph.py) from the same seed, just above
+# exact_threshold
+PARITY_N = 61_000
+KNN_SAMPLE = 1000
+# Floors on the build's quality: the values measured on an H100 less a
+# margin, so that a collapse of the build fails. (The 0.6 floor of
+# tests/test_graph_and_data.py holds at N=800, D=16, k=10; NN-descent as
+# the JAX package runs it, 8 iterations of 10 samples, stays below it at
+# k=100 over N(0,1) items of D=40 beyond a few thousand items, in both
+# packages: tools/nn_descent_recall.py.)
+PARITY_RECALL_MIN = 0.28        # recall@100 at PARITY_N; measured 0.3205
+INDEX_RECALL_MIN = 0.08         # recall@100 at INDEX_N; measured 0.0956
+INDEX_SERVE_RECALL_MIN = 0.04   # recall@10 over its graph; 0.0547-0.0625
+# (label, saved corpus dtype, launcher flags): the serves from the index
+INDEX_RUNS = (
+    ("unfused float32", "float32", []),
+    ("fused int8 adaptive", "int8", ADAPTIVE_ARGS),
+)
+SHARDS, SHARD_BATCHES = 4, 10
+
+
+def check_nn_descent_parity(torch, np, dev, n=PARITY_N):
+    """NN-descent (k 100, seed 0) over n N(0,1) items of D=40 on the card
+    and through the port's CPU path: recall@100 on 1,000 sampled rows
+    within RECALL_AGREE of each other (the two sum distances in other
+    orders, so near-ties may part), and at least PARITY_RECALL_MIN."""
+    from repro_torch.graph import knn_recall, nn_descent
+    base = np.random.default_rng(0).normal(size=(n, 40)).astype(np.float32)
+    rows = np.sort(np.random.default_rng(1).choice(n, KNN_SAMPLE,
+                                                   replace=False))
+    out = {"n": n}
+    lists = {}
+    for where, on in (("card", dev), ("cpu", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lists[where] = nn_descent(base, 100, device=on)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rk, r10 = knn_recall(base, lists[where], rows, device=dev)
+        out[where] = {"s": secs, "recall": rk, "recall_10nn": r10}
+    same = float((lists["card"] == lists["cpu"]).all(axis=1).mean())
+    c, h = out["card"], out["cpu"]
+    log(f"index NN-descent parity N={n}: card {c['s']:.2f}s, CPU "
+        f"{h['s']:.2f}s; recall@100 card {c['recall']:.4f}, CPU "
+        f"{h['recall']:.4f}; 10-NN recall card {c['recall_10nn']:.4f}, CPU "
+        f"{h['recall_10nn']:.4f}; rows identical {same:.4f}")
+    require(abs(c["recall"] - h["recall"]) <= RECALL_AGREE,
+            f"index: NN-descent recall on the card {c['recall']:.4f}, on the "
+            f"CPU {h['recall']:.4f}")
+    require(c["recall"] >= PARITY_RECALL_MIN, f"index: NN-descent recall@100 "
+            f"{c['recall']:.4f} at N={n} < {PARITY_RECALL_MIN}")
+    out["rows_identical"] = same
+    return out
+
+
+def check_index_build(torch, np, dev, n=INDEX_N):
+    """Build the l2 graph of n N(0,1) items of D=40 (seed 0) with the
+    paper's M=24, k_construction=100 at the default exact_threshold, so
+    through NN-descent; log each stage's seconds (NN-descent per iteration,
+    host and device apart); check the graph (ids in range, no self loops,
+    no repeats in a row, degree <= 48, entry = medoid) and, on 1,000
+    sampled rows, NN-descent's lists (no self, no repeat, nearest first)
+    and their recall against the exact kNN, at least INDEX_RECALL_MIN.
+    Then, for comparison, the
+    exact kNN build of the same items. Returns (graph, exact graph,
+    numbers)."""
+    from repro_torch.graph import build_l2_graph, knn_recall, medoid
+    base = np.random.default_rng(0).normal(size=(n, 40)).astype(np.float32)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = build_l2_graph(base, m=24, k_construction=100, device=dev,
+                           stats=stats)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nd = stats.get("nn_descent")
+    require(nd is not None, f"index: N={n} did not build through NN-descent")
+    log(f"index build N={n}: {build_s:.2f}s in all: kNN (NN-descent) "
+        f"{stats['knn_s']:.2f}s, prune {stats['prune_s']:.2f}s, symmetrize "
+        f"{stats['symmetrize_s']:.2f}s; NN-descent start: host "
+        f"{nd['init_host_s']:.2f}s, device {nd['init_device_s']:.2f}s")
+    for i, it in enumerate(nd["iters"]):
+        log(f"index build: NN-descent iteration {i}: host {it['host_s']:.3f}s"
+            f", device {it['device_s']:.3f}s, {it['changed']} list entries "
+            f"changed")
+    nb = graph.neighbors
+    require(nb.shape == (n, 48) and nb.dtype == np.int32,
+            f"index: neighbors {nb.shape} {nb.dtype}")
+    require(int(nb.min()) >= -1 and int(nb.max()) < n,
+            "index: neighbor ids out of range")
+    require(not (nb == np.arange(n)[:, None]).any(), "index: a self loop")
+    srt = np.sort(np.where(nb >= 0, nb, -1 - np.arange(48)[None, :]), axis=1)
+    require(bool((srt[:, 1:] != srt[:, :-1]).all()),
+            "index: a neighbor repeated in a row")
+    require(graph.entry == medoid(base), "index: entry is not the medoid")
+    knn = stats["knn"]
+    rows = np.sort(np.random.default_rng(1).choice(n, KNN_SAMPLE,
+                                                   replace=False))
+    lists = knn[rows]
+    require(not (lists == rows[:, None]).any() and bool(
+        (np.diff(np.sort(lists, axis=1), axis=1) != 0).all()),
+        "index: an NN-descent list holds its own row or a repeat")
+    d = np.linalg.norm(base[lists] - base[rows][:, None, :], axis=2)
+    require(bool((np.diff(d, axis=1) >= -1e-5 * d[:, 1:]).all()),
+            "index: an NN-descent list is not nearest first")
+    rk, r10 = knn_recall(base, knn, rows, device=dev)
+    log(f"index build: NN-descent kNN against the exact kNN of "
+        f"{KNN_SAMPLE} sampled rows: recall@{knn.shape[1]} {rk:.4f}, 10-NN "
+        f"recall {r10:.4f}; degree avg {graph.avg_degree:.1f}, max "
+        f"{graph.max_degree}")
+    require(rk >= INDEX_RECALL_MIN, f"index: NN-descent recall@"
+            f"{knn.shape[1]} {rk:.4f} at N={n} < {INDEX_RECALL_MIN}")
+    # for comparison: the exact kNN build of the same items
+    xstats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = build_l2_graph(base, m=24, k_construction=100, exact_threshold=n,
+                           device=dev, stats=xstats)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    log(f"index build N={n} with exact kNN (exact_threshold=N), for "
+        f"comparison: {exact_s:.2f}s in all: kNN {xstats['knn_s']:.2f}s, "
+        f"prune {xstats['prune_s']:.2f}s, symmetrize "
+        f"{xstats['symmetrize_s']:.2f}s; degree avg {exact.avg_degree:.1f}")
+    return graph, exact, {
+        "n": n, "build_s": build_s, "knn_s": stats["knn_s"],
+        "prune_s": stats["prune_s"], "symmetrize_s": stats["symmetrize_s"],
+        "nn_descent": nd, "knn_recall": rk, "knn_recall_10nn": r10,
+        "avg_degree": graph.avg_degree,
+        "exact": {"build_s": exact_s, "knn_s": xstats["knn_s"],
+                  "prune_s": xstats["prune_s"],
+                  "symmetrize_s": xstats["symmetrize_s"],
+                  "avg_degree": exact.avg_degree}}
+
+
+def check_index_files(torch, np, dev, graph, root):
+    """Save the index in each residency (v3) under ``root``; each loads
+    back with the same neighbors and entry, a base that equals its
+    residency's dequantized payload (float32: the base itself), and a
+    ``load_corpus_store`` that holds the bytes ``make_corpus_store`` makes
+    of the same base in that dtype."""
+    from repro_torch.core import make_corpus_store
+    from repro_torch.graph import load_corpus_store, load_index, save_index
+    dirs, out = {}, {}
+    base_t = torch.as_tensor(graph.base, device=dev)
+    for dtype in RESIDENCIES:
+        path = os.path.join(root, dtype)
+        t0 = time.perf_counter()
+        save_index(path, graph, corpus_dtype=dtype,
+                   extra_meta={"graph_kind": "l2"})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g2 = load_index(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = load_corpus_store(path, device=dev)
+        torch.cuda.synchronize()
+        store_s = time.perf_counter() - t0
+        want = make_corpus_store(base_t, dtype, device=dev)
+        require(np.array_equal(g2.neighbors, graph.neighbors)
+                and g2.entry == graph.entry,
+                f"index {dtype}: neighbors or entry differ after the round "
+                f"trip")
+        require(store.dtype == dtype and store.data.dtype == want.data.dtype
+                and torch.equal(store.data, want.data)
+                and (store.scales is None or torch.equal(store.scales,
+                                                         want.scales)),
+                f"index {dtype}: the loaded store's payload differs from "
+                f"make_corpus_store's")
+        deq = want.dequantize().cpu().numpy()
+        require(np.array_equal(g2.base, deq if dtype != "float32"
+                               else graph.base),
+                f"index {dtype}: the loaded base differs from the "
+                f"dequantized payload")
+        mib = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path)) / 2**20
+        log(f"index files {dtype}: saved in {save_s:.2f}s ({mib:.1f} MiB on "
+            f"disk), load_index {load_s:.2f}s, load_corpus_store "
+            f"{store_s:.2f}s ({store.nbytes() / 2**20:.1f} MiB resident); "
+            f"round trip exact")
+        dirs[dtype] = path
+        out[dtype] = {"save_s": save_s, "load_s": load_s,
+                      "store_s": store_s, "disk_mib": mib}
+    return dirs, out
+
+
+def check_index_serve(torch, np, dev, graph, dirs, exact):
+    """``serve --index DIR`` on the card through the captured programs per
+    INDEX_RUNS (ef 64, C 8, alpha 1.01, k 10, 10 batches of 32): each
+    batch's ids and scores equal, bit for bit, the launcher's serve of the
+    same in-memory graph and a store made from the base; each launches its
+    path's kernels and no other, as many times as the in-memory serve;
+    each result scores its ids as the plain measure scores their resident
+    rows; recall@10 on 64 queries against the exact top-10 on the float32
+    base, at least INDEX_SERVE_RECALL_MIN, beside the same search's over
+    the exact-kNN graph ``exact``."""
+    from repro_torch.core import (SearchConfig, brute_force_topk,
+                                  make_corpus_store, make_family_measure,
+                                  recall, search_measure)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    common = ["--queries", "320", "--batch", "32", "--ef", "64", "--budget",
+              "8", "--alpha", "1.01", "--k", "10", "--device", str(dev)]
+    base_t = torch.as_tensor(graph.base, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    measure = make_family_measure("deepfm", torch.Generator().manual_seed(0),
+                                  40, device=dev)
+    qt = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(64, 40)).astype(np.float32), device=dev)
+    entries = torch.full((64,), graph.entry, device=dev)
+    exact_nbrs = torch.as_tensor(exact.neighbors, device=dev)
+    exact_entries = torch.full((64,), exact.entry, device=dev)
+    true_ids = brute_force_topk(measure, base_t, qt, 10)[0]
+    out = {}
+    for label, dtype, extra in INDEX_RUNS:
+        argv = common + ["--index", dirs[dtype]] + extra
+        args = serve.parse_args(argv)
+        args.items, args.dim = graph.base.shape     # as --index sets them
+        require(args.corpus_dtype == dtype, f"index serve {label}: flags "
+                f"ask for {args.corpus_dtype}, the index holds {dtype}")
+        options = serve.engine_options(args)
+        got = []
+        reset_launch_counts()
+        summary = serve.main(argv, results=got)
+        counts = launch_counts()
+        path = KERNELS_OF[("deepfm", options.fused)]
+        for name, n in counts.items():
+            require(n > 0 if name in path else n == 0,
+                    f"index serve {label}: kernel {name} launched {n} "
+                    f"times; the path's kernels are {path}")
+        cfg = SearchConfig(k=args.k, ef=args.ef, mode=args.mode,
+                           budget=args.budget, alpha=args.alpha)
+        store = make_corpus_store(base_t, dtype, device=dev)
+        mem = []
+        reset_launch_counts()
+        serve.serve_oneshot(args, graph, measure, cfg, options, store, nbrs,
+                            base_t, np.random.default_rng(0), dev,
+                            results=mem)
+        mem_counts = launch_counts()
+        require(len(got) == len(mem) == 10 and all(
+            torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
+            for a, b in zip(got, mem)),
+            f"index serve {label}: results differ from the in-memory "
+            f"serve's")
+        require(mem_counts == counts, f"index serve {label}: launches "
+                f"{counts}, the in-memory serve's {mem_counts}")
+        res = search_measure(measure, store, nbrs, qt, entries, cfg, options)
+        check_result(torch, measure, store, qt, res, cfg.k,
+                     f"index serve {label} N={graph.n}")
+        rec = recall(res.ids, true_ids)
+        res_x = search_measure(measure, store, exact_nbrs, qt, exact_entries,
+                               cfg, options)
+        rec_x = recall(res_x.ids, true_ids)
+        log(f"index serve {label} N={graph.n} (from {dtype} v3 files): "
+            f"QPS={summary['qps']:.1f} p50={summary['p50_ms']:.3f}ms "
+            f"p95={summary['p95_ms']:.3f}ms per batch of 32, recall@10 on "
+            f"64 queries = {rec:.4f} (labels on the float32 base; "
+            f"{rec_x:.4f} over the exact-kNN graph), evals/"
+            f"query {summary['evals_per_query']:.1f}, iterations mean "
+            f"{summary['iters_mean']:.1f} max {summary['iters_max']:.0f}, "
+            f"{summary['runs_per_batch']:.1f} program runs per batch; = the "
+            f"in-memory serve bit for bit; launches {counts}")
+        require(rec >= INDEX_SERVE_RECALL_MIN, f"index serve {label}: "
+                f"recall@10 {rec:.4f} < {INDEX_SERVE_RECALL_MIN}")
+        out[label] = {**summary, "recall64": rec,
+                      "recall64_exact_graph": rec_x, "launches": counts}
+    return out
+
+
+def check_sharded(torch, np, dev, ctx, unsharded_recall):
+    """``build_sharded_index`` with S=4 over the serve phase's N=100,000
+    base (M=24, k_construction=100, 4 x 25,000 exact builds) and
+    ``sharded_search_host`` on the one card, DeepFM fused int8, 10 batches
+    of 32 after a warm-up batch: merged rows duplicate-free with no -1 id,
+    each merged score the plain measure's score on its row within
+    RESULT_SCORE_ATOL; each kernel of the fused DeepFM path launched and
+    no other, as many times as the four shards' single-partition searches
+    of the same batches launch them in all (the one route the engine
+    takes: the equality shows that the merge launches nothing of its
+    own); recall@10 on 64
+    queries beside the unsharded serve's, QPS, p50/p95, program runs and
+    new programs per batch. Then a padded index (N=10,001 over 4 shards:
+    3 padded rows) returns no padded row."""
+    from repro_torch.core import (brute_force_topk, build_engine,
+                                  build_sharded_index, make_corpus_store,
+                                  recall, sharded_search_host)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    measure, _, _, graph, cfg, options = ctx
+    base = graph.base
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = build_sharded_index(base, SHARDS, m=24, k_construction=100,
+                              device=dev)
+    build_s = time.perf_counter() - t0
+    require(bool((idx.global_ids >= 0).all()) and idx.base.shape[:2] == (
+        SHARDS, base.shape[0] // SHARDS), f"sharded: unexpected layout "
+        f"{idx.base.shape}")
+    eng = build_engine(measure, cfg, options)
+    whole = make_corpus_store(torch.as_tensor(base, device=dev), "int8",
+                              device=dev)
+    rng = np.random.default_rng(0)
+    batches = [torch.as_tensor(rng.normal(size=(32, 40)).astype(np.float32),
+                               device=dev) for _ in range(SHARD_BATCHES + 1)]
+    sharded_search_host(measure, idx, batches[0], cfg, devices=[dev],
+                        options=options)            # warm-up: captures
+    st0 = dict(eng.stats)
+    lat = []
+    reset_launch_counts()
+    results = []
+    for q in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded_search_host(measure, idx, q, cfg, devices=[dev],
+                                  options=options)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        results.append(res)
+    counts = launch_counts()
+    path = KERNELS_OF[("deepfm", options.fused)]
+    for name, n in counts.items():
+        require(n > 0 if name in path else n == 0,
+                f"sharded: kernel {name} launched {n} times; the path's "
+                f"kernels are {path}")
+    runs = (eng.stats["runs"] - st0["runs"]) / SHARD_BATCHES
+    new_programs = eng.stats["programs"] - st0["programs"]
+    for q, res in zip(batches[1:], results):
+        ids = res.ids
+        require(bool((ids >= 0).all()), "sharded: a -1 id in a merged row")
+        srt = ids.sort(dim=1).values
+        require(bool((srt[:, 1:] != srt[:, :-1]).all()),
+                "sharded: an id twice in a merged row")
+        want = plain_result_scores(torch, measure, whole, q, ids)
+        err = float((res.scores - want).abs().max())
+        require(err <= RESULT_SCORE_ATOL, f"sharded: merged scores differ "
+                f"from the plain score by {err:.3e}")
+    stores = idx.stores(options.corpus_dtype, [dev])
+    reset_launch_counts()
+    for q in batches[1:]:
+        for s, store in enumerate(stores):
+            eng.search(measure.params, store, idx.placed(s, dev)[0], q,
+                       torch.full((32,), int(idx.entries[s]), device=dev))
+    shard_counts = launch_counts()
+    require(shard_counts == counts, f"sharded: launches {counts}, the four "
+            f"shards' searches {shard_counts}")
+    qt = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(64, 40)).astype(np.float32), device=dev)
+    true_ids = brute_force_topk(measure, torch.as_tensor(base, device=dev),
+                                qt, cfg.k)[0]
+    rec = recall(sharded_search_host(measure, idx, qt, cfg, devices=[dev],
+                                     options=options).ids, true_ids)
+    lat_s = sorted(lat)
+    qps = 32 * SHARD_BATCHES / (sum(lat) / 1e3)
+    p50 = statistics.median(lat)
+    p95 = lat_s[min(len(lat_s) - 1, int(round(0.95 * (len(lat_s) - 1))))]
+    log(f"sharded S={SHARDS} x {idx.base.shape[1]} rows (built in "
+        f"{build_s:.2f}s), DeepFM fused int8 on one card: QPS={qps:.1f} "
+        f"p50={p50:.3f}ms p95={p95:.3f}ms per batch of 32, recall@10 on 64 "
+        f"queries = {rec:.4f} (unsharded serve {unsharded_recall:.4f}), "
+        f"{runs:.1f} program runs per batch, {new_programs} programs built "
+        f"in the timed batches (PROGRAM_CACHE holds the {SHARDS} shards' "
+        f"programs); launches {counts} = the four shards' searches")
+    # padded rows: N = 10,001 over 4 shards leaves 3 padded rows
+    small = build_sharded_index(base[:10_001], SHARDS, m=24,
+                                k_construction=100, device=dev)
+    pad = int((small.global_ids < 0).sum())
+    res = sharded_search_host(measure, small, batches[1], cfg,
+                              devices=[dev], options=options)
+    srt = res.ids.sort(dim=1).values
+    require(pad == 3 and bool((res.ids >= 0).all())
+            and bool((srt[:, 1:] != srt[:, :-1]).all()),
+            f"sharded padded: {pad} padded rows; ids {res.ids.tolist()}")
+    log(f"sharded padded N=10,001: {pad} padded rows, none returned, rows "
+        f"duplicate-free")
+    return {"build_s": build_s, "qps": qps, "p50_ms": p50, "p95_ms": p95,
+            "recall64": rec, "unsharded_recall64": unsharded_recall,
+            "runs_per_batch": runs, "new_programs": new_programs,
+            "launches": counts}
+
+
+def check_index(torch, np, dev, serve_ctx, serve_out, n=INDEX_N):
+    """Phase 8: NN-descent on the card against the CPU, a build at Twitch
+    scale through NN-descent, the index files round-tripped in every
+    residency, served from, and the serve phase's corpus searched in four
+    shards."""
+    import tempfile
+    parity = check_nn_descent_parity(torch, np, dev)
+    graph, exact, build = check_index_build(torch, np, dev, n)
+    with tempfile.TemporaryDirectory(prefix="index-") as root:
+        dirs, files = check_index_files(torch, np, dev, graph, root)
+        served = check_index_serve(torch, np, dev, graph, dirs, exact)
+    sharded = check_sharded(torch, np, dev, serve_ctx["fused int8"],
+                            serve_out["fused int8"]["recall64"])
+    return {"nn_descent_parity": parity, "build": build, "files": files,
+            "serve": served, "sharded": sharded}
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -2592,6 +3007,8 @@ def main() -> int:
         results["continuous"] = {
             label: check_continuous(torch, np, dev, ctx[label], label)
             for label in CONTINUOUS_RUNS}
+        results["index"] = check_index(torch, np, dev, ctx,
+                                       results["serve"])
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

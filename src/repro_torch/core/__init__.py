@@ -1,6 +1,7 @@
 """Search core of the port: measures, corpus residency, the bundle
 registry, the expansion engine (and the captured programs it runs as,
-``core/program.py``) and the search API."""
+``core/program.py``), the search API, corpus-sharded search, the BEGIN
+graph and the paper-faithful numpy searcher."""
 from repro_torch.core.bundles import (MeasureKernelBundle, get_bundle,  # noqa: F401
                                       list_families, register_bundle,
                                       resolve_stages)
@@ -12,9 +13,19 @@ from repro_torch.core.engine import (EngineOptions, EngineState,  # noqa: F401
                                      SearchResult, build_engine,
                                      build_engine_from_fn, engine_search)
 from repro_torch.core.measures import (MEASURE_FAMILIES, Measure,  # noqa: F401
-                                       deepfm_measure, inner_product_measure,
+                                       deepfm_measure, deepfm_numpy_fns,
+                                       inner_product_measure,
                                        l2_measure, make_family_measure,
                                        mlp_measure, params_from_jax)
 from repro_torch.core.program import StateProgram  # noqa: F401
 from repro_torch.core.search import (brute_force_topk, recall,  # noqa: F401
                                      search_measure)
+from repro_torch.core.begin import begin_adjacency, build_begin_graph  # noqa: F401
+from repro_torch.core.faithful import (FaithfulStats,  # noqa: F401
+                                       faithful_search,
+                                       faithful_search_batch)
+from repro_torch.core.sharded import (ShardedIndex,  # noqa: F401
+                                      build_sharded_index, empty_topk,
+                                      merge_topk, shard_stores,
+                                      sharded_search_host,
+                                      sharded_search_stores)

@@ -41,6 +41,18 @@ def _check_dtype(corpus_dtype: str) -> None:
                          f"got {corpus_dtype!r}")
 
 
+def refuse_paged(residency) -> None:
+    """Raise for a paged residency policy (``'paged'`` or an object whose
+    ``kind`` is ``'paged'``): not ported yet."""
+    kind = getattr(residency, "kind", residency)
+    if kind not in (None, "whole"):
+        if kind == "paged":
+            raise NotImplementedError(
+                "paged residency (PagedCorpusStore) is not ported yet "
+                "(ROADMAP.md, queue 1); v3 files load whole")
+        raise ValueError(f"unknown residency {kind!r}")
+
+
 # ---------------------------------------------------------------------------
 # bitmaps and quantization
 # ---------------------------------------------------------------------------
@@ -76,10 +88,13 @@ def bit_test_global(words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def quantize_rows_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization over the last axis:
     (..., D) float -> (q8 (..., D) int8, scales (..., 1) float32).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    ``torch.round`` rounds half to even, as ``jnp.round`` does. The
+    divisor 127 is a tensor on x's device: on a CUDA tensor PyTorch
+    divides by a Python scalar as a product with its reciprocal, which
+    leaves some scales an ulp off the JAX package's (and the CPU's)."""
     x = x.float()
     amax = x.abs().amax(dim=-1, keepdim=True)
-    scales = amax.clamp_min(_EPS) / 127.0
+    scales = amax.clamp_min(_EPS) / torch.full_like(amax, 127.0)
     q8 = torch.clamp(torch.round(x / scales), -127, 127).to(torch.int8)
     return q8, scales
 

@@ -69,6 +69,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.bundles import resolve_stages
 from repro_torch.core.corpus import (CORPUS_DTYPES, CorpusStore,
                                      as_corpus_store, bit_test_global)
@@ -483,9 +484,11 @@ class ExpansionEngine:
         return EngineState(*(pick(n, o) for n, o in zip(fresh, state)))
 
     def idle_state(self, n_lanes: int, n_corpus: int,
-                   device="cpu") -> EngineState:
+                   device=DEFAULT_DEVICE) -> EngineState:
         """Every lane parked (``done``): ``init_state``'s shapes and dtypes,
-        each field its own tensor (the programs copy into them in place)."""
+        each field its own tensor (the programs copy into them in place),
+        on ``device`` (the card unless the caller says otherwise)."""
+        device = resolve_device(device)
         ef = self.cfg.ef
         nwords = (n_corpus + 31) // 32
 
@@ -536,9 +539,11 @@ class ExpansionEngine:
     def stats(self) -> dict:
         """Totals over this engine's ``search`` calls: searches, steps,
         program runs (graph replays on the card: one init + the chunks per
-        search) and the host seconds spent issuing them (the blocking
-        ``done`` reads left out)."""
-        return {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0}
+        search), the host seconds spent issuing them (the blocking
+        ``done`` reads left out) and the search programs built (each a new
+        capture on the card)."""
+        return {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0,
+                "programs": 0}
 
     def search_program(self, params, base, neighbors, queries,
                        capture: bool = True) -> StateProgram:
@@ -574,6 +579,7 @@ class ExpansionEngine:
         prog.add("chunk", self.step_routine(params, store, nbrs,
                                             SYNC_EVERY))
         progs[key] = prog
+        self.stats["programs"] += 1
         while len(progs) > PROGRAM_CACHE:
             progs.popitem(last=False)
         return prog

@@ -115,6 +115,52 @@ def make_family_measure(family: str, generator: torch.Generator, dim: int,
                      f"{MEASURE_FAMILIES}")
 
 
+def deepfm_numpy_fns(params: dict, cfg: deepfm_lib.DeepFMConfig):
+    """(score_np, grad_np) closures over numpy arrays: the DeepFM measure's
+    forward and its hand-written backward, for the faithful searcher
+    (``core/faithful.py``). ``params`` holds the 'mlp' subtree (tensors or
+    arrays, the (d_in, d_out) layout)."""
+    def np32(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return np.asarray(a, np.float32)
+
+    Ws = [np32(w) for w in params["mlp"]["w"]]
+    bs = [np32(b) for b in params["mlp"]["b"]]
+    fd = cfg.fm_dim
+
+    def _forward(x, q):
+        h = np.concatenate([q[fd:], x[fd:]])
+        acts = [h]
+        for i, (W, b) in enumerate(zip(Ws, bs)):
+            h = h @ W + b
+            if i < len(Ws) - 1:
+                h = np.maximum(h, 0.0)
+            acts.append(h)
+        logit = float(np.dot(x[:fd], q[:fd]) + h[0])
+        return 1.0 / (1.0 + np.exp(-logit)), acts
+
+    def score_np(x, q):
+        return _forward(x, q)[0]
+
+    def grad_np(x, q):
+        f, acts = _forward(x, q)
+        g_logit = f * (1.0 - f)                    # d sigmoid
+        # backprop through the MLP to its input
+        g = np.array([g_logit], np.float32)
+        for i in range(len(Ws) - 1, -1, -1):
+            g = Ws[i] @ g
+            if i > 0:
+                g = g * (acts[i] > 0)
+        dd = cfg.deep_dim
+        gx = np.zeros_like(x)
+        gx[:fd] = g_logit * q[:fd]
+        gx[fd:] = g[dd:]          # the deep input is [q_deep, x_deep]
+        return f, gx
+
+    return score_np, grad_np
+
+
 def params_from_jax(mlp_params_numpy: dict, device="cuda") -> dict:
     """The JAX package's MLP pytree ``{'w': [...], 'b': [...]}`` (as numpy
     arrays) -> the port's parameters: the same (d_in, d_out) layout, as

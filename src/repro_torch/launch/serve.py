@@ -19,16 +19,21 @@ picks the serving discipline:
     PYTHONPATH=src python -m repro_torch.launch.serve --runtime continuous \
         --lanes 32 --offered-qps 200 --queries 256 [--sla default]
     PYTHONPATH=src python -m repro_torch.launch.serve --list-measures
+    # serve an index built by launch/build_index.py (either package's)
+    PYTHONPATH=src python -m repro_torch.launch.serve --index runs/idx \
+        [--corpus-dtype int8] [--save-index runs/idx-copy]
 
 It takes the JAX launcher's flags that the port supports (``--items --dim
 --queries --batch --mode --measure --list-measures --runtime --lanes
 --offered-qps --steps-per-tick --deadline --max-queue --sla --sla-mix --k
 --ef --alpha --budget --fused --corpus-dtype --adaptive --c-max
---angle-tau``, with the JAX defaults) plus ``--device`` and
-``--host-loop``; any other flag of the JAX launcher exits with a "not
-ported yet" message. As there, a non-float32 ``--corpus-dtype`` implies
-the index-fused path; the store is quantized once at start-up, and recall
-is labelled against the float32 base.
+--angle-tau --index --save-index``, with the JAX defaults) plus
+``--device`` and ``--host-loop``; any other flag of the JAX launcher exits
+with a "not ported yet" message. As there, a non-float32 ``--corpus-dtype``
+implies the index-fused path; the store is quantized once at start-up
+(or, from ``--index`` in the dtype it was saved in, loaded as stored, with
+its tombstones), and recall is labelled against the float32 base (from an
+index: its base as ``load_index`` dequantizes it).
 """
 from __future__ import annotations
 
@@ -44,7 +49,9 @@ from repro_torch.core import (MEASURE_FAMILIES, EngineOptions, SearchConfig,
                               brute_force_topk, build_engine, get_bundle,
                               list_families, make_corpus_store,
                               make_family_measure, recall, search_measure)
-from repro_torch.graph import build_l2_graph
+from repro_torch.graph import (GraphIndex, build_l2_graph,
+                               load_corpus_store, load_index,
+                               load_index_meta, save_index)
 from repro_torch.serving import (ContinuousRuntime, Request, bucket_pad,
                                  latency_summary, load_policy,
                                  poisson_arrivals)
@@ -53,8 +60,7 @@ from repro_torch.serving import (ContinuousRuntime, Request, bucket_pad,
 JAX_ONLY_FLAGS = (
     "--searcher", "--chaos", "--health-every", "--trace-sample",
     "--trace-out", "--metrics-out", "--metrics-json", "--profile-dir",
-    "--tile", "--autotune", "--index", "--save-index", "--residency",
-    "--page-rows", "--cache-mb")
+    "--tile", "--autotune", "--residency", "--page-rows", "--cache-mb")
 
 
 def _sync(device: torch.device) -> None:
@@ -63,12 +69,15 @@ def _sync(device: torch.device) -> None:
 
 
 def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
-                  rng, device: torch.device) -> dict:
+                  rng, device: torch.device,
+                  results: Optional[list] = None) -> dict:
     """Closed-loop batch serving: whole bucket-padded batches, each stepped
     to full convergence. Batch 0 is the warm-up (kernel library load, first
     allocations) and is left out of the steady-state numbers. ``store`` is
     the resident corpus the search runs on; ``base_t`` is the float32 (N, D)
-    base that recall is labelled against. Returns the summary it prints."""
+    base that recall is labelled against. ``results`` (a list), if given,
+    receives each batch's ``SearchResult`` (its live rows) in order.
+    Returns the summary it prints."""
     capture = not args.host_loop
     engine = build_engine(measure, cfg, options)
     lat_ms, evals, iters_all, host = [], [], [], []
@@ -94,6 +103,8 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
         n_batches += 1
         shapes_seen.add(tuple(qt.shape))
         res, dt, st = run_batch(qt, entries)
+        if results is not None:
+            results.append(type(res)(*(t[:n] for t in res)))
         lat_ms.append(dt)
         host.append(st)
         evals.append(float(res.n_eval[:n].float().mean()))
@@ -293,6 +304,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--angle-tau", type=float, default=0.0,
                     help="adaptive: absolute angle cutoff in radians "
                          "(<=0 disables)")
+    ap.add_argument("--index", type=str, default=None,
+                    help="serve a saved index directory (launch/"
+                         "build_index.py, either package's) instead of "
+                         "building one; --items/--dim come from it")
+    ap.add_argument("--save-index", type=str, default=None,
+                    help="write the served graph index (in --corpus-dtype "
+                         "residency) to this directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
     ap.add_argument("--host-loop", action="store_true",
@@ -350,7 +368,53 @@ def engine_options(args: argparse.Namespace) -> EngineOptions:
                          angle_tau=args.angle_tau)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def load_served_index(args, device: torch.device):
+    """``--index DIR``: the saved graph (its base as ``load_index``
+    dequantizes it) and the store to serve, loaded as stored (with its
+    tombstones) when the saved dtype is the requested one, else
+    re-quantized from the loaded base with a warning, as the JAX launcher
+    does. Sets ``args.items`` / ``args.dim`` from the index. Returns
+    (graph, store, provenance)."""
+    graph = load_index(args.index)
+    if not isinstance(graph, GraphIndex):
+        raise SystemExit(f"[serve] --index {args.index} is not a "
+                         f"single-partition graph index (search a "
+                         f"ShardedIndex with core.sharded)")
+    args.items, args.dim = graph.base.shape
+    meta = load_index_meta(args.index)
+    saved_dtype = meta.get("corpus_dtype", "float32")
+    if saved_dtype == args.corpus_dtype:
+        store = load_corpus_store(args.index, device=device)
+    else:
+        print(f"[serve] WARNING: index at {args.index} stores the corpus "
+              f"as {saved_dtype!r} but --corpus-dtype={args.corpus_dtype!r} "
+              f"was requested — re-quantizing the loaded payload to "
+              f"{args.corpus_dtype!r} ({saved_dtype!r} round-trip error "
+              f"carries over; rebuild with --corpus-dtype "
+              f"{args.corpus_dtype} to serve exactly what was quantized "
+              f"at build time)")
+        store = make_corpus_store(graph.base, args.corpus_dtype,
+                                  device=device, tombstones=graph.tombstones)
+    print(f"[serve] index: loaded {args.index} ({graph.n} items, "
+          f"{graph.n_alive} alive, degree {graph.avg_degree:.1f}, "
+          f"corpus_dtype={saved_dtype})")
+    built_under = meta.get("measure_family")
+    if built_under is not None and built_under != args.measure:
+        print(f"[serve] WARNING: index was built measure-aware under the "
+              f"{built_under!r} family but --measure={args.measure!r} is "
+              f"being served — the query-aware adjacency no longer matches "
+              f"the measure; recall will degrade (rebuild with --measure "
+              f"{args.measure} or serve --measure {built_under})")
+    # carried through --save-index so provenance survives copies
+    provenance = {k: meta[k] for k in ("graph_kind", "measure_family")
+                  if k in meta}
+    return graph, store, provenance
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         results: Optional[list] = None) -> dict:
+    """Run the launcher; ``results`` (a list), if given, receives each
+    oneshot batch's ``SearchResult`` (``serve_oneshot``)."""
     args = parse_args(argv)
     if args.list_measures:
         return list_measures()
@@ -359,16 +423,27 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e}")
     rng = np.random.default_rng(0)
-    base = rng.normal(size=(args.items, args.dim)).astype(np.float32)
-    t0 = time.time()
-    try:
+    if args.index:
+        graph, store, provenance = load_served_index(args, device)
+    else:
+        base = rng.normal(size=(args.items, args.dim)).astype(np.float32)
+        t0 = time.time()
         graph = build_l2_graph(base, m=16, k_construction=48, device=device)
-    except NotImplementedError as e:
-        raise SystemExit(f"[serve] {e}")
-    _sync(device)
-    print(f"[serve] index: {args.items} items, "
-          f"degree {graph.avg_degree:.1f}, "
-          f"built in {time.time() - t0:.1f}s on {device}")
+        _sync(device)
+        print(f"[serve] index: {args.items} items, "
+              f"degree {graph.avg_degree:.1f}, "
+              f"built in {time.time() - t0:.1f}s on {device}")
+        # quantize once, up front: every batch searches the resident payload
+        store = make_corpus_store(graph.base, args.corpus_dtype,
+                                  device=device)
+        provenance = {"graph_kind": "l2"}
+    if args.save_index:
+        save_index(args.save_index, graph, corpus_dtype=args.corpus_dtype,
+                   extra_meta=provenance)
+        print(f"[serve] index saved -> {args.save_index} "
+              f"(corpus_dtype={args.corpus_dtype})")
+    # deterministic in the seed: build_index constructs the SAME measure
+    # for measure-aware (BEGIN) graph construction
     measure = make_family_measure(args.measure,
                                   torch.Generator().manual_seed(0),
                                   args.dim, device=device)
@@ -379,17 +454,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         build_engine(measure, cfg, options)     # refuse bad combinations
     except ValueError as e:
         raise SystemExit(f"[serve] {e}")
-    base_t = torch.as_tensor(base, device=device)
-    # quantize once, up front: every batch searches the resident payload
-    store = make_corpus_store(base_t, args.corpus_dtype, device=device)
+    base_t = torch.as_tensor(graph.base, device=device)
     print(f"[serve] corpus resident: dtype={store.dtype} "
           f"{store.nbytes() / 2**20:.1f} MiB "
           f"({'fused' if options.fused else 'unfused'} path)")
     nbrs = torch.as_tensor(graph.neighbors, device=device)
-    serve = serve_continuous if args.runtime == "continuous" \
-        else serve_oneshot
-    return serve(args, graph, measure, cfg, options, store, nbrs, base_t,
-                 rng, device)
+    if args.runtime == "continuous":
+        return serve_continuous(args, graph, measure, cfg, options, store,
+                                nbrs, base_t, rng, device)
+    return serve_oneshot(args, graph, measure, cfg, options, store, nbrs,
+                         base_t, rng, device, results=results)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import DEFAULT_DEVICE, resolve_device
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -142,10 +142,12 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd)
 
 
-def causal_mask(S: int, T: Optional[int] = None, device="cpu"
+def causal_mask(S: int, T: Optional[int] = None, device=DEFAULT_DEVICE
                 ) -> torch.Tensor:
-    """(S, T) bool: query i (at absolute position T - S + i) attends to
-    keys at positions <= its own."""
+    """(S, T) bool on ``device`` (the card unless the caller says
+    otherwise): query i (at absolute position T - S + i) attends to keys
+    at positions <= its own."""
+    device = resolve_device(device)
     T = T if T is not None else S
     qi = torch.arange(S, device=device)[:, None] + (T - S)
     ki = torch.arange(T, device=device)[None, :]

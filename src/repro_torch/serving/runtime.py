@@ -27,7 +27,8 @@ Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
 ``fault_hook``, ``tracer`` / ``trace_site`` / ``trace_owner``,
 ``shared_fns``, ``install_index`` and ``bind_registry``; the fault-domain
 helpers (``complete_failed``, ``fail_all``) and
-``ShardedContinuousRuntime`` wait for sharded search.
+``ShardedContinuousRuntime`` are next (the one-shot sharded search they
+build on is ``core/sharded.py``).
 """
 from __future__ import annotations
 

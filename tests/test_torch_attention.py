@@ -594,7 +594,7 @@ def test_flash_float32_path_is_the_tf32_split_at_every_width():
 def test_causal_mask_matches_jax():
     for S, T in ((5, 5), (3, 8), (1, 6)):
         np.testing.assert_array_equal(
-            layers.causal_mask(S, T).numpy(),
+            layers.causal_mask(S, T, device="cpu").numpy(),
             np.asarray(jax_layers.causal_mask(S, T)))
 
 
@@ -634,7 +634,7 @@ def test_chunked_causal_mha_matches_jax():
     B, S, H, hd = 2, 64, 4, 16
     q, k, v = _qkv(12, B, S, H, hd)
     full = layers.mha_attention(_t(q), _t(k), _t(v),
-                                mask=layers.causal_mask(S))
+                                mask=layers.causal_mask(S, device="cpu"))
     for chunk in (16, 32):
         got = layers.chunked_causal_mha(_t(q), _t(k), _t(v), chunk)
         want = jax_layers.chunked_causal_mha(jnp.asarray(q), jnp.asarray(k),

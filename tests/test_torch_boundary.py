@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports ``jax`` or the JAX package ``repro``, and its default device is the
-card, never a silent CPU fallback."""
+imports ``jax``, the JAX package ``repro`` or ``ml_dtypes`` (a dependency
+of JAX, not of the port), and its default device is the card, never a
+silent CPU fallback."""
 import os
 import subprocess
 import sys
@@ -20,7 +21,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "repro", "ml_dtypes"):
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -31,7 +32,18 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
-    assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro")
+    # the index files' bf16 and int8 payloads go through torch alone
+    import tempfile, numpy as np
+    from repro_torch.graph import (GraphIndex, load_corpus_store,
+                                   load_index, save_index)
+    base = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+    g = GraphIndex(np.zeros((40, 4), np.int32), 0, base)
+    for dt in ("bfloat16", "int8"):
+        with tempfile.TemporaryDirectory() as d:
+            save_index(d, g, corpus_dtype=dt)
+            assert load_corpus_store(d, device="cpu").dtype == dt
+            assert np.abs(load_index(d).base - base).max() < 0.05
+    assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                    for k in sys.modules), "a blocked module got in"
     print(len(names))
 """)
@@ -58,7 +70,9 @@ def test_port_sources_name_no_jax():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax",
                                      "import repro.", "from repro.",
-                                     "from repro import")), (f, s)
+                                     "from repro import",
+                                     "import ml_dtypes",
+                                     "from ml_dtypes")), (f, s)
 
 
 def test_serve_default_device_refuses_cpu_fallback():

@@ -303,7 +303,7 @@ def test_idle_state_steps_are_noops(system):
     m = system["tms"]["deepfm"]
     store = make_corpus_store(system["base"], "float32", device="cpu")
     nbrs = system["nbrs"]
-    idle = eng.idle_state(3, store.n)
+    idle = eng.idle_state(3, store.n, device="cpu")
     init = eng.init_state(m.params, store, nbrs, system["qt"][:3],
                           torch.zeros(3, dtype=torch.int64))
     for a, b in zip(idle, init):
