@@ -43,7 +43,17 @@ beside it), the index saved and loaded in float32, bfloat16 and int8
 int8 adaptive: bit for bit the in-memory serve, the path's kernels
 launched as often), and a 4-shard search of the N=100,000 corpus on the
 one card (duplicate-free, padded rows never returned, scores the plain
-measure's, launches the four shards' searches' sum).
+measure's, launches the four shards' searches' sum), and then serves
+that 4-shard index through the fault-domain sharded continuous runtime
+(32 lanes per shard, 8 steps per tick, 320 requests: DeepFM and MLP fused
+int8 healthy, a backlog and Poisson arrivals at 0.8x of it, bit for bit
+the one-shot sharded search, launches the shards' captured reset and tick
+x replays; a chaos plan from a JSON file (a shard crash that opens its
+breaker and recovers, a slow tick, a stall under the tick deadline);
+every shard down; a traced run with the metric registry, bit for bit
+the untraced one; two more indexes installed mid-stream as index epochs;
+``serve --runtime continuous`` with --chaos, --trace-*, --metrics-*,
+--health-every and --profile-dir).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -55,6 +65,7 @@ before it lists each kernel's numbers as JSON.
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
 import json
 import os
@@ -2770,7 +2781,7 @@ def check_sharded(torch, np, dev, ctx, unsharded_recall):
     return {"build_s": build_s, "qps": qps, "p50_ms": p50, "p95_ms": p95,
             "recall64": rec, "unsharded_recall64": unsharded_recall,
             "runs_per_batch": runs, "new_programs": new_programs,
-            "launches": counts}
+            "launches": counts}, idx
 
 
 def check_index(torch, np, dev, serve_ctx, serve_out, n=INDEX_N):
@@ -2784,10 +2795,511 @@ def check_index(torch, np, dev, serve_ctx, serve_out, n=INDEX_N):
     with tempfile.TemporaryDirectory(prefix="index-") as root:
         dirs, files = check_index_files(torch, np, dev, graph, root)
         served = check_index_serve(torch, np, dev, graph, dirs, exact)
-    sharded = check_sharded(torch, np, dev, serve_ctx["fused int8"],
-                            serve_out["fused int8"]["recall64"])
+    sharded, idx = check_sharded(torch, np, dev, serve_ctx["fused int8"],
+                                 serve_out["fused int8"]["recall64"])
     return {"nn_descent_parity": parity, "build": build, "files": files,
-            "serve": served, "sharded": sharded}
+            "serve": served, "sharded": sharded}, idx
+
+
+# ---------------------------------------------------------------------------
+# phase 9: fault-domain serving (sharded continuous runtime, chaos plans,
+# tracing and the metric registry, index epochs, the launcher's flags)
+# ---------------------------------------------------------------------------
+
+FD_LANES, FD_SPT, FD_N, FD_PARITY = 32, 8, 320, 64
+FD_RUNS = ("fused int8", "mlp fused int8")
+FD_DEADLINE_S = 0.25        # tick deadline of the chaos run (b)
+FD_PER_ROUND = 2            # requests submitted per round in (b) and (c)
+
+
+def fd_drive(rt, queries, per_round=FD_PER_ROUND, first_rid=0,
+             max_rounds=100_000, on_round=None):
+    """Submit ``per_round`` requests per round until every rid resolved;
+    each rid must resolve exactly once, within ``max_rounds`` rounds.
+    ``on_round(rt)`` runs after each round."""
+    i, done = 0, {}
+    for _ in range(max_rounds):
+        if not (i < len(queries) or rt.in_flight or rt.queued
+                or rt._partial or any(r.completions for r in rt.runtimes)):
+            return done
+        for _ in range(per_round):
+            if i < len(queries):
+                rt.submit(queries[i], rid=first_rid + i)
+                i += 1
+        for c in rt.step_once():
+            require(c.rid not in done, f"fault domain: rid {c.rid} "
+                    f"resolved twice")
+            done[c.rid] = c
+        if on_round is not None:
+            on_round(rt)
+    raise SmokeFailure(f"fault domain: {len(done)} of {len(queries)} rids "
+                       f"resolved in {max_rounds} rounds")
+
+
+STRAGGLER = "persistent straggler"    # the straggler monitor's strike
+
+
+def fd_strike_log(rt) -> list:
+    """Every strike of ``rt``'s shard health from now on, as (round,
+    shard, reason): a tick error, the tick deadline, or the straggler
+    monitor's escalation (``STRAGGLER``)."""
+    health, log_ = rt.health, []
+    record = health.record_failure
+
+    def logged(shard, reason=""):
+        log_.append((rt.n_rounds, shard, reason))
+        return record(shard, reason)
+    health.record_failure = logged
+    return log_
+
+
+def fd_fresh_metrics(rt):
+    from repro_torch.serving import ServingMetrics
+    for r in rt.runtimes:
+        r.metrics = ServingMetrics(r.n_lanes)
+    rt.metrics = ServingMetrics(rt.n_lanes * len(rt.runtimes))
+
+
+def fd_runs(rt) -> int:
+    return sum(r.program.runs["reset"] + r.program.runs["tick"]
+               for r in rt.runtimes)
+
+
+def fd_same(np, c, ref, i) -> bool:
+    return (np.array_equal(c.ids, ref["ids"][i])
+            and np.array_equal(c.scores, ref["scores"][i])
+            and (c.n_eval, c.n_grad, c.n_iters) == tuple(
+                int(ref[f][i]) for f in ("n_eval", "n_grad", "n_iters")))
+
+
+def fd_oneshot(torch, np, dev, measure, idx, queries, cfg, options):
+    """The one-shot sharded search of ``queries`` in batches of
+    FD_PARITY, as host arrays."""
+    from repro_torch.core import sharded_search_stores
+    stores = idx.stores(options.corpus_dtype, [dev])
+    out = {}
+    for b in range(0, len(queries), FD_PARITY):
+        res = sharded_search_stores(
+            measure, stores, idx,
+            torch.as_tensor(queries[b:b + FD_PARITY], device=dev), cfg,
+            options)
+        for f in res._fields:
+            out.setdefault(f, []).append(getattr(res, f).cpu().numpy())
+    return {f: np.concatenate(v) for f, v in out.items()}
+
+
+def fd_healthy(torch, np, dev, ctx, idx, label, queries):
+    """(a) A backlog run (capacity) and Poisson arrivals at 0.8x of it,
+    every rid ok, the first FD_PARITY the one-shot sharded search's bit for
+    bit, no strike, the path's kernels launched as often as the four
+    shards' captured tick and reset times their replays."""
+    from repro_torch.core import build_engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (Request, ShardedContinuousRuntime,
+                                     poisson_arrivals)
+    measure, _, _, _, cfg, options = ctx
+    path = KERNELS_OF[(measure.meta[0], options.fused)]
+    ref = fd_oneshot(torch, np, dev, measure, idx, queries[:FD_PARITY], cfg,
+                     options)
+    rt = ShardedContinuousRuntime(build_engine(measure, cfg, options),
+                                  measure.params, idx, FD_LANES,
+                                  queries.shape[1], steps_per_tick=FD_SPT,
+                                  devices=[dev])
+    t0 = time.perf_counter()
+    rt.warmup(queries[0])
+    out = {"warmup_s": time.perf_counter() - t0}
+    strikes = fd_strike_log(rt)
+    capacity, comps = None, None
+    for run in ("backlog", "poisson"):
+        offsets = (np.zeros(FD_N) if run == "backlog" else
+                   poisson_arrivals(FD_N, 0.8 * capacity, seed=2))
+        fd_fresh_metrics(rt)
+        runs0 = [dict(r.program.runs) for r in rt.runtimes]
+        rounds0, total0 = rt.n_rounds, fd_runs(rt)
+        reset_launch_counts()
+        del strikes[:]
+        got = rt.run_stream([Request(rid=i, query=queries[i],
+                                     t_arrive=float(offsets[i]))
+                             for i in range(FD_N)])
+        counts = launch_counts()
+        want = {}
+        for r, r0 in zip(rt.runtimes, runs0):
+            for name in ("reset", "tick"):
+                n = r.program.runs[name] - r0.get(name, 0)
+                for k, v in r.program.captured_launches(name).items():
+                    want[k] = want.get(k, 0) + v * n
+        require({k: v for k, v in counts.items() if v} == want,
+                f"fault domain {label} {run}: launches {counts}, the "
+                f"shards' captured reset and tick x replays {want}")
+        for name, n in counts.items():
+            require(n > 0 if name in path else n == 0,
+                    f"fault domain {label} {run}: kernel {name} launched "
+                    f"{n} times; the path's kernels are {path}")
+        by = {c.rid: c for c in got}
+        require(len(by) == FD_N and all(c.status == "ok" for c in got),
+                f"fault domain {label} {run}: {len(by)} rids, statuses "
+                f"{sorted({c.status for c in got})}")
+        bad = [i for i in range(FD_PARITY) if not fd_same(np, by[i], ref, i)]
+        require(not bad, f"fault domain {label} {run}: rids {bad[:8]} "
+                f"differ from the one-shot sharded search")
+        require(rt.health.n_opened == 0 and not strikes,
+                f"fault domain {label} {run}: strikes {strikes}")
+        m = rt.metrics.summary()
+        rounds = rt.n_rounds - rounds0
+        per_round = (fd_runs(rt) - total0) / rounds
+        if run == "backlog":
+            capacity, comps = m["qps"], by
+        out[run] = {"offered_qps": None if run == "backlog"
+                    else 0.8 * capacity, "rounds": rounds,
+                    "runs_per_round": per_round, "launches": counts, **m}
+        log(f"fault domain {label} {run}: {FD_N} requests over "
+            f"{len(rt.runtimes)} shards x {FD_LANES} lanes, throughput "
+            f"{m['qps']:.1f} QPS" + ("" if run == "backlog" else
+                                     f" at offered {0.8 * capacity:.1f}")
+            + f", latency p50={m['p50_ms']:.3f}ms p95={m['p95_ms']:.3f}ms "
+            f"p99={m['p99_ms']:.3f}ms, {per_round:.2f} program runs per "
+            f"round ({rounds} rounds), occupancy {m['occupancy']:.3f}; "
+            f"no strike; the first {FD_PARITY} = one-shot sharded search "
+            f"bit for bit; launches {counts} = captured x replays")
+    out["capacity_qps"] = capacity
+    return out, comps, rt
+
+
+def fd_chaos(torch, np, dev, ctx, idx, queries, healthy, root):
+    """(b) A FaultPlan JSON: shard 1 crashes three ticks running (its
+    breaker opens, cools down, re-admits), shard 2 ticks slow (a
+    straggler, no strike), shard 3 stalls once under the tick deadline (a
+    strike, retried). Every rid resolves once; ok ones equal (a) bit for
+    bit; partial ones hold only the live shards' ids."""
+    from repro_torch.core import build_engine
+    from repro_torch.serving import (FaultEvent, FaultPlan,
+                                     ShardedContinuousRuntime)
+    measure, _, _, _, cfg, options = ctx
+    plan_path = os.path.join(root, "chaos.json")
+    FaultPlan([FaultEvent("shard_crash", site="shard:1/tick", start=4,
+                          count=3),
+               FaultEvent("slow_tick", site="shard:2/tick", start=6,
+                          count=3, seconds=0.05),
+               FaultEvent("shard_stall", site="shard:3/tick", start=10,
+                          count=1)], seed=0).save(plan_path)
+    rt = ShardedContinuousRuntime(build_engine(measure, cfg, options),
+                                  measure.params, idx, FD_LANES,
+                                  queries.shape[1], steps_per_tick=FD_SPT,
+                                  tick_deadline_s=FD_DEADLINE_S,
+                                  k_failures=3, cooldown_rounds=4,
+                                  fault_plan=FaultPlan.load(plan_path),
+                                  devices=[dev])
+    rt.warmup(queries[0])
+    strikes = fd_strike_log(rt)
+    states = []         # shard 1's state after each round
+    t0 = time.perf_counter()
+    got = fd_drive(rt, queries,
+                   on_round=lambda r: states.append(r.health.state(1)))
+    wall = time.perf_counter() - t0
+    opened = states.index("open")
+    recovery = states.index("healthy", opened) - opened
+    require(sorted(got) == list(range(FD_N)), f"fault domain chaos: "
+            f"{len(got)} of {FD_N} rids resolved")
+    statuses = collections.Counter(c.status for c in got.values())
+    require(statuses["partial"] > 0 and statuses["ok"] > 0
+            and set(statuses) <= {"ok", "partial"},
+            f"fault domain chaos: statuses {dict(statuses)}")
+    final = rt.health.states()
+    faults = sorted({s for _, s, r in strikes if r != STRAGGLER})
+    drained = [s for _, s, r in strikes if r == STRAGGLER]
+    require(rt.health.n_opened >= 1 and final == ["healthy"] * 4,
+            f"fault domain chaos: {rt.health.n_opened} breaker opens, "
+            f"states {final}, strikes {strikes}")
+    require(faults == [1, 3], f"fault domain chaos: error or deadline "
+            f"strikes on shards {faults}, expected 1 and 3 ({strikes})")
+    dead = idx.global_ids[1]
+    for rid, c in got.items():
+        if c.status == "ok":
+            require(np.array_equal(c.ids, healthy[rid].ids)
+                    and np.array_equal(c.scores, healthy[rid].scores),
+                    f"fault domain chaos: ok rid {rid} differs from (a)")
+        else:
+            live = c.ids[c.ids >= 0]
+            require(live.size > 0 and not np.isin(live, dead).any(),
+                    f"fault domain chaos: partial rid {rid} holds ids "
+                    f"of the failed shard: {c.ids}")
+    m = rt.metrics.summary()
+    out = {"statuses": dict(statuses), "breaker_opens": rt.health.n_opened,
+           "partial_share": statuses["partial"] / FD_N,
+           "strikes": strikes, "final_states": final,
+           "rounds": rt.n_rounds, "open_at_round": opened + 1,
+           "recovery_rounds": recovery, "wall_s": wall, **m}
+    log(f"fault domain chaos ({plan_path}: shard 1 crashes ticks 4-6, "
+        f"shard 2 ticks 6-8 slow by 50 ms, shard 3 stalls at tick 10; "
+        f"deadline {FD_DEADLINE_S}s, k_failures 3, cooldown 4 rounds): "
+        f"{dict(statuses)}, partial share {out['partial_share']:.3f}, "
+        f"{rt.health.n_opened} breaker open(s) (shard 1 open at round "
+        f"{opened + 1}, healthy {recovery} rounds later), error or "
+        f"deadline strikes on shards {faults}, straggler strikes on "
+        f"{drained}, all shards {final[0]} at the end; "
+        f"{FD_PER_ROUND} submits per round, {rt.n_rounds} rounds in "
+        f"{wall:.2f}s, latency p50={m['p50_ms']:.3f}ms "
+        f"p99={m['p99_ms']:.3f}ms; ok = (a) bit for bit, partial rids "
+        f"hold no id of shard 1")
+    return out
+
+
+def fd_all_down(torch, np, dev, ctx, idx, queries):
+    """(c) Every shard crashes every tick: every rid resolves failed with
+    ids -1, and the run ends."""
+    from repro_torch.core import build_engine
+    from repro_torch.serving import (FaultEvent, FaultPlan,
+                                     ShardedContinuousRuntime)
+    measure, _, _, _, cfg, options = ctx
+    plan = FaultPlan([FaultEvent("shard_crash", site=f"shard:{s}/tick",
+                                 start=0, count=10 ** 6)
+                      for s in range(idx.n_shards)])
+    rt = ShardedContinuousRuntime(build_engine(measure, cfg, options),
+                                  measure.params, idx, FD_LANES,
+                                  queries.shape[1], steps_per_tick=FD_SPT,
+                                  k_failures=1, cooldown_rounds=1000,
+                                  fault_plan=plan, devices=[dev])
+    rt.warmup(queries[0])
+    got = fd_drive(rt, queries[:FD_LANES])
+    require(len(got) == FD_LANES and all(
+        c.status == "failed" and (c.ids == -1).all()
+        and np.isneginf(c.scores).all() for c in got.values()),
+        f"fault domain all down: statuses "
+        f"{collections.Counter(c.status for c in got.values())}")
+    require(rt.health.states() == ["open"] * idx.n_shards,
+            f"fault domain all down: states {rt.health.states()}")
+    log(f"fault domain all down: {len(got)} rids failed with ids -1 in "
+        f"{rt.n_rounds} rounds, every breaker open")
+    return {"failed": len(got), "rounds": rt.n_rounds}
+
+
+def fd_traced(torch, np, dev, ctx, idx, queries, healthy, untraced_qps):
+    """(d) A traced backlog run (every rid sampled) with the registry
+    bound: bit for bit (a), attribution >= 0.95 for every ok rid (the
+    phase spans with the runtime's own site spans; the phase spans alone
+    are reported beside), the registry's text carries the ok count and
+    four shard states."""
+    from repro_torch.core import build_engine
+    from repro_torch.obs import Registry, Tracer, attribution
+    from repro_torch.serving import Request, ShardedContinuousRuntime
+    from repro_torch.serving.runtime import TRACE_SITES
+    measure, _, _, _, cfg, options = ctx
+    tracer = Tracer(sample=1, capacity=1 << 20)
+    rt = ShardedContinuousRuntime(build_engine(measure, cfg, options),
+                                  measure.params, idx, FD_LANES,
+                                  queries.shape[1], steps_per_tick=FD_SPT,
+                                  tracer=tracer, devices=[dev])
+    rt.warmup(queries[0])
+    registry = rt.bind_registry(Registry())
+    got = {c.rid: c for c in rt.run_stream(
+        [Request(rid=i, query=queries[i]) for i in range(FD_N)])}
+    qps = rt.metrics.summary()["qps"]
+    for rid in range(FD_N):
+        c, h = got[rid], healthy[rid]
+        require(c.status == "ok" and np.array_equal(c.ids, h.ids)
+                and np.array_equal(c.scores, h.scores)
+                and (c.n_eval, c.n_iters) == (h.n_eval, h.n_iters),
+                f"fault domain traced: rid {rid} differs from (a)")
+    spans = tracer.spans()
+    require(tracer.n_emitted == len(spans), f"fault domain traced: the "
+            f"ring dropped {tracer.n_emitted - len(spans)} spans")
+    by_rid = collections.defaultdict(list)
+    for sp in spans:
+        by_rid[sp.rid].append(sp)
+    sited = [sp for sp in by_rid[None] if sp.site in TRACE_SITES]
+    cover = [attribution(by_rid[rid] + sited, rid, TRACE_SITES)["coverage"]
+             for rid in range(FD_N)]
+    phases = [attribution(by_rid[rid], rid)["coverage"]
+              for rid in range(FD_N)]
+    require(min(cover) >= 0.95, f"fault domain traced: attribution "
+            f"{min(cover):.4f} < 0.95 for rid {int(np.argmin(cover))}")
+    text = registry.render_text()
+    require(f'repro_serving_requests_total{{status="ok"}} {FD_N}' in text
+            and text.count("repro_health_shard_state{") == idx.n_shards,
+            "fault domain traced: the registry lacks the ok count or the "
+            "shard states")
+    log(f"fault domain traced (sample 1, {len(spans)} spans): "
+        f"{qps:.1f} QPS traced against {untraced_qps:.1f} untraced "
+        f"(ratio {qps / untraced_qps:.3f}); bit for bit (a); attribution "
+        f"min {min(cover):.4f} median {statistics.median(cover):.4f} (the "
+        f"phase spans alone: min {min(phases):.4f} median "
+        f"{statistics.median(phases):.4f}; the site spans "
+        f"{len(sited)}); "
+        f"registry: {FD_N} ok, {idx.n_shards} shard-state series")
+    return {"qps_traced": qps, "qps_untraced": untraced_qps,
+            "ratio": qps / untraced_qps, "spans": len(spans),
+            "coverage_min": min(cover),
+            "coverage_median": statistics.median(cover),
+            "phase_coverage_min": min(phases),
+            "phase_coverage_median": statistics.median(phases)}
+
+
+def fd_epochs(torch, np, dev, ctx, idx, queries, healthy, rt):
+    """(e) A second 4-shard index of the same corpus (another partition
+    seed) installed mid-stream on (a)'s runtime: the 32 rids admitted
+    before the install finish on epoch 0 as in (a), the rest run on epoch 1
+    as the one-shot sharded search of the new index; each epoch captures
+    its shards' reset and tick once; two more swaps (back, and to the new
+    index again) leave the device memory where the first left it, within
+    one epoch's buffers."""
+    import gc
+    from repro_torch.core import build_sharded_index
+    measure, _, _, graph, cfg, options = ctx
+    t0 = time.perf_counter()
+    idx2 = build_sharded_index(graph.base, SHARDS, m=24, k_construction=100,
+                               seed=1, device=dev)
+    build_s = time.perf_counter() - t0
+    ref2 = fd_oneshot(torch, np, dev, measure, idx2, queries, cfg, options)
+    for i in range(FD_LANES):
+        rt.submit(queries[i], rid=i)
+    rt.step_once()          # every shard admits the 32
+    require(rt.install_index(idx2) == 1, "fault domain epochs: staged "
+            "epoch is not 1")
+    got = {c.rid: c for c in rt.pop_completions()}
+    got.update(fd_drive(rt, queries[FD_LANES:], per_round=FD_N,
+                        first_rid=FD_LANES))
+    while rt.in_flight or rt._partial or any(r.completions
+                                              for r in rt.runtimes):
+        got.update({c.rid: c for c in rt.step_once()})
+    require(sorted(got) == list(range(FD_N)), "fault domain epochs: rids "
+            "missing")
+    for rid, c in got.items():
+        if rid < FD_LANES:
+            ok = c.epoch == 0 and np.array_equal(c.ids, healthy[rid].ids) \
+                and np.array_equal(c.scores, healthy[rid].scores)
+        else:
+            ok = c.epoch == 1 and fd_same(np, c, ref2, rid)
+        require(c.status == "ok" and ok, f"fault domain epochs: rid {rid} "
+                f"(epoch {c.epoch}) differs from its epoch's search")
+    pairs = ("reset", "tick")
+    require(all(r.epoch_captures == [pairs] and r.program.captured == pairs
+                for r in rt.runtimes), f"fault domain epochs: captures "
+            f"{[(r.epoch_captures, r.program.captured) for r in rt.runtimes]}")
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(dev)
+
+    def epoch_bytes():
+        return sum(t.numel() * t.element_size() for r in rt.runtimes
+                   for t in list(r.program.state)
+                   + list(r.program.buffers.values()))
+
+    mem = [settle()]
+    for target in (idx, idx2):
+        rt.install_index(target)
+        fd_drive(rt, queries[:FD_PARITY], per_round=FD_PARITY,
+                 first_rid=FD_N)
+        mem.append(settle())
+    slack = epoch_bytes()
+    require(mem[2] <= mem[0] + slack, f"fault domain epochs: device memory "
+            f"{mem[0]} after the first swap, {mem[2]} after the third "
+            f"(one epoch's buffers {slack})")
+    require(all(r.epoch == 3 and len(r.epoch_captures) == 3
+                and all(c == pairs for c in r.epoch_captures)
+                for r in rt.runtimes), "fault domain epochs: captures per "
+            "epoch")
+    log(f"fault domain epochs: second index built in {build_s:.2f}s; "
+        f"epochs 0/1 in one stream ({FD_LANES} rids on epoch 0 = (a), "
+        f"{FD_N - FD_LANES} on epoch 1 = one-shot on the new index, bit "
+        f"for bit); reset + tick captured once per shard per epoch; device "
+        f"memory after swaps 1/2/3: {mem[0]}/{mem[1]}/{mem[2]} bytes (one "
+        f"epoch's buffers {slack})")
+    return {"build_s": build_s, "memory_after_swaps": mem,
+            "epoch_buffer_bytes": slack}
+
+
+def fd_launcher(torch, np, dev, root, items=100_000):
+    """(f) ``serve --runtime continuous --fused --corpus-dtype int8`` at the
+    serve phase's settings with a chaos plan, tracing, the registry, the
+    health line and the profiler: every output file exists and parses."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultEvent, FaultPlan
+    plan = os.path.join(root, "serve_chaos.json")
+    FaultPlan([FaultEvent("slow_tick", site="tick", start=3, count=2,
+                          seconds=0.001)]).save(plan)
+    paths = {k: os.path.join(root, v) for k, v in (
+        ("trace", "spans.jsonl"), ("prom", "metrics.prom"),
+        ("json", "metrics.json"), ("prof", "profile"))}
+    t0 = time.perf_counter()
+    summary = serve.main([
+        "--runtime", "continuous", "--fused", "--corpus-dtype", "int8",
+        "--items", str(items), "--dim", "40", "--queries", str(FD_N),
+        "--ef", "64", "--budget", "8", "--alpha", "1.01", "--k", "10",
+        "--lanes", str(FD_LANES), "--steps-per-tick", str(FD_SPT),
+        "--offered-qps", "1000", "--device", str(dev), "--chaos", plan,
+        "--health-every", "0.1", "--trace-sample", "4",
+        "--trace-out", paths["trace"], "--metrics-out", paths["prom"],
+        "--metrics-json", paths["json"], "--profile-dir", paths["prof"]])
+    wall = time.perf_counter() - t0
+    spans = [json.loads(line) for line in open(paths["trace"])]
+    prom = open(paths["prom"]).read()
+    metrics = json.load(open(paths["json"]))
+    trace = json.load(open(os.path.join(paths["prof"], "trace.json")))
+    names = {e.get("name") for e in trace["traceEvents"]}
+    roots = {sp["rid"] for sp in spans if sp["name"] == "request"}
+    require(summary["statuses"] == {"ok": FD_N} and roots == set(
+        range(0, FD_N, 4)) and f'repro_serving_requests_total{{status='
+            f'"ok"}} {FD_N}' in prom and metrics["n_completed"] == FD_N
+            and {"repro/tick", "repro/reset"} <= names,
+            f"fault domain launcher: statuses {summary['statuses']}, "
+            f"{len(roots)} traced roots, {metrics.get('n_completed')} in "
+            f"the metrics json, profile names repro/* "
+            f"{sorted(n for n in names if str(n).startswith('repro/'))}")
+    kernels = sum(1 for e in trace["traceEvents"]
+                  if e.get("cat") == "kernel")
+    log(f"fault domain launcher: serve --runtime continuous --fused "
+        f"--corpus-dtype int8 at N=100,000 with --chaos, --trace-*, "
+        f"--metrics-*, --health-every, --profile-dir in {wall:.1f}s: "
+        f"{summary['qps']:.1f} QPS at offered 1000, p99 "
+        f"{summary['p99_ms']:.3f}ms, recall@10 {summary['recall']:.4f}; "
+        f"{len(spans)} spans, {len(prom.splitlines())} Prometheus lines, "
+        f"profiler trace {len(trace['traceEvents'])} events "
+        f"({kernels} device kernels)")
+    return {"wall_s": wall, "qps": summary["qps"],
+            "p99_ms": summary["p99_ms"], "recall": summary["recall"],
+            "spans": len(spans), "profile_events": len(trace["traceEvents"]),
+            "profile_kernels": kernels}
+
+
+def check_fault_domain(torch, np, dev, ctx, idx):
+    """Phase 9: the sharded continuous runtime over the index phase's
+    4-shard index of the serve corpus (N=100,000), 32 lanes per shard, 8
+    steps per tick, 320 requests: (a) healthy, DeepFM and MLP fused int8;
+    (b) a chaos plan; (c) every shard down; (d) traced with the registry;
+    (e) index epochs; (f) the launcher's telemetry and chaos flags."""
+    import tempfile
+    queries = np.random.default_rng(13).normal(
+        size=(FD_N, 40)).astype(np.float32)
+    t_phase = time.perf_counter()
+    out, healthy, rts, secs = {}, {}, {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        secs[name] = time.perf_counter() - t0
+
+    for label in FD_RUNS:
+        part(label, fd_healthy, torch, np, dev, ctx[label], idx, label,
+             queries)
+        out[label], healthy[label], rts[label] = out[label]
+    deepfm = ctx[FD_RUNS[0]]
+    with tempfile.TemporaryDirectory(prefix="fault-domain-") as root:
+        part("chaos", fd_chaos, torch, np, dev, deepfm, idx, queries,
+             healthy[FD_RUNS[0]], root)
+        part("all_down", fd_all_down, torch, np, dev, deepfm, idx, queries)
+        part("traced", fd_traced, torch, np, dev, deepfm, idx, queries,
+             healthy[FD_RUNS[0]], out[FD_RUNS[0]]["capacity_qps"])
+        del rts[FD_RUNS[1]]
+        part("epochs", fd_epochs, torch, np, dev, deepfm, idx, queries,
+             healthy[FD_RUNS[0]], rts.pop(FD_RUNS[0]))
+        part("launcher", fd_launcher, torch, np, dev, root)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"fault domain: phase 9 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + ")")
+    return out
 
 
 KERNEL_META = {
@@ -3007,8 +3519,10 @@ def main() -> int:
         results["continuous"] = {
             label: check_continuous(torch, np, dev, ctx[label], label)
             for label in CONTINUOUS_RUNS}
-        results["index"] = check_index(torch, np, dev, ctx,
-                                       results["serve"])
+        results["index"], sharded_idx = check_index(torch, np, dev, ctx,
+                                                    results["serve"])
+        results["fault_domain"] = check_fault_domain(torch, np, dev, ctx,
+                                                     sharded_idx)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

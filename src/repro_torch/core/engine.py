@@ -79,6 +79,7 @@ from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
 from repro_torch.kernels.neighbor_rank_fused import neighbor_rank_fused
 from repro_torch.kernels.neighbor_rank_fused.ref import \
     neighbor_rank_fused_ref
+from repro_torch.obs.profile import annotate
 
 SYNC_EVERY = 8       # steps per chunk: between host checks of done.all()
 PROGRAM_CACHE = 8    # search programs an engine keeps (least recent out)
@@ -595,42 +596,43 @@ class ExpansionEngine:
         programs (``capture=False``: the same chunks eagerly)."""
         prog = self.search_program(params, base, neighbors, queries,
                                    capture)
-        t0 = time.perf_counter()
-        prog.load(queries=queries, entries=entries)
-        if iter_caps is None:
-            prog.fill(caps=self.cfg.iters())
-            cap_max = self.cfg.iters()
-        else:
-            caps = torch.as_tensor(iter_caps)
-            prog.load(caps=caps)
-            cap_max = int(caps.max())
-        if taus is None:
-            prog.fill(taus=self.angle_tau)
-        else:
-            prog.load(taus=taus)
-        prog.run("init")
-        issue = time.perf_counter() - t0
-        # every live lane expands or finishes each step, so all lanes are
-        # done after max(iter_cap) + 1 steps; the check is a guard
-        limit = cap_max + 1 + SYNC_EVERY
-        steps = runs = 0
-        while True:
+        with annotate("repro/search"):
             t0 = time.perf_counter()
-            prog.run("chunk")
-            issue += time.perf_counter() - t0
-            steps += SYNC_EVERY
-            runs += 1
-            if bool(prog.state.done.all()):
-                break
-            if steps >= limit:
-                raise RuntimeError(f"search did not converge in {steps} "
-                                   f"steps (iter cap {limit - 1})")
-        st = self.stats
-        st["searches"] += 1
-        st["steps"] += steps
-        st["runs"] += runs + 1
-        st["issue_s"] += issue
-        return self._result(prog.state)
+            prog.load(queries=queries, entries=entries)
+            if iter_caps is None:
+                prog.fill(caps=self.cfg.iters())
+                cap_max = self.cfg.iters()
+            else:
+                caps = torch.as_tensor(iter_caps)
+                prog.load(caps=caps)
+                cap_max = int(caps.max())
+            if taus is None:
+                prog.fill(taus=self.angle_tau)
+            else:
+                prog.load(taus=taus)
+            prog.run("init")
+            issue = time.perf_counter() - t0
+            # every live lane expands or finishes each step, so all lanes are
+            # done after max(iter_cap) + 1 steps; the check is a guard
+            limit = cap_max + 1 + SYNC_EVERY
+            steps = runs = 0
+            while True:
+                t0 = time.perf_counter()
+                prog.run("chunk")
+                issue += time.perf_counter() - t0
+                steps += SYNC_EVERY
+                runs += 1
+                if bool(prog.state.done.all()):
+                    break
+                if steps >= limit:
+                    raise RuntimeError(f"search did not converge in {steps} "
+                                       f"steps (iter cap {limit - 1})")
+            st = self.stats
+            st["searches"] += 1
+            st["steps"] += steps
+            st["runs"] += runs + 1
+            st["issue_s"] += issue
+            return self._result(prog.state)
 
     def search_debug(self, params, base, neighbors, queries: torch.Tensor,
                      entries, max_steps: Optional[int] = None,

@@ -8,8 +8,8 @@ A ``StateProgram`` owns a state (a NamedTuple of tensors, the engine's
 the state, and the program copies ``new_state`` back into the state's own
 tensors and each of ``outputs`` into the buffer of its name, so the next
 run reads them in place. The host writes new inputs into the buffers
-(``load``, ``fill``) between runs; nothing else changes a buffer's
-storage.
+(``load``, ``fill``) and new state values (``assign``) between runs;
+nothing else changes a buffer's storage.
 
 On a CUDA device with ``capture=True`` a routine's first run warms it up
 (one eager run on a side stream over a clone of the state, so the kernel
@@ -64,6 +64,17 @@ class StateProgram:
     def fill(self, **values) -> None:
         for name, value in values.items():
             self.buffers[name].fill_(value)
+
+    def assign(self, state: NamedTuple) -> None:
+        """Copy ``state`` into the program's state tensors in place (the
+        captured routines keep reading the same storage)."""
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    @property
+    def captured(self) -> tuple:
+        """The names of the routines captured so far (on the card)."""
+        return tuple(self._graphs)
 
     def run(self, name: str) -> None:
         self.runs[name] += 1

@@ -183,24 +183,24 @@ def _device_key(device) -> str:
     return str(dev)
 
 
-def _shard_params(measure: Measure, device: torch.device,
-                  params_by_device: Optional[Mapping]) -> Any:
+def shard_params(params, device: torch.device,
+                 params_by_device: Optional[Mapping]) -> Any:
     """The params the shards on ``device`` search with:
     ``params_by_device[device]`` where the caller gave it, else
-    ``measure.params``, which must live on ``device``."""
+    ``params``, which must live on ``device``."""
     if params_by_device is not None:
         placed = {_device_key(d): p for d, p in params_by_device.items()}
         if _device_key(device) not in placed:
             raise ValueError(f"params_by_device has no params for "
                              f"{str(device)!r} (it has {sorted(placed)})")
         return placed[_device_key(device)]
-    have = _tree_device(measure.params)
+    have = _tree_device(params)
     if have is not None and have != device:
         raise ValueError(
-            f"measure.params live on {str(have)!r} and a shard's store on "
+            f"the params live on {str(have)!r} and a shard's store on "
             f"{str(device)!r}: place a copy of the params on each device "
             f"once and pass them as params_by_device={{device: params}}")
-    return measure.params
+    return params
 
 
 def sharded_search_stores(measure: Measure, stores: List[CorpusStore],
@@ -234,7 +234,8 @@ def sharded_search_stores(measure: Measure, stores: List[CorpusStore],
         q = queries.to(dev)
         entries = torch.full((Q,), int(index.entries[s]), dtype=torch.int64,
                              device=dev)
-        res = engine.search(_shard_params(measure, dev, params_by_device),
+        res = engine.search(shard_params(measure.params, dev,
+                                         params_by_device),
                             store, nbrs, q, entries,
                             iter_caps=None if iter_caps is None
                             else torch.as_tensor(iter_caps).to(dev),

@@ -116,6 +116,13 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+class CudaKernelError(RuntimeError):
+    """The kernel library failed to build (``nvcc`` missing or failing) or
+    a kernel's launch failed (``cudaGetLastError()`` non-zero). A fault of
+    the port or the card, never of one request: the sharded serving
+    runtime's fault domains let it propagate."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -124,9 +131,9 @@ def _nvcc() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
-                       "kernels build only where the CUDA toolkit is "
-                       "installed")
+    raise CudaKernelError("nvcc not found (PATH or $CUDA_HOME/bin); the "
+                          "CUDA kernels build only where the CUDA toolkit "
+                          "is installed")
 
 
 def build(force: bool = False) -> Path:
@@ -161,8 +168,8 @@ def build(force: bool = False) -> Path:
             if p.returncode != 0:
                 failed.append(src.name)
         if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n"
-                               + "\n".join(log))
+            raise CudaKernelError(f"nvcc failed for {failed}:\n"
+                                  + "\n".join(log))
         link = subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
              "-o", str(stage / lib_path.name),
@@ -170,7 +177,7 @@ def build(force: bool = False) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link (rc={link.returncode})\n{link.stdout}")
         if link.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+            raise CudaKernelError("nvcc link failed:\n" + "\n".join(log))
         (stage / "build.log").write_text("\n".join(log))
         shutil.rmtree(out_dir, ignore_errors=True)
         stage.rename(out_dir)
@@ -205,7 +212,7 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a C entry point."""
     if rc != 0:
         msg = load().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+        raise CudaKernelError(f"{name}: CUDA error {rc} ({msg})")
 
 
 def require(t, name: str, device, shape, dtype=None) -> None:

@@ -17,7 +17,10 @@ picks the serving discipline:
         [--corpus-dtype float32|bfloat16|int8] \
         [--adaptive angle --c-max 16] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --runtime continuous \
-        --lanes 32 --offered-qps 200 --queries 256 [--sla default]
+        --lanes 32 --offered-qps 200 --queries 256 [--sla default] \
+        [--chaos plan.json --health-every 0.5 --trace-sample 4 \
+         --trace-out spans.jsonl --metrics-out metrics.prom \
+         --metrics-json metrics.json --profile-dir prof/]
     PYTHONPATH=src python -m repro_torch.launch.serve --list-measures
     # serve an index built by launch/build_index.py (either package's)
     PYTHONPATH=src python -m repro_torch.launch.serve --index runs/idx \
@@ -27,7 +30,9 @@ It takes the JAX launcher's flags that the port supports (``--items --dim
 --queries --batch --mode --measure --list-measures --runtime --lanes
 --offered-qps --steps-per-tick --deadline --max-queue --sla --sla-mix --k
 --ef --alpha --budget --fused --corpus-dtype --adaptive --c-max
---angle-tau --index --save-index``, with the JAX defaults) plus
+--angle-tau --index --save-index --chaos --health-every --trace-sample
+--trace-out --metrics-out --metrics-json --profile-dir``, with the JAX
+defaults) plus
 ``--device`` and ``--host-loop``; any other flag of the JAX launcher exits
 with a "not ported yet" message. As there, a non-float32 ``--corpus-dtype``
 implies the index-fused path; the store is quantized once at start-up
@@ -38,6 +43,8 @@ index: its base as ``load_index`` dequantizes it).
 from __future__ import annotations
 
 import argparse
+import collections
+import json
 import time
 from typing import Optional, Sequence
 
@@ -52,15 +59,18 @@ from repro_torch.core import (MEASURE_FAMILIES, EngineOptions, SearchConfig,
 from repro_torch.graph import (GraphIndex, build_l2_graph,
                                load_corpus_store, load_index,
                                load_index_meta, save_index)
-from repro_torch.serving import (ContinuousRuntime, Request, bucket_pad,
-                                 latency_summary, load_policy,
+from repro_torch.obs import (NULL_TRACER, Registry, Tracer, format_trace,
+                             profile_trace)
+from repro_torch.serving import (ContinuousRuntime, FaultPlan, Request,
+                                 bucket_pad, latency_summary, load_policy,
                                  poisson_arrivals)
 
 # flags of the JAX launcher (repro.launch.serve) the port does not serve
-JAX_ONLY_FLAGS = (
-    "--searcher", "--chaos", "--health-every", "--trace-sample",
-    "--trace-out", "--metrics-out", "--metrics-json", "--profile-dir",
-    "--tile", "--autotune", "--residency", "--page-rows", "--cache-mb")
+JAX_ONLY_FLAGS = ("--searcher", "--tile", "--autotune", "--residency",
+                  "--page-rows", "--cache-mb")
+# continuous-runtime telemetry and chaos flags (refused for oneshot)
+CONTINUOUS_FLAGS = ("chaos", "health_every", "trace_sample", "trace_out",
+                    "metrics_out", "metrics_json")
 
 
 def _sync(device: torch.device) -> None:
@@ -192,14 +202,26 @@ def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
             print("[serve] note: tiers carry angle_tau cutoffs but "
                   "--adaptive is off: taus are inert; pass --adaptive "
                   "angle to let tiers shrink |C|")
+    fault_hook = None
+    if args.chaos:
+        fault_plan = FaultPlan.load(args.chaos)
+        fault_hook = fault_plan.tick_hook("tick")
+        print(f"[serve] chaos: replaying {args.chaos} "
+              f"(seed={fault_plan.seed}, {len(fault_plan.events)} event(s))")
+    tracer = (Tracer(sample=args.trace_sample)
+              if args.trace_sample else NULL_TRACER)
     runtime = ContinuousRuntime(engine, measure.params, store, nbrs,
                                 n_lanes=args.lanes, query_dim=args.dim,
                                 entry=graph.entry,
                                 steps_per_tick=args.steps_per_tick,
                                 max_queue=args.max_queue,
+                                fault_hook=fault_hook, tracer=tracer,
                                 sla_policy=sla_policy, device=device)
     queries = rng.normal(size=(args.queries, args.dim)).astype(np.float32)
     runtime.warmup(queries[0])      # capture reset + tick off the clock
+    registry = None
+    if args.metrics_out:
+        registry = runtime.bind_registry(Registry())  # after warmup
     arrivals = poisson_arrivals(args.queries, args.offered_qps, seed=1)
     mix = (_parse_sla_mix(args.sla_mix, sla_policy)
            if sla_policy is not None and args.sla_mix else None)
@@ -207,12 +229,15 @@ def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
                       deadline=args.deadline,
                       sla=mix[i % len(mix)] if mix else None)
               for i in range(args.queries)]
-    completions = runtime.run_stream(stream)
+    completions = runtime.run_stream(stream,
+                                     health_every_s=args.health_every)
     summary = {"runtime": "continuous", "device": str(device),
                "lanes": args.lanes, "steps_per_tick": args.steps_per_tick,
                "offered_qps": args.offered_qps,
                **runtime.metrics.summary(),
-               "health": runtime.health_snapshot(), "recall": None}
+               "health": runtime.health_snapshot(), "recall": None,
+               "statuses": dict(collections.Counter(
+                   c.status for c in completions))}
     by_rid = {c.rid: c for c in completions}
     nr = min(16, args.queries)
     ok_rids = [i for i in range(nr) if by_rid[i].status == "ok"]
@@ -234,7 +259,33 @@ def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
               f"recall@{args.k}={summary['recall']:.3f}")
     print(runtime.format_health())
     print(runtime.metrics.report())
+    export_telemetry(args, runtime, tracer, registry, completions)
     return summary
+
+
+def export_telemetry(args, runtime, tracer, registry, completions) -> None:
+    """--trace-out (the span ring as JSONL, and the slowest traced ok
+    request's span tree), --metrics-out (the registry in Prometheus text)
+    and --metrics-json (``metrics.summary()``), after the stream drains."""
+    if args.trace_out and tracer.enabled:
+        n = tracer.export_jsonl(args.trace_out)
+        print(f"[serve] traces -> {args.trace_out} ({n} spans, "
+              f"1/{args.trace_sample} sampling)")
+        slow = max((c for c in completions
+                    if tracer.sampled(c.rid) and c.status == "ok"),
+                   key=lambda c: c.record.latency_ms, default=None)
+        if slow is not None:
+            print("[serve] slowest traced ok request:")
+            print(format_trace(tracer, slow.rid))
+    if registry is not None:
+        with open(args.metrics_out, "w") as f:
+            f.write(registry.render_text())
+        print(f"[serve] metrics (prometheus text) -> {args.metrics_out}")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(runtime.metrics.summary(), f, indent=1,
+                      sort_keys=True)
+        print(f"[serve] metrics json -> {args.metrics_json}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -282,6 +333,34 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --sla: pin requests to tiers in this "
                          "proportion (e.g. 'premium:0.2,standard:0.5,"
                          "economy:0.3') instead of deadline classification")
+    ap.add_argument("--chaos", type=str, default=None, metavar="PLAN.json",
+                    help="continuous runtime: replay a FaultPlan "
+                         "(serving/faults.py); tick faults at site 'tick'")
+    ap.add_argument("--health-every", type=float, default=None,
+                    metavar="SECONDS",
+                    help="continuous runtime: print a [health] line at this "
+                         "period while the stream drains")
+    ap.add_argument("--trace-sample", type=int, default=0, metavar="N",
+                    help="continuous runtime: trace every Nth request "
+                         "(rid %% N == 0) into per-request span trees "
+                         "(obs/trace.py); 0 = tracing off")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    metavar="TRACES.jsonl",
+                    help="export the trace ring buffer as JSONL after the "
+                         "stream drains (requires --trace-sample)")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    metavar="METRICS.prom",
+                    help="continuous runtime: write the obs.Registry in "
+                         "Prometheus text exposition format at exit (the "
+                         "serving families; the JAX launcher's "
+                         "kernels.autotune families wait for autotune.py)")
+    ap.add_argument("--metrics-json", type=str, default=None, metavar="PATH",
+                    help="continuous runtime: dump the final metrics "
+                         "summary() dict as JSON")
+    ap.add_argument("--profile-dir", type=str, default=None,
+                    help="torch.profiler trace of the serve run (host, and "
+                         "the card's kernels on a card) into this "
+                         "directory as trace.json (Chrome trace format)")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--ef", type=int, default=64)
     ap.add_argument("--alpha", type=float, default=1.01)
@@ -337,6 +416,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.sla != "off" and args.runtime != "continuous":
         raise SystemExit("[serve] --sla needs --runtime continuous (tiers "
                          "are admission policy on the lane scheduler)")
+    for name in CONTINUOUS_FLAGS:
+        if getattr(args, name) and args.runtime != "continuous":
+            flag = "--" + name.replace("_", "-")
+            raise SystemExit(f"[serve] {flag} needs --runtime continuous")
+    if args.trace_out and not args.trace_sample:
+        raise SystemExit("[serve] --trace-out needs --trace-sample N")
     return args
 
 
@@ -459,11 +544,16 @@ def main(argv: Optional[Sequence[str]] = None,
           f"{store.nbytes() / 2**20:.1f} MiB "
           f"({'fused' if options.fused else 'unfused'} path)")
     nbrs = torch.as_tensor(graph.neighbors, device=device)
-    if args.runtime == "continuous":
-        return serve_continuous(args, graph, measure, cfg, options, store,
-                                nbrs, base_t, rng, device)
-    return serve_oneshot(args, graph, measure, cfg, options, store, nbrs,
-                         base_t, rng, device, results=results)
+    with profile_trace(args.profile_dir):
+        if args.runtime == "continuous":
+            out = serve_continuous(args, graph, measure, cfg, options, store,
+                                   nbrs, base_t, rng, device)
+        else:
+            out = serve_oneshot(args, graph, measure, cfg, options, store,
+                                nbrs, base_t, rng, device, results=results)
+    if args.profile_dir:
+        print(f"[serve] profiler trace -> {args.profile_dir}")
+    return out
 
 
 if __name__ == "__main__":

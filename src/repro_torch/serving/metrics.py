@@ -7,8 +7,8 @@ counters); the oneshot launcher feeds per-batch latencies through
 
 Occupancy is step-weighted: each tick adds ``busy_lanes * steps``
 live-lane-steps out of ``n_lanes * steps`` possible, the fraction of
-lane-steps that carried a live query. The JAX package's
-``bind_registry`` (into ``obs.Registry``) waits for ``obs/``.
+lane-steps that carried a live query. ``bind_registry`` adds an
+``obs.Registry`` view with the JAX package's metric names.
 """
 from __future__ import annotations
 
@@ -67,16 +67,90 @@ class ServingMetrics:
         self._lane_steps = 0
         self._queue_depth_last = 0
         self._queue_depth_max = 0
+        self._reg_live = None   # (requests, latency, queue_ms, evals,
+        #                          grads, iters) when bound to a Registry
+        self._reg_sla = None    # (latency{sla}, evals{sla}, degraded{sla},
+        #                          requests{sla,status}) when bound
 
     def bind_registry(self, registry):
-        """The JAX package's adapter into an ``obs.Registry``: ``obs/`` is
-        not ported yet (ROADMAP.md)."""
-        raise NotImplementedError(
-            "ServingMetrics.bind_registry needs obs/, which is not ported "
-            "yet (see ROADMAP.md); read summary() / report() instead")
+        """Adapter into an ``obs.Registry`` (docs/DESIGN.md §13): completed
+        requests / latency / engine counters update live at ``observe``
+        time; queue depth and occupancy are copied out at exposition via
+        a collect callback. The snapshot APIs (``summary``/``report``)
+        keep working unchanged — the registry is an additional view."""
+        self._reg_live = (
+            registry.counter("repro_serving_requests_total",
+                             "completed requests by final status",
+                             labelnames=("status",)),
+            registry.histogram("repro_serving_latency_ms",
+                               "end-to-end latency of answered "
+                               "(ok/partial) requests, ms"),
+            registry.histogram("repro_serving_queue_ms",
+                               "time-in-queue of answered requests, ms"),
+            registry.counter("repro_engine_evals_total",
+                             "measure forward evaluations over "
+                             "completed requests"),
+            registry.counter("repro_engine_grads_total",
+                             "gradient evaluations over completed requests"),
+            registry.counter("repro_engine_iters_total",
+                             "expansion iterations over completed requests"),
+        )
+        # per-SLA-tier families (docs/DESIGN.md §14): labeled by resolved
+        # tier name; untiered requests ("" sla) stay out of these — the
+        # unlabeled families above remain the all-traffic view
+        self._reg_sla = (
+            registry.histogram("repro_serving_sla_latency_ms",
+                               "end-to-end latency of answered requests "
+                               "by SLA tier, ms", labelnames=("sla",)),
+            registry.counter("repro_serving_sla_evals_total",
+                             "measure evaluations by SLA tier",
+                             labelnames=("sla",)),
+            registry.counter("repro_serving_sla_degraded_total",
+                             "requests admitted below their resolved tier",
+                             labelnames=("sla",)),
+            registry.counter("repro_serving_sla_requests_total",
+                             "completed requests by SLA tier and final "
+                             "status", labelnames=("sla", "status")),
+        )
+        g_depth = registry.gauge("repro_serving_queue_depth",
+                                 "admission queue depth, last round")
+        g_depth_max = registry.gauge("repro_serving_queue_depth_max",
+                                     "admission queue depth high-water mark")
+        g_occ = registry.gauge("repro_serving_occupancy",
+                               "fraction of lane-steps carrying a live "
+                               "query")
+
+        def _collect():
+            g_depth.set(self._queue_depth_last)
+            g_depth_max.set(self._queue_depth_max)
+            g_occ.set(self.occupancy)
+
+        registry.register_collect(_collect)
+        return registry
 
     def observe(self, rec: RequestRecord) -> None:
         self.records.append(rec)
+        status = ("timeout" if rec.timed_out else
+                  "shed" if rec.shed else
+                  "failed" if rec.failed else
+                  "partial" if rec.partial else "ok")
+        if self._reg_live is not None:
+            requests, latency, queue_ms, evals, grads, iters = self._reg_live
+            requests.labels(status=status).inc()
+            if status in ("ok", "partial"):
+                latency.observe(rec.latency_ms)
+                queue_ms.observe(rec.queue_ms)
+            evals.inc(rec.n_eval)
+            grads.inc(rec.n_grad)
+            iters.inc(rec.n_iters)
+        if self._reg_sla is not None and rec.sla:
+            s_lat, s_evals, s_degraded, s_requests = self._reg_sla
+            s_requests.labels(sla=rec.sla, status=status).inc()
+            if status in ("ok", "partial"):
+                s_lat.labels(sla=rec.sla).observe(rec.latency_ms)
+            s_evals.labels(sla=rec.sla).inc(rec.n_eval)
+            if rec.degraded:
+                s_degraded.labels(sla=rec.sla).inc()
 
     def observe_queue_depth(self, depth: int) -> None:
         """Admission-queue depth gauge, sampled once per serving round."""
@@ -87,6 +161,12 @@ class ServingMetrics:
                           ) -> None:
         self._busy_steps += busy * steps
         self._lane_steps += n_lanes * steps
+
+    def sync_occupancy(self, busy_steps: int, lane_steps: int) -> None:
+        """Overwrite the occupancy totals from an external aggregation —
+        the sharded runtime mirrors its sub-runtimes' samples here."""
+        self._busy_steps = busy_steps
+        self._lane_steps = lane_steps
 
     @property
     def occupancy(self) -> float:

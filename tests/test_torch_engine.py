@@ -420,6 +420,9 @@ def test_serve_runs_on_cpu_when_asked(capsys):
     assert out["recall"] > 0.5
     assert "steady-state" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not ported yet"):
+        serve.main(["--residency", "paged", "--device", "cpu"])
+    with pytest.raises(SystemExit,
+                       match="--trace-sample needs --runtime continuous"):
         serve.main(["--trace-sample", "8", "--device", "cpu"])
     mlp = serve.main(["--items", "600", "--dim", "40", "--queries", "40",
                       "--batch", "32", "--measure", "mlp", "--device",

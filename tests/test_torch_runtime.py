@@ -6,7 +6,8 @@ Continuous serving must return, per request, the port's own oneshot
 stages are lane-row independent. That invariant is the port's own; it is
 not held against the JAX runtime's outputs (they fail on this jax, see
 ROADMAP.md). ``sla.py`` and ``ServingMetrics`` are held against the JAX
-modules on the same inputs.
+modules on the same inputs. The fault-domain and telemetry hooks have
+their own files (test_torch_faults.py, test_torch_obs.py).
 """
 import dataclasses
 
@@ -249,19 +250,13 @@ def test_realtime_stream_and_warmup(system):
 
 
 def test_runtime_refuses_unported_by_name(system):
+    """What stays refused: shared_fns (captured programs are bound to their
+    own runtime's tensors), and bad lane and tick sizes. The fault, trace,
+    index-epoch and registry hooks are ported (test_torch_faults.py,
+    test_torch_obs.py)."""
     eng, m, store = _setup(system, "mlp")
-    for kw in ({"fault_hook": lambda: 0.0}, {"tracer": object()},
-               {"trace_site": "shard:0"}, {"trace_owner": False},
-               {"shared_fns": (None, None)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _runtime(system, eng, m, store, n_lanes=2, **kw)
-    rt = _runtime(system, eng, m, store, n_lanes=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rt.install_index(store, system["nbrs"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rt.bind_registry(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rt.metrics.bind_registry(object())
+    with pytest.raises(ValueError, match="shared_fns: a captured reset"):
+        _runtime(system, eng, m, store, n_lanes=2, shared_fns=(None, None))
     with pytest.raises(ValueError, match="n_lanes"):
         _runtime(system, eng, m, store, n_lanes=0)
     with pytest.raises(ValueError, match="steps_per_tick"):
@@ -386,6 +381,12 @@ def test_serve_flags_and_refusals():
             args.deadline, args.max_queue, args.sla, args.sla_mix) == \
         ("oneshot", 32, 200.0, 8, None, None, "off", None)
     assert not args.host_loop
+    assert (args.chaos, args.health_every, args.trace_sample, args.trace_out,
+            args.metrics_out, args.metrics_json, args.profile_dir) == \
+        (None, None, 0, None, None, None, None)
+    for flag in ("--chaos", "--health-every", "--trace-sample", "--trace-out",
+                 "--metrics-out", "--metrics-json", "--profile-dir"):
+        assert flag not in serve.JAX_ONLY_FLAGS
     for flag in serve.JAX_ONLY_FLAGS:
         with pytest.raises(SystemExit, match=f"{flag} is not ported yet"):
             serve.parse_args([flag, "x"])
