@@ -53,7 +53,17 @@ breaker and recovers, a slow tick, a stall under the tick deadline);
 every shard down; a traced run with the metric registry, bit for bit
 the untraced one; two more indexes installed mid-stream as index epochs;
 ``serve --runtime continuous`` with --chaos, --trace-*, --metrics-*,
---health-every and --profile-dir).
+--health-every and --profile-dir), and then, in the index phase's
+directory, paged residency (phase 10: a paged gather from the saved
+739,991-item files = the whole store's in f32/bf16/int8; ``serve --index
+--residency paged`` at 64-row pages and a 16 MiB host budget for DeepFM
+unfused and fused f32/bf16/int8 and MLP unfused, and at the JAX defaults,
+each = the whole unfused serve bit for bit with only the pre-gathered
+kernels launched, once per step; the continuous runtime on the paged
+int8 store = the whole one; paged shard stores and their sharded runtime
+under page-read faults; streaming mutation of the N=100,000 graph with
+the recovery kill matrix and ``install_index`` into a paged runtime; the
+paged continuous launcher with chaos, tracing and the registry).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -2788,17 +2798,21 @@ def check_index(torch, np, dev, serve_ctx, serve_out, n=INDEX_N):
     """Phase 8: NN-descent on the card against the CPU, a build at Twitch
     scale through NN-descent, the index files round-tripped in every
     residency, served from, and the serve phase's corpus searched in four
-    shards."""
+    shards; then, in the same temporary directory, phase 10 (paged
+    residency over those files and shards, mutation of the serve graph).
+    Returns (phase 8's numbers, the 4-shard index, phase 10's numbers)."""
     import tempfile
     parity = check_nn_descent_parity(torch, np, dev)
     graph, exact, build = check_index_build(torch, np, dev, n)
     with tempfile.TemporaryDirectory(prefix="index-") as root:
         dirs, files = check_index_files(torch, np, dev, graph, root)
         served = check_index_serve(torch, np, dev, graph, dirs, exact)
-    sharded, idx = check_sharded(torch, np, dev, serve_ctx["fused int8"],
-                                 serve_out["fused int8"]["recall64"])
+        sharded, idx = check_sharded(torch, np, dev, serve_ctx["fused int8"],
+                                     serve_out["fused int8"]["recall64"])
+        paged = check_paged(torch, np, dev, graph, dirs, idx,
+                            serve_ctx["unfused float32"][3], root)
     return {"nn_descent_parity": parity, "build": build, "files": files,
-            "serve": served, "sharded": sharded}, idx
+            "serve": served, "sharded": sharded}, idx, paged
 
 
 # ---------------------------------------------------------------------------
@@ -3302,6 +3316,596 @@ def check_fault_domain(torch, np, dev, ctx, idx):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: paged corpus residency and streaming index mutation
+# ---------------------------------------------------------------------------
+
+PAGED_ROWS, PAGED_MB = 64, 16       # 64-row pages, a 16 MiB host budget
+PAGED_GATHER = 10_000               # ids of the gather check (a)
+# (label, saved dtype, launcher flags, page rows, cache MiB): the one-shot
+# serves (b), DeepFM unless --measure says otherwise
+PAGED_RUNS = (
+    ("unfused float32", "float32", [], PAGED_ROWS, PAGED_MB),
+    ("fused float32", "float32", ["--fused"], PAGED_ROWS, PAGED_MB),
+    ("fused bfloat16", "bfloat16", ["--fused", "--corpus-dtype",
+                                    "bfloat16"], PAGED_ROWS, PAGED_MB),
+    ("fused int8", "int8", ["--corpus-dtype", "int8"], PAGED_ROWS, PAGED_MB),
+    ("mlp unfused float32", "float32", ["--measure", "mlp"], PAGED_ROWS,
+     PAGED_MB),
+    ("unfused float32 at the defaults", "float32", [], 4096, 64),
+)
+# the sharded checks (d): a budget below a 25,000-row partition's int8
+# payload (1.1 MB), so pages keep faulting after the warm-up
+SHARD_PAGED_KB = 256
+PAGED_SHARD_N = 64                  # requests of each sharded run
+MUTATE_ROWS = 8192                  # rows inserted (e)
+MUTATE_QUERIES = 64
+
+
+def peak_reset(torch, dev) -> int:
+    """Reset the card's peak-memory counter; returns the bytes allocated
+    now (what the measured work's peak is taken above)."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return int(torch.cuda.memory_allocated(dev))
+
+
+def peak_bytes(torch, dev, before: int) -> int:
+    """The card's peak allocated bytes since ``peak_reset`` above
+    ``before``."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return int(torch.cuda.max_memory_allocated(dev)) - before
+
+
+def paged_policy(page_rows=PAGED_ROWS, cache_bytes=PAGED_MB << 20, **kw):
+    from repro_torch.core import ResidencyPolicy
+    return ResidencyPolicy("paged", page_rows, cache_bytes, **kw)
+
+
+def paged_gather(torch, np, dev, dirs):
+    """(a) In each residency, a paged store over the memory-mapped v3
+    files gathers PAGED_GATHER seeded ids equal, bit for bit, to the whole
+    store loaded from the same files."""
+    from repro_torch.graph import load_corpus_store
+    out = {}
+    for dtype in RESIDENCIES:
+        paged = load_corpus_store(dirs[dtype], residency=paged_policy(),
+                                  device=dev)
+        whole = load_corpus_store(dirs[dtype], device=dev)
+        ids = torch.as_tensor(np.random.default_rng(3).integers(
+            0, whole.n, PAGED_GATHER), device=dev)
+        t0 = time.perf_counter()
+        rows = paged.take(ids)
+        gather_s = time.perf_counter() - t0
+        require(torch.equal(rows, whole.take(ids)), f"paged gather "
+                f"{dtype}: rows differ from the whole store's")
+        st = paged.stats_snapshot()
+        out[dtype] = {"gather_s": gather_s, "faults": st.faults,
+                      "peak_resident_bytes": st.peak_resident_bytes}
+        log(f"paged (a) {dtype}: {PAGED_GATHER} ids from the memory-mapped "
+            f"files = the whole store bit for bit; gather {gather_s * 1e3:.1f}"
+            f"ms, {st.faults} faults, peak resident "
+            f"{st.peak_resident_bytes / 2**20:.2f} MiB")
+    return out
+
+
+def paged_serve(torch, np, dev, graph, dirs):
+    """(b) ``serve --index DIR --residency paged`` per PAGED_RUNS at the
+    serve phase's settings: each run's ids, scores and counters equal, bit
+    for bit, the whole-resident serve of the same files on the unfused
+    path at its dtype (and, at float32, the fused one); against the whole
+    fused serve at bf16/int8 the share of equal ids and recall are logged.
+    Each run launches its family's pre-gathered kernels only: the rank
+    and grad kernels once per step, the score kernel once per step and
+    once per batch (init). The pager's peak footprint stays within its
+    budget plus one gather's pages (Q x (1+B) ids)."""
+    from repro_torch.core import (EngineOptions, SearchConfig,
+                                  make_family_measure)
+    from repro_torch.graph import load_corpus_store
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    common = ["--queries", "320", "--batch", "32", "--ef", "64", "--budget",
+              "8", "--alpha", "1.01", "--k", "10", "--device", str(dev)]
+    base_t = torch.as_tensor(graph.base, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    gather_ids = 32 * (1 + graph.max_degree)
+    out = {}
+    for label, dtype, extra, rows, mb in PAGED_RUNS:
+        argv = (common + ["--index", dirs[dtype]] + extra
+                + ["--residency", "paged", "--page-rows", str(rows),
+                   "--cache-mb", str(mb)])
+        args = serve.parse_args(argv)
+        args.items, args.dim = graph.base.shape
+        options = serve.engine_options(args)
+        family = args.measure
+        got = []
+        before = peak_reset(torch, dev)
+        reset_launch_counts()
+        summary = serve.main(argv, results=got)
+        counts = launch_counts()
+        mem_paged = peak_bytes(torch, dev, before)
+        path = KERNELS_OF[(family, False)]
+        score, rank, grad = path
+        for name, n in counts.items():
+            require(n > 0 if name in path else n == 0,
+                    f"paged serve {label}: kernel {name} launched {n} "
+                    f"times; the pre-gathered path's kernels are {path}")
+        require(counts[rank] == counts[grad] == counts[score] - len(got),
+                f"paged serve {label}: launches {counts} are not one per "
+                f"step (+1 score per batch of {len(got)})")
+        # the whole-resident serve of the same files with the same flags
+        whole_argv = argv[:argv.index("--residency")]
+        same_flags = []
+        before = peak_reset(torch, dev)
+        w_summ = serve.main(whole_argv, results=same_flags)
+        mem_whole = peak_bytes(torch, dev, before)
+        if options.fused:
+            # the unfused path at this dtype, the one a paged store runs
+            measure = make_family_measure(
+                family, torch.Generator().manual_seed(0), 40, device=dev)
+            cfg = SearchConfig(k=args.k, ef=args.ef, mode=args.mode,
+                               budget=args.budget, alpha=args.alpha)
+            unfused = []
+            serve.serve_oneshot(
+                args, graph, measure, cfg,
+                EngineOptions(fused=False, corpus_dtype=dtype),
+                load_corpus_store(dirs[dtype], device=dev), nbrs, base_t,
+                np.random.default_rng(0), dev, results=unfused)
+        else:
+            unfused = same_flags
+        require(len(got) == len(unfused) == 10 and all(
+            same_result(torch, a, b) for a, b in zip(got, unfused)),
+            f"paged serve {label}: results differ from the whole unfused "
+            f"serve of the same files")
+        entry = {**summary, "launches": counts,
+                 "device_bytes": mem_paged, "whole_device_bytes": mem_whole,
+                 "whole_qps": w_summ["qps"], "whole_p50_ms": w_summ["p50_ms"]}
+        vs_fused = ""
+        if options.fused:
+            agree = float(np.mean([
+                float((a.ids == b.ids).float().mean())
+                for a, b in zip(got, same_flags)]))
+            exact = all(same_result(torch, a, b)
+                        for a, b in zip(got, same_flags))
+            if dtype == "float32":
+                require(exact, f"paged serve {label}: results differ from "
+                        f"the whole fused serve at float32")
+            entry.update(fused_equal=exact, fused_ids_agree=agree,
+                         fused_recall=w_summ["recall"])
+            vs_fused = (f"; against the whole fused serve: "
+                        f"{'bit for bit' if exact else 'differs'}, ids "
+                        f"agree {agree:.4f}, recall@10 {w_summ['recall']:.4f}"
+                        f" vs {summary['recall']:.4f}")
+        pg = summary["pager"]
+        page_bytes = rows * row_bytes(dtype, 40)
+        budget = mb << 20
+        require(pg["peak_resident_bytes"] <= budget + gather_ids * page_bytes,
+                f"paged serve {label}: peak resident "
+                f"{pg['peak_resident_bytes']} B > budget {budget} + one "
+                f"gather's {gather_ids} pages of {page_bytes} B")
+        us = summary["paged_us_per_step"]
+        hit_rate = pg["hits"] / max(1, pg["hits"] + pg["faults"])
+        log(f"paged (b) {label} ({dtype} files, {rows}-row pages, {mb} MiB):"
+            f" QPS={summary['qps']:.1f} p50={summary['p50_ms']:.3f}ms "
+            f"p95={summary['p95_ms']:.3f}ms per batch of 32 (whole "
+            f"{w_summ['qps']:.1f} QPS, p50 {w_summ['p50_ms']:.3f}ms), "
+            f"{summary['steps_per_batch']:.1f} steps per batch; host us per "
+            f"step: replays {us['replay']:.1f}, ids sync {us['sync']:.1f}, "
+            f"pager gather {us['gather']:.1f}, tile copy {us['h2d']:.1f}; "
+            f"pager hits {pg['hits']} faults {pg['faults']} evictions "
+            f"{pg['evictions']} hit rate {hit_rate:.4f} peak resident "
+            f"{pg['peak_resident_bytes'] / 2**20:.2f} MiB; device memory "
+            f"the serve allocates (max_memory_allocated above what was "
+            f"allocated before it) paged {mem_paged / 2**20:.1f} MiB, whole "
+            f"{mem_whole / 2**20:.1f} MiB; = the whole unfused serve bit for "
+            f"bit{vs_fused}; launches {counts}")
+        out[label] = entry
+    return out
+
+
+def paged_continuous(torch, np, dev, graph, dirs):
+    """(c) ContinuousRuntime over the paged int8 store of the saved files
+    (32 lanes, 8 steps per tick, 320 requests: a backlog, then Poisson at
+    0.8x its throughput): every completion equals the whole-resident int8
+    runtime's (unfused: the path a paged store runs) bit for bit."""
+    from repro_torch.core import EngineOptions, build_engine
+    from repro_torch.graph import load_corpus_store
+    from repro_torch.serving import (ContinuousRuntime, Request,
+                                     ServingMetrics, poisson_arrivals)
+    from repro_torch.core import SearchConfig, make_family_measure
+    measure = make_family_measure("deepfm", torch.Generator().manual_seed(0),
+                                  40, device=dev)
+    cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01)
+    eng = build_engine(measure, cfg, EngineOptions(corpus_dtype="int8"))
+    queries = np.random.default_rng(11).normal(
+        size=(CONTINUOUS_N, 40)).astype(np.float32)
+
+    def runtime(store):
+        rt = ContinuousRuntime(eng, measure.params, store, graph.neighbors,
+                               n_lanes=CONTINUOUS_LANES, query_dim=40,
+                               entry=graph.entry,
+                               steps_per_tick=CONTINUOUS_SPT, device=dev)
+        rt.warmup(queries[0])
+        return rt
+    whole_rt = runtime(load_corpus_store(dirs["int8"], device=dev))
+    want = {c.rid: c for c in whole_rt.run_stream(
+        [Request(rid=i, query=queries[i]) for i in range(CONTINUOUS_N)])}
+    rt = runtime(load_corpus_store(dirs["int8"], residency=paged_policy(),
+                                   device=dev))
+    out, capacity = {}, None
+    for run in ("backlog", "poisson"):
+        offsets = (np.zeros(CONTINUOUS_N) if run == "backlog" else
+                   poisson_arrivals(CONTINUOUS_N, 0.8 * capacity, seed=1))
+        rt.metrics = ServingMetrics(CONTINUOUS_LANES)
+        runs0, ticks0 = sum(rt.program.runs.values()), rt._n_ticks
+        comps = rt.run_stream([Request(rid=i, query=queries[i],
+                                       t_arrive=float(offsets[i]))
+                               for i in range(CONTINUOUS_N)])
+        by = {c.rid: c for c in comps}
+        require(len(by) == CONTINUOUS_N and all(c.status == "ok"
+                                                 for c in comps),
+                f"paged continuous {run}: {len(by)} resolved, statuses "
+                f"{sorted({c.status for c in comps})}")
+        for i in range(CONTINUOUS_N):
+            a, b = by[i], want[i]
+            require(np.array_equal(a.ids, b.ids)
+                    and np.array_equal(a.scores, b.scores)
+                    and (a.n_eval, a.n_grad, a.n_iters)
+                    == (b.n_eval, b.n_grad, b.n_iters),
+                    f"paged continuous {run}: request {i} differs from the "
+                    f"whole-resident runtime's")
+        m = rt.metrics.summary()
+        ticks = rt._n_ticks - ticks0
+        runs = (sum(rt.program.runs.values()) - runs0) / max(1, ticks)
+        if run == "backlog":
+            capacity = m["qps"]
+        st = rt.store.stats_snapshot()
+        out[run] = {**m, "runs_per_tick": runs, "ticks": ticks,
+                    "pager_hit_rate": st.hit_rate}
+        log(f"paged (c) continuous int8 {run}: {CONTINUOUS_N} requests, "
+            f"throughput {m['qps']:.1f} QPS"
+            + ("" if run == "backlog" else
+               f" at offered {0.8 * capacity:.1f}")
+            + f", latency p50={m['p50_ms']:.3f}ms p99={m['p99_ms']:.3f}ms, "
+            f"{runs:.2f} program runs per tick over {ticks} ticks, pager "
+            f"hit rate {st.hit_rate:.4f}; every completion = the whole "
+            f"int8 runtime's bit for bit")
+    out["capacity_qps"] = capacity
+    return out
+
+
+def paged_sharded(torch, np, dev, idx):
+    """(d) The phase 8 4-shard index (DeepFM int8 on the pre-gathered
+    path): ``sharded_search_stores`` over paged shard stores = over whole
+    ones bit for bit; then ``ShardedContinuousRuntime`` over paged shards
+    (64-row pages, SHARD_PAGED_KB each) with page-read faults on shard 1
+    (installed after the warm-up): transient errors absorbed by retries,
+    persistent ones degrading to the whole host copy (answers unchanged
+    bit for bit), and, with ``fallback_bytes`` below the payload, a
+    ``CorpusUnavailableError`` that strikes shard 1 until its breaker
+    opens, the partial answers free of its ids."""
+    from repro_torch.core import (EngineOptions, SearchConfig, build_engine,
+                                  make_family_measure, shard_stores,
+                                  sharded_search_stores)
+    from repro_torch.serving import (FaultEvent, FaultPlan,
+                                     ShardedContinuousRuntime)
+    measure = make_family_measure("deepfm", torch.Generator().manual_seed(0),
+                                  40, device=dev)
+    cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01)
+    options = EngineOptions(corpus_dtype="int8")
+    queries = np.random.default_rng(13).normal(
+        size=(PAGED_SHARD_N, 40)).astype(np.float32)
+    paged = shard_stores(idx, "int8", devices=[dev], residency=paged_policy(
+        cache_bytes=SHARD_PAGED_KB << 10))
+    whole = idx.stores("int8", [dev])
+    qt = torch.as_tensor(queries[:32], device=dev)
+    a = sharded_search_stores(measure, paged, idx, qt, cfg, options)
+    b = sharded_search_stores(measure, whole, idx, qt, cfg, options)
+    require(same_result(torch, a, b), "paged sharded: sharded_search_stores "
+            "over paged shards differs from over whole ones")
+    log(f"paged (d) sharded_search_stores over {idx.n_shards} paged shards "
+        f"= over whole ones bit for bit (32 queries)")
+    eng = build_engine(measure, cfg, options)
+
+    def run(name, events, fallback_bytes=None):
+        pol = paged_policy(cache_bytes=SHARD_PAGED_KB << 10,
+                           retry_backoff_s=0.0,
+                           fallback_bytes=fallback_bytes)
+        rt = ShardedContinuousRuntime(eng, measure.params, idx, FD_LANES,
+                                      40, steps_per_tick=FD_SPT,
+                                      k_failures=3, cooldown_rounds=4,
+                                      devices=[dev], residency=pol)
+        rt.warmup(queries[0])
+        if events:
+            rt.runtimes[1].store.set_read_hook(
+                FaultPlan(events, seed=0).pager_hook("pager"))
+        got = fd_drive(rt, queries)
+        require(sorted(got) == list(range(PAGED_SHARD_N)),
+                f"paged sharded {name}: {len(got)} rids resolved")
+        st = rt.runtimes[1].store.stats_snapshot()
+        return rt, got, st
+    _, healthy, _ = run("healthy", [])
+    require(all(c.status == "ok" for c in healthy.values()),
+            "paged sharded healthy: not every rid ok")
+    out = {}
+    for name, events, fb in (
+            ("transient", [FaultEvent("page_io_error", site="pager",
+                                      start=0, count=2)], None),
+            ("persistent", [FaultEvent("page_io_error", site="pager",
+                                       start=0, count=10**9)], None),
+            ("unavailable", [FaultEvent("page_io_error", site="pager",
+                                        start=0, count=10**9)], 1)):
+        rt, got, st = run(name, events, fb)
+        statuses = collections.Counter(c.status for c in got.values())
+        if name != "unavailable":
+            require(all(c.status == "ok" for c in got.values()) and all(
+                np.array_equal(c.ids, healthy[r].ids)
+                and np.array_equal(c.scores, healthy[r].scores)
+                for r, c in got.items()),
+                f"paged sharded {name}: answers differ from the healthy "
+                f"run ({dict(statuses)})")
+        if name == "transient":
+            require(st.retries > 0 and st.fallback == "",
+                    f"paged sharded transient: {st}")
+        elif name == "persistent":
+            require(st.fallback == "whole" and st.io_errors > 0,
+                    f"paged sharded persistent: {st}")
+        else:
+            dead = idx.global_ids[1]
+            require(rt.health.n_opened >= 1 and statuses["partial"] > 0,
+                    f"paged sharded unavailable: {rt.health.n_opened} "
+                    f"opens, {dict(statuses)}")
+            for c in got.values():
+                live = c.ids[c.ids >= 0]
+                require(c.status == "ok" or not np.isin(live, dead).any(),
+                        f"paged sharded unavailable: rid {c.rid} "
+                        f"({c.status}) holds ids of shard 1")
+        out[name] = {"statuses": dict(statuses), "retries": st.retries,
+                     "io_errors": st.io_errors, "fallback": st.fallback,
+                     "breaker_opens": rt.health.n_opened}
+        log(f"paged (d) sharded continuous, shard 1 {name}: "
+            f"{dict(statuses)}, shard 1 pager retries {st.retries} "
+            f"io_errors {st.io_errors} mode {st.fallback or 'paged'}, "
+            f"breaker opens {rt.health.n_opened}"
+            + ("" if name == "unavailable" else
+               "; answers = the healthy run bit for bit"))
+    return out
+
+
+def paged_mutation(torch, np, dev, graph, root):
+    """(e) Streaming mutation of the serve phase's N=100,000 graph:
+    ``DurableIndex.create``, an insert of MUTATE_ROWS seeded N(0,1) rows
+    (seconds, rows/s), a checkpoint; recall@10 of the grown index at least
+    an exact rebuild's over the same rows less 0.01; the whole search's
+    top-3 answers of MUTATE_QUERIES queries deleted, never returned by a
+    paged search of the checkpoint; compact round-trips through v3; a kill
+    at each of the four durability stages of the delete recovers exactly
+    the uninterrupted index; ``install_index`` of the grown index into a
+    running paged runtime: lanes in flight finish on epoch 0, epoch 1
+    answers = the one-shot search of the new index bit for bit."""
+    import shutil
+    from repro_torch.core import (EngineOptions, SearchConfig,
+                                  brute_force_topk, build_engine,
+                                  make_corpus_store, make_family_measure,
+                                  recall)
+    from repro_torch.graph import (DurableIndex, build_l2_graph, compact,
+                                   load_corpus_store, load_index, save_index)
+    from repro_torch.serving import (ContinuousRuntime, FaultEvent,
+                                     FaultPlan, InjectedKill)
+    measure = make_family_measure("deepfm", torch.Generator().manual_seed(0),
+                                  40, device=dev)
+    cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01)
+    eng = build_engine(measure, cfg, EngineOptions())
+    q = torch.as_tensor(np.random.default_rng(17).normal(
+        size=(MUTATE_QUERIES, 40)).astype(np.float32), device=dev)
+    new = np.random.default_rng(19).normal(
+        size=(MUTATE_ROWS, 40)).astype(np.float32)
+
+    def search(g, store=None):
+        store = store if store is not None else make_corpus_store(
+            g.base, device=dev, tombstones=g.tombstones)
+        return eng.search(measure.params, store,
+                          torch.as_tensor(g.neighbors, device=dev), q,
+                          torch.full((q.shape[0],), g.entry, device=dev))
+
+    path = os.path.join(root, "mutate")
+    t0 = time.perf_counter()
+    d = DurableIndex.create(path, graph, device=dev)
+    create_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grown = d.insert(new)
+    insert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d.checkpoint()
+    ckpt_s = time.perf_counter() - t0
+    require(grown.n == graph.n + MUTATE_ROWS, f"mutate: {grown.n} rows")
+    t0 = time.perf_counter()
+    rebuilt = build_l2_graph(grown.base, m=24, k_construction=100,
+                             exact_threshold=grown.n, device=dev)
+    rebuild_s = time.perf_counter() - t0
+    base_t = torch.as_tensor(grown.base, device=dev)
+    true_ids = brute_force_topk(measure, base_t, q, 10)[0]
+    r_inc = recall(search(grown).ids, true_ids)
+    r_reb = recall(search(rebuilt).ids, true_ids)
+    log(f"paged (e) mutation N={graph.n}: create {create_s:.2f}s, insert "
+        f"{MUTATE_ROWS} rows in {insert_s:.2f}s ({MUTATE_ROWS / insert_s:.0f}"
+        f" rows/s), checkpoint {ckpt_s:.2f}s; recall@10 on "
+        f"{MUTATE_QUERIES} queries: grown {r_inc:.4f}, exact rebuild "
+        f"{r_reb:.4f} (built in {rebuild_s:.2f}s)")
+    require(r_inc >= r_reb - 0.01, f"mutate: recall@10 of the grown index "
+            f"{r_inc:.4f} < the exact rebuild's {r_reb:.4f} - 0.01")
+    # the delete, under the kill matrix
+    victims = np.unique(search(grown).ids[:, :3].cpu().numpy())
+    victims = victims[victims >= 0]
+    snapshot = os.path.join(root, "mutate-s0")
+    shutil.copytree(path, snapshot)
+    t0 = time.perf_counter()
+    final = d.delete(victims)
+    delete_s = time.perf_counter() - t0
+    d.checkpoint()
+
+    def same_index(a, b):
+        ta = np.zeros(a.n, bool) if a.tombstones is None else a.tombstones
+        tb = np.zeros(b.n, bool) if b.tombstones is None else b.tombstones
+        return (np.array_equal(a.base, b.base)
+                and np.array_equal(a.neighbors, b.neighbors)
+                and a.entry == b.entry and np.array_equal(ta, tb))
+    for stage in ("pre-journal", "post-journal", "pre-save", "post-save"):
+        kdir = os.path.join(root, f"mutate-kill-{stage}")
+        shutil.copytree(snapshot, kdir)
+        plan = FaultPlan([FaultEvent("kill", site=f"mutate/{stage}")])
+        k = DurableIndex.open(kdir, kill_hook=plan.kill_hook(), device=dev)
+        try:
+            k.delete(victims)
+            k.checkpoint()
+            raise SmokeFailure(f"mutate: no kill at {stage}")
+        except InjectedKill:
+            pass
+        r = DurableIndex.open(kdir, device=dev)
+        if len(r.journal.ops) < len(d.journal.ops):
+            r.delete(victims)       # a pre-journal death lost the op
+        require(same_index(r.index, final), f"mutate: recovery after a "
+                f"kill at {stage} differs from the uninterrupted index")
+        shutil.rmtree(kdir)
+    # paged serve of the checkpoint never returns a deleted row
+    paged = load_corpus_store(path, residency=paged_policy(), device=dev)
+    ids = search(final, paged).ids.cpu().numpy()
+    require(not np.isin(ids[ids >= 0], victims).any() and (ids >= 0).any(),
+            "mutate: a deleted row surfaced in the paged search")
+    # compact round-trips through v3
+    small = compact(final)
+    cdir = os.path.join(root, "mutate-compact")
+    save_index(cdir, small)
+    back = load_index(cdir)
+    require(same_index(back, small) and small.n == final.n - victims.size,
+            "mutate: compact did not round-trip through v3")
+    # install_index of the grown index into a running paged runtime
+    rt = ContinuousRuntime(eng, measure.params,
+                           make_corpus_store(graph.base, device=dev,
+                                             residency=paged_policy()),
+                           graph.neighbors, n_lanes=CONTINUOUS_LANES,
+                           query_dim=40, entry=graph.entry,
+                           steps_per_tick=CONTINUOUS_SPT, device=dev)
+    qn = q.cpu().numpy()
+    for i in range(16):
+        rt.submit(qn[i], rid=i)
+    rt.step_once()
+    in_flight = rt.in_flight
+    grown_paged = load_corpus_store(path, residency=paged_policy(),
+                                    device=dev).with_tombstones(None)
+    rt.install_index(grown_paged, grown.neighbors, grown.entry)
+    for i in range(16, MUTATE_QUERIES):
+        rt.submit(qn[i], rid=i)
+    comps = {}
+    while len(comps) < MUTATE_QUERIES:
+        for c in rt.step_once():
+            comps[c.rid] = c
+    ref = search(grown)
+    require(in_flight > 0 and all(comps[i].epoch == 0 for i in range(16))
+            and all(comps[i].epoch == 1
+                    for i in range(16, MUTATE_QUERIES)),
+            f"mutate: epochs {[comps[i].epoch for i in sorted(comps)]}")
+    for i in range(16, MUTATE_QUERIES):
+        require(np.array_equal(comps[i].ids, ref.ids[i].cpu().numpy())
+                and np.array_equal(comps[i].scores,
+                                   ref.scores[i].cpu().numpy()),
+                f"mutate: epoch 1 request {i} differs from the one-shot "
+                f"search of the grown index")
+    log(f"paged (e) mutation: deleted {victims.size} rows (the top-3 "
+        f"answers of {MUTATE_QUERIES} queries) in {delete_s * 1e3:.1f}ms, "
+        f"none returned by the paged search of the checkpoint; kills at "
+        f"the four stages recover the uninterrupted index exactly; compact "
+        f"({small.n} rows) round-trips through v3; install_index into a "
+        f"paged runtime: {in_flight} lanes in flight finished on epoch 0, "
+        f"epoch 1 = the one-shot search of the grown index bit for bit")
+    return {"create_s": create_s, "insert_s": insert_s,
+            "insert_rows_per_s": MUTATE_ROWS / insert_s,
+            "checkpoint_s": ckpt_s, "delete_s": delete_s,
+            "recall_grown": r_inc, "recall_rebuild": r_reb,
+            "rebuild_s": rebuild_s, "deleted": int(victims.size)}
+
+
+def paged_launcher(torch, np, dev, dirs, root):
+    """(f) ``serve --runtime continuous --index DIR --residency paged`` over
+    the int8 files with a chaos plan of page-read faults (absorbed by retries), the health
+    line, tracing at sample 1 and the registry: the health line carries
+    ``pager(mode=...)``, the exposition the ``repro_pager_*`` families,
+    the trace ``site="pager"`` spans."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultEvent, FaultPlan
+    plan = os.path.join(root, "pager-chaos.json")
+    FaultPlan([FaultEvent("page_io_error", site="pager", start=5, count=2)],
+              seed=0).save(plan)
+    spans = os.path.join(root, "paged-spans.jsonl")
+    prom = os.path.join(root, "paged-metrics.prom")
+    argv = ["--runtime", "continuous", "--index", dirs["int8"],
+            "--corpus-dtype", "int8", "--residency", "paged", "--page-rows", str(PAGED_ROWS),
+            "--cache-mb", str(PAGED_MB), "--queries", "320",
+            "--offered-qps", "200", "--lanes", "32", "--chaos", plan,
+            "--health-every", "0.5", "--trace-sample", "1", "--trace-out",
+            spans, "--metrics-out", prom, "--device", str(dev)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = serve.main(argv)
+    text = buf.getvalue()
+    health = [ln for ln in text.splitlines() if ln.startswith("[health]")]
+    require(health and all("pager(mode=" in ln and "hit_rate=" in ln
+                           for ln in health),
+            f"paged launcher: health lines {health[-2:]}")
+    with open(prom) as f:
+        families = sorted({ln.split()[2] for ln in f
+                           if ln.startswith("# TYPE repro_pager_")})
+    require(len(families) == 8, f"paged launcher: pager families "
+            f"{families}")
+    with open(spans) as f:
+        pager_spans = sum(json.loads(ln).get("site") == "pager" for ln in f)
+    require(pager_spans > 0, "paged launcher: no site=pager span")
+    h = summary["health"]["pager"]
+    log(f"paged (f) launcher: serve --runtime continuous --index "
+        f"--residency paged --chaos --health-every --trace-sample 1 "
+        f"--trace-out --metrics-out: {summary['qps']:.1f} QPS at offered "
+        f"200, p50={summary['p50_ms']:.3f}ms; {len(health)} health lines, "
+        f"the last: {health[-1]}; {len(families)} repro_pager_* families; "
+        f"{pager_spans} site=pager spans; pager retries {h['retries']}")
+    require(h["retries"] > 0 and h["mode"] == "paged",
+            f"paged launcher: pager health {h}")
+    return {"qps": summary["qps"], "p50_ms": summary["p50_ms"],
+            "health_lines": len(health), "pager_families": families,
+            "pager_spans": pager_spans, "pager": h}
+
+
+def check_paged(torch, np, dev, graph, dirs, idx, serve_graph, root):
+    """Phase 10: paged residency over the index phase's N=739,991 files
+    ((a)-(c), (f)), over its 4-shard index (d), and streaming mutation of
+    the serve phase's N=100,000 graph (e)."""
+    t_phase = time.perf_counter()
+    out, secs = {}, {}
+    for name, fn in (
+            ("gather", lambda: paged_gather(torch, np, dev, dirs)),
+            ("serve", lambda: paged_serve(torch, np, dev, graph, dirs)),
+            ("continuous", lambda: paged_continuous(torch, np, dev, graph,
+                                                    dirs)),
+            ("sharded", lambda: paged_sharded(torch, np, dev, idx)),
+            ("mutation", lambda: paged_mutation(torch, np, dev, serve_graph,
+                                                root)),
+            ("launcher", lambda: paged_launcher(torch, np, dev, dirs,
+                                                root))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"paged: phase 10 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + ")")
+    return out
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -3519,8 +4123,8 @@ def main() -> int:
         results["continuous"] = {
             label: check_continuous(torch, np, dev, ctx[label], label)
             for label in CONTINUOUS_RUNS}
-        results["index"], sharded_idx = check_index(torch, np, dev, ctx,
-                                                    results["serve"])
+        results["index"], sharded_idx, results["paged"] = check_index(
+            torch, np, dev, ctx, results["serve"])
         results["fault_domain"] = check_fault_domain(torch, np, dev, ctx,
                                                      sharded_idx)
     except SmokeFailure as e:

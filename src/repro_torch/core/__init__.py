@@ -1,13 +1,18 @@
-"""Search core of the port: measures, corpus residency, the bundle
-registry, the expansion engine (and the captured programs it runs as,
-``core/program.py``), the search API, corpus-sharded search, the BEGIN
-graph and the paper-faithful numpy searcher."""
+"""Search core of the port: measures, corpus residency (whole and paged),
+the bundle registry, the expansion engine (and the captured programs it
+runs as, ``core/program.py``), the search API, corpus-sharded search, the
+BEGIN graph, the paper-faithful numpy searcher, and (re-exported from
+``graph``) streaming index mutation."""
 from repro_torch.core.bundles import (MeasureKernelBundle, get_bundle,  # noqa: F401
                                       list_families, register_bundle,
                                       resolve_stages)
 from repro_torch.core.corpus import (CORPUS_DTYPES,  # noqa: F401
-                                     CorpusStore, as_corpus_store,
-                                     make_corpus_store, store_from_arrays)
+                                     WHOLE, CorpusStore,
+                                     CorpusUnavailableError, PageCacheStats,
+                                     PagedCorpusStore, ResidencyPolicy,
+                                     as_corpus_store, make_corpus_store,
+                                     make_paged_store, pack_bitmap,
+                                     store_from_arrays, unpack_bitmap)
 from repro_torch.core.engine import (EngineOptions, EngineState,  # noqa: F401
                                      ExpansionEngine, SearchConfig,
                                      SearchResult, build_engine,
@@ -29,3 +34,9 @@ from repro_torch.core.sharded import (ShardedIndex,  # noqa: F401
                                       merge_topk, shard_stores,
                                       sharded_search_host,
                                       sharded_search_stores)
+from repro_torch.graph.mutate import (DurableIndex,  # noqa: F401
+                                      MutationJournal, append_journal,
+                                      apply_op, compact, delete_rows,
+                                      insert_rows, load_journal,
+                                      recover_index, save_journal)
+from repro_torch.graph.prune import occlusion_prune_nodes  # noqa: F401

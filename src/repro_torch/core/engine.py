@@ -26,10 +26,17 @@ rows inside the kernels (``neighbor_rank_fused``, ``deepfm_score_fused``,
 hands back the dequantized frontier rows for the rank stage. At float32
 residency the fused search equals the unfused one bit for bit, ids and
 scores. The unfused stages run on a quantized store as well
-(``store.take`` dequantizes). The JAX engine's ``tile`` plan (one combined
-gather per step, there to stop XLA:CPU re-inlining gathers) is not ported:
-the port always gathers in the kernels, as the Pallas kernels do. A store
-with tombstones scores deleted entries and candidates -inf.
+(``store.take`` dequantizes). A store with tombstones scores deleted
+entries and candidates -inf.
+
+Paged residency (``core.corpus.PagedCorpusStore``): each step gathers ONE
+(Q, 1+B) block of rows, ``[frontier | neighbors]`` of every lane (inactive
+ones included, as the JAX tile plan does), through the host pager, and the
+grad, rank and measure stages run pre-gathered on slices of it whatever
+``EngineOptions.fused`` says (the fused kernels read ``store.data``, which
+a paged store does not hold). The JAX engine's ``tile`` knob and its
+autotuned plans for whole stores are not ported: a whole store gathers in
+the kernels (fused) or per stage (unfused).
 
 Two execution paths share the same stage code, as in the JAX package:
 
@@ -48,6 +55,19 @@ Two execution paths share the same stage code, as in the JAX package:
   ``jit_steps=False``), the yardstick the captured search is held
   against; both return the same ids, scores and counters bit for bit.
 
+A captured graph cannot call back into the host, so a paged search runs
+each step as two captured halves with the pager between them (the JAX
+package calls the pager inside its jitted step, ``jax.pure_callback``):
+``pre`` replays the pop and writes the step's (Q, 1+B) ids and the lanes'
+``done`` flags into a buffer; the host copies it into pinned memory,
+synchronizes, stops if every lane is done (the JAX ``while_loop``'s check,
+so the pager sees exactly the JAX search's gathers), gathers the rows
+through the pager into a pinned (Q, 1+B, D) tile and copies it into a
+static device buffer; ``post`` replays the step (the pop again, so its
+arithmetic is exactly ``step``'s) on that buffer, and ``_freeze_done``
+(``PagedFeed``). ``init`` reads the entries' rows from a buffer the host
+fills.
+
 The continuous runtime's lane lifecycle is ``reset_lanes`` (a lane-masked
 ``init_state``) and ``idle_state`` (every lane parked, ``done``).
 
@@ -56,8 +76,7 @@ Counters follow the paper's Table-2 accounting: ``n_eval`` counts effective
 expansions. Ids are int64 (torch's index type); the visited bitmap holds
 32-bit words in int64 lanes.
 
-Not ported yet: paged residency and the ``tile`` plan and autotune; see
-ROADMAP.md.
+Not ported yet: the ``tile`` knob and autotune; see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -67,12 +86,14 @@ import functools
 import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.bundles import resolve_stages
-from repro_torch.core.corpus import (CORPUS_DTYPES, CorpusStore,
-                                     as_corpus_store, bit_test_global)
+from repro_torch.core.corpus import (CORPUS_DTYPES, AnyCorpusStore,
+                                     PagedCorpusStore, as_corpus_store,
+                                     bit_test_global)
 from repro_torch.core.program import StateProgram
 from repro_torch.kernels.neighbor_rank import neighbor_rank
 from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
@@ -328,6 +349,95 @@ def default_insert_stage(state: EngineState, ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the host side of a paged step
+# ---------------------------------------------------------------------------
+
+def paged_buffers(Q: int, B: int, D: int, device) -> dict:
+    """A paged program's device buffers: ``ids`` ((Q, 2+B) int64, written
+    by ``pre``), ``tile`` ((Q, 1+B, D) float32, read by ``post``) and
+    ``entry_rows`` ((Q, D) float32, read by init / reset)."""
+    return {"ids": torch.zeros((Q, 2 + B), dtype=torch.int64,
+                               device=device),
+            "tile": torch.zeros((Q, 1 + B, D), dtype=torch.float32,
+                                device=device),
+            "entry_rows": torch.zeros((Q, D), dtype=torch.float32,
+                                      device=device)}
+
+
+class PagedFeed:
+    """Runs a paged program's steps (``pre``, the pager, ``post``) and
+    fills its entry rows, through pinned host buffers on a card.
+
+    Ordering: every copy goes on the current stream, the one the graphs
+    replay on. The host rewrites ``tile_host`` only after the next step's
+    ids copy has been synchronized, which stream order puts after the
+    previous tile's host-to-device copy, so that copy has finished; the
+    entries' copy is fenced by an event. A pageable source would make the
+    copies synchronous. ``times`` sums each step's host seconds by part:
+    the two replays, the ids sync (which waits for the card), the pager
+    gather and issuing the tile copy."""
+
+    def __init__(self, store: PagedCorpusStore, buffers: dict):
+        self.store = store
+        self.bufs = buffers
+        self.device = buffers["tile"].device
+        pin = self.device.type == "cuda"
+
+        def host(t):
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+        self.ids_host = host(buffers["ids"])
+        self.tile_host = host(buffers["tile"])
+        self.entry_host = host(buffers["entry_rows"])
+        self._entry_done = None
+        self.times = {"replay_s": 0.0, "sync_s": 0.0, "gather_s": 0.0,
+                      "h2d_s": 0.0}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def load_entries(self, entries) -> None:
+        """Gather the (Q,) entries' rows through the pager into the
+        ``entry_rows`` buffer (for the next init or reset)."""
+        if self._entry_done is not None:
+            self._entry_done.synchronize()
+        self.store.cache.gather(np.asarray(entries),
+                                out=self.entry_host.numpy())
+        self.bufs["entry_rows"].copy_(self.entry_host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._entry_done = torch.cuda.Event()
+            self._entry_done.record(torch.cuda.current_stream(self.device))
+
+    def step(self, prog: StateProgram, stop_when_done: bool) -> bool:
+        """One paged step. With ``stop_when_done``, returns True without
+        gathering when every lane was already done (nothing ran but
+        ``pre``)."""
+        t0 = time.perf_counter()
+        prog.run("pre")
+        t1 = time.perf_counter()
+        self.ids_host.copy_(self.bufs["ids"], non_blocking=True)
+        self._sync()
+        t2 = time.perf_counter()
+        ids = self.ids_host.numpy()
+        tm = self.times
+        if stop_when_done and ids[:, -1].all():
+            tm["replay_s"] += t1 - t0
+            tm["sync_s"] += t2 - t1
+            return True
+        self.store.cache.gather(ids[:, :-1], out=self.tile_host.numpy())
+        t3 = time.perf_counter()
+        self.bufs["tile"].copy_(self.tile_host, non_blocking=True)
+        t4 = time.perf_counter()
+        prog.run("post")
+        t5 = time.perf_counter()
+        tm["replay_s"] += (t1 - t0) + (t5 - t4)
+        tm["sync_s"] += t2 - t1
+        tm["gather_s"] += t3 - t2
+        tm["h2d_s"] += t4 - t3
+        return False
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
@@ -359,15 +469,22 @@ class ExpansionEngine:
             c = self.c_max
         return min(c, max_degree)
 
-    def init_state(self, params, store: CorpusStore, neighbors, queries,
-                   entries, iter_caps=None, taus=None) -> EngineState:
-        """Seed each pool with its entry point (one measure call)."""
+    def init_state(self, params, store: AnyCorpusStore, neighbors, queries,
+                   entries, iter_caps=None, taus=None,
+                   entry_rows=None) -> EngineState:
+        """Seed each pool with its entry point (one measure call). A paged
+        store seeds from ``entry_rows`` ((Q, D) float32, the entries' rows
+        the host gathered) or, without them, one ``store.take``."""
         Q = queries.shape[0]
         ef = self.cfg.ef
         dev = queries.device
         nwords = (store.n + 31) // 32
         entries = entries.long()
-        if self.measure_fused is not None:
+        if store.is_paged:
+            rows = entry_rows if entry_rows is not None \
+                else store.take(entries)
+            e_scores = self.measure(params, rows, queries)
+        elif self.measure_fused is not None:
             e_scores = self.measure_fused(params, store, entries, queries)
         else:
             e_scores = self.measure(params, store.take(entries), queries)
@@ -402,40 +519,49 @@ class ExpansionEngine:
                            torch.zeros((Q,), dtype=torch.bool, device=dev),
                            iter_caps, taus)
 
-    def step(self, params, store: CorpusStore, neighbors, queries, qs_flat,
-             state: EngineState) -> EngineState:
+    def step(self, params, store: AnyCorpusStore, neighbors, queries,
+             qs_flat, state: EngineState, tile=None) -> EngineState:
         """One iteration over the whole batch: pop, grad, rank, measure,
-        insert. ``qs_flat`` is the (Q*C, Dq) repeated query block."""
+        insert. ``qs_flat`` is the (Q*C, Dq) repeated query block. A paged
+        store's step reads its rows from ``tile``, the (Q, 1+B, D) rows of
+        [frontier | neighbors] (gathered here through the pager when
+        None)."""
         Q = queries.shape[0]
         s, pop = self.pop(state)
         nbr = neighbors[pop.fid].long()                    # (Q, B)
         valid = (nbr >= 0) & ~bit_test_rows(s.visited, nbr) \
             & pop.active[:, None]
+        paged = store.is_paged
+        if paged and tile is None:
+            tile = store.take(torch.cat([pop.fid[:, None],
+                                         nbr.clamp_min(0)], dim=1))
 
-        if self.grad_fused is not None:
+        if self.grad_fused is not None and not paged:
             # the frontier rows come back from the kernel, dequantized
             _, g, x = self.grad_fused(params, store, pop.fid, queries)
             n_grad = s.n_grad + pop.active.int()
-        elif self.grad is not None:
-            x = store.take(pop.fid)                        # (Q, D)
-            _, g = self.grad(params, x, queries)
-            n_grad = s.n_grad + pop.active.int()
         else:
-            x = store.take(pop.fid)
-            g, n_grad = None, s.n_grad
+            x = tile[:, 0].contiguous() if paged \
+                else store.take(pop.fid)                   # (Q, D)
+            if self.grad is not None:
+                _, g = self.grad(params, x, queries)
+                n_grad = s.n_grad + pop.active.int()
+            else:
+                g, n_grad = None, s.n_grad
 
         targs = (state.angle_tau,) if self.adaptive == "angle" else ()
-        if self.rank_fused is not None:
+        if self.rank_fused is not None and not paged:
             # the kernels clamp -1 ids themselves
             sel_idx, sel_mask = self.rank_fused(x, g, store, nbr, valid,
                                                 *targs)
         else:
-            nvecs = store.take(nbr.clamp_min(0))           # (Q, B, D)
+            nvecs = tile[:, 1:].contiguous() if paged \
+                else store.take(nbr.clamp_min(0))          # (Q, B, D)
             sel_idx, sel_mask = self.rank(x, g, nvecs, valid, *targs)
         sel_ids = nbr.gather(1, sel_idx)
 
         C = sel_idx.shape[1]
-        if self.measure_fused is not None:
+        if self.measure_fused is not None and not paged:
             # adaptive: the prefix mask rides into the kernel, whose masked
             # rows skip their MLP
             mkw = ({"mask": sel_mask.reshape(Q * C)}
@@ -470,15 +596,16 @@ class ExpansionEngine:
     #    the masked lanes get exactly the state ``init_state`` would give
     #    them, every other lane passes through; parked lanes are done, so
     #    their pop is inactive and a step leaves them as they are
-    def reset_lanes(self, params, store: CorpusStore, queries, entries,
+    def reset_lanes(self, params, store: AnyCorpusStore, queries, entries,
                     state: EngineState, mask: torch.Tensor, iter_caps=None,
-                    taus=None) -> EngineState:
+                    taus=None, entry_rows=None) -> EngineState:
         """queries (Q, Dq) / entries (Q,) (and optional per-lane
-        ``iter_caps`` / ``taus``) hold the NEW values in the masked rows;
-        mask: (Q,) bool, True lanes are re-initialized. Lane for lane equal
-        to ``init_state`` on the masked rows."""
+        ``iter_caps`` / ``taus``, and a paged store's ``entry_rows``) hold
+        the NEW values in the masked rows; mask: (Q,) bool, True lanes are
+        re-initialized. Lane for lane equal to ``init_state`` on the masked
+        rows."""
         fresh = self.init_state(params, store, None, queries, entries,
-                                iter_caps, taus)
+                                iter_caps, taus, entry_rows)
 
         def pick(n, o):
             return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
@@ -532,6 +659,29 @@ class ExpansionEngine:
             return s, {}
         return run
 
+    def pre_routine(self, neighbors):
+        """A paged step's first half: the pop, and the (Q, 2+B) int64
+        ``ids`` buffer of [frontier | neighbors clamped >= 0 | done] (the
+        state is left as it was)."""
+        def run(bufs, s):
+            _, pop = self.pop(s)
+            nbr = neighbors[pop.fid].long()
+            return s, {"ids": torch.cat([pop.fid[:, None], nbr.clamp_min(0),
+                                         s.done.long()[:, None]], dim=1)}
+        return run
+
+    def post_routine(self, params, store, neighbors):
+        """A paged step's second half: ``step`` + freeze over the rows in
+        the ``tile`` buffer, the queries read from ``queries``."""
+        C = self.n_candidates(neighbors.shape[1])
+
+        def run(bufs, s):
+            q = bufs["queries"]
+            return _freeze_done(s.done, self.step(
+                params, store, neighbors, q, _repeat_rows(q, C), s,
+                tile=bufs["tile"]), s), {}
+        return run
+
     @functools.cached_property
     def _programs(self) -> collections.OrderedDict:
         return collections.OrderedDict()
@@ -540,11 +690,15 @@ class ExpansionEngine:
     def stats(self) -> dict:
         """Totals over this engine's ``search`` calls: searches, steps,
         program runs (graph replays on the card: one init + the chunks per
-        search), the host seconds spent issuing them (the blocking
-        ``done`` reads left out) and the search programs built (each a new
-        capture on the card)."""
+        search, or a paged search's pre and post halves), the host seconds
+        spent issuing them (the blocking ``done`` reads left out) and the
+        search programs built (each a new capture on the card); and a
+        paged search's host seconds by part (``PagedFeed.times``):
+        ``paged_replay_s``, ``paged_sync_s`` (the ids sync),
+        ``paged_gather_s`` (the pager), ``paged_h2d_s`` (the tile copy)."""
         return {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0,
-                "programs": 0}
+                "programs": 0, "paged_replay_s": 0.0, "paged_sync_s": 0.0,
+                "paged_gather_s": 0.0, "paged_h2d_s": 0.0}
 
     def search_program(self, params, base, neighbors, queries,
                        capture: bool = True) -> StateProgram:
@@ -570,15 +724,23 @@ class ExpansionEngine:
                 "entries": torch.zeros((Q,), dtype=torch.int64, device=dev),
                 "caps": torch.zeros((Q,), dtype=torch.int32, device=dev),
                 "taus": torch.zeros((Q,), dtype=torch.float32, device=dev)}
+        if store.is_paged:
+            bufs.update(paged_buffers(Q, nbrs.shape[1], store.dim, dev))
         prog = StateProgram(self.idle_state(Q, store.n, dev), bufs, capture)
         prog.held = (params, base, neighbors, store, nbrs)
 
         def init(b, s):
             return self.init_state(params, store, nbrs, b["queries"],
-                                   b["entries"], b["caps"], b["taus"]), {}
+                                   b["entries"], b["caps"], b["taus"],
+                                   b.get("entry_rows")), {}
         prog.add("init", init)
-        prog.add("chunk", self.step_routine(params, store, nbrs,
-                                            SYNC_EVERY))
+        if store.is_paged:
+            prog.add("pre", self.pre_routine(nbrs))
+            prog.add("post", self.post_routine(params, store, nbrs))
+            prog.feed = PagedFeed(store, prog.buffers)
+        else:
+            prog.add("chunk", self.step_routine(params, store, nbrs,
+                                                SYNC_EVERY))
         progs[key] = prog
         self.stats["programs"] += 1
         while len(progs) > PROGRAM_CACHE:
@@ -588,12 +750,14 @@ class ExpansionEngine:
     def search(self, params, base, neighbors, queries: torch.Tensor,
                entries, iter_caps=None, taus=None,
                capture: bool = True) -> SearchResult:
-        """base: (N, D) tensor/array or a ``CorpusStore``; neighbors: (N, B)
-        int -1-padded; queries: (Q, Dq) tensor on the search device;
-        entries: (Q,) entry ids; iter_caps: optional (Q,) per-query
-        expansion budgets; taus: optional (Q,) adaptive angle cutoffs.
-        Everything runs on ``queries.device``: on the card as captured
-        programs (``capture=False``: the same chunks eagerly)."""
+        """base: (N, D) tensor/array or a store (``CorpusStore`` or
+        ``PagedCorpusStore``); neighbors: (N, B) int -1-padded; queries:
+        (Q, Dq) tensor on the search device; entries: (Q,) entry ids;
+        iter_caps: optional (Q,) per-query expansion budgets; taus:
+        optional (Q,) adaptive angle cutoffs. Everything runs on
+        ``queries.device``: on the card as captured programs
+        (``capture=False``: the same chunks, or a paged store's halves,
+        eagerly)."""
         prog = self.search_program(params, base, neighbors, queries,
                                    capture)
         with annotate("repro/search"):
@@ -610,29 +774,53 @@ class ExpansionEngine:
                 prog.fill(taus=self.angle_tau)
             else:
                 prog.load(taus=taus)
+            if prog.feed is not None:
+                prog.feed.load_entries(torch.as_tensor(entries).cpu())
             prog.run("init")
             issue = time.perf_counter() - t0
             # every live lane expands or finishes each step, so all lanes are
             # done after max(iter_cap) + 1 steps; the check is a guard
             limit = cap_max + 1 + SYNC_EVERY
-            steps = runs = 0
-            while True:
-                t0 = time.perf_counter()
-                prog.run("chunk")
-                issue += time.perf_counter() - t0
-                steps += SYNC_EVERY
-                runs += 1
-                if bool(prog.state.done.all()):
-                    break
-                if steps >= limit:
-                    raise RuntimeError(f"search did not converge in {steps} "
-                                       f"steps (iter cap {limit - 1})")
+            if prog.feed is not None:
+                steps, runs, issue = self._paged_steps(prog, limit, issue)
+            else:
+                steps = runs = 0
+                while True:
+                    t0 = time.perf_counter()
+                    prog.run("chunk")
+                    issue += time.perf_counter() - t0
+                    steps += SYNC_EVERY
+                    runs += 1
+                    if bool(prog.state.done.all()):
+                        break
+                    if steps >= limit:
+                        raise RuntimeError(
+                            f"search did not converge in {steps} steps "
+                            f"(iter cap {limit - 1})")
             st = self.stats
             st["searches"] += 1
             st["steps"] += steps
             st["runs"] += runs + 1
             st["issue_s"] += issue
             return self._result(prog.state)
+
+    def _paged_steps(self, prog: StateProgram, limit: int,
+                     issue: float) -> Tuple[int, int, float]:
+        """A paged search's steps, ``done`` read after every one (the JAX
+        ``while_loop``): returns (steps, program runs, host issue seconds
+        with the replays and the tile copies added)."""
+        feed = prog.feed
+        t0 = dict(feed.times)
+        steps = 0
+        while not feed.step(prog, stop_when_done=True):
+            steps += 1
+            if steps >= limit:
+                raise RuntimeError(f"search did not converge in {steps} "
+                                   f"steps (iter cap {limit - 1})")
+        d = {k: feed.times[k] - t0[k] for k in t0}
+        for k in ("replay_s", "sync_s", "gather_s", "h2d_s"):
+            self.stats["paged_" + k] += d[k]
+        return steps, 2 * steps + 1, issue + d["replay_s"] + d["h2d_s"]
 
     def search_debug(self, params, base, neighbors, queries: torch.Tensor,
                      entries, max_steps: Optional[int] = None,

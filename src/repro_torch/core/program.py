@@ -49,6 +49,8 @@ class StateProgram:
         self.device = state[0].device
         self.capture = bool(capture) and self.device.type == "cuda"
         self.runs: collections.Counter = collections.Counter()
+        # a paged program's host side (core.engine.PagedFeed), else None
+        self.feed = None
         self._routines: Dict[str, Routine] = {}
         self._graphs: Dict[str, tuple] = {}
 

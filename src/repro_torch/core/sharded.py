@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
-from repro_torch.core.corpus import (CorpusStore, make_corpus_store,
-                                     refuse_paged)
+from repro_torch.core.corpus import (AnyCorpusStore, CorpusStore,
+                                     make_corpus_store)
 from repro_torch.core.engine import (EngineOptions, SearchConfig,
                                      SearchResult, build_engine_from_fn)
 from repro_torch.core.measures import Measure
@@ -152,14 +152,15 @@ def empty_topk(k: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def shard_stores(index: ShardedIndex, corpus_dtype: str = "float32",
                  residency=None,
-                 devices: Optional[Sequence] = None) -> List[CorpusStore]:
+                 devices: Optional[Sequence] = None) -> List[AnyCorpusStore]:
     """Per-shard corpus stores, shard s on ``devices[s % len(devices)]``
-    (default: the card): each partition quantizes its own rows. Paged
-    residency is not ported yet."""
-    refuse_paged(residency)
+    (default: the card): each partition quantizes its own rows. Under a
+    ``paged`` policy each partition pages its rows from host memory on its
+    own pager: S pagers, each with its own LRU budget."""
     devs = _devices(devices)
     return [make_corpus_store(index.base[s], corpus_dtype,
-                              device=devs[s % len(devs)])
+                              device=devs[s % len(devs)],
+                              residency=residency)
             for s in range(index.n_shards)]
 
 
@@ -203,7 +204,8 @@ def shard_params(params, device: torch.device,
     return params
 
 
-def sharded_search_stores(measure: Measure, stores: List[CorpusStore],
+def sharded_search_stores(measure: Measure,
+                          stores: List[AnyCorpusStore],
                           index: ShardedIndex, queries, cfg: SearchConfig,
                           options: EngineOptions = EngineOptions(),
                           iter_caps=None, taus=None,

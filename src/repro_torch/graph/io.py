@@ -22,11 +22,14 @@ payloads) and v3 and refuse newer versions and unknown kinds.
 bf16 payloads are written through ``f32_to_bf16_bits`` (the bf16 cast,
 round to nearest even: the patterns ``ml_dtypes`` writes) and int8 through
 ``quantize_rows_int8``; ``load_corpus_store`` hands the saved payload to
-``store_from_arrays`` as it is, never widened to float32. Paged residency
-is not ported yet: a ``paged`` policy raises ``NotImplementedError``.
+``store_from_arrays`` as it is, never widened to float32. Under a
+``paged`` policy it returns a ``PagedCorpusStore`` over the payload as
+stored: v3 files memory-mapped (``np.load(mmap_mode="r")``), v1 and v2
+paged from their npz arrays in host memory.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Callable, Optional, Tuple, Union
@@ -35,9 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
-from repro_torch.core.corpus import (CORPUS_DTYPES, CorpusStore,
-                                     f32_to_bf16_bits, pack_bitmap,
-                                     quantize_rows_int8, refuse_paged,
+from repro_torch.core.corpus import (CORPUS_DTYPES, AnyCorpusStore,
+                                     ResidencyPolicy, as_policy,
+                                     f32_to_bf16_bits, make_paged_store,
+                                     pack_bitmap, quantize_rows_int8,
                                      store_from_arrays, unpack_bitmap)
 from repro_torch.graph.build import GraphIndex
 
@@ -181,9 +185,9 @@ def load_index_meta(path: str) -> dict:
     return meta
 
 
-def _read(path: str) -> Tuple[dict, dict]:
+def _read(path: str, mmap: bool = False) -> Tuple[dict, dict]:
     """meta and every array: the npz members, plus (v3 graph) the
-    payload files."""
+    payload files, memory-mapped read-only when ``mmap``."""
     meta = load_index_meta(path)
     dtype = meta.get("corpus_dtype", "float32")
     if dtype not in CORPUS_DTYPES:
@@ -193,7 +197,8 @@ def _read(path: str) -> Tuple[dict, dict]:
         arrays = {k: z[k] for k in z.files}
     if meta["format_version"] >= 3 and meta.get("kind") == "graph":
         for k in _PAYLOAD_KEYS[dtype]:
-            arrays[k] = np.load(os.path.join(path, _payload_file(k)))
+            arrays[k] = np.load(os.path.join(path, _payload_file(k)),
+                                mmap_mode="r" if mmap else None)
     return meta, arrays
 
 
@@ -225,14 +230,22 @@ def load_index(path: str) -> Union[GraphIndex, "ShardedIndex"]:
 
 
 def load_corpus_store(path: str, residency=None,
-                      device=DEFAULT_DEVICE) -> CorpusStore:
-    """A graph index's base vectors as a whole-resident ``CorpusStore`` on
-    ``device`` in the dtype they were saved in: the payload goes to
-    ``store_from_arrays`` as stored (bf16 bit patterns, int8 + scales),
-    with any saved tombstones. ``residency``: None or ``'whole'``; a
-    ``paged`` policy raises ``NotImplementedError`` (not ported yet)."""
-    refuse_paged(residency)
-    meta, arrays = _read(path)
+                      device=DEFAULT_DEVICE) -> AnyCorpusStore:
+    """A graph index's base vectors as a corpus store in the dtype they
+    were saved in, with any saved tombstones (words on ``device``).
+
+    ``residency`` None / 'whole': a whole-resident ``CorpusStore`` on
+    ``device``, the payload handed to ``store_from_arrays`` as stored (bf16
+    bit patterns, int8 + scales). A ``paged`` policy (or 'paged'): a
+    ``PagedCorpusStore`` whose rows go to ``device``; v3 payloads are
+    memory-mapped, so rows enter host memory page fault by page fault and
+    the footprint stays bounded by the policy's ``cache_bytes``; v1 and v2
+    page from their npz arrays. A policy that keeps the default
+    ``page_rows`` takes the page size recorded in the index meta, so pages
+    line up with the layout the file was written under."""
+    policy = as_policy(residency)
+    paged = policy.kind == "paged"
+    meta, arrays = _read(path, mmap=paged)
     if meta.get("kind") != "graph":
         raise ValueError(
             f"load_corpus_store supports single-partition graph indexes; "
@@ -241,7 +254,15 @@ def load_corpus_store(path: str, residency=None,
     corpus_dtype = meta.get("corpus_dtype", "float32")
     flags = _tombstone_flags(meta, arrays)
     keys = _PAYLOAD_KEYS[corpus_dtype]
+    data = arrays[keys[0]]
+    scales = arrays[keys[1]] if len(keys) > 1 else None
+    if paged:
+        if policy.page_rows == ResidencyPolicy().page_rows \
+                and "page_rows" in meta:
+            policy = dataclasses.replace(policy,
+                                         page_rows=int(meta["page_rows"]))
+        return make_paged_store(data, corpus_dtype, policy, scales, flags,
+                                device=device)
     return store_from_arrays(
-        arrays[keys[0]], arrays[keys[1]] if len(keys) > 1 else None,
-        corpus_dtype, None if flags is None else pack_bitmap(flags),
-        device=device)
+        data, scales, corpus_dtype,
+        None if flags is None else pack_bitmap(flags), device=device)

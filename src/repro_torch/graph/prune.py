@@ -135,6 +135,34 @@ def occlusion_prune(base: np.ndarray, knn: np.ndarray, m: int,
     return out
 
 
+def occlusion_prune_nodes(base: np.ndarray, node_ids: np.ndarray,
+                          cand: np.ndarray, m: int,
+                          assume_unique: bool = False,
+                          device="cuda") -> np.ndarray:
+    """Occlusion-prune an arbitrary node set on ``device``: (Nb,) node ids
+    + (Nb, kc) candidate ids -> (Nb, m) int32, -1 padded (the streaming
+    insert's repair of the touched neighborhood, ``graph/mutate.py``).
+    Self-candidates and -1 padding are masked; each row equals the same
+    row of a full ``occlusion_prune`` pass. Rows are independent, so the
+    set runs in blocks capped as ``occlusion_prune``'s."""
+    dev = resolve_device(device)
+    node_ids = np.asarray(node_ids, np.int64)
+    cand = np.ascontiguousarray(cand, np.int64)
+    nb, kc = cand.shape
+    out = np.empty((nb, m), np.int32)
+    if nb == 0:
+        return out
+    block = max(64, int(2e8 / (max(kc, 1) * base.shape[1])))
+    base_t = torch.as_tensor(np.asarray(base, np.float32), device=dev)
+    for s in range(0, nb, block):
+        e = min(s + block, nb)
+        out[s:e] = _prune_block(
+            base_t, torch.as_tensor(node_ids[s:e], device=dev),
+            torch.as_tensor(cand[s:e], device=dev), m,
+            assume_unique).cpu().numpy()
+    return out
+
+
 def symmetrize(neighbors: np.ndarray, m_max: int) -> np.ndarray:
     """Add reverse edges up to ``m_max`` per node — counting-sort form
     (numpy; the same as the JAX package's ``graph/prune.py``)."""

@@ -25,25 +25,37 @@ picks the serving discipline:
     # serve an index built by launch/build_index.py (either package's)
     PYTHONPATH=src python -m repro_torch.launch.serve --index runs/idx \
         [--corpus-dtype int8] [--save-index runs/idx-copy]
+    # ... with the corpus paged from the memory-mapped files through a host
+    # LRU page cache (16 MiB, 64-row pages)
+    PYTHONPATH=src python -m repro_torch.launch.serve --index runs/idx \
+        --residency paged --page-rows 64 --cache-mb 16
 
 It takes the JAX launcher's flags that the port supports (``--items --dim
 --queries --batch --mode --measure --list-measures --runtime --lanes
 --offered-qps --steps-per-tick --deadline --max-queue --sla --sla-mix --k
 --ef --alpha --budget --fused --corpus-dtype --adaptive --c-max
---angle-tau --index --save-index --chaos --health-every --trace-sample
---trace-out --metrics-out --metrics-json --profile-dir``, with the JAX
-defaults) plus
+--angle-tau --index --save-index --residency --page-rows --cache-mb
+--chaos --health-every --trace-sample --trace-out --metrics-out
+--metrics-json --profile-dir``, with the JAX defaults) plus
 ``--device`` and ``--host-loop``; any other flag of the JAX launcher exits
 with a "not ported yet" message. As there, a non-float32 ``--corpus-dtype``
 implies the index-fused path; the store is quantized once at start-up
 (or, from ``--index`` in the dtype it was saved in, loaded as stored, with
 its tombstones), and recall is labelled against the float32 base (from an
-index: its base as ``load_index`` dequantizes it).
+index: its base as ``load_index`` dequantizes it). ``--residency paged``
+pages the corpus through a host LRU cache of ``--cache-mb`` MiB in pages of
+``--page-rows`` rows: from an index, the saved payload memory-mapped (the
+meta's page size when ``--page-rows`` is left at its default); otherwise
+the synthetic corpus from host memory. A paged search gathers each step's
+rows through the pager between the two captured halves of the step
+(``core/engine.py``); ``--chaos`` also installs the plan's page-read
+faults (site ``pager``) and tracing the pager's spans.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import time
 from typing import Optional, Sequence
@@ -52,7 +64,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import (MEASURE_FAMILIES, EngineOptions, SearchConfig,
+from repro_torch.core import (MEASURE_FAMILIES, EngineOptions,
+                              ResidencyPolicy, SearchConfig,
                               brute_force_topk, build_engine, get_bundle,
                               list_families, make_corpus_store,
                               make_family_measure, recall, search_measure)
@@ -66,8 +79,7 @@ from repro_torch.serving import (ContinuousRuntime, FaultPlan, Request,
                                  poisson_arrivals)
 
 # flags of the JAX launcher (repro.launch.serve) the port does not serve
-JAX_ONLY_FLAGS = ("--searcher", "--tile", "--autotune", "--residency",
-                  "--page-rows", "--cache-mb")
+JAX_ONLY_FLAGS = ("--searcher", "--tile", "--autotune")
 # continuous-runtime telemetry and chaos flags (refused for oneshot)
 CONTINUOUS_FLAGS = ("chaos", "health_every", "trace_sample", "trace_out",
                     "metrics_out", "metrics_json")
@@ -140,6 +152,7 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
     steps = sum(st["steps"] for st in steady_host)
     host_us = 1e6 * sum(st["issue_s"] for st in steady_host) / steps
     runs = sum(st["runs"] for st in steady_host) / len(steady_host)
+    paged = store.is_paged
     summary = {"runtime": "oneshot", "device": str(device),
                "loop": ("captured" if capture and device.type == "cuda"
                         else "host"),
@@ -151,7 +164,15 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
                "steps_per_batch": steps / len(steady_host),
                "host_us_per_step": host_us, "runs_per_batch": runs,
                "recall": first_recall, "n_batches": n_batches,
-               "bucket_shapes": len(shapes_seen)}
+               "bucket_shapes": len(shapes_seen),
+               "residency": "paged" if paged else "whole"}
+    if paged:
+        # host us per step of a paged search, by part (PagedFeed.times)
+        summary["paged_us_per_step"] = {
+            part: 1e6 * sum(st["paged_" + part + "_s"]
+                            for st in steady_host) / steps
+            for part in ("replay", "sync", "gather", "h2d")}
+        summary["pager"] = dataclasses.asdict(store.stats_snapshot())
     print(f"[serve] device={device} mode={args.mode} measure={args.measure} "
           f"corpus_dtype={options.corpus_dtype} fused={options.fused} "
           f"adaptive={options.adaptive} recall@{args.k}={first_recall:.3f} steady-state {qps:.0f} QPS "
@@ -165,6 +186,14 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
           f"{summary['steps_per_batch']:.0f} steps and "
           f"{runs:.0f} program runs per batch, {host_us:.1f}us of host "
           f"issue per step")
+    if paged:
+        us, st = summary["paged_us_per_step"], store.stats_snapshot()
+        print(f"[serve] paged step: replays {us['replay']:.1f}us, ids sync "
+              f"{us['sync']:.1f}us, pager gather {us['gather']:.1f}us, "
+              f"tile copy {us['h2d']:.1f}us; pager hits={st.hits} "
+              f"faults={st.faults} evictions={st.evictions} hit_rate="
+              f"{st.hit_rate:.3f} peak_resident="
+              f"{st.peak_resident_bytes / 2**20:.2f} MiB")
     return summary
 
 
@@ -217,6 +246,12 @@ def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
                                 max_queue=args.max_queue,
                                 fault_hook=fault_hook, tracer=tracer,
                                 sla_policy=sla_policy, device=device)
+    if runtime.store.is_paged:
+        # page-read faults only make sense against a pager
+        if args.chaos:
+            runtime.store.set_read_hook(fault_plan.pager_hook("pager"))
+        if tracer.enabled:
+            runtime.store.set_tracer(tracer)
     queries = rng.normal(size=(args.queries, args.dim)).astype(np.float32)
     runtime.warmup(queries[0])      # capture reset + tick off the clock
     registry = None
@@ -276,7 +311,7 @@ def export_telemetry(args, runtime, tracer, registry, completions) -> None:
                    key=lambda c: c.record.latency_ms, default=None)
         if slow is not None:
             print("[serve] slowest traced ok request:")
-            print(format_trace(tracer, slow.rid))
+            print(format_trace(tracer, slow.rid, sites=("pager",)))
     if registry is not None:
         with open(args.metrics_out, "w") as f:
             f.write(registry.render_text())
@@ -390,6 +425,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-index", type=str, default=None,
                     help="write the served graph index (in --corpus-dtype "
                          "residency) to this directory")
+    ap.add_argument("--residency", choices=["whole", "paged"],
+                    default="whole",
+                    help="corpus residency policy: 'paged' serves the "
+                         "corpus through a host LRU page cache (from "
+                         "--index: the memory-mapped payload files)")
+    ap.add_argument("--page-rows", type=int, default=4096,
+                    help="paged residency: rows per page (the index meta's "
+                         "saved page_rows wins when this is left at the "
+                         "default)")
+    ap.add_argument("--cache-mb", type=int, default=64,
+                    help="paged residency: LRU page-cache byte budget (MiB "
+                         "of host memory)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
     ap.add_argument("--host-loop", action="store_true",
@@ -453,13 +500,21 @@ def engine_options(args: argparse.Namespace) -> EngineOptions:
                          angle_tau=args.angle_tau)
 
 
+def residency_policy(args) -> Optional[ResidencyPolicy]:
+    """``--residency paged``'s policy (None for whole residency)."""
+    if args.residency != "paged":
+        return None
+    return ResidencyPolicy("paged", args.page_rows, args.cache_mb << 20)
+
+
 def load_served_index(args, device: torch.device):
     """``--index DIR``: the saved graph (its base as ``load_index``
     dequantizes it) and the store to serve, loaded as stored (with its
-    tombstones) when the saved dtype is the requested one, else
-    re-quantized from the loaded base with a warning, as the JAX launcher
-    does. Sets ``args.items`` / ``args.dim`` from the index. Returns
-    (graph, store, provenance)."""
+    tombstones; paged under ``--residency paged``) when the saved dtype is
+    the requested one, else re-quantized from the loaded base with a
+    warning, as the JAX launcher does (a paged store cannot be). Sets
+    ``args.items`` / ``args.dim`` from the index. Returns (graph, store,
+    provenance)."""
     graph = load_index(args.index)
     if not isinstance(graph, GraphIndex):
         raise SystemExit(f"[serve] --index {args.index} is not a "
@@ -468,8 +523,16 @@ def load_served_index(args, device: torch.device):
     args.items, args.dim = graph.base.shape
     meta = load_index_meta(args.index)
     saved_dtype = meta.get("corpus_dtype", "float32")
+    policy = residency_policy(args)
     if saved_dtype == args.corpus_dtype:
-        store = load_corpus_store(args.index, device=device)
+        store = load_corpus_store(args.index, residency=policy,
+                                  device=device)
+    elif policy is not None:
+        raise SystemExit(
+            f"[serve] --residency paged cannot re-quantize (paging serves "
+            f"the saved payload as it is); rebuild the index with "
+            f"--corpus-dtype {args.corpus_dtype} or serve --corpus-dtype "
+            f"{saved_dtype}")
     else:
         print(f"[serve] WARNING: index at {args.index} stores the corpus "
               f"as {saved_dtype!r} but --corpus-dtype={args.corpus_dtype!r} "
@@ -518,9 +581,11 @@ def main(argv: Optional[Sequence[str]] = None,
         print(f"[serve] index: {args.items} items, "
               f"degree {graph.avg_degree:.1f}, "
               f"built in {time.time() - t0:.1f}s on {device}")
-        # quantize once, up front: every batch searches the resident payload
+        # quantize once, up front: every batch searches the same payload
+        # (paged: from host memory through the pager)
         store = make_corpus_store(graph.base, args.corpus_dtype,
-                                  device=device)
+                                  device=device,
+                                  residency=residency_policy(args))
         provenance = {"graph_kind": "l2"}
     if args.save_index:
         save_index(args.save_index, graph, corpus_dtype=args.corpus_dtype,
@@ -540,9 +605,15 @@ def main(argv: Optional[Sequence[str]] = None,
     except ValueError as e:
         raise SystemExit(f"[serve] {e}")
     base_t = torch.as_tensor(graph.base, device=device)
-    print(f"[serve] corpus resident: dtype={store.dtype} "
-          f"{store.nbytes() / 2**20:.1f} MiB "
-          f"({'fused' if options.fused else 'unfused'} path)")
+    if store.is_paged:
+        print(f"[serve] corpus paged: dtype={store.dtype} page_rows="
+              f"{store.cache.page_rows} cache_budget={args.cache_mb} MiB "
+              f"(resident bytes bounded; LRU page faults on demand; the "
+              f"pre-gathered stages run on each step's gathered rows)")
+    else:
+        print(f"[serve] corpus resident: dtype={store.dtype} "
+              f"{store.nbytes() / 2**20:.1f} MiB "
+              f"({'fused' if options.fused else 'unfused'} path)")
     nbrs = torch.as_tensor(graph.neighbors, device=device)
     with profile_trace(args.profile_dir):
         if args.runtime == "continuous":

@@ -20,16 +20,13 @@ Sites wired in the port:
   as it was), ``shard_stall`` reports an infinite tick duration (trips
   the sharded runtime's tick deadline without sleeping), ``slow_tick``
   adds ``seconds`` of reported duration (feeds the straggler monitor).
-
-Hooks ported ahead of their callers (paged residency and
-``graph.mutate.DurableIndex`` are not ported yet, see ROADMAP.md):
-
-- ``pager`` / ``pager/whole`` — ``pager_hook``: ``page_io_error``
-  raises ``OSError`` before a page read (``pager``) or the whole-payload
-  fallback read (``pager/whole``).
-- ``mutate/<stage>`` — ``kill_hook``: ``kill`` raises ``InjectedKill`` at
-  a durability stage (``pre-journal``, ``post-journal``, ``pre-save``,
-  ``post-save``).
+- ``pager`` / ``pager/whole`` — ``pager_hook``, installed with
+  ``PagedCorpusStore.set_read_hook`` (``serve --chaos`` on a paged
+  store): ``page_io_error`` raises ``OSError`` before a page read
+  (``pager``) or the whole-payload fallback read (``pager/whole``).
+- ``mutate/<stage>`` — ``kill_hook``, the ``graph.mutate.DurableIndex``
+  kill hook: ``kill`` raises ``InjectedKill`` at a durability stage
+  (``pre-journal``, ``post-journal``, ``pre-save``, ``post-save``).
 
 Plans round-trip through JSON (``save``/``load``) in the JAX package's
 layout, so a chaos schedule is an artifact either package replays.

@@ -20,6 +20,12 @@ deadline tagged); each scheduler round is
 On the card the reset and the tick are captured CUDA graphs
 (``core/program.py``; the buffers are static, so neither is captured
 again within an index epoch); on the CPU the same routines run eagerly.
+On a paged store (``core.corpus.PagedCorpusStore``) the host gathers the
+lanes' entry rows through the pager before the reset, and a tick is
+``steps_per_tick`` paged steps (``core.engine.PagedFeed``: the captured
+``pre`` half, the pager, the captured ``post`` half; the JAX tick calls
+the pager once per step inside its ``fori_loop``), then a captured
+``pack`` of the harvest buffer.
 Per-request results equal the oneshot ``ExpansionEngine.search`` of the
 same query bit for bit (ids, scores, counters): the stages are lane-row
 independent.
@@ -39,7 +45,8 @@ Differences from the JAX runtime, each forced by the card:
   neighbor table at the swap and drops the old epoch's graphs and
   buffers.
 - A shard's fault domain strikes only the shard's own faults
-  (``SHARD_FAULTS``: a chaos plan's ``InjectedFault``, an ``OSError``).
+  (``SHARD_FAULTS``: a chaos plan's ``InjectedFault``, an ``OSError``, a
+  paged store's ``CorpusUnavailableError``).
   Everything else a shard's round raises propagates: a kernel that fails
   to build or launch (``kernels._lib.CudaKernelError``), a wrapper's
   argument refusal, a failed capture or replay, a bug. Such an error is a
@@ -66,10 +73,13 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
-from repro_torch.core.corpus import CorpusStore, as_corpus_store
-from repro_torch.core.engine import ExpansionEngine
+from repro_torch.core.corpus import (CorpusStore, CorpusUnavailableError,
+                                     PagedCorpusStore, as_corpus_store,
+                                     as_policy)
+from repro_torch.core.engine import ExpansionEngine, PagedFeed, paged_buffers
 from repro_torch.core.program import StateProgram
-from repro_torch.core.sharded import _devices, merge_topk, shard_params
+from repro_torch.core.sharded import (_devices, merge_topk, shard_params,
+                                      shard_stores)
 from repro_torch.obs.profile import annotate
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import InjectedFault
@@ -79,7 +89,7 @@ from repro_torch.serving.sla import SLAPolicy, resolve_tier
 
 # what a shard's fault domain strikes; every other exception of a shard's
 # round propagates (module docstring)
-SHARD_FAULTS = (InjectedFault, OSError)
+SHARD_FAULTS = (InjectedFault, OSError, CorpusUnavailableError)
 # the sites of the sharded runtime's own site-scoped spans (module
 # docstring): pass as ``obs.attribution(spans, rid, sites=TRACE_SITES)``
 TRACE_SITES = ("tracer", "merge")
@@ -175,7 +185,8 @@ class ContinuousRuntime:
                 f"steps_per_tick must be >= 1, got {steps_per_tick}")
         if device is None:
             device = corpus.device if isinstance(
-                corpus, (torch.Tensor, CorpusStore)) else DEFAULT_DEVICE
+                corpus, (torch.Tensor, CorpusStore, PagedCorpusStore)) \
+                else DEFAULT_DEVICE
         self.device = resolve_device(device)
         self.engine = engine
         self.params = params
@@ -244,20 +255,30 @@ class ContinuousRuntime:
                 "taus": torch.zeros((L,), dtype=torch.float32, device=dev),
                 "harvest": torch.zeros((L, 2 * k + 4), dtype=torch.int64,
                                        device=dev)}
-        program = StateProgram(engine.idle_state(L, self.store.n, dev), bufs)
         store, nbrs = self.store, self.neighbors
+        paged = store.is_paged
+        if paged:
+            bufs.update(paged_buffers(L, nbrs.shape[1], store.dim, dev))
+        program = StateProgram(engine.idle_state(L, store.n, dev), bufs)
 
         def reset(b, s):
             return engine.reset_lanes(params, store, b["queries"],
                                       b["entries"], s, b["mask"], b["caps"],
-                                      b["taus"]), {}
-        steps = engine.step_routine(params, store, nbrs, self.steps_per_tick)
-
-        def tick(b, s):
-            s, _ = steps(b, s)
-            return s, {"harvest": _pack(s, k)}
+                                      b["taus"], b.get("entry_rows")), {}
         program.add("reset", reset)
-        program.add("tick", tick)
+        if paged:
+            program.add("pre", engine.pre_routine(nbrs))
+            program.add("post", engine.post_routine(params, store, nbrs))
+            program.add("pack", lambda b, s: (s, {"harvest": _pack(s, k)}))
+            program.feed = PagedFeed(store, program.buffers)
+        else:
+            steps = engine.step_routine(params, store, nbrs,
+                                        self.steps_per_tick)
+
+            def tick(b, s):
+                s, _ = steps(b, s)
+                return s, {"harvest": _pack(s, k)}
+            program.add("tick", tick)
         self.program = program
 
     # -- queue side ---------------------------------------------------------
@@ -452,6 +473,10 @@ class ContinuousRuntime:
             self.program.load(queries=self._queries_np,
                               entries=self._entries_np, mask=mask,
                               caps=self._caps_np, taus=self._taus_np)
+            if self.program.feed is not None:
+                # init_state seeds every lane, as the JAX reset gathers
+                # every lane's entry through the pager
+                self.program.feed.load_entries(self._entries_np)
             with annotate("repro/reset"):
                 self.program.run("reset")
         return dropped
@@ -468,7 +493,13 @@ class ContinuousRuntime:
             # deadline check and straggler monitor
             self.tick_penalty_s = float(self.fault_hook() or 0.0)
         with annotate("repro/tick"):
-            self.program.run("tick")
+            feed = self.program.feed
+            if feed is None:
+                self.program.run("tick")
+            else:
+                for _ in range(self.steps_per_tick):
+                    feed.step(self.program, stop_when_done=False)
+                self.program.run("pack")
         self._n_ticks += 1
         self.metrics.observe_occupancy(busy, self.n_lanes,
                                        self.steps_per_tick)
@@ -586,27 +617,40 @@ class ContinuousRuntime:
     # -- observability ------------------------------------------------------
 
     def bind_registry(self, registry):
-        """Register this runtime's serving metric families into an
-        ``obs.Registry``. Call after ``warmup()``, which replaces
-        ``self.metrics``. (The JAX runtime also binds a paged store's
-        families; paged residency is not ported yet.)"""
+        """Register this runtime's metric families (serving, and a paged
+        store's ``repro_pager_*``) into an ``obs.Registry``. Call after
+        ``warmup()``, which replaces ``self.metrics``."""
         self.metrics.bind_registry(registry)
+        if self.store.is_paged:
+            self.store.bind_registry(registry, shard=self.trace_site or "0")
         return registry
 
     def health_snapshot(self) -> dict:
         recs = self.metrics.records
-        return {"queue": len(self.queue), "in_flight": self.in_flight,
+        snap = {"queue": len(self.queue), "in_flight": self.in_flight,
                 "completed": sum(not (r.timed_out or r.shed or r.failed)
                                  for r in recs),
                 "timed_out": sum(r.timed_out for r in recs),
                 "shed": sum(r.shed for r in recs),
                 "failed": sum(r.failed for r in recs)}
+        if self.store.is_paged:
+            st = self.store.stats_snapshot()
+            snap["pager"] = {"hit_rate": round(st.hit_rate, 3),
+                             "retries": st.retries,
+                             "io_errors": st.io_errors,
+                             "mode": st.fallback or "paged"}
+        return snap
 
     def format_health(self) -> str:
         s = self.health_snapshot()
-        return (f"[health] queue={s['queue']} in_flight={s['in_flight']} "
+        line = (f"[health] queue={s['queue']} in_flight={s['in_flight']} "
                 f"completed={s['completed']} timed_out={s['timed_out']} "
                 f"shed={s['shed']} failed={s['failed']}")
+        if "pager" in s:
+            p = s["pager"]
+            line += (f" pager(mode={p['mode']} hit_rate={p['hit_rate']} "
+                     f"retries={p['retries']} io_errors={p['io_errors']})")
+        return line
 
     def warmup(self, query: np.ndarray) -> None:
         """Capture the reset and the tick off the clock: one sentinel
@@ -680,7 +724,11 @@ class ShardedContinuousRuntime:
     ``partial``; only if every shard failed does the rid resolve as
     ``failed`` (ids -1). Any other error of a shard's round propagates
     (module docstring). ``fault_plan`` installs a chaos
-    schedule's tick hooks (site ``shard:<s>/tick``)."""
+    schedule's tick hooks (site ``shard:<s>/tick``). ``residency`` (None
+    or 'whole': the index's cached whole stores; a paged policy): each
+    shard pages its partition through its own pager (``shard_stores``),
+    whose ``CorpusUnavailableError`` strikes that shard; install page-read
+    faults per shard with ``runtimes[s].store.set_read_hook``."""
 
     def __init__(self, engine: ExpansionEngine, params, index, n_lanes: int,
                  query_dim: int, steps_per_tick: int = 4,
@@ -691,9 +739,10 @@ class ShardedContinuousRuntime:
                  fault_plan=None, tracer=NULL_TRACER,
                  sla_policy: Optional[SLAPolicy] = None,
                  devices: Optional[Sequence] = None,
-                 params_by_device=None):
+                 params_by_device=None, residency=None):
         self.engine = engine
         self.index = index
+        self.residency = residency
         self.max_queue = max_queue
         # tiers resolve here, once per rid: shards receive the resolved
         # knobs (cap / tau), so a rid runs the same tier on every shard
@@ -709,7 +758,7 @@ class ShardedContinuousRuntime:
                                          k_failures=k_failures,
                                          cooldown_rounds=cooldown_rounds)
         self.devices = _devices(devices)
-        stores = index.stores(engine.corpus_dtype, self.devices)
+        stores = self._stores(index)
         self.runtimes: List[ContinuousRuntime] = []
         for s in range(index.n_shards):
             dev = stores[s].device
@@ -729,6 +778,14 @@ class ShardedContinuousRuntime:
         self._indices: Dict[int, object] = {0: index}
         self.n_rounds = 0
 
+    def _stores(self, index) -> list:
+        """The per-shard stores of ``index`` under this runtime's
+        residency (whole: the index's cached stores)."""
+        if as_policy(self.residency).kind == "paged":
+            return shard_stores(index, self.engine.corpus_dtype,
+                                self.residency, self.devices)
+        return index.stores(self.engine.corpus_dtype, self.devices)
+
     def install_index(self, index) -> int:
         """Stage a new ``ShardedIndex`` version on every shard runtime.
         Each shard swaps when its lanes drain (one install moves every
@@ -743,7 +800,7 @@ class ShardedContinuousRuntime:
         epoch = max(self._indices) + 1
         self._indices[epoch] = index
         self.index = index
-        stores = index.stores(self.engine.corpus_dtype, self.devices)
+        stores = self._stores(index)
         for s, rt in enumerate(self.runtimes):
             rt.install_index(stores[s], index.placed(s, rt.device)[0],
                              int(index.entries[s]))
@@ -980,11 +1037,15 @@ class ShardedContinuousRuntime:
     # -- observability ------------------------------------------------------
 
     def bind_registry(self, registry):
-        """Register the merged serving metrics and the per-shard health
-        into an ``obs.Registry`` (after ``warmup()``, which replaces
-        both)."""
+        """Register the merged serving metrics, the per-shard health and
+        each paged shard store's ``repro_pager_*`` families (label shard
+        ``s``) into an ``obs.Registry`` (after ``warmup()``, which replaces
+        the metrics)."""
         self.metrics.bind_registry(registry)
         self.health.bind_registry(registry)
+        for s, rt in enumerate(self.runtimes):
+            if rt.store.is_paged:
+                rt.store.bind_registry(registry, shard=str(s))
         return registry
 
     def health_snapshot(self) -> dict:

@@ -43,6 +43,18 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
             save_index(d, g, corpus_dtype=dt)
             assert load_corpus_store(d, device="cpu").dtype == dt
             assert np.abs(load_index(d).base - base).max() < 0.05
+            # paged residency over the memory-mapped files, and a mutation
+            paged = load_corpus_store(d, residency="paged", device="cpu")
+            assert paged.is_paged and paged.take(np.arange(40)).shape == (
+                40, 8)
+    from repro_torch.graph import DurableIndex, build_l2_graph
+    with tempfile.TemporaryDirectory() as d:
+        di = DurableIndex.create(d, build_l2_graph(base, m=4,
+                                                   k_construction=8,
+                                                   device="cpu"),
+                                 device="cpu")
+        di.insert(base[:3] + 1.0, k_candidates=8)
+        assert DurableIndex.open(d, device="cpu").index.n == 43
     assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                    for k in sys.modules), "a blocked module got in"
     print(len(names))

@@ -419,8 +419,14 @@ def test_serve_runs_on_cpu_when_asked(capsys):
     assert out["n_batches"] == 2 and out["qps"] > 0
     assert out["recall"] > 0.5
     assert "steady-state" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--residency", "paged", "--device", "cpu"])
+    # paged residency serves the same answers (the recall window's ids)
+    paged = serve.main(["--items", "600", "--dim", "40", "--queries", "40",
+                        "--batch", "32", "--device", "cpu", "--residency",
+                        "paged", "--page-rows", "64", "--cache-mb", "1"])
+    assert paged["residency"] == "paged" and out["residency"] == "whole"
+    assert paged["recall"] == out["recall"]
+    assert paged["evals_per_query"] == out["evals_per_query"]
+    assert "corpus paged:" in capsys.readouterr().out
     with pytest.raises(SystemExit,
                        match="--trace-sample needs --runtime continuous"):
         serve.main(["--trace-sample", "8", "--device", "cpu"])

@@ -251,15 +251,22 @@ def test_guards(tmp_path, jgraph, jsharded_index):
     with pytest.raises(ValueError, match="unknown corpus_dtype"):
         load_corpus_store(str(path), device="cpu")
     (path / "meta.json").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="paged residency"):
-        load_corpus_store(str(path), residency="paged", device="cpu")
+    # a paged policy by name, or any object with the policy's fields,
+    # loads a paged store over the same payload; an unknown kind raises
+    whole = load_corpus_store(str(path), residency="whole", device="cpu")
+    assert whole.n == N and not whole.is_paged
+    ids = torch.arange(N)
+    paged = load_corpus_store(str(path), residency="paged", device="cpu")
+    assert paged.is_paged and torch.equal(paged.take(ids), whole.take(ids))
 
     class Policy:
         kind = "paged"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_corpus_store(str(path), residency=Policy(), device="cpu")
-    assert load_corpus_store(str(path), residency="whole",
-                             device="cpu").n == N
+        page_rows = 64
+    paged = load_corpus_store(str(path), residency=Policy(), device="cpu")
+    assert paged.cache.page_rows == 64
+    assert torch.equal(paged.take(ids), whole.take(ids))
+    with pytest.raises(ValueError, match="residency kind"):
+        load_corpus_store(str(path), residency="bogus", device="cpu")
     with pytest.raises(TypeError):
         save_index(str(tmp_path / "bad"), {"not": "an index"})
     with pytest.raises(ValueError, match="corpus_dtype"):
@@ -327,9 +334,12 @@ def test_build_index_cli_single_sharded_and_begin(tmp_path, capsys):
         == ("begin", "deepfm", 64)
     assert load_index(out3).neighbors.shape == (200, 12)
     assert "built in" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="--residency paged is not ported"):
-        build_index.main(["--out", out, "--residency", "paged",
-                          "--device", "cpu"])
+    out4 = str(tmp_path / "paged")
+    build_index.main(["--items", "300", "--dim", "8", "--m", "8",
+                      "--k-construction", "20", "--corpus-dtype", "int8",
+                      "--page-rows", "32", "--residency", "paged",
+                      "--out", out4, "--device", "cpu"])
+    assert "paged verification ok: page_rows=32" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="single-partition only"):
         build_index.main(["--out", out, "--shards", "2", "--graph",
                           "begin", "--device", "cpu"])

@@ -222,8 +222,17 @@ def test_sharded_search_params_by_device(system):
 
 
 def test_sharded_refusals(system):
-    with pytest.raises(NotImplementedError, match="paged"):
-        shard_stores(system["tidx"], "int8", residency="paged",
+    # a paged policy pages each partition on its own pager, over the
+    # whole stores' payload; an unknown residency kind raises
+    paged = shard_stores(system["tidx"], "int8", residency="paged",
+                         devices=["cpu"])
+    whole = shard_stores(system["tidx"], "int8", devices=["cpu"])
+    assert len({id(p.cache) for p in paged}) == S
+    for p, w in zip(paged, whole):
+        ids = torch.arange(w.n)
+        assert p.is_paged and torch.equal(p.take(ids), w.take(ids))
+    with pytest.raises(ValueError, match="residency kind"):
+        shard_stores(system["tidx"], "int8", residency="bogus",
                      devices=["cpu"])
     with pytest.raises(ValueError, match="at least one device"):
         sharded_search_host(system["tm"], system["tidx"],
