@@ -63,9 +63,18 @@ kernels launched, once per step; the continuous runtime on the paged
 int8 store = the whole one; paged shard stores and their sharded runtime
 under page-read faults; streaming mutation of the N=100,000 graph with
 the recovery kill matrix and ``install_index`` into a paged runtime; the
-paged continuous launcher with chaos, tracing and the registry).
+paged continuous launcher with chaos, tracing and the registry), and
+last trains (phase 11: the paper's DeepFM measure learned from
+interactions at Twitch scale through the example's steps, indexed by
+NN-descent and exact kNN, labelled and served by SL2G and GUITAR
+unfused and fused int8 with each run's kernels counted; test_system's
+claims on the card; a crash and resume equal to the uninterrupted run bit
+for bit, and the launcher's resume; DLRM-RM2, DCN-v2, BST and BERT4Rec at
+their published configs with full tables, the deterministic table
+gradient beside the atomic one, and one smoke step each on the card
+against the CPU).
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--only train]
 
 Needs one CUDA card; exits non-zero without one, when any phase fails, or
 when run without the rest of the repository. Imports nothing of JAX. The
@@ -2231,6 +2240,21 @@ def check_serve(torch, np, dev, items=100_000):
     return out, ctx
 
 
+def device_busy_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) device spans."""
+    spans = sorted(spans)
+    if not spans:
+        return 0.0
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return busy + cur_e - cur_s
+
+
 def profile_serve(torch, np, dev, ctx, label, capture=False):
     """torch.profiler over one served batch of 32 at N=100,000, through
     the eager host loop or (``capture``) the captured programs: the share
@@ -2278,15 +2302,8 @@ def profile_serve(torch, np, dev, ctx, label, capture=False):
     if not kern:
         log(f"profile {label}: the profiler recorded no device events")
         return {"wall_us": wall_us, "device_events": 0, "loop": loop}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
+    busy = device_busy_us((e.time_range.start, e.time_range.end)
+                          for e in kern)
     by_name = {}
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -3906,6 +3923,609 @@ def check_paged(torch, np, dev, graph, dirs, idx, serve_graph, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (the trainer, AdamW and checkpoints): the paper's
+# DeepFM measure learned at Twitch scale and served, test_system's claims
+# on the card, restart, and the recsys nets at their published configs
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 60            # build_system's steps of 1,024 interactions
+TRAIN_TIME_STEPS = 200      # further steps of a second run, timed
+TRAIN_WARM_STEPS = 10       # its steps left out of the timing
+TRAIN_PROFILE_STEPS = 20
+LEARNED_QUERIES = 1000      # TWITCH.n_test_queries learned users
+# (mode, ef) of the learned-measure serve runs: SL2G and GUITAR at the
+# settings of test_system's claim (ef bumped for GUITAR's recall parity)
+LEARNED_MODES = (("sl2g", 64), ("guitar", 96))
+LEARNED_RESIDENCIES = (("unfused float32", False, "float32"),
+                       ("fused int8", True, "int8"))
+CKPT_EVERY, CKPT_CRASH = 20, 47     # (c): saves at 20 and 40, dies at 47
+RECSYS_ARCHS = ("dlrm-rm2", "dcn-v2", "bst", "bert4rec")
+RECSYS_STEPS = 5
+RECSYS_PROFILE_STEPS = 2
+# train_batch is 65,536 (configs/base.py RECSYS_SHAPES); BERT4Rec's is cut:
+# at seq 200 and 2 heads each example keeps ~3.2 MB of attention and FFN
+# activations for the backward (27.2 GB at 8,192 on the H100), so 65,536
+# would need ~210 GB
+RECSYS_BATCH = {"dlrm-rm2": 65536, "dcn-v2": 65536, "bst": 65536,
+                "bert4rec": 16384}
+RECSYS_SMOKE_BATCH = 16     # the launcher's default --batch
+# one step at the smoke config, card against CPU from the same weights:
+# tests/test_torch_recsys.py's step tolerance (rtol 1e-5, atol 1e-6 at lr
+# 1e-3 with the warmup off); the gradients' atol is 1e-5 of each leaf's
+# largest entry (the CPU tests' 1e-6 against XLA, ten times wider for
+# cuBLAS's other blockings and orders of summation)
+STEP_RTOL, STEP_ATOL, STEP_LR = 1e-5, 1e-6, 1e-3
+SMOKE_GRAD_ATOL_OF_MAX = 1e-5
+
+
+def load_example():
+    """``examples/serve_ranking_torch.py`` as a module (its steps are the
+    phase's training, indexing, labelling and serving)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "serve_ranking_torch",
+        os.path.join(ROOT, "examples", "serve_ranking_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def profile_steps(torch, label, step, n):
+    """torch.profiler over ``n`` calls of ``step`` (each ends in a host
+    sync): wall, the card's busy share, device events per step and device
+    time by kernel. Reports and checks nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = device_busy_us((e.time_range.start, e.time_range.end)
+                          for e in kern)
+    by_name = {}
+    for e in kern:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    log(f"train profile {label}: {n} steps, wall {wall_us / n:.0f}us a "
+        f"step, device busy {busy / n:.0f}us ({busy / wall_us:.1%}), "
+        f"{len(kern) / n:.0f} device events a step")
+    for name, (c, t) in top:
+        log(f"train profile {label}:   {t / n:9.1f}us {c / n:7.1f}x  "
+            f"{name[:90]}")
+    return {"wall_us_per_step": wall_us / n, "busy_us_per_step": busy / n,
+            "busy_share": busy / wall_us if wall_us else 0.0,
+            "events_per_step": len(kern) / n,
+            "top": [(name, c / n, t / n) for name, (c, t) in top]}
+
+
+def more_steps(tr, batch_fn):
+    """A function that runs one more step of trainer ``tr`` (on batches
+    from step 10**6 on, outside its run) and waits for its loss."""
+    n = [0]
+
+    def one_step():
+        tr.params, tr.opt_state, m = tr.step_fn(
+            tr.params, tr.opt_state, batch_fn(10**6 + n[0]))
+        float(m["loss"])
+        n[0] += 1
+
+    return one_step
+
+
+def step_ms(history, warm=1):
+    """Median seconds of the trainer's steps after ``warm``, in ms."""
+    return 1e3 * statistics.median(h["sec"] for h in history[warm:])
+
+
+def same_tree(torch, a, b) -> bool:
+    from repro_torch.tree import flatten_with_paths
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def train_twitch(torch, np, dev, ex):
+    """(a) The paper's DeepFM at Twitch's scale (TWITCH: 100,000 users and
+    739,991 items x 40, make_interactions(n_inter = 20 x 739,991, seed 0))
+    through the example's ``train_measure``: build_system's 60 steps of
+    1,024 (the loss must fall), then a second run of 260 steps timed after
+    its first 10 (ms per step, interactions/s, peak device memory) and
+    profiled over 20 more."""
+    from repro_torch.configs.guitar_deepfm import TWITCH
+    from repro_torch.data import make_interactions
+    t0 = time.perf_counter()
+    data = make_interactions(TWITCH.n_queries, TWITCH.n_items,
+                             n_inter=20 * TWITCH.n_items, seed=0)
+    data_s = time.perf_counter() - t0
+    before = peak_reset(torch, dev)
+    t0 = time.perf_counter()
+    tr, cfg, data, _ = ex.train_measure(TWITCH.n_queries, TWITCH.n_items,
+                                        TRAIN_STEPS, device=dev, data=data)
+    train_s = time.perf_counter() - t0
+    peak = peak_bytes(torch, dev, before)
+    losses = [h["loss"] for h in tr.history]
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"train: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+    head = float(np.mean(losses[:5]))
+    tail = float(np.mean(losses[-5:]))
+    require(tail < head, f"train: the Twitch loss did not fall: first five "
+            f"{head:.4f}, last five {tail:.4f}")
+    # the timed run: the same model and batches over more steps
+    before = peak_reset(torch, dev)
+    timed, _, _, batch_fn = ex.make_trainer(
+        TWITCH.n_queries, TWITCH.n_items,
+        TRAIN_STEPS + TRAIN_TIME_STEPS, device=dev, data=data)
+    timed.run(batch_fn)
+    timed_peak = peak_bytes(torch, dev, before)
+    ms = step_ms(timed.history, TRAIN_WARM_STEPS)
+    prof = profile_steps(torch, "DeepFM Twitch", more_steps(timed, batch_fn),
+                         TRAIN_PROFILE_STEPS)
+    out = {"n_users": TWITCH.n_queries, "n_items": TWITCH.n_items,
+           "n_inter": int(data["user_ids"].shape[0]), "data_s": data_s,
+           "train_s": train_s, "loss_first": losses[0],
+           "loss_last": losses[-1], "loss_first5": head, "loss_last5": tail,
+           "losses": losses, "ms_per_step": ms,
+           "interactions_per_s": ex.TRAIN_BATCH / ms * 1e3,
+           "first_step_ms": 1e3 * timed.history[0]["sec"],
+           "peak_mb": peak / 2**20, "timed_peak_mb": timed_peak / 2**20,
+           "profile": prof}
+    log(f"train (a) DeepFM at Twitch scale ({TWITCH.n_queries} users, "
+        f"{TWITCH.n_items} items, {out['n_inter']} interactions made in "
+        f"{data_s:.1f}s): {TRAIN_STEPS} steps of {ex.TRAIN_BATCH} in "
+        f"{train_s:.2f}s, loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+        f"the first five {head:.4f}, last five {tail:.4f}); timed run "
+        f"{ms:.3f} ms a step (median of steps {TRAIN_WARM_STEPS}.."
+        f"{len(timed.history) - 1}, first {out['first_step_ms']:.1f} ms), "
+        f"{out['interactions_per_s']:.0f} interactions/s; peak device "
+        f"memory {out['peak_mb']:.1f} MiB over the parameters and data "
+        f"already held ({out['timed_peak_mb']:.1f} MiB in the timed run)")
+    del timed
+    return tr, cfg, data, out
+
+
+def learned_serve(torch, np, dev, ex, tr, cfg):
+    """(a) The index over the learned items as the reference builds it
+    (M=24, k_construction=100: NN-descent above exact_threshold) and,
+    beside it, the exact-kNN build; exact top-10 labels of the first 1,000
+    learned users under the learned measure; then SL2G at ef 64 and GUITAR
+    at ef 96, unfused float32 and fused int8, over both graphs: recall@10,
+    Total = #NN + 2 #Grad, QPS, each run launching only its path's
+    kernels (rows 1-6). test_system's claims are logged here, not
+    required."""
+    from repro_torch.configs.guitar_deepfm import TWITCH
+    from repro_torch.core import (EngineOptions, SearchConfig,
+                                  make_corpus_store, recall)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    measure, base, queries = ex.learned_system(tr, cfg, LEARNED_QUERIES)
+    graphs, builds = {}, {}
+    for name, kw in (("nn-descent", {}),
+                     ("exact", {"exact_threshold": base.shape[0]})):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs[name] = ex.build_index(base, m=TWITCH.m,
+                                      k_construction=TWITCH.k_construction,
+                                      device=dev, stats=stats, **kw)
+        torch.cuda.synchronize()
+        builds[name] = {"s": time.perf_counter() - t0,
+                        "knn_s": stats["knn_s"], "prune_s": stats["prune_s"],
+                        "symmetrize_s": stats["symmetrize_s"],
+                        "avg_degree": graphs[name].avg_degree,
+                        "nn_descent": "nn_descent" in stats}
+        log(f"train (a) index over the learned items, {name}: "
+            f"{builds[name]['s']:.2f}s (kNN {stats['knn_s']:.2f}s, prune "
+            f"{stats['prune_s']:.2f}s, symmetrize "
+            f"{stats['symmetrize_s']:.2f}s), degree avg "
+            f"{graphs[name].avg_degree:.1f}")
+    require(builds["nn-descent"]["nn_descent"]
+            and not builds["exact"]["nn_descent"],
+            "train: the learned index did not build through NN-descent")
+    t0 = time.perf_counter()
+    true_ids = ex.label(measure, base, queries, 10, device=dev)
+    label_s = time.perf_counter() - t0
+    log(f"train (a) labels: exact top-10 of {LEARNED_QUERIES} learned users "
+        f"over {base.shape[0]} learned items in {label_s:.2f}s")
+    base_t = torch.as_tensor(base, device=dev)
+    runs = {}
+    for res_label, fused, dtype in LEARNED_RESIDENCIES:
+        options = EngineOptions(fused=fused, corpus_dtype=dtype)
+        store = make_corpus_store(base_t, dtype, device=dev)
+        path = KERNELS_OF[("deepfm", fused)]
+        for gname, graph in graphs.items():
+            for mode, ef in LEARNED_MODES:
+                cfg_s = SearchConfig(k=10, ef=ef, mode=mode,
+                                     budget=TWITCH.budget,
+                                     alpha=TWITCH.alpha)
+                reset_launch_counts()
+                out = ex.serve(measure, graph, queries, cfg_s, options,
+                               store=store, batch=32, device=dev)
+                counts = launch_counts()
+                key = f"{res_label} {gname} {mode} ef {ef}"
+                for kname, c in counts.items():
+                    require(c == 0 or kname in path,
+                            f"train serve {key}: {kname} launched {c} times"
+                            f"; the path's kernels are {path}")
+                need = path if mode == "guitar" else path[:1]
+                require(all(counts[k] > 0 for k in need),
+                        f"train serve {key}: launches {counts}, the path "
+                        f"needs {need}")
+                rec = recall(out["ids"], true_ids)
+                runs[key] = {"recall": rec, "n_eval": out["n_eval"],
+                             "n_grad": out["n_grad"], "total": out["total"],
+                             "qps": out["qps"], "p50_ms": out["p50_ms"],
+                             "p95_ms": out["p95_ms"],
+                             "launches": {k: c for k, c in counts.items()
+                                          if c}}
+                log(f"train serve {key}: recall@10 {rec:.4f}, #NN "
+                    f"{out['n_eval']:.1f} #Grad {out['n_grad']:.1f} Total "
+                    f"{out['total']:.1f}, QPS {out['qps']:.1f}, p50 "
+                    f"{out['p50_ms']:.2f} ms per batch of 32")
+    claims = {}
+    for res_label, _, _ in LEARNED_RESIDENCIES:
+        for gname in graphs:
+            s = runs[f"{res_label} {gname} sl2g ef 64"]
+            g = runs[f"{res_label} {gname} guitar ef 96"]
+            claims[f"{res_label} {gname}"] = c = {
+                "guitar_recall_minus_sl2g": g["recall"] - s["recall"],
+                "total_ratio": g["total"] / s["total"]}
+            log(f"train (a) test_system's claim at Twitch scale, "
+                f"{res_label} {gname} (logged, not required): GUITAR ef 96 "
+                f"recall {g['recall']:.4f} vs SL2G ef 64 {s['recall']:.4f}, "
+                f"Total ratio {c['total_ratio']:.3f} (test_system wants "
+                f"< 0.6 at recall >= SL2G's - 0.05)")
+    return {"builds": builds, "label_s": label_s, "runs": runs,
+            "claims": claims}
+
+
+def system_claims(torch, np, dev):
+    """(b) tests/test_system.py's claims on the card through the port:
+    its fixture (N_ITEMS 3,000, N_USERS 256, 30,000 interactions of seed
+    1, the model's own tables from the port's generator of seed 0, 40
+    steps of 256 at lr 5e-3 over a cosine of 80, the graph at M=12,
+    k_construction=32, the first 24 users as queries); SL2G recall >= 0.85
+    at ef 96, GUITAR's Total < 0.6 x SL2G's (ef 96 against 64) at recall
+    >= SL2G's - 0.05, alpha monotone in #eval, results sorted and
+    unique."""
+    from repro_torch.core import (SearchConfig, brute_force_topk,
+                                  deepfm_measure, recall, search_measure)
+    from repro_torch.data import make_interactions
+    from repro_torch.graph import build_l2_graph
+    from repro_torch.models import deepfm as F
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+    n_items, n_users, n_q = 3000, 256, 24
+    cfg = F.DeepFMConfig(n_users=n_users, n_items=n_items)
+    params = F.init_model(torch.Generator().manual_seed(0), cfg, device=dev)
+    data = make_interactions(n_users, n_items, 30_000, seed=1)
+
+    def batch_fn(step):
+        idx = np.random.default_rng(step).integers(0, 30_000, 256)
+        return {k: torch.as_tensor(data[v][idx], device=dev) for k, v in (
+            ("u", "user_ids"), ("i", "item_ids"), ("y", "labels"))}
+
+    tr = Trainer(lambda p, b: F.interaction_loss(p, b["u"], b["i"], b["y"],
+                                                 cfg),
+                 params, OptimizerConfig(lr=5e-3, total_steps=80),
+                 TrainerConfig(total_steps=40, ckpt_every=1000))
+    tr.run(batch_fn)
+    base = tr.params["items"].detach()
+    queries = tr.params["users"][:n_q].detach()
+    measure = deepfm_measure({"mlp": {k: [t.detach() for t in v] for k, v in
+                                      tr.params["mlp"].items()}}, cfg)
+    graph = build_l2_graph(base.cpu().numpy(), m=12, k_construction=32,
+                           device=dev)
+    true_ids, _ = brute_force_topk(measure, base, queries, 10)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    entries = torch.full((n_q,), graph.entry, device=dev)
+
+    def run(mode, ef=64, alpha=1.01, budget=8):
+        res = search_measure(measure, base, nbrs, queries, entries,
+                             SearchConfig(k=10, ef=ef, budget=budget,
+                                          alpha=alpha, mode=mode))
+        total = float(res.n_eval.float().mean()
+                      + 2 * res.n_grad.float().mean())
+        return recall(res.ids, true_ids), total, res
+
+    r96, _, _ = run("sl2g", ef=96)
+    r_s, total_s, _ = run("sl2g", ef=64)
+    r_g, total_g, res_g = run("guitar", ef=96)
+    evals = [float(run("guitar", alpha=a, budget=12)[2].n_eval.float()
+                   .mean()) for a in (1.0, 1.1, 1.5)]
+    out = {"loss_first": tr.history[0]["loss"],
+           "loss_last": tr.history[-1]["loss"], "sl2g_ef96_recall": r96,
+           "sl2g_ef64_recall": r_s, "sl2g_ef64_total": total_s,
+           "guitar_ef96_recall": r_g, "guitar_ef96_total": total_g,
+           "alpha_evals": evals}
+    log(f"train (b) test_system on the card: loss {out['loss_first']:.4f} "
+        f"-> {out['loss_last']:.4f}; SL2G ef 96 recall {r96:.4f}; SL2G ef "
+        f"64 recall {r_s:.4f} Total {total_s:.1f}; GUITAR ef 96 recall "
+        f"{r_g:.4f} Total {total_g:.1f} ({total_g / total_s:.3f}x); #eval "
+        f"at alpha 1.0/1.1/1.5: {evals}")
+    require(r96 >= 0.85, f"train (b): SL2G recall {r96:.4f} < 0.85 at ef 96")
+    require(r_g >= r_s - 0.05, f"train (b): GUITAR recall {r_g:.4f} << SL2G "
+            f"{r_s:.4f}")
+    require(total_g < 0.6 * total_s, f"train (b): GUITAR Total {total_g:.1f}"
+            f" not < 0.6 x SL2G's {total_s:.1f}")
+    require(evals[0] <= evals[1] <= evals[2] * 1.05,
+            f"train (b): #eval not monotone in alpha: {evals}")
+    ids, scores = res_g.ids.cpu().numpy(), res_g.scores.cpu().numpy()
+    for q in range(n_q):
+        s = scores[q][np.isfinite(scores[q])]
+        vid = ids[q][ids[q] >= 0]
+        require(bool((np.diff(s) <= 1e-6).all())
+                and len(set(vid.tolist())) == len(vid),
+                f"train (b): query {q}'s results unsorted or repeated")
+    return out
+
+
+def checkpoint_restart(torch, np, dev, ex, tr_whole, data):
+    """(c) The Twitch trainer with checkpoints every 20 steps dies at step
+    47; a new trainer resumes from step 40 and finishes the 60: its
+    parameters and optimizer state equal (a)'s uninterrupted run's bit for
+    bit. Then ``launch/train.py --arch dcn-v2 --ckpt-dir`` trains 10 steps
+    on the card and a second call with --steps 14 resumes at 10."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.guitar_deepfm import TWITCH
+    from repro_torch.launch import train as train_launch
+    root = tempfile.mkdtemp(prefix="ckpt-")
+    try:
+        d = os.path.join(root, "twitch")
+        tr, _, _, batch_fn = ex.make_trainer(
+            TWITCH.n_queries, TWITCH.n_items, TRAIN_STEPS, device=dev,
+            data=data, ckpt_dir=d, ckpt_every=CKPT_EVERY)
+
+        def crashing(step):
+            if step == CKPT_CRASH:
+                raise SmokeFailure("the injected crash")
+            return batch_fn(step)
+
+        t0 = time.perf_counter()
+        try:
+            tr.run(crashing)
+            require(False, "train (c): the injected crash did not happen")
+        except SmokeFailure as e:
+            require("injected" in str(e), str(e))
+        crashed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed, _, _, batch_fn = ex.make_trainer(
+            TWITCH.n_queries, TWITCH.n_items, TRAIN_STEPS, device=dev,
+            data=data, ckpt_dir=d, ckpt_every=CKPT_EVERY)
+        restore_s = time.perf_counter() - t0
+        require(resumed.start_step == 2 * CKPT_EVERY,
+                f"train (c): resumed at {resumed.start_step}, not 40")
+        resumed.run(batch_fn)
+        same_p = same_tree(torch, resumed.params, tr_whole.params)
+        same_o = same_tree(torch, resumed.opt_state, tr_whole.opt_state)
+        require(same_p and same_o, f"train (c): the resumed run's params "
+                f"(equal {same_p}) or optimizer state (equal {same_o}) "
+                f"differ from the uninterrupted run's")
+        ckpt_mb = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(d) for f in fs) / 2**20
+        log(f"train (c) restart: crashed at step {CKPT_CRASH} after saving "
+            f"steps 20 and 40 ({crashed_s:.2f}s), restored step 40 in "
+            f"{restore_s:.2f}s (trainer built, checkpoint read), finished "
+            f"step 60: parameters and optimizer state = the uninterrupted "
+            f"run's bit for bit; {ckpt_mb:.0f} MiB on disk")
+        d2 = os.path.join(root, "dcn")
+        first = train_launch.main(["--arch", "dcn-v2", "--steps", "10",
+                                   "--ckpt-dir", d2, "--device", str(dev)])
+        again = train_launch.main(["--arch", "dcn-v2", "--steps", "14",
+                                   "--ckpt-dir", d2, "--device", str(dev)])
+        require(first.start_step == 0 and again.start_step == 10
+                and int(again.opt_state.step) == 14
+                and len(again.history) == 4,
+                f"train (c): the launcher resumed at {again.start_step}, "
+                f"ran {len(again.history)} steps")
+        losses = [h["loss"] for h in first.history + again.history]
+        require(all(np.isfinite(losses)), "train (c): dcn-v2 loss not finite")
+        return {"crashed_s": crashed_s, "restore_s": restore_s,
+                "ckpt_mib": ckpt_mb, "bit_equal": True,
+                "launcher_losses": losses}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def gather_grad_times(torch, dev, table_rows, d, ids):
+    """The table gradient of a row gather at DLRM-RM2's train_batch: the
+    port's deterministic segment sum (sorted ids, each run reduced in
+    order) against the atomic ``index_add_`` (the default backward of
+    ``index_select``), device ms of each, and whether each gives the same
+    bits twice."""
+    from repro_torch.models.layers import segment_sum_rows
+    g = torch.randn((ids.numel(), d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+
+    def det():
+        return segment_sum_rows(g, ids, table_rows)
+
+    def atomic():
+        return torch.zeros((table_rows, d), device=dev).index_add_(0, ids, g)
+
+    out = {"det_ms": event_ms(det), "atomic_ms": event_ms(atomic)}
+    a, b = det(), det()
+    out["det_repeats"] = bool(torch.equal(a, b))
+    del a, b
+    a, b = atomic(), atomic()
+    out["atomic_repeats"] = bool(torch.equal(a, b))
+    del a, b, g
+    require(out["det_repeats"], "train (d): the deterministic table "
+            "gradient changed between two runs")
+    return out
+
+
+def recsys_published(torch, np, dev):
+    """(d) DLRM-RM2, DCN-v2, BST and BERT4Rec at their published configs
+    (``config()``, every table at its full row count) through
+    ``launch/train.py``'s ``recsys_setup``, a few AdamW steps each at
+    train_batch (BERT4Rec at its named cut): finite losses, ms per step,
+    examples/s, peak device memory, a profile of two more steps. Then one
+    step of each smoke config on the card and on the CPU from the same
+    weights (``smoke_step_card_vs_cpu``)."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.models.recsys import _offsets
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for name in RECSYS_ARCHS:
+        arch = get_arch(name)
+        cfg = arch.make_config()
+        batch = RECSYS_BATCH[name]
+        before = peak_reset(torch, dev)
+        t0 = time.perf_counter()
+        params, loss_fn, batch_fn = recsys_setup(arch, cfg, batch,
+                                                 device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        tr = Trainer(loss_fn, params, OptimizerConfig(
+            lr=1e-3, total_steps=2 * RECSYS_STEPS),
+            TrainerConfig(total_steps=RECSYS_STEPS, ckpt_every=10**9))
+        tr.run(batch_fn)
+        peak = peak_bytes(torch, dev, before) + before
+        prof = profile_steps(torch, name, more_steps(tr, batch_fn),
+                             RECSYS_PROFILE_STEPS)
+        losses = [h["loss"] for h in tr.history]
+        require(all(np.isfinite(losses)), f"train (d) {name}: a loss is not "
+                f"finite: {losses}")
+        ms = step_ms(tr.history)
+        res = {"batch": batch, "n_params": n_params, "init_s": init_s,
+               "losses": losses, "ms_per_step": ms,
+               "first_step_ms": 1e3 * tr.history[0]["sec"],
+               "examples_per_s": batch / ms * 1e3,
+               "peak_gb": peak / 1e9, "profile": prof}
+        if name == "dlrm-rm2":
+            sparse = batch_fn(10**6)["sparse"]
+            ids = (sparse + _offsets(cfg.cardinalities, dev)[None, :]
+                   ).reshape(-1).long()
+            res["gather_grad"] = gather_grad_times(
+                torch, dev, tr.params["table"].shape[0], cfg.embed_dim, ids)
+        out[name] = res
+        log(f"train (d) {name} published config ({n_params / 1e6:.1f}M "
+            f"parameters, built in {init_s:.2f}s), batch {batch}: losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; {ms:.2f} ms a step "
+            f"(median of steps 1..{RECSYS_STEPS - 1}; first "
+            f"{res['first_step_ms']:.0f} ms), {res['examples_per_s']:.0f} "
+            f"examples/s; peak device memory {res['peak_gb']:.2f} GB")
+        if "gather_grad" in res:
+            gg = res["gather_grad"]
+            log(f"train (d) dlrm-rm2 table gradient of {ids.numel()} ids: "
+                f"deterministic segment sum {gg['det_ms']:.2f} ms (same "
+                f"bits twice: {gg['det_repeats']}), atomic index_add_ "
+                f"{gg['atomic_ms']:.2f} ms (same bits twice: "
+                f"{gg['atomic_repeats']})")
+        del tr, params, loss_fn, batch_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one step of each smoke config: the card against the CPU
+    for name in RECSYS_ARCHS:
+        out[name]["smoke_step_card_vs_cpu"] = smoke_step_card_vs_cpu(
+            torch, dev, name)
+    return out
+
+
+def _worst(torch, got, want, rtol, atol, atol_of_max=0.0):
+    """Worst ``close_err`` ratio over two trees' leaves (got on any
+    device), each leaf's atol raised by ``atol_of_max`` of its largest
+    entry."""
+    from repro_torch.tree import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        tol = atol + atol_of_max * float(b.abs().max())
+        worst = max(worst, close_err(a, b, rtol, tol)[1])
+    return worst
+
+
+def smoke_step_card_vs_cpu(torch, dev, name):
+    """(d) One AdamW step of ``name``'s smoke config (the launcher's batch
+    of 16, lr 1e-3, warmup off) on the card and on the CPU from the same
+    weights: the loss at rtol 1e-5, the gradients at rtol 1e-5 and an
+    atol of SMOKE_GRAD_ATOL_OF_MAX of each leaf's largest entry, and the
+    parameters after the update at STEP_RTOL / STEP_ATOL when both
+    devices update from the card's gradients. Two independent steps'
+    parameters are logged, not required: Adam's first step is g / (|g| +
+    eps) x lr, so where |g| is near eps a gradient's last bits move the
+    step by up to lr."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.train import OptimizerConfig, adamw_init, adamw_update
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_map
+    arch = get_arch(name)
+    cfg = arch.make_smoke_config()
+    ocfg = OptimizerConfig(lr=STEP_LR, warmup_steps=0, total_steps=10)
+    runs = {}
+    for where in ("cpu", str(dev)):
+        params, loss_fn, batch_fn = recsys_setup(
+            arch, cfg, RECSYS_SMOKE_BATCH, device=where,
+            generator=torch.Generator().manual_seed(0))
+        loss, grads = value_and_grad(loss_fn, params, batch_fn(0))
+        runs[where] = (params, float(loss), grads)
+    (pc, lc, gc), (pd, ld, gd) = runs["cpu"], runs[str(dev)]
+    g_worst = _worst(torch, gd, gc, STEP_RTOL, 0.0, SMOKE_GRAD_ATOL_OF_MAX)
+    own = tree_map(lambda t: t.detach().clone(), pc)
+    adamw_update(own, gc, adamw_init(own, ocfg), ocfg)
+    adamw_update(pc, tree_map(lambda t: t.cpu(), gd), adamw_init(pc, ocfg),
+                 ocfg)
+    adamw_update(pd, gd, adamw_init(pd, ocfg), ocfg)
+    p_worst = _worst(torch, pd, pc, STEP_RTOL, STEP_ATOL)
+    own_worst = _worst(torch, pd, own, STEP_RTOL, STEP_ATOL)
+    log(f"train (d) {name} smoke config, one step on the card against the "
+        f"CPU from the same weights: loss {ld:.6f} / {lc:.6f}; gradients "
+        f"{g_worst:.3f} of their tolerance; parameters updated from the "
+        f"same gradients {p_worst:.3f} of theirs (rtol {STEP_RTOL}, atol "
+        f"{STEP_ATOL}); two independent steps' parameters {own_worst:.3f} "
+        f"(logged)")
+    require(abs(ld - lc) <= STEP_RTOL * abs(lc) and g_worst <= 1.0
+            and p_worst <= 1.0,
+            f"train (d) {name}: the card's step differs from the CPU's "
+            f"(loss {ld} / {lc}, gradients {g_worst:.3f}, parameters "
+            f"{p_worst:.3f} of the tolerance)")
+    return {"loss_cpu": lc, "loss_card": ld, "grad_worst": g_worst,
+            "param_worst": p_worst, "independent_param_worst": own_worst}
+
+
+def check_training(torch, np, dev):
+    """Phase 11: (a) the DeepFM measure learned at Twitch scale, indexed,
+    labelled and served; (b) test_system's claims on the card; (c)
+    checkpoint and restart; (d) the recsys nets at their published
+    configurations."""
+    t_phase = time.perf_counter()
+    ex = load_example()
+    out, secs = {"tf32": bool(torch.backends.cuda.matmul.allow_tf32)}, {}
+    log(f"train: phase 11, TF32 {'on' if out['tf32'] else 'off'} for "
+        f"matrix products")
+    t0 = time.perf_counter()
+    tr, cfg, data, out["twitch_train"] = train_twitch(torch, np, dev, ex)
+    out["twitch_serve"] = learned_serve(torch, np, dev, ex, tr, cfg)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["system"] = system_claims(torch, np, dev)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["restart"] = checkpoint_restart(torch, np, dev, ex, tr, data)
+    secs["c"] = time.perf_counter() - t0
+    del tr, data
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["recsys"] = recsys_published(torch, np, dev)
+    secs["d"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"train: phase 11 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"({k}) {v:.1f}s" for k, v in secs.items()) + ")")
+    return out
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -4051,6 +4671,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
+    ap.add_argument("--only", choices=("train",), default=None,
+                    help="build the kernels and run only this phase (no "
+                         "result line): a quicker check of one phase")
     opts = ap.parse_args()
     import numpy as np
     import torch
@@ -4086,6 +4709,16 @@ def main() -> int:
                         or "Compiling entry" in line:
                     log("ptxas: " + line.strip())
 
+        if opts.only == "train":
+            results["train"] = check_training(torch, np, dev)
+            log(f"--only train: phase 11 passed; no result line "
+                f"({time.perf_counter() - t_start:.1f}s)")
+            if opts.out:
+                os.makedirs(os.path.dirname(os.path.abspath(opts.out)),
+                            exist_ok=True)
+                with open(opts.out, "w") as f:
+                    json.dump(results, f, indent=1, default=str)
+            return 0
         results["launch_floor_ms"] = launch_floor_ms(torch, dev)
         log(f"launch floor: {results['launch_floor_ms'] * 1e3:.2f}us per "
             f"in-place add on a one-element tensor under graph replay")
@@ -4127,6 +4760,7 @@ def main() -> int:
             torch, np, dev, ctx, results["serve"])
         results["fault_domain"] = check_fault_domain(torch, np, dev, ctx,
                                                      sharded_idx)
+        results["train"] = check_training(torch, np, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

@@ -16,9 +16,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.models import deepfm as deepfm_lib
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_from_jax
 
 ScoreFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -164,11 +164,8 @@ def deepfm_numpy_fns(params: dict, cfg: deepfm_lib.DeepFMConfig):
 def params_from_jax(mlp_params_numpy: dict, device="cuda") -> dict:
     """The JAX package's MLP pytree ``{'w': [...], 'b': [...]}`` (as numpy
     arrays) -> the port's parameters: the same (d_in, d_out) layout, as
-    float32 tensors on ``device``."""
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
-
-    return {"w": [t(w) for w in mlp_params_numpy["w"]],
-            "b": [t(b) for b in mlp_params_numpy["b"]]}
+    float32 tensors on ``device`` (``tree.tree_from_jax`` for whole
+    trees)."""
+    return tree_from_jax({k: [np.asarray(a, np.float32)
+                              for a in mlp_params_numpy[k]]
+                          for k in ("w", "b")}, device)

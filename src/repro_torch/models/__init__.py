@@ -1,3 +1,4 @@
-"""Measure models of the port (DeepFM), their building blocks and the
-attention layers (``layers``), and the recommendation models' embedding
-ops (``recsys``)."""
+"""Models of the port: the DeepFM measure and its trainable recommender
+(``deepfm``), the shared building blocks and attention layers
+(``layers``), and the recommendation nets with their embedding ops
+(``recsys``: DLRM, DCN-v2, BST, BERT4Rec)."""

@@ -23,12 +23,20 @@ from repro_torch import DEFAULT_DEVICE, resolve_device
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                scale: Optional[float] = None, device="cuda") -> torch.Tensor:
-    """N(0, 1) * scale with scale = 1/sqrt(d_in), drawn on the CPU from
-    ``generator`` (so a seed gives the same weights on every device)."""
+    """N(0, 1) * scale with scale = 1/sqrt(d_in), drawn on the generator's
+    device from ``generator`` (a CPU generator gives the same weights on
+    every device), then moved to ``device``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=generator,
-                    dtype=torch.float32) * scale
+                    dtype=torch.float32, device=generator.device) * scale
     return w.to(resolve_device(device))
+
+
+def embed_init(generator: torch.Generator, n: int, d: int,
+               scale: float = 0.02, device="cuda") -> torch.Tensor:
+    """An (n, d) table of N(0, 1) * scale, drawn as ``dense_init`` draws (a
+    generator on the card draws a table of billions of elements there)."""
+    return dense_init(generator, n, d, scale=scale, device=device)
 
 
 def init_mlp(generator: torch.Generator, dims: Sequence[int],
@@ -59,6 +67,66 @@ VOCAB_PAD = 16  # vocab/table rows padded to a multiple of this (TP evenness)
 
 def pad_vocab(n: int) -> int:
     return ((n + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def mask_pad_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """-1e30 on the padded vocab tail so softmax/argmax ignore it."""
+    if logits.shape[-1] == vocab:
+        return logits
+    ok = torch.arange(logits.shape[-1], device=logits.device) < vocab
+    return torch.where(ok, logits, -1e30)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in float32 (mean, biased variance, rsqrt), cast
+    back to x's dtype, as the JAX layer."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.to(torch.float32) + bias.to(torch.float32)).to(dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each id's rows in a fixed order:
+    the ids sorted (stable), each run of equal ids reduced in sequence
+    (``torch.segment_reduce``), one write per distinct row. The default
+    backward of a gather adds by atomics on the card, so duplicate ids
+    would add up in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return segment_sum_rows(g, ids, ctx.n_rows), None
+
+
+def segment_sum_rows(g: torch.Tensor, ids: torch.Tensor,
+                     n_rows: int) -> torch.Tensor:
+    """(n_rows, d) zeros plus, at each distinct id, the sum of g's rows
+    with that id in their original order (deterministic on every device;
+    on the CPU the same sums as ``index_add_``)."""
+    srt, perm = torch.sort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(srt, return_counts=True)
+    sums = torch.segment_reduce(g.index_select(0, perm), "sum",
+                                lengths=counts)
+    out = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    return out.index_copy_(0, uniq, sums)
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Row gather (rows, d) x (...,) -> (..., d) with the deterministic
+    backward of ``_GatherRows``."""
+    flat = ids.reshape(-1).long()
+    return _GatherRows.apply(table, flat).reshape(*ids.shape,
+                                                  table.shape[1])
 
 
 def tensor_from_jax(a, device="cuda") -> torch.Tensor:

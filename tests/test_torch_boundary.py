@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 _BLOCKED_IMPORTS = textwrap.dedent("""
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, importlib.util, pkgutil, sys
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -32,6 +32,10 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    # the end-to-end example imports the port alone
+    spec = importlib.util.spec_from_file_location(
+        "serve_ranking_torch", "examples/serve_ranking_torch.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
     # the index files' bf16 and int8 payloads go through torch alone
     import tempfile, numpy as np
     from repro_torch.graph import (GraphIndex, load_corpus_store,
@@ -76,7 +80,8 @@ def test_port_imports_no_jax_and_no_repro():
 
 
 def test_port_sources_name_no_jax():
-    files = sorted(SRC.glob("repro_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(SRC.glob("repro_torch/**/*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_ranking_torch.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -99,6 +104,22 @@ def test_serve_default_device_refuses_cpu_fallback():
     assert out.returncode != 0
     assert "cuda" in (out.stdout + out.stderr).lower()
     assert "QPS" not in out.stdout
+
+
+def test_train_default_device_is_the_card():
+    """The training launcher's --device defaults to the card; without one
+    it fails instead of training on the CPU."""
+    from repro_torch.launch import train
+    assert train.build_parser().get_default("device") == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "bst",
+         "--steps", "2"], capture_output=True, text=True, env=_env(),
+        cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+    assert "[train] bst" not in out.stdout
 
 
 def test_chip_smoke_alone_fails(tmp_path):
