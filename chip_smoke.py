@@ -72,9 +72,17 @@ claims on the card; a crash and resume equal to the uninterrupted run bit
 for bit, and the launcher's resume; DLRM-RM2, DCN-v2, BST and BERT4Rec at
 their published configs with full tables, the deterministic table
 gradient beside the atomic one, and one smoke step each on the card
-against the CPU).
+against the CPU), and last the tuning cache and the legacy searcher
+(phase 12: the engine's tile plan against the rowwise plan and unfused at
+N=5,000, DeepFM and MLP, GUITAR and SL2G, f32/bf16/int8, bit for bit,
+each plan launching only its kernels once per step; ``serve --autotune``
+over the serve phase's N=100,000 graph, a sweep then a cache hit, recall
+unchanged, ``--metrics-out`` with the autotune families, and ``--tile
+rowwise`` / ``--tile tile`` in turns; ``search_legacy`` on the card
+against the CPU, captured = eager, no port kernel; ``serve --searcher
+legacy`` beside the engine in turns, and its refusals).
 
-    python3 chip_smoke.py [--out results.json] [--only train]
+    python3 chip_smoke.py [--out results.json] [--only train|tune]
 
 Needs one CUDA card; exits non-zero without one, when any phase fails, or
 when run without the rest of the repository. Imports nothing of JAX. The
@@ -2099,6 +2107,23 @@ SERVE_RUNS = (
 )
 
 
+def serve_common(items, dev) -> list:
+    """The serve phase's launcher flags: the DeepFM model's width (D = 40,
+    hidden 64x64) and corpus size (DeepFMConfig.n_items), the paper's
+    search settings; 10 batches of 32 queries."""
+    return ["--items", str(items), "--dim", "40", "--queries", "320",
+            "--batch", "32", "--ef", "64", "--budget", "8", "--alpha",
+            "1.01", "--k", "10", "--device", str(dev)]
+
+
+def serve_stream(np, items, dim=40):
+    """The serve phase's base and query stream: (base, rng, the rng's
+    state after the base, where the launcher's queries start)."""
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(items, dim)).astype(np.float32)
+    return base, rng, rng.bit_generator.state
+
+
 def serve_compare(torch, np, serve, common, family, extra, graph, measure,
                   cfg, store, nbrs, base_t, rng, query_stream, qt, entries,
                   label):
@@ -2160,16 +2185,10 @@ def check_serve(torch, np, dev, items=100_000):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
-    # the DeepFM model's width (D = 40, hidden 64x64) and corpus size
-    # (DeepFMConfig.n_items), the paper's graph (M = 24, k_construction =
-    # 100) and search settings; 10 batches of 32 queries
-    common = ["--items", str(items), "--dim", "40", "--queries", "320",
-              "--batch", "32", "--ef", "64", "--budget", "8", "--alpha",
-              "1.01", "--k", "10", "--device", str(dev)]
+    # the paper's graph (M = 24, k_construction = 100)
+    common = serve_common(items, dev)
     args = serve.parse_args(common)
-    rng = np.random.default_rng(0)
-    base = rng.normal(size=(args.items, args.dim)).astype(np.float32)
-    query_stream = rng.bit_generator.state
+    base, rng, query_stream = serve_stream(np, args.items, args.dim)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     graph = build_l2_graph(base, m=24, k_construction=100,
@@ -4526,6 +4545,452 @@ def check_training(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the tuning cache and the engine's tile plan; the legacy searcher
+# ---------------------------------------------------------------------------
+
+# the kernels the tile plan launches (pre-gathered) and the rowwise plan
+# launches (fused), by (family, mode)
+PLAN_KERNELS = {
+    ("deepfm", "guitar", "tile"): ("deepfm_score", "neighbor_rank",
+                                   "deepfm_value_and_grad"),
+    ("deepfm", "sl2g", "tile"): ("deepfm_score",),
+    ("mlp", "guitar", "tile"): ("mlp_score", "neighbor_rank",
+                                "mlp_value_and_grad"),
+    ("mlp", "sl2g", "tile"): ("mlp_score",),
+    ("deepfm", "guitar", "rowwise"): KERNELS_OF[("deepfm", True)],
+    ("deepfm", "sl2g", "rowwise"): ("deepfm_score_fused",),
+    ("mlp", "guitar", "rowwise"): KERNELS_OF[("mlp", True)],
+    ("mlp", "sl2g", "rowwise"): ("mlp_score_fused",),
+}
+# the N=100,000 serve runs whose fused step phase 12 (b) tunes
+TUNE_RUNS = ("fused float32", "fused bfloat16", "fused int8",
+             "mlp fused int8")
+TUNE_CONTINUOUS = ["--runtime", "continuous", "--lanes", "32", "--queries",
+                   "128", "--offered-qps", "100000"]
+AUTOTUNE_FAMILIES = ("repro_autotune_lookup_hits_total",
+                     "repro_autotune_lookup_misses_total",
+                     "repro_autotune_sweeps_total",
+                     "repro_autotune_sweep_cache_hits_total")
+
+
+def check_plan_launches(counts, family, mode, plan, label, steps=None):
+    """The plan's kernels launched and no other kernel; with ``steps``,
+    each once per step (the score once more, at init)."""
+    path = PLAN_KERNELS[(family, mode, plan)]
+    for name, n in counts.items():
+        if name not in path:
+            require(n == 0, f"{label}: kernel {name} launched {n} times; "
+                    f"the {plan} plan's kernels are {path}")
+        elif steps is None:
+            require(n > 0, f"{label}: kernel {name} never launched")
+        else:
+            want = steps + 1 if "score" in name else steps
+            require(n == want, f"{label}: kernel {name} launched {n} "
+                    f"times, not once per step ({steps} steps"
+                    f"{', +1 at init' if 'score' in name else ''})")
+
+
+def tile_plan_parity(torch, np, dev, N=5000):
+    """(a) At N=5,000, DeepFM and MLP, GUITAR and SL2G, f32/bf16/int8:
+    the captured search in the tile plan, the rowwise plan and unfused;
+    each = its search_debug bit for bit; tile = rowwise = unfused bit for
+    bit at f32, tile = unfused at bf16/int8 (both ``store.take``), tile =
+    rowwise bit for bit or, if not, each at the plain score of its ids and
+    recall@10 within 0.01; each plan launches only its kernels, once per
+    step. Returns the numbers and the (base, graph) for (d)."""
+    from repro_torch.core import (EngineOptions, SearchConfig,
+                                  brute_force_topk, build_engine,
+                                  make_corpus_store, make_family_measure,
+                                  recall)
+    from repro_torch.graph import build_l2_graph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    D, Q = 40, 32
+    rng = np.random.default_rng(12)
+    base = rng.normal(size=(N, D)).astype(np.float32)
+    qt = torch.as_tensor(rng.normal(size=(Q, D)).astype(np.float32),
+                         device=dev)
+    graph = build_l2_graph(base, m=24, k_construction=100, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    entries = torch.full((Q,), graph.entry, device=dev)
+    base_t = torch.as_tensor(base, device=dev)
+    out = {}
+    for family in ("deepfm", "mlp"):
+        measure = make_family_measure(family, torch.Generator().manual_seed(0),
+                                      D, device=dev)
+        truth = brute_force_topk(measure, base_t, qt, 10)[0]
+        for mode in ("guitar", "sl2g"):
+            cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01, mode=mode)
+            for dtype in RESIDENCIES:
+                store = make_corpus_store(base, dtype, device=dev)
+                res = {}
+                for plan in ("unfused", "rowwise", "tile"):
+                    options = (EngineOptions(corpus_dtype=dtype)
+                               if plan == "unfused" else
+                               EngineOptions(fused=True, corpus_dtype=dtype,
+                                             tile=plan))
+                    eng = build_engine(measure, cfg, options)
+                    name = f"tile plan {family} {mode} {dtype} {plan}"
+                    steps0 = eng.stats["steps"]
+                    reset_launch_counts()
+                    r = eng.search(measure.params, store, nbrs, qt, entries)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                    steps = eng.stats["steps"] - steps0
+                    if plan != "unfused":
+                        check_plan_launches(counts, family, mode, plan,
+                                            name, steps)
+                    debug = eng.search_debug(measure.params, store, nbrs, qt,
+                                             entries)
+                    require(same_result(torch, r, debug), f"{name}: the "
+                            f"captured search differs from search_debug")
+                    res[plan] = r
+                tag = f"tile plan {family} {mode} {dtype}"
+                require(same_result(torch, res["tile"], res["unfused"]),
+                        f"{tag}: the tile plan differs from unfused")
+                exact = same_result(torch, res["tile"], res["rowwise"])
+                if dtype == "float32":
+                    require(exact, f"{tag}: tile differs from rowwise")
+                rec = {p: recall(r.ids, truth) for p, r in res.items()}
+                if not exact:
+                    for p in ("rowwise", "tile"):
+                        check_result(torch, measure, store, qt, res[p], 10,
+                                     f"{tag} {p}")
+                    require(abs(rec["tile"] - rec["rowwise"])
+                            <= RECALL_AGREE, f"{tag}: recall tile "
+                            f"{rec['tile']:.4f} vs rowwise "
+                            f"{rec['rowwise']:.4f}")
+                log(f"{tag}: captured = search_debug in each plan; tile = "
+                    f"unfused bit for bit; tile {'=' if exact else '!='} "
+                    f"rowwise bit for bit; recall@10 " + ", ".join(
+                        f"{p} {v:.4f}" for p, v in rec.items())
+                    + f"; {int(res['tile'].n_iters.max())} iterations max")
+                out[tag] = {"tile_equals_rowwise": exact, "recall": rec}
+    return out, (base, graph)
+
+
+def tune_serve(torch, np, dev, ctx, root, equal_plans):
+    """(b) and (c): ``serve --autotune`` at N=100,000 for TUNE_RUNS, each
+    family on its own cache file under ``root``: the first (oneshot, Q=32)
+    run sweeps, the second (continuous, 32 lanes) is a cache hit; recall
+    equals the run without --autotune; the continuous run of the first
+    label writes --metrics-out with the four autotune families. Then
+    --tile rowwise and --tile tile serve in turns (rowwise, tile, tile,
+    rowwise): QPS, p50, host us per step, each run's kernels; results bit
+    for bit equal where (a) found the plans equal."""
+    from repro_torch.core import build_engine, make_family_measure
+    from repro_torch.kernels import (autotune, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import serve
+    flags_of = {label: (family, extra) for label, family, extra in SERVE_RUNS}
+    graph = ctx[TUNE_RUNS[0]][3]
+    common = serve_common(graph.n, dev)
+    _, rng, stream = serve_stream(np, graph.n)
+    base_t = torch.as_tensor(graph.base, device=dev)
+    out = {}
+    for i, label in enumerate(TUNE_RUNS):
+        measure, store, nbrs, _, cfg, _ = ctx[label]
+        family, extra = flags_of[label]
+        os.environ["REPRO_TORCH_TUNING_CACHE"] = os.path.join(
+            root, f"{family}.json")
+        # a fresh measure (the same weights): an engine that has resolved
+        # no plan yet, as in a new launcher process
+        fresh = make_family_measure(family, torch.Generator().manual_seed(0),
+                                    40, device=dev)
+
+        def run(m, flags, results=None):
+            args = serve.parse_args(common + ["--measure", family] + extra
+                                    + flags)
+            options = serve.engine_options(args)
+            rng.bit_generator.state = stream
+            if args.autotune:
+                before = dict(autotune.CACHE_STATS)
+                serve.autotune_plan(args, graph, m, cfg, options, store,
+                                    nbrs, dev)
+                delta = {k: autotune.CACHE_STATS[k] - before[k]
+                         for k in before}
+            else:
+                delta = None
+            fn = (serve.serve_continuous if args.runtime == "continuous"
+                  else serve.serve_oneshot)
+            kw = {"results": results} if results is not None else {}
+            return fn(args, graph, m, cfg, options, store, nbrs, base_t,
+                      rng, dev, **kw), delta
+
+        plain, _ = run(measure, [])
+        tuned, d1 = run(fresh, ["--autotune"])
+        require(d1["sweeps"] == 1 and d1["sweep_cache_hits"] == 0,
+                f"autotune {label}: the first run did not sweep once: {d1}")
+        key = autotune.make_key("engine_step", 32, nbrs.shape[1], 40,
+                                store.dtype, dev.type)
+        entry = autotune.load_cache()[key]
+        cont_flags = TUNE_CONTINUOUS + (
+            ["--metrics-out", os.path.join(root, "metrics.prom")]
+            if i == 0 else [])
+        cont_plain, _ = run(measure, TUNE_CONTINUOUS)
+        cont, d2 = run(fresh, cont_flags + ["--autotune"])
+        require(d2["sweeps"] == 0 and d2["sweep_cache_hits"] == 1,
+                f"autotune {label}: the second run at Q=32 did not hit the "
+                f"cache: {d2}")
+        plain_plan = "tile" if build_engine(measure, cfg, ctx[label][5]) \
+            ._use_tile_plan(store, nbrs.shape[1], 32) else "rowwise"
+        exact = equal_plans[store.dtype] or entry["plan"] == plain_plan
+        for a, b, what in ((plain, tuned, "oneshot"),
+                           (cont_plain, cont, "continuous")):
+            if exact:
+                require(a["recall"] == b["recall"], f"autotune {label} "
+                        f"{what}: recall {b['recall']} with --autotune, "
+                        f"{a['recall']} without")
+            else:
+                require(abs(a["recall"] - b["recall"]) <= RECALL_AGREE,
+                        f"autotune {label} {what}: recall {b['recall']} "
+                        f"with --autotune, {a['recall']} without")
+        if i == 0:
+            with open(os.path.join(root, "metrics.prom")) as f:
+                text = f.read()
+            missing = [n for n in AUTOTUNE_FAMILIES if n not in text]
+            require(not missing, f"--metrics-out lacks {missing}")
+            log(f"autotune: --metrics-out holds the four autotune "
+                f"families: " + ", ".join(
+                    line for line in text.splitlines()
+                    if line.startswith("repro_autotune_")))
+        log(f"autotune {label}: swept " + ", ".join(
+            f"{k}={v:.1f}us" for k, v in entry["swept_us"].items())
+            + f" per search of Q=32 -> plan {entry['plan']} at {key} "
+            f"(without "
+            f"--autotune: {plain_plan}); the continuous "
+            f"run at 32 lanes hit the cache; recall oneshot "
+            f"{tuned['recall']:.4f} (without {plain['recall']:.4f}), "
+            f"continuous {cont['recall']:.4f} (without "
+            f"{cont_plain['recall']:.4f})")
+        turns = []
+        results = {}
+        for plan in ("rowwise", "tile", "tile", "rowwise"):
+            got = []
+            reset_launch_counts()
+            summ, _ = run(measure, ["--tile", plan], got)
+            check_plan_launches(launch_counts(), family, "guitar", plan,
+                                f"serve {label} --tile {plan}")
+            results.setdefault(plan, got)
+            turns.append({k: summ[k] for k in ("qps", "p50_ms", "p95_ms",
+                                                "host_us_per_step",
+                                                "recall")})
+            turns[-1]["plan"] = plan
+        same = all(same_result(torch, a, b) for a, b in
+                   zip(results["rowwise"], results["tile"]))
+        if exact or store.dtype == "float32":
+            require(same, f"serve {label}: --tile tile and --tile rowwise "
+                    f"serve different results")
+        for t in turns:
+            log(f"serve {label} --tile {t['plan']:7s}: QPS={t['qps']:.1f} "
+                f"p50={t['p50_ms']:.3f}ms p95={t['p95_ms']:.3f}ms, "
+                f"{t['host_us_per_step']:.1f}us host issue per step, "
+                f"recall@10 (16) {t['recall']:.4f}")
+        out[label] = {"swept_us": entry["swept_us"], "plan": entry["plan"],
+                      "key": key, "plain_plan": plain_plan,
+                      "recall": [plain["recall"], tuned["recall"],
+                                 cont_plain["recall"], cont["recall"]],
+                      "turns": turns, "results_equal": same}
+    os.environ.pop("REPRO_TORCH_TUNING_CACHE", None)
+    return out
+
+
+def legacy_parity(torch, np, dev, base, graph):
+    """(d) ``search_legacy`` at N=5,000 (DeepFM f32, GUITAR and SL2G):
+    recall@10 on the card within 0.01 of the CPU's, the captured search =
+    the eager one bit for bit, no port kernel launched."""
+    from repro_torch.core import (SearchConfig, brute_force_topk,
+                                  make_family_measure, recall,
+                                  search_legacy)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    D, Q = base.shape[1], 64
+    queries = np.random.default_rng(13).normal(size=(Q, D)).astype(
+        np.float32)
+    cpu = torch.device("cpu")
+    out = {}
+    for mode in ("guitar", "sl2g"):
+        cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01, mode=mode)
+        res, truth = {}, None
+        for side, where in (("card", dev), ("cpu", cpu)):
+            m = make_family_measure("deepfm",
+                                    torch.Generator().manual_seed(0), D,
+                                    device=where)
+            qt = torch.as_tensor(queries, device=where)
+            base_t = torch.as_tensor(base, device=where)
+            nbrs = torch.as_tensor(graph.neighbors, device=where)
+            entries = torch.full((Q,), graph.entry, device=where)
+            if truth is None:
+                truth = brute_force_topk(m, base_t, qt, 10)[0].cpu()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res[side] = search_legacy(m.score_fn, m.params, base_t, nbrs,
+                                      qt, entries, cfg)
+            if side == "card":
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                eager = search_legacy(m.score_fn, m.params, base_t, nbrs, qt,
+                                      entries, cfg, capture=False)
+                replay = search_legacy(m.score_fn, m.params, base_t, nbrs,
+                                       qt, entries, cfg)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                require(not any(counts.values()), f"legacy {mode}: port "
+                        f"kernels launched: {counts}")
+                for lbl, r in (("eager", eager), ("replayed", replay)):
+                    require(same_result(torch, res["card"], r),
+                            f"legacy {mode}: the captured search differs "
+                            f"from the {lbl} one")
+        rc, rp = (recall(res[w].ids.cpu(), truth) for w in ("card", "cpu"))
+        require(abs(rc - rp) <= RECALL_AGREE, f"legacy {mode} N="
+                f"{base.shape[0]}: recall card {rc:.4f}, cpu {rp:.4f}")
+        log(f"legacy {mode} N={base.shape[0]} Q={Q}: recall@10 card "
+            f"{rc:.4f} cpu {rp:.4f}; captured = eager = replayed bit for "
+            f"bit; no port kernel launched; first call with capture "
+            f"{first_s:.2f}s")
+        out[mode] = {"recall_card": rc, "recall_cpu": rp,
+                     "capture_s": first_s}
+    return out
+
+
+def legacy_serve(torch, np, dev, ctx):
+    """(e) ``serve --searcher legacy`` at N=100,000, DeepFM f32, GUITAR
+    and SL2G: recall@10 on the serve phase's 64 recall queries within 0.01
+    of the engine's at the same settings, no port kernel launched; the
+    launcher's engine and legacy serves in turns (engine, legacy, legacy,
+    engine): QPS, p50; the launcher's refusals."""
+    from repro_torch.core import (EngineOptions, SearchConfig,
+                                  brute_force_topk, recall, search_legacy,
+                                  search_measure)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    measure, store, nbrs, graph, _, _ = ctx["unfused float32"]
+    common = serve_common(graph.n, dev)
+    _, rng, stream = serve_stream(np, graph.n)
+    base_t = torch.as_tensor(graph.base, device=dev)
+    qt = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(64, 40)).astype(np.float32), device=dev)
+    entries = torch.full((64,), graph.entry, device=dev)
+    truth = brute_force_topk(measure, base_t, qt, 10)[0]
+    out = {}
+    for mode in ("guitar", "sl2g"):
+        cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01, mode=mode)
+        eng = search_measure(measure, store, nbrs, qt, entries, cfg,
+                             EngineOptions())
+        reset_launch_counts()
+        leg = search_legacy(measure.score_fn, measure.params, base_t, nbrs,
+                            qt, entries, cfg)
+        torch.cuda.synchronize()
+        require(not any(launch_counts().values()), f"legacy serve {mode}: "
+                f"port kernels launched: {launch_counts()}")
+        re_, rl = recall(eng.ids, truth), recall(leg.ids, truth)
+        require(abs(re_ - rl) <= RECALL_AGREE, f"legacy serve {mode}: "
+                f"recall@10 legacy {rl:.4f}, engine {re_:.4f}")
+        turns = []
+        for searcher in ("engine", "legacy", "legacy", "engine"):
+            args = serve.parse_args(common + ["--mode", mode, "--searcher",
+                                              searcher])
+            rng.bit_generator.state = stream
+            reset_launch_counts()
+            summ = serve.serve_oneshot(args, graph, measure, cfg,
+                                       serve.engine_options(args), store,
+                                       nbrs, base_t, rng, dev)
+            if searcher == "legacy":
+                require(not any(launch_counts().values()), f"serve "
+                        f"--searcher legacy --mode {mode} launched "
+                        f"{launch_counts()}")
+            turns.append({"searcher": searcher, **{k: summ[k] for k in (
+                "qps", "p50_ms", "p95_ms", "host_us_per_step",
+                "steps_per_batch", "evals_per_query", "recall")}})
+        for t in turns:
+            log(f"serve --searcher {t['searcher']:6s} --mode {mode}: "
+                f"QPS={t['qps']:.1f} p50={t['p50_ms']:.3f}ms "
+                f"p95={t['p95_ms']:.3f}ms, {t['host_us_per_step']:.1f}us "
+                f"host issue per step, {t['steps_per_batch']:.0f} steps per "
+                f"batch, evals/query {t['evals_per_query']:.1f}, recall@10 "
+                f"(16) {t['recall']:.4f}")
+        log(f"legacy serve {mode} N={graph.n}: recall@10 on 64 queries "
+            f"legacy {rl:.4f}, engine {re_:.4f}; evals/query legacy "
+            f"{float(leg.n_eval.float().mean()):.1f}, engine "
+            f"{float(eng.n_eval.float().mean()):.1f}; no port kernel in "
+            f"the legacy runs")
+        out[mode] = {"recall_legacy": rl, "recall_engine": re_,
+                     "turns": turns}
+    refusals = (
+        (["--searcher", "legacy", "--fused"], "no index-fused/quantized"),
+        (["--searcher", "legacy", "--corpus-dtype", "int8"],
+         "no index-fused/quantized"),
+        (["--searcher", "legacy", "--runtime", "continuous"],
+         "engine-only"))
+    for flags, msg in refusals:
+        try:
+            serve.parse_args(common + flags)
+        except SystemExit as e:
+            require(msg in str(e), f"serve {flags}: refused with {e}")
+        else:
+            raise SmokeFailure(f"serve {flags} was not refused")
+    log("legacy serve: the launcher refuses --searcher legacy with "
+        "--fused, --corpus-dtype int8 and --runtime continuous")
+    return out
+
+
+def tune_context(torch, np, dev, items=100_000):
+    """``--only tune``: the serve phase's N=100,000 graph and its run
+    context for TUNE_RUNS and 'unfused float32', without the serve phase."""
+    from repro_torch.core import (SearchConfig, make_corpus_store,
+                                  make_family_measure)
+    from repro_torch.graph import build_l2_graph
+    from repro_torch.launch import serve
+    base, _, _ = serve_stream(np, items)
+    graph = build_l2_graph(base, m=24, k_construction=100,
+                           exact_threshold=items, device=dev)
+    base_t = torch.as_tensor(base, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    measures = {fam: make_family_measure(fam,
+                                         torch.Generator().manual_seed(0),
+                                         40, device=dev)
+                for fam in ("deepfm", "mlp")}
+    cfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01)
+    ctx = {}
+    for label, family, extra in SERVE_RUNS:
+        if label in TUNE_RUNS + ("unfused float32",):
+            args = serve.parse_args(serve_common(items, dev)
+                                    + ["--measure", family] + extra)
+            store = make_corpus_store(base_t, args.corpus_dtype, device=dev)
+            ctx[label] = (measures[family], store, nbrs, graph, cfg,
+                          serve.engine_options(args))
+    return ctx
+
+
+def check_tuning(torch, np, dev, ctx):
+    """Phase 12: (a) the tile plan at N=5,000, (b)-(c) serve --autotune
+    and --tile at N=100,000 (the serve phase's graph), (d) search_legacy
+    card vs CPU at N=5,000, (e) serve --searcher legacy at N=100,000."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out, times = {}, {}
+    t0 = time.perf_counter()
+    out["tile_plan"], (base, graph) = tile_plan_parity(torch, np, dev)
+    times["a"] = time.perf_counter() - t0
+    equal = {dt: all(v["tile_equals_rowwise"] for k, v in
+                     out["tile_plan"].items() if k.endswith(dt))
+             for dt in RESIDENCIES}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out["autotune"] = tune_serve(torch, np, dev, ctx, root, equal)
+        times["b-c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["legacy"] = legacy_parity(torch, np, dev, base, graph)
+    times["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["legacy_serve"] = legacy_serve(torch, np, dev, ctx)
+    times["e"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["times"] = times
+    log(f"tuning: phase 12 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"({k}) {v:.1f}s" for k, v in times.items()) + ")")
+    return out
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -4671,7 +5136,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
-    ap.add_argument("--only", choices=("train",), default=None,
+    ap.add_argument("--only", choices=("train", "tune"), default=None,
                     help="build the kernels and run only this phase (no "
                          "result line): a quicker check of one phase")
     opts = ap.parse_args()
@@ -4709,10 +5174,15 @@ def main() -> int:
                         or "Compiling entry" in line:
                     log("ptxas: " + line.strip())
 
-        if opts.only == "train":
-            results["train"] = check_training(torch, np, dev)
-            log(f"--only train: phase 11 passed; no result line "
-                f"({time.perf_counter() - t_start:.1f}s)")
+        if opts.only is not None:
+            if opts.only == "train":
+                results["train"] = check_training(torch, np, dev)
+            else:
+                results["tuning"] = check_tuning(
+                    torch, np, dev, tune_context(torch, np, dev))
+            log(f"--only {opts.only}: phase "
+                f"{11 if opts.only == 'train' else 12} passed; no result "
+                f"line ({time.perf_counter() - t_start:.1f}s)")
             if opts.out:
                 os.makedirs(os.path.dirname(os.path.abspath(opts.out)),
                             exist_ok=True)
@@ -4761,6 +5231,7 @@ def main() -> int:
         results["fault_domain"] = check_fault_domain(torch, np, dev, ctx,
                                                      sharded_idx)
         results["train"] = check_training(torch, np, dev)
+        results["tuning"] = check_tuning(torch, np, dev, ctx)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

@@ -23,8 +23,9 @@ from repro_torch.core.measures import (MEASURE_FAMILIES, Measure,  # noqa: F401
                                        l2_measure, make_family_measure,
                                        mlp_measure, params_from_jax)
 from repro_torch.core.program import StateProgram  # noqa: F401
-from repro_torch.core.search import (brute_force_topk, recall,  # noqa: F401
-                                     search_measure)
+from repro_torch.core.search import (brute_force_topk,  # noqa: F401
+                                     rank_and_prune, recall, search,
+                                     search_legacy, search_measure)
 from repro_torch.core.begin import begin_adjacency, build_begin_graph  # noqa: F401
 from repro_torch.core.faithful import (FaithfulStats,  # noqa: F401
                                        faithful_search,

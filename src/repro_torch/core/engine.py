@@ -29,14 +29,20 @@ scores. The unfused stages run on a quantized store as well
 (``store.take`` dequantizes). A store with tombstones scores deleted
 entries and candidates -inf.
 
-Paged residency (``core.corpus.PagedCorpusStore``): each step gathers ONE
-(Q, 1+B) block of rows, ``[frontier | neighbors]`` of every lane (inactive
-ones included, as the JAX tile plan does), through the host pager, and the
-grad, rank and measure stages run pre-gathered on slices of it whatever
-``EngineOptions.fused`` says (the fused kernels read ``store.data``, which
-a paged store does not hold). The JAX engine's ``tile`` knob and its
-autotuned plans for whole stores are not ported: a whole store gathers in
-the kernels (fused) or per stage (unfused).
+The fused step's dataflow plan (``kernels/autotune.py``): ``rowwise``
+hands ``(store, ids)`` to the fused stages above; ``tile`` gathers ONE
+(Q, 1+B) block of rows per step, ``[frontier | neighbors]`` of every lane
+(inactive ones included), with ``store.take`` inside the step, and runs
+the pre-gathered grad, rank and measure stages on slices of it. The plan
+comes from ``EngineOptions.tile`` or the tuning cache at the step's (Q, B,
+D, dtype) shape and device type, resolved once per program
+(``ExpansionEngine._use_tile_plan``); both plans give the unfused search's
+results bit for bit at float32. Unlike JAX, which keeps its Pallas fused
+stages rowwise, the port's tile plan feeds the pre-gathered CUDA kernels.
+
+Paged residency (``core.corpus.PagedCorpusStore``) always runs the tile
+plan, fused or not, its block gathered through the host pager (the fused
+kernels read ``store.data``, which a paged store does not hold).
 
 Two execution paths share the same stage code, as in the JAX package:
 
@@ -75,8 +81,6 @@ Counters follow the paper's Table-2 accounting: ``n_eval`` counts effective
 (mask-surviving) measure evaluations, ``n_grad`` gradients, ``n_iters``
 expansions. Ids are int64 (torch's index type); the visited bitmap holds
 32-bit words in int64 lanes.
-
-Not ported yet: the ``tile`` knob and autotune; see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -92,9 +96,10 @@ import torch
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.bundles import resolve_stages
 from repro_torch.core.corpus import (CORPUS_DTYPES, AnyCorpusStore,
-                                     PagedCorpusStore, as_corpus_store,
-                                     bit_test_global)
+                                     CorpusStore, PagedCorpusStore,
+                                     as_corpus_store, bit_test_global)
 from repro_torch.core.program import StateProgram
+from repro_torch.kernels import autotune
 from repro_torch.kernels.neighbor_rank import neighbor_rank
 from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
 from repro_torch.kernels.neighbor_rank_fused import neighbor_rank_fused
@@ -151,6 +156,10 @@ class EngineOptions:
     c_max:        adaptive block width (0 -> cfg.budget)
     angle_tau:    default absolute angle cutoff in radians (<= 0: band
                   only); ``search(taus=)`` overrides it per lane
+    tile:         fused-step plan override (kernels/autotune.py spec:
+                  'tile' | 'rowwise', ':<bt>', or 'plan:<bt>'; bt is
+                  inert on the card); None resolves the tuning cache /
+                  shipped defaults per (Q, B, D, dtype) shape
     """
     rank_impl: str = "auto"
     measure_impl: str = "auto"
@@ -160,6 +169,7 @@ class EngineOptions:
     adaptive: str = "off"
     c_max: int = 0
     angle_tau: float = 0.0
+    tile: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +470,7 @@ class ExpansionEngine:
     adaptive: str = "off"
     c_max: int = 0
     angle_tau: float = 0.0
+    tile: Optional[str] = None      # EngineOptions.tile override spec
 
     def n_candidates(self, max_degree: int) -> int:
         if self.grad is None:
@@ -470,11 +481,13 @@ class ExpansionEngine:
         return min(c, max_degree)
 
     def init_state(self, params, store: AnyCorpusStore, neighbors, queries,
-                   entries, iter_caps=None, taus=None,
-                   entry_rows=None) -> EngineState:
+                   entries, iter_caps=None, taus=None, entry_rows=None,
+                   use_tile: bool = False) -> EngineState:
         """Seed each pool with its entry point (one measure call). A paged
         store seeds from ``entry_rows`` ((Q, D) float32, the entries' rows
-        the host gathered) or, without them, one ``store.take``."""
+        the host gathered) or, without them, one ``store.take``; the tile
+        plan (``use_tile``) through ``store.take`` and the pre-gathered
+        measure too, so that it launches no fused kernel."""
         Q = queries.shape[0]
         ef = self.cfg.ef
         dev = queries.device
@@ -484,7 +497,7 @@ class ExpansionEngine:
             rows = entry_rows if entry_rows is not None \
                 else store.take(entries)
             e_scores = self.measure(params, rows, queries)
-        elif self.measure_fused is not None:
+        elif self.measure_fused is not None and not use_tile:
             e_scores = self.measure_fused(params, store, entries, queries)
         else:
             e_scores = self.measure(params, store.take(entries), queries)
@@ -519,29 +532,68 @@ class ExpansionEngine:
                            torch.zeros((Q,), dtype=torch.bool, device=dev),
                            iter_caps, taus)
 
+    def _use_tile_plan(self, store: AnyCorpusStore, n_degree: int,
+                       Q: int) -> bool:
+        """Does a step over ``store`` at this shape run the tile plan?
+        (``plan_for`` at the store's width, device type and residency.)"""
+        return self.plan_for(Q, n_degree, store.dim, store.device.type,
+                             store.is_paged)
+
+    @functools.cached_property
+    def _plans(self) -> dict:
+        return {}
+
+    def plan_for(self, Q: int, n_degree: int, dim: int, device_type: str,
+                 paged: bool) -> bool:
+        """The step plan at this shape, resolved once on this engine and
+        kept (a lookup reads the cache files, so it is never made per
+        step). A paged store always tiles, fused or not (its rows come
+        through the pager); a whole store tiles only with a fused stage on
+        (and, with a grad phase, the pre-gathered grad stage present), when
+        ``self.tile`` or the tuning cache (``kernels/autotune.py``, keyed on
+        the device type) says ``tile``."""
+        key = (int(Q), int(n_degree), int(dim), device_type, bool(paged))
+        if key not in self._plans:
+            if paged:
+                plan = True
+            elif ((self.rank_fused is None and self.measure_fused is None
+                   and self.grad_fused is None)
+                  or (self.grad_fused is not None and self.grad is None)):
+                plan = False
+            else:
+                plan = autotune.resolve(
+                    "engine_step", q=Q, m=n_degree, d=dim,
+                    dtype=self.corpus_dtype, backend=device_type,
+                    override=autotune.parse_tile(self.tile)).plan == "tile"
+            self._plans[key] = plan
+        return self._plans[key]
+
     def step(self, params, store: AnyCorpusStore, neighbors, queries,
-             qs_flat, state: EngineState, tile=None) -> EngineState:
+             qs_flat, state: EngineState, tile=None,
+             use_tile: Optional[bool] = None) -> EngineState:
         """One iteration over the whole batch: pop, grad, rank, measure,
-        insert. ``qs_flat`` is the (Q*C, Dq) repeated query block. A paged
-        store's step reads its rows from ``tile``, the (Q, 1+B, D) rows of
-        [frontier | neighbors] (gathered here through the pager when
-        None)."""
+        insert. ``qs_flat`` is the (Q*C, Dq) repeated query block.
+        ``use_tile`` is the step's plan (None: ``plan_for`` resolves it).
+        The tile plan reads its rows from ``tile``, the (Q, 1+B, D) rows of
+        [frontier | neighbors] (gathered here by ``store.take`` when None,
+        through the pager for a paged store)."""
         Q = queries.shape[0]
+        if use_tile is None:
+            use_tile = self._use_tile_plan(store, neighbors.shape[1], Q)
         s, pop = self.pop(state)
         nbr = neighbors[pop.fid].long()                    # (Q, B)
         valid = (nbr >= 0) & ~bit_test_rows(s.visited, nbr) \
             & pop.active[:, None]
-        paged = store.is_paged
-        if paged and tile is None:
+        if use_tile and tile is None:
             tile = store.take(torch.cat([pop.fid[:, None],
                                          nbr.clamp_min(0)], dim=1))
 
-        if self.grad_fused is not None and not paged:
+        if self.grad_fused is not None and not use_tile:
             # the frontier rows come back from the kernel, dequantized
             _, g, x = self.grad_fused(params, store, pop.fid, queries)
             n_grad = s.n_grad + pop.active.int()
         else:
-            x = tile[:, 0].contiguous() if paged \
+            x = tile[:, 0].contiguous() if use_tile \
                 else store.take(pop.fid)                   # (Q, D)
             if self.grad is not None:
                 _, g = self.grad(params, x, queries)
@@ -550,18 +602,18 @@ class ExpansionEngine:
                 g, n_grad = None, s.n_grad
 
         targs = (state.angle_tau,) if self.adaptive == "angle" else ()
-        if self.rank_fused is not None and not paged:
+        if self.rank_fused is not None and not use_tile:
             # the kernels clamp -1 ids themselves
             sel_idx, sel_mask = self.rank_fused(x, g, store, nbr, valid,
                                                 *targs)
         else:
-            nvecs = tile[:, 1:].contiguous() if paged \
+            nvecs = tile[:, 1:].contiguous() if use_tile \
                 else store.take(nbr.clamp_min(0))          # (Q, B, D)
             sel_idx, sel_mask = self.rank(x, g, nvecs, valid, *targs)
         sel_ids = nbr.gather(1, sel_idx)
 
         C = sel_idx.shape[1]
-        if self.measure_fused is not None and not paged:
+        if self.measure_fused is not None and not use_tile:
             # adaptive: the prefix mask rides into the kernel, whose masked
             # rows skip their MLP
             mkw = ({"mask": sel_mask.reshape(Q * C)}
@@ -598,14 +650,15 @@ class ExpansionEngine:
     #    their pop is inactive and a step leaves them as they are
     def reset_lanes(self, params, store: AnyCorpusStore, queries, entries,
                     state: EngineState, mask: torch.Tensor, iter_caps=None,
-                    taus=None, entry_rows=None) -> EngineState:
+                    taus=None, entry_rows=None,
+                    use_tile: bool = False) -> EngineState:
         """queries (Q, Dq) / entries (Q,) (and optional per-lane
         ``iter_caps`` / ``taus``, and a paged store's ``entry_rows``) hold
         the NEW values in the masked rows; mask: (Q,) bool, True lanes are
-        re-initialized. Lane for lane equal to ``init_state`` on the masked
-        rows."""
+        re-initialized. Lane for lane equal to ``init_state`` (in the plan
+        ``use_tile``) on the masked rows."""
         fresh = self.init_state(params, store, None, queries, entries,
-                                iter_caps, taus, entry_rows)
+                                iter_caps, taus, entry_rows, use_tile)
 
         def pick(n, o):
             return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
@@ -645,17 +698,20 @@ class ExpansionEngine:
                             n_grad=final.n_grad.clone(),
                             n_iters=final.n_iters.clone())
 
-    def step_routine(self, params, store, neighbors, steps: int):
+    def step_routine(self, params, store, neighbors, steps: int,
+                     use_tile: bool):
         """A program routine of ``steps`` consecutive step + freeze calls
-        over the state, the queries read from the ``queries`` buffer."""
+        over the state in the plan ``use_tile``, the queries read from the
+        ``queries`` buffer."""
         C = self.n_candidates(neighbors.shape[1])
 
         def run(bufs, s):
             q = bufs["queries"]
             qs_flat = _repeat_rows(q, C)
             for _ in range(steps):
-                s = _freeze_done(s.done, self.step(params, store, neighbors,
-                                                   q, qs_flat, s), s)
+                s = _freeze_done(s.done, self.step(
+                    params, store, neighbors, q, qs_flat, s,
+                    use_tile=use_tile), s)
             return s, {}
         return run
 
@@ -679,7 +735,7 @@ class ExpansionEngine:
             q = bufs["queries"]
             return _freeze_done(s.done, self.step(
                 params, store, neighbors, q, _repeat_rows(q, C), s,
-                tile=bufs["tile"]), s), {}
+                tile=bufs["tile"], use_tile=True), s), {}
         return run
 
     @functools.cached_property
@@ -705,12 +761,18 @@ class ExpansionEngine:
         """The cached program for this batch shape and these params, corpus
         and graph (by identity, and the params' tensors by pointer: pass
         the same objects unchanged between calls; a changed corpus or graph
-        is a new object). The program holds them, so their ids stay
-        theirs while it is cached."""
+        is a new object), and the step plan (``plan_for``) at its shape.
+        The program holds them, so their ids stay theirs while it is
+        cached."""
         dev = queries.device
         Q, Dq = queries.shape
         key = (Q, Dq, str(dev), bool(capture), id(params), id(base),
                id(neighbors), _tensor_ptrs(params))
+        paged = isinstance(base, PagedCorpusStore)
+        dim = base.dim if paged or isinstance(base, CorpusStore) \
+            else base.shape[1]
+        use_tile = self.plan_for(Q, neighbors.shape[1], dim, dev.type, paged)
+        key = key + (use_tile,)
         progs = self._programs
         if key in progs:
             progs.move_to_end(key)
@@ -732,7 +794,7 @@ class ExpansionEngine:
         def init(b, s):
             return self.init_state(params, store, nbrs, b["queries"],
                                    b["entries"], b["caps"], b["taus"],
-                                   b.get("entry_rows")), {}
+                                   b.get("entry_rows"), use_tile), {}
         prog.add("init", init)
         if store.is_paged:
             prog.add("pre", self.pre_routine(nbrs))
@@ -740,7 +802,7 @@ class ExpansionEngine:
             prog.feed = PagedFeed(store, prog.buffers)
         else:
             prog.add("chunk", self.step_routine(params, store, nbrs,
-                                                SYNC_EVERY))
+                                                SYNC_EVERY, use_tile))
         progs[key] = prog
         self.stats["programs"] += 1
         while len(progs) > PROGRAM_CACHE:
@@ -838,8 +900,10 @@ class ExpansionEngine:
         neighbors = torch.as_tensor(neighbors, device=dev)
         entries = torch.as_tensor(entries, device=dev).long()
         queries = queries.float().contiguous()
+        use_tile = self._use_tile_plan(store, neighbors.shape[1],
+                                       queries.shape[0])
         state = self.init_state(params, store, neighbors, queries, entries,
-                                iter_caps, taus)
+                                iter_caps, taus, use_tile=use_tile)
         qs_flat = _repeat_rows(queries,
                                self.n_candidates(neighbors.shape[1]))
         if max_steps is not None:
@@ -852,7 +916,8 @@ class ExpansionEngine:
         while steps < limit and not bool(state.done.all()):
             state = _freeze_done(
                 state.done,
-                self.step(params, store, neighbors, queries, qs_flat, state),
+                self.step(params, store, neighbors, queries, qs_flat, state,
+                          use_tile=use_tile),
                 state)
             steps += 1
             if on_step is not None:
@@ -912,7 +977,7 @@ def _build(score_fn, meta, cfg: SearchConfig,
                            grad_fused=grad_fused,
                            corpus_dtype=options.corpus_dtype,
                            adaptive=options.adaptive, c_max=options.c_max,
-                           angle_tau=options.angle_tau)
+                           angle_tau=options.angle_tau, tile=options.tile)
 
 
 @functools.lru_cache(maxsize=128)

@@ -14,8 +14,10 @@ picks the serving discipline:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --items 10000 \
         --queries 128 [--measure deepfm|mlp] [--fused] \
-        [--corpus-dtype float32|bfloat16|int8] \
-        [--adaptive angle --c-max 16] [--device cuda|cpu]
+        [--corpus-dtype float32|bfloat16|int8] [--tile rowwise|tile] \
+        [--autotune] [--adaptive angle --c-max 16] [--device cuda|cpu]
+    # the legacy lane-major searcher, the engine's A/B baseline
+    PYTHONPATH=src python -m repro_torch.launch.serve --searcher legacy
     PYTHONPATH=src python -m repro_torch.launch.serve --runtime continuous \
         --lanes 32 --offered-qps 200 --queries 256 [--sla default] \
         [--chaos plan.json --health-every 0.5 --trace-sample 4 \
@@ -30,15 +32,8 @@ picks the serving discipline:
     PYTHONPATH=src python -m repro_torch.launch.serve --index runs/idx \
         --residency paged --page-rows 64 --cache-mb 16
 
-It takes the JAX launcher's flags that the port supports (``--items --dim
---queries --batch --mode --measure --list-measures --runtime --lanes
---offered-qps --steps-per-tick --deadline --max-queue --sla --sla-mix --k
---ef --alpha --budget --fused --corpus-dtype --adaptive --c-max
---angle-tau --index --save-index --residency --page-rows --cache-mb
---chaos --health-every --trace-sample --trace-out --metrics-out
---metrics-json --profile-dir``, with the JAX defaults) plus
-``--device`` and ``--host-loop``; any other flag of the JAX launcher exits
-with a "not ported yet" message. As there, a non-float32 ``--corpus-dtype``
+It takes every flag of the JAX launcher, with its defaults, plus
+``--device`` and ``--host-loop``. As there, a non-float32 ``--corpus-dtype``
 implies the index-fused path; the store is quantized once at start-up
 (or, from ``--index`` in the dtype it was saved in, loaded as stored, with
 its tombstones), and recall is labelled against the float32 base (from an
@@ -50,6 +45,17 @@ the synthetic corpus from host memory. A paged search gathers each step's
 rows through the pager between the two captured halves of the step
 (``core/engine.py``); ``--chaos`` also installs the plan's page-read
 faults (site ``pager``) and tracing the pager's spans.
+
+``--tile`` overrides the fused step's plan (``kernels/autotune.py``:
+``rowwise`` runs the fused kernels, ``tile`` one combined gather per step
+and the pre-gathered kernels); ``--autotune`` sweeps both at the serving
+shape before any traffic and keeps the winner in the tuning cache
+(``$REPRO_TORCH_TUNING_CACHE``, else ``./.tuning_cache.torch.json``); a
+second run at that shape is a cache hit. ``--searcher legacy`` serves
+through ``core.search.search_legacy`` over the float32 base, as the JAX
+launcher does: it refuses index-fused or quantized residency and the
+continuous runtime, searches the whole base under ``--residency paged``,
+and ignores the engine's options (``--adaptive``, ``--tile``).
 """
 from __future__ import annotations
 
@@ -68,18 +74,19 @@ from repro_torch.core import (MEASURE_FAMILIES, EngineOptions,
                               ResidencyPolicy, SearchConfig,
                               brute_force_topk, build_engine, get_bundle,
                               list_families, make_corpus_store,
-                              make_family_measure, recall, search_measure)
+                              make_family_measure, recall, search_legacy,
+                              search_measure)
+from repro_torch.core.search import legacy_searcher
 from repro_torch.graph import (GraphIndex, build_l2_graph,
                                load_corpus_store, load_index,
                                load_index_meta, save_index)
+from repro_torch.kernels import autotune
 from repro_torch.obs import (NULL_TRACER, Registry, Tracer, format_trace,
                              profile_trace)
 from repro_torch.serving import (ContinuousRuntime, FaultPlan, Request,
                                  bucket_pad, latency_summary, load_policy,
                                  poisson_arrivals)
 
-# flags of the JAX launcher (repro.launch.serve) the port does not serve
-JAX_ONLY_FLAGS = ("--searcher", "--tile", "--autotune")
 # continuous-runtime telemetry and chaos flags (refused for oneshot)
 CONTINUOUS_FLAGS = ("chaos", "health_every", "trace_sample", "trace_out",
                     "metrics_out", "metrics_json")
@@ -99,23 +106,30 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
     the resident corpus the search runs on; ``base_t`` is the float32 (N, D)
     base that recall is labelled against. ``results`` (a list), if given,
     receives each batch's ``SearchResult`` (its live rows) in order.
+    ``--searcher legacy`` searches ``base_t`` with ``search_legacy``.
     Returns the summary it prints."""
     capture = not args.host_loop
-    engine = build_engine(measure, cfg, options)
+    legacy = args.searcher == "legacy"
+    stats = (legacy_searcher(measure.score_fn, cfg) if legacy
+             else build_engine(measure, cfg, options)).stats
     lat_ms, evals, iters_all, host = [], [], [], []
     first_recall = None
     shapes_seen = set()
     n_batches = 0
 
     def run_batch(qt, entries):
-        st0 = dict(engine.stats)
+        st0 = dict(stats)
         _sync(device)
         t0 = time.perf_counter()
-        res = search_measure(measure, store, nbrs, qt, entries, cfg, options,
-                             capture=capture)
+        if legacy:
+            res = search_legacy(measure.score_fn, measure.params, base_t,
+                                nbrs, qt, entries, cfg, capture=capture)
+        else:
+            res = search_measure(measure, store, nbrs, qt, entries, cfg,
+                                 options, capture=capture)
         _sync(device)
         dt = (time.perf_counter() - t0) * 1e3
-        st = {k: engine.stats[k] - st0[k] for k in st0}
+        st = {k: stats[k] - st0[k] for k in st0}
         return res, dt, st
 
     for s in range(0, args.queries, args.batch):
@@ -152,8 +166,9 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
     steps = sum(st["steps"] for st in steady_host)
     host_us = 1e6 * sum(st["issue_s"] for st in steady_host) / steps
     runs = sum(st["runs"] for st in steady_host) / len(steady_host)
-    paged = store.is_paged
-    summary = {"runtime": "oneshot", "device": str(device),
+    paged = store.is_paged and not legacy
+    summary = {"runtime": "oneshot", "searcher": args.searcher,
+               "device": str(device),
                "loop": ("captured" if capture and device.type == "cuda"
                         else "host"),
                "fused": options.fused, "corpus_dtype": options.corpus_dtype,
@@ -173,7 +188,8 @@ def serve_oneshot(args, graph, measure, cfg, options, store, nbrs, base_t,
                             for st in steady_host) / steps
             for part in ("replay", "sync", "gather", "h2d")}
         summary["pager"] = dataclasses.asdict(store.stats_snapshot())
-    print(f"[serve] device={device} mode={args.mode} measure={args.measure} "
+    print(f"[serve] searcher={args.searcher} device={device} "
+          f"mode={args.mode} measure={args.measure} "
           f"corpus_dtype={options.corpus_dtype} fused={options.fused} "
           f"adaptive={options.adaptive} recall@{args.k}={first_recall:.3f} steady-state {qps:.0f} QPS "
           f"(batch={args.batch})")
@@ -257,6 +273,7 @@ def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
     registry = None
     if args.metrics_out:
         registry = runtime.bind_registry(Registry())  # after warmup
+        autotune.bind_registry(registry)
     arrivals = poisson_arrivals(args.queries, args.offered_qps, seed=1)
     mix = (_parse_sla_mix(args.sla_mix, sla_policy)
            if sla_policy is not None and args.sla_mix else None)
@@ -338,6 +355,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "sigmoid(MLP([x, q])) measure")
     ap.add_argument("--list-measures", action="store_true",
                     help="print the measure-kernel bundle registry and exit")
+    ap.add_argument("--searcher", choices=["engine", "legacy"],
+                    default="engine",
+                    help="the staged expansion engine, or the legacy "
+                         "lane-major searcher (its A/B baseline: float32 "
+                         "base, oneshot only)")
     ap.add_argument("--runtime", choices=["oneshot", "continuous"],
                     default="oneshot",
                     help="batch-scoped vs lane-recycling serving")
@@ -386,9 +408,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", type=str, default=None,
                     metavar="METRICS.prom",
                     help="continuous runtime: write the obs.Registry in "
-                         "Prometheus text exposition format at exit (the "
-                         "serving families; the JAX launcher's "
-                         "kernels.autotune families wait for autotune.py)")
+                         "Prometheus text exposition format at exit")
     ap.add_argument("--metrics-json", type=str, default=None, metavar="PATH",
                     help="continuous runtime: dump the final metrics "
                          "summary() dict as JSON")
@@ -408,6 +428,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused", action="store_true",
                     help="index-fused rank/score/grad stages (ids into the "
                          "resident corpus, gathered in the kernels)")
+    ap.add_argument("--tile", type=str, default=None,
+                    help="fused-step plan override ('tile'|'rowwise'"
+                         "[:<bt>], kernels/autotune.py spec; bt is kept "
+                         "for the JAX spec and changes nothing on the "
+                         "card); default resolves the tuning cache / "
+                         "shipped defaults per shape")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep the fused-step plan at this serving shape "
+                         "before accepting traffic and keep the winner in "
+                         "the tuning cache (skipped on a cache hit: the "
+                         "second serve never pays the sweep)")
     ap.add_argument("--adaptive", choices=["off", "angle"], default="off",
                     help="angle-based adaptive candidate-set sizing: the "
                          "alpha*theta band + per-lane tau cutoff as a "
@@ -447,16 +478,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    ap = build_parser()
-    args, rest = ap.parse_known_args(argv)
-    for a in rest:
-        flag = a.split("=", 1)[0]
-        if flag in JAX_ONLY_FLAGS:
-            raise SystemExit(f"[serve] {flag} is not ported yet (the JAX "
-                             f"launcher, python -m repro.launch.serve, "
-                             f"has it; see ROADMAP.md)")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = build_parser().parse_args(argv)
+    if args.searcher == "legacy" and (args.fused
+                                      or args.corpus_dtype != "float32"):
+        raise SystemExit("--searcher legacy has no index-fused/quantized "
+                         "path; use the engine searcher")
+    if args.runtime == "continuous" and args.searcher == "legacy":
+        raise SystemExit("--runtime continuous is engine-only (lane "
+                         "recycling needs the per-lane reset API)")
     if args.host_loop and args.runtime != "oneshot":
         raise SystemExit("[serve] --host-loop is a oneshot option (the "
                          "continuous runtime always runs its programs)")
@@ -496,8 +525,48 @@ def engine_options(args: argparse.Namespace) -> EngineOptions:
     index-fused path."""
     fused = args.fused or args.corpus_dtype != "float32"
     return EngineOptions(fused=fused, corpus_dtype=args.corpus_dtype,
-                         adaptive=args.adaptive, c_max=args.c_max,
-                         angle_tau=args.angle_tau)
+                         tile=args.tile, adaptive=args.adaptive,
+                         c_max=args.c_max, angle_tau=args.angle_tau)
+
+
+def autotune_plan(args, graph, measure, cfg, options, store, nbrs,
+                  device: torch.device):
+    """``--autotune``: sweep the fused step's plan at the serving shape
+    (Q = ``--lanes`` for the continuous runtime, else ``--batch``) before
+    any traffic, on queries from their own generator (the served query
+    stream, and recall, stay as without the flag). Paged residency always
+    runs the tile plan and a non-fused run has nothing to tune. Returns
+    the winning ``TileConfig`` (None when nothing was tuned)."""
+    if store.is_paged:
+        print("[serve] autotune: skipped (paged residency always runs the "
+              "tile plan: one combined pager gather per step)")
+        return None
+    if not options.fused:
+        print("[serve] autotune: nothing to tune (the tile plan applies "
+              "to the fused path; pass --fused or a non-fp32 "
+              "--corpus-dtype)")
+        return None
+    lanes = args.lanes if args.runtime == "continuous" else args.batch
+    tune_rng = np.random.default_rng(12345)
+    tune_q = torch.as_tensor(tune_rng.normal(
+        size=(lanes, args.dim)).astype(np.float32), device=device)
+    tune_e = torch.full((lanes,), graph.entry, dtype=torch.int64,
+                        device=device)
+    sweeps = autotune.CACHE_STATS["sweeps"]
+    t0 = time.perf_counter()
+    tuned = autotune.tune_engine_step(measure, store, nbrs, tune_q, tune_e,
+                                      cfg, options)
+    dt = time.perf_counter() - t0
+    key = autotune.make_key("engine_step", lanes, nbrs.shape[1], store.dim,
+                            options.corpus_dtype, device.type)
+    swept = autotune.load_cache().get(key, {}).get("swept_us", {})
+    how = ("swept " + ", ".join(f"{k}={v:.1f}us" for k, v in swept.items())
+           if autotune.CACHE_STATS["sweeps"] > sweeps
+           else "cache hit, no sweep")
+    print(f"[serve] autotune: engine_step plan={tuned.plan} (Q={lanes}, "
+          f"B={nbrs.shape[1]}, D={store.dim}, {options.corpus_dtype}) in "
+          f"{dt:.1f}s ({how}) -> {autotune.cache_path()}")
+    return tuned
 
 
 def residency_policy(args) -> Optional[ResidencyPolicy]:
@@ -600,11 +669,17 @@ def main(argv: Optional[Sequence[str]] = None,
     cfg = SearchConfig(k=args.k, ef=args.ef, mode=args.mode,
                        budget=args.budget, alpha=args.alpha)
     options = engine_options(args)
-    try:
-        build_engine(measure, cfg, options)     # refuse bad combinations
-    except ValueError as e:
-        raise SystemExit(f"[serve] {e}")
+    if args.searcher == "engine":
+        try:
+            build_engine(measure, cfg, options)  # refuse bad combinations
+        except ValueError as e:
+            raise SystemExit(f"[serve] {e}")
     base_t = torch.as_tensor(graph.base, device=device)
+    if args.searcher == "legacy":
+        print("[serve] searcher=legacy: the lane-major searcher over the "
+              "float32 base (the engine's options --adaptive/--tile do "
+              "not apply" + ("; the paged store is not searched"
+                             if store.is_paged else "") + ")")
     if store.is_paged:
         print(f"[serve] corpus paged: dtype={store.dtype} page_rows="
               f"{store.cache.page_rows} cache_budget={args.cache_mb} MiB "
@@ -615,6 +690,8 @@ def main(argv: Optional[Sequence[str]] = None,
               f"{store.nbytes() / 2**20:.1f} MiB "
               f"({'fused' if options.fused else 'unfused'} path)")
     nbrs = torch.as_tensor(graph.neighbors, device=device)
+    if args.autotune:
+        autotune_plan(args, graph, measure, cfg, options, store, nbrs, device)
     with profile_trace(args.profile_dir):
         if args.runtime == "continuous":
             out = serve_continuous(args, graph, measure, cfg, options, store,

@@ -4,8 +4,8 @@ so both packages' expositions read the same.
 
 No process globals: every :class:`Registry` is an independent instance
 that subsystems bind into via their ``bind_registry(...)`` adapters
-(``ServingMetrics``, ``ShardHealthTracker``, ``PagedCorpusStore``; the
-JAX package also binds ``kernels.autotune``, not ported yet). Adapters
+(``ServingMetrics``, ``ShardHealthTracker``, ``PagedCorpusStore``,
+``kernels.autotune``). Adapters
 keep the snapshot-dict APIs working; the registry is an *additional*
 view, not a replacement.
 

@@ -260,11 +260,13 @@ class ContinuousRuntime:
         if paged:
             bufs.update(paged_buffers(L, nbrs.shape[1], store.dim, dev))
         program = StateProgram(engine.idle_state(L, store.n, dev), bufs)
+        use_tile = engine._use_tile_plan(store, nbrs.shape[1], L)
 
         def reset(b, s):
             return engine.reset_lanes(params, store, b["queries"],
                                       b["entries"], s, b["mask"], b["caps"],
-                                      b["taus"], b.get("entry_rows")), {}
+                                      b["taus"], b.get("entry_rows"),
+                                      use_tile), {}
         program.add("reset", reset)
         if paged:
             program.add("pre", engine.pre_routine(nbrs))
@@ -273,7 +275,7 @@ class ContinuousRuntime:
             program.feed = PagedFeed(store, program.buffers)
         else:
             steps = engine.step_routine(params, store, nbrs,
-                                        self.steps_per_tick)
+                                        self.steps_per_tick, use_tile)
 
             def tick(b, s):
                 s, _ = steps(b, s)

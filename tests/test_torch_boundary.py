@@ -59,6 +59,25 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                                  device="cpu")
         di.insert(base[:3] + 1.0, k_candidates=8)
         assert DurableIndex.open(d, device="cpu").index.n == 43
+    # the tuning cache and the legacy searcher run without JAX too
+    import os, torch
+    from repro_torch.kernels import autotune
+    from repro_torch.core import (SearchConfig, make_family_measure,
+                                  search_legacy)
+    assert autotune.parse_tile("tile:4").bt == 4
+    assert autotune.shipped_defaults()
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["REPRO_TORCH_TUNING_CACHE"] = os.path.join(d, "c.json")
+        autotune.record("engine_step", autotune.TileConfig("tile", 8),
+                        backend="cpu")
+        assert autotune.resolve("engine_step", backend="cpu").plan == "tile"
+    g = build_l2_graph(base, m=4, k_construction=8, device="cpu")
+    m = make_family_measure("deepfm", torch.Generator().manual_seed(0), 8,
+                            device="cpu")
+    r = search_legacy(m.score_fn, m.params, base, g.neighbors,
+                      torch.as_tensor(base[:3]), torch.full((3,), g.entry),
+                      SearchConfig(k=3, ef=8, budget=4))
+    assert r.ids.shape == (3, 3)
     assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                    for k in sys.modules), "a blocked module got in"
     print(len(names))

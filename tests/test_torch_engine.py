@@ -434,5 +434,12 @@ def test_serve_runs_on_cpu_when_asked(capsys):
                       "--batch", "32", "--measure", "mlp", "--device",
                       "cpu"])
     assert mlp["n_batches"] == 2 and mlp["qps"] > 0 and mlp["recall"] > 0.5
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--fused", "--tile", "rowwise", "--device", "cpu"])
+    # the fused step's plan override serves (the fused f32 answers)
+    fused = serve.main(["--items", "600", "--dim", "40", "--queries", "40",
+                        "--batch", "32", "--device", "cpu", "--fused"])
+    rowwise = serve.main(["--items", "600", "--dim", "40", "--queries",
+                          "40", "--batch", "32", "--device", "cpu",
+                          "--fused", "--tile", "rowwise"])
+    assert rowwise["fused"] and rowwise["n_batches"] == 2
+    assert rowwise["recall"] == fused["recall"] == out["recall"]
+    assert rowwise["evals_per_query"] == fused["evals_per_query"]

@@ -384,12 +384,26 @@ def test_serve_flags_and_refusals():
     assert (args.chaos, args.health_every, args.trace_sample, args.trace_out,
             args.metrics_out, args.metrics_json, args.profile_dir) == \
         (None, None, 0, None, None, None, None)
-    for flag in ("--chaos", "--health-every", "--trace-sample", "--trace-out",
-                 "--metrics-out", "--metrics-json", "--profile-dir"):
-        assert flag not in serve.JAX_ONLY_FLAGS
-    for flag in serve.JAX_ONLY_FLAGS:
-        with pytest.raises(SystemExit, match=f"{flag} is not ported yet"):
-            serve.parse_args([flag, "x"])
+    assert (args.searcher, args.tile, args.autotune) == \
+        ("engine", None, False)
+    # every option string the JAX launcher passes to add_argument (read
+    # from its source text) is one the port's parser takes
+    import re
+    from pathlib import Path
+    jax_src = (Path(__file__).resolve().parents[1] / "src" / "repro"
+               / "launch" / "serve.py").read_text()
+    jax_flags = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"',
+                               jax_src))
+    assert {"--searcher", "--tile", "--autotune", "--chaos",
+            "--metrics-out"} <= jax_flags
+    port_flags = set(serve.build_parser()._option_string_actions)
+    assert jax_flags <= port_flags, sorted(jax_flags - port_flags)
+    assert not hasattr(serve, "JAX_ONLY_FLAGS")
+    assert serve.parse_args(["--searcher", "legacy", "--tile", "tile:4",
+                             "--autotune"]).tile == "tile:4"
+    with pytest.raises(SystemExit, match="engine-only"):
+        serve.parse_args(["--searcher", "legacy", "--runtime",
+                          "continuous"])
     with pytest.raises(SystemExit, match="--sla needs --runtime continuous"):
         serve.parse_args(["--sla", "default"])
     with pytest.raises(SystemExit, match="--host-loop is a oneshot option"):
