@@ -80,9 +80,22 @@ over the serve phase's N=100,000 graph, a sweep then a cache hit, recall
 unchanged, ``--metrics-out`` with the autotune families, and ``--tile
 rowwise`` / ``--tile tile`` in turns; ``search_legacy`` on the card
 against the CPU, captured = eager, no port kernel; ``serve --searcher
-legacy`` beside the engine in turns, and its refusals).
+legacy`` beside the engine in turns, and its refusals), and last the LM
+and GNN families (phase 13: Yi-9B and Granite-MoE at full width cut to
+two layers, one init, prefill and four decode steps on the card against
+the CPU in float32 and bf16, the CPU on the card's expert routes and the
+router logits held; Yi-9B at full
+width, 48 layers, bf16: ``prefill_32k`` at batch 2 through the flash
+kernel, one launch a layer, timed and profiled, then greedy steps from
+its cache through the decode kernel, one launch a layer a step;
+``decode_32k`` at batch 8 from a drawn 32,768-token cache, timed against
+its bound; Granite-MoE at full width, a prefill of 8,192 tokens and
+greedy steps, the MoE dispatch's share of a layer; ``launch.train`` for
+every LM and GNN arch, the first step card against CPU; GIN at
+``minibatch_lg`` over the ported generator and fanout sampler, the loss
+falling, the sampler timed against the step).
 
-    python3 chip_smoke.py [--out results.json] [--only train|tune]
+    python3 chip_smoke.py [--out results.json] [--only train|tune|lm]
 
 Needs one CUDA card; exits non-zero without one, when any phase fails, or
 when run without the rest of the repository. Imports nothing of JAX. The
@@ -4991,6 +5004,747 @@ def check_tuning(torch, np, dev, ctx):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM and GNN families (the dense and MoE transformers, their
+# prefill on the flash kernel and decode on the decode kernel; training
+# through the launcher; GIN on fanout-sampled minibatches)
+# ---------------------------------------------------------------------------
+
+LM_PARITY_LAYERS = 2        # (a): full width, depth cut to two layers
+LM_PARITY_S = 256           # (a): prompt length at B=1
+LM_PARITY_STEPS = 4         # (a): decode steps after the prefill
+# (a) card against CPU. float32: the flash kernel runs in 3xTF32 and the
+# decode kernel on the CUDA cores, cuBLAS and the CPU BLAS sum in other
+# orders; the phase 3b attention tolerance (rtol 1e-4), with an atol of
+# 1e-4 of the largest |value| for the logits and the cache (a logit sums
+# 4,096 products that cancel). bfloat16: rtol 2e-2, atol 2e-2 of the
+# float32 CPU run's largest |value| (the CPU tests' bf16 rule).
+LM_F32_RTOL, LM_F32_ATOL_OF_MAX = 1e-4, 1e-4
+LM_BF16_TOL = 2e-2
+# MoE: the CPU run takes the card's routes (``RouteLog``'s ``follow``), so
+# its logits and cache stay comparable where a near tie of the router went
+# another way on each device; the router logits are held at the same rtol
+# and atol-of-max as the rest of the run
+YI_PREFILL_B, YI_PREFILL_S = 2, 32768     # (b) prefill_32k, batch cut 32 -> 2
+YI_GREEDY_STEPS = 16                      # (b) greedy steps from its cache
+YI_DECODE_B, YI_DECODE_T = 8, 32768       # (c) decode_32k, batch cut 128 -> 8
+YI_DECODE_STEPS = 32                      # (c) timed steps
+GRANITE_S, GRANITE_STEPS = 8192, 16       # (d) prefill at B=1, decode steps
+LM_TRAIN_ARCHS = ("yi-9b", "command-r-plus-104b", "starcoder2-3b",
+                  "granite-moe-3b-a800m", "gin-tu")
+LM_TRAIN_STEPS = 20                       # (e) the launcher's --steps
+GIN_STEPS = 10                            # (f) AdamW steps at minibatch_lg
+GIN_LR = 1e-2
+GIN_LOSS_RTOL = 1e-4                      # (f) first batch's loss, card/CPU
+
+
+def lm_wall_s(torch, fn):
+    """(result, seconds) of ``fn`` on the host clock, synchronised before
+    and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_segment(torch, label, fn, expect, paths):
+    """One main-path segment of phase 13: every launch count set to 0,
+    ``fn`` run, the counts read. ``expect`` {kernel: launches} must be
+    exactly what launched, and each kernel's launches must all have taken
+    ``paths[kernel]``. Returns (fn's result, counts, seconds)."""
+    from repro_torch.kernels import (launch_counts, path_launch_counts,
+                                     reset_launch_counts)
+    reset_launch_counts()
+    out, secs = lm_wall_s(torch, fn)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    require(counts == expect, f"lm {label}: kernel launches {counts}, "
+            f"expected {expect}")
+    by_path = path_launch_counts()
+    for name, path in paths.items():
+        got = by_path[name]
+        require(got == {p: (expect[name] if p == path else 0) for p in got},
+                f"lm {label}: {name} launches by path {got}; every launch "
+                f"must take {path}")
+    return out, counts, secs
+
+
+def lm_profile(torch, label, fn, kinds):
+    """torch.profiler over one call of ``fn``: wall and device-busy us, and
+    the device time of the kernels whose names hold each substring of
+    ``kinds`` ({label: substring}) as a share of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = device_busy_us((e.time_range.start, e.time_range.end)
+                          for e in kern)
+    by_name = collections.Counter()
+    for e in kern:
+        by_name[e.name] += e.time_range.elapsed_us()
+    out = {"wall_us": wall_us, "busy_us": busy, "events": len(kern)}
+    for kind, sub in kinds.items():
+        us = sum(t for n, t in by_name.items() if sub in n)
+        out[kind + "_us"] = us
+        out[kind + "_share"] = us / busy if busy else 0.0
+    top = by_name.most_common(6)
+    log(f"lm profile {label}: wall {wall_us / 1e3:.2f}ms, device busy "
+        f"{busy / 1e3:.2f}ms ({busy / wall_us:.1%}), {len(kern)} device "
+        f"events; " + ", ".join(f"{k} {out[k + '_us'] / 1e3:.2f}ms "
+                                f"({out[k + '_share']:.1%} of busy)"
+                                for k in kinds))
+    for name, t in top:
+        log(f"lm profile {label}:   {t / 1e3:9.3f}ms  {name[:90]}")
+    out["top"] = [(n, t) for n, t in top]
+    return out
+
+
+class RouteLog:
+    """Records every (router logits, own expert ids) that ``moe.route``
+    computes while installed (``with RouteLog(torch, moe_lib) as log_:``).
+    Given ``follow``, another run's calls in the same order, each call
+    returns that run's expert ids instead of its own, weighted by this
+    run's own affinities at those ids: this run then takes the other's
+    routes, so its outputs stay comparable with the other's even where the
+    two devices' rounding decides a near tie differently."""
+
+    def __init__(self, torch, moe_lib, follow=None):
+        self.torch, self.moe, self.follow, self.calls = torch, moe_lib, \
+            follow, []
+
+    def __enter__(self):
+        real = self.real = self.moe.route
+        torch = self.torch
+
+        def route(logits, top_k, router_type="softmax"):
+            w, idx = real(logits, top_k, router_type)
+            i = len(self.calls)
+            self.calls.append((logits.detach().float().cpu(),
+                               idx.detach().cpu()))
+            if self.follow is None:
+                return w, idx
+            require(i < len(self.follow), f"lm routes: router call {i} "
+                    f"has no counterpart in the run it follows")
+            idx = self.follow[i][1].to(logits.device)
+            s = logits.to(torch.float32)
+            s = torch.sigmoid(s) if router_type == "sigmoid" \
+                else torch.softmax(s, dim=-1)
+            w = s.gather(-1, idx.long())
+            return w / (w.sum(dim=-1, keepdim=True) + 1e-20), idx
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def route_check(torch, card_calls, cpu_calls, n_experts, K, rtol,
+                atol_of_max, label):
+    """The CPU run having followed the card's routes (``RouteLog``'s
+    ``follow``), holds every router call's logits, the card's against the
+    CPU's, at ``rtol`` and an atol of ``atol_of_max`` of the CPU call's
+    largest |logit|, and the card's expert ids as the exact top-K of its
+    own logits. Returns the tokens whose own top-K sets differ (a near tie
+    that the two devices' rounding decides apart: it spans no more than
+    the logits' held difference), the first call with one, the largest
+    gap of the CPU's own K-th and (K+1)-th logit among them, and the
+    logits' worst ratio to their tolerance."""
+    require(len(card_calls) == len(cpu_calls),
+            f"{label}: {len(card_calls)} router calls on the card, "
+            f"{len(cpu_calls)} on the CPU")
+    flips, first, gap, worst = 0, None, 0.0, 0.0
+    for i, ((lc, ic), (lp, ip)) in enumerate(zip(card_calls, cpu_calls)):
+        lc, lp = lc[:, :n_experts], lp[:, :n_experts]   # no padded expert
+        worst = max(worst, close_err(lc, lp, rtol,
+                                     atol_of_max * float(lp.abs().max()))[1])
+        ic = ic.long()
+        rest = lc.scatter(-1, ic, float("-inf"))
+        require(bool((lc.gather(-1, ic).min(dim=-1).values
+                      >= rest.max(dim=-1).values).all()),
+                f"{label}: router call {i}: the card's expert ids are not "
+                f"the top-{K} of its own logits")
+        bad = (ic.sort(dim=-1).values
+               != ip.long().sort(dim=-1).values).any(dim=-1)
+        n = int(bad.sum())
+        if n:
+            flips += n
+            first = i if first is None else first
+            top = lp[bad].sort(dim=-1, descending=True).values
+            gap = max(gap, float((top[:, K - 1] - top[:, K]).max()))
+    require(worst <= 1.0, f"{label}: router logits card vs CPU at "
+            f"{worst:.3f} of the tolerance (rtol {rtol}, atol {atol_of_max} "
+            f"x max)")
+    return {"flips": flips, "first": first, "gap": gap,
+            "logit_tol_ratio": worst}
+
+
+def lm_run(torch, np, tf, moe_lib, params, cfg, prompt, steps, dev,
+           follow=None):
+    """(a) one device's run: prefill ``prompt`` (1, S), the cache grown by
+    len(steps), then one teacher-forced decode step per token of
+    ``steps``; on the card each call is a launch-checked segment; with
+    ``follow`` (another run's router calls) the routes are that run's.
+    Returns (logits per call, cache, router calls)."""
+    n = cfg.n_layers
+    dt = str(cfg.dtype).split(".")[-1]
+    paths = {"flash_attention": "tensor_core_tf32" if dt == "float32"
+             else "tensor_core",
+             "decode_attention": "cuda_core" if dt == "float32"
+             else "tensor_core"}
+    card = dev.type == "cuda"
+    toks = torch.as_tensor(prompt, device=dev)
+    with RouteLog(torch, moe_lib, follow) as routes:
+        call = lambda: tf.prefill(params, toks, cfg)  # noqa: E731
+        if card:
+            (lg, cache), launches, _ = lm_segment(
+                torch, f"(a) {cfg.name} {dt} prefill", call,
+                {"flash_attention": n},
+                {"flash_attention": paths["flash_attention"]})
+        else:
+            lg, cache = call()
+        logits = [lg.float().cpu()]
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, len(steps)))
+                 for k, v in cache.items()}
+        S = prompt.shape[1]
+        for i, tok in enumerate(steps):
+            t = torch.as_tensor(np.asarray([tok]), device=dev)
+            pos = torch.tensor([S + i], dtype=torch.int32, device=dev)
+            call = lambda: tf.decode_step(params, cache, t, pos, cfg)  # noqa
+            if card:
+                (lg, cache), _, _ = lm_segment(
+                    torch, f"(a) {cfg.name} {dt} decode step {i}", call,
+                    {"decode_attention": n},
+                    {"decode_attention": paths["decode_attention"]})
+            else:
+                lg, cache = call()
+            logits.append(lg.float().cpu())
+    return logits, {k: v.float().cpu() for k, v in cache.items()}, \
+        routes.calls
+
+
+def lm_parity(torch, np, dev, name):
+    """(a) ``name`` at its published widths, two layers: one init (drawn on
+    the card, copied to the CPU), float32 then bf16; prefill logits and
+    cache, then LM_PARITY_STEPS decode steps, card against CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    base = dataclasses.replace(get_arch(name).make_config(),
+                               n_layers=LM_PARITY_LAYERS,
+                               dtype=torch.float32)
+    if base.is_moe:
+        # capacity = T: no token can be dropped at any batch
+        base = dataclasses.replace(
+            base, capacity_factor=moe_lib.pad_experts(base.n_experts)
+            / base.moe_top_k)
+    params, _ = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               base, device=dev)
+    r = np.random.default_rng(0)
+    toks = r.integers(0, base.vocab_size, (1, LM_PARITY_S + LM_PARITY_STEPS))
+    prompt, steps = toks[:, :LM_PARITY_S], toks[0, LM_PARITY_S:]
+    out = {}
+    f32_max = None
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).split(".")[-1]
+        cfg = dataclasses.replace(base, dtype=dt)
+        p_card = tree_map(lambda t: t.to(dt), params)
+        p_cpu = tree_map(lambda t: t.cpu(), p_card)
+        t0 = time.perf_counter()
+        card = lm_run(torch, np, tf, moe_lib, p_card, cfg, prompt, steps, dev)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = lm_run(torch, np, tf, moe_lib, p_cpu, cfg, prompt, steps,
+                     torch.device("cpu"), follow=card[2])
+        t_cpu = time.perf_counter() - t0
+        del p_card, p_cpu
+        if dt == torch.float32:
+            rtol, atol_of_max = LM_F32_RTOL, LM_F32_ATOL_OF_MAX
+        else:
+            rtol, atol_of_max = LM_BF16_TOL, LM_BF16_TOL
+        routes = None
+        if base.is_moe:
+            routes = route_check(torch, card[2], cpu[2], base.n_experts,
+                                 base.moe_top_k, rtol, atol_of_max,
+                                 f"lm (a) {name} {key}")
+        got = card[0] + [card[1]["k"], card[1]["v"]]
+        want = cpu[0] + [cpu[1]["k"], cpu[1]["v"]]
+        if f32_max is None:
+            f32_max = [float(w.abs().max()) for w in want]
+        worst, errs = 0.0, []
+        for g, w, m in zip(got, want, f32_max):
+            err, ratio = close_err(g, w, rtol, atol_of_max * m)
+            errs.append(err)
+            worst = max(worst, ratio)
+        names = (["prefill"] + [f"step {i}" for i in range(len(steps))]
+                 + ["cache k", "cache v"])
+        log(f"lm (a) {name} x{LM_PARITY_LAYERS} layers {key}: card vs CPU "
+            f"max_abs_err " + ", ".join(f"{n_} {e:.3e}"
+                                        for n_, e in zip(names, errs))
+            + f"; {worst:.3f} of the tolerance (rtol {rtol}, atol "
+            + f"{atol_of_max} x {'max' if dt == torch.float32 else 'f32 max'}"
+            + f"); card {t_card:.1f}s, CPU {t_cpu:.1f}s")
+        if routes is not None:
+            log(f"lm (a) {name} {key}: the CPU took the card's routes; "
+                f"router logits {routes['logit_tol_ratio']:.3f} of the "
+                f"tolerance over {len(card[2])} router calls; the CPU's own "
+                f"top-{base.moe_top_k} differs at {routes['flips']} tokens"
+                + (f", first at router call {routes['first']} (layer "
+                   f"{routes['first'] % base.n_layers} of the "
+                   f"{'prefill' if routes['first'] < base.n_layers else 'decode'}"
+                   f"), its K-th and (K+1)-th logits at most "
+                   f"{routes['gap']:.2e} apart: near ties that the two "
+                   f"devices' rounding decides apart"
+                   if routes["flips"] else ""))
+        require(worst <= 1.0, f"lm (a) {name} {key}: the card differs "
+                f"from the CPU by {worst:.3f} of the tolerance")
+        out[key] = {"max_abs_err": max(errs), "tol_ratio": worst,
+                    "errs": dict(zip(names, errs)), "routes": routes,
+                    "card_s": t_card, "cpu_s": t_cpu}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_steps(tf, params, cfg, cache, tok, pos, n, vocab):
+    """``n`` greedy decode steps from ``tok`` at ``pos`` (a device tensor,
+    advanced in place): no host sync. Returns the last logits."""
+    lg = None
+    for _ in range(n):
+        lg, cache = tf.decode_step(params, cache, tok, pos, cfg)
+        tok = lg[:, :vocab].argmax(dim=-1)
+        pos += 1
+    return lg
+
+
+def lm_decode_bound_ms(params, cfg, B, pos0, n):
+    """Least ms of ``n`` decode steps from ``pos0``: every weight read once a
+    step (the token table's B rows only, unless it is tied to the head),
+    each step's valid K and V prefix of every layer read once."""
+    from repro_torch.tree import tree_bytes
+    w = tree_bytes(params)
+    if not cfg.tie_embeddings:
+        w -= params["embed"].numel() * params["embed"].element_size()
+    esize = params["embed"].element_size()
+    kv = sum(2 * cfg.n_layers * B * (pos0 + i + 1) * cfg.n_kv_heads
+             * cfg.head_dim * esize for i in range(n))
+    return (n * w + kv) / H100_BYTES_PER_S * 1e3
+
+
+def yi_full(torch, np, dev):
+    """(b) Yi-9B at full width, 48 layers, bf16: prefill_32k at batch 2,
+    then greedy steps from its cache; (c) decode_32k at batch 8 from a
+    32,768-token cache drawn from a generator."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_bytes, tree_size
+    cfg = dataclasses.replace(get_arch("yi-9b").make_config(),
+                              dtype=torch.bfloat16)
+    L_, V = cfg.n_layers, cfg.vocab_size
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (params, _), t_init = lm_wall_s(torch, lambda: tf.init_params(
+        gen, cfg, device=dev))
+    out["params"], out["param_bytes"] = tree_size(params), tree_bytes(params)
+    out["init_s"] = t_init
+    log(f"lm (b) Yi-9B: {out['params']:,} parameters, "
+        f"{out['param_bytes'] / 1e9:.2f} GB bf16, drawn on the card in "
+        f"{t_init:.1f}s")
+    B, S = YI_PREFILL_B, YI_PREFILL_S
+    toks = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    tf.prefill(params, toks[:1, :512], cfg)           # cuBLAS and kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (lg, cache), launches, t_pre = lm_segment(
+        torch, "(b) Yi-9B prefill_32k B=2", lambda: tf.prefill(params, toks,
+                                                               cfg),
+        {"flash_attention": L_}, {"flash_attention": "tensor_core"})
+    peak = torch.cuda.max_memory_allocated()
+    require(tuple(lg.shape) == (B, tf.L.pad_vocab(V))
+            and bool(torch.isfinite(lg[:, :V]).all()),
+            f"lm (b): prefill logits {tuple(lg.shape)} not finite")
+    out["prefill"] = {"B": B, "S": S, "s": t_pre,
+                      "tokens_per_s": B * S / t_pre,
+                      "launches": launches, "peak_gb": peak / 1e9}
+    # GEMMs: every weight but the tables once per token, the head once
+    # per sequence (prefill's logits are the last position's)
+    head = params["lm_head"].numel()
+    flops = 2 * (out["params"] - params["embed"].numel() - head) * B * S \
+        + 2 * head * B
+    attn_flops = 4 * cfg.n_heads * cfg.head_dim * B * (S * (S + 1) // 2) \
+        * L_
+    out["prefill"]["floor_s"] = (flops + attn_flops) / H100_BF16_FLOPS
+    log(f"lm (b) Yi-9B prefill_32k B={B}: {t_pre:.3f}s, "
+        f"{B * S / t_pre:,.0f} tokens/s (floor {out['prefill']['floor_s']:.3f}"
+        f"s: {flops:.3g} GEMM + {attn_flops:.3g} causal attention FLOPs at "
+        f"989 TFLOP/s), flash_attention launched {launches} (1 a layer), "
+        f"peak {peak / 1e9:.1f} GB")
+    # the prefill's cache, grown by the greedy steps
+    T = S + YI_GREEDY_STEPS
+    small, cache = cache, {}
+    for k in ("k", "v"):
+        cache[k] = torch.empty((L_, B, T, cfg.n_kv_heads, cfg.head_dim),
+                               dtype=cfg.dtype, device=dev)
+        cache[k][:, :, :S].copy_(small[k])
+    del small
+    out["prefill"]["profile"] = lm_profile(
+        torch, "(b) Yi-9B prefill_32k B=2",
+        lambda: tf.prefill(params, toks, cfg), {"flash": "flash_"})
+    tok = lg[:, :V].argmax(dim=-1)
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    tf.decode_step(params, cache, tok, pos, cfg)       # warm; rewritten
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    lg_last, launches, t_dec = lm_segment(
+        torch, "(b) Yi-9B greedy steps",
+        lambda: lm_steps(tf, params, cfg, cache, tok, pos, YI_GREEDY_STEPS,
+                         V),
+        {"decode_attention": L_ * YI_GREEDY_STEPS},
+        {"decode_attention": "tensor_core"})
+    require(bool(torch.isfinite(lg_last[:, :V]).all()),
+            "lm (b): decode logits not finite")
+    out["greedy"] = {"steps": YI_GREEDY_STEPS,
+                     "ms_per_step": t_dec / YI_GREEDY_STEPS * 1e3,
+                     "launches": launches,
+                     "bound_ms_per_step": lm_decode_bound_ms(
+                         params, cfg, B, S, YI_GREEDY_STEPS)
+                     / YI_GREEDY_STEPS}
+    pos = torch.tensor([T - 1], dtype=torch.int32, device=dev)
+    out["greedy"]["profile"] = lm_profile(
+        torch, "(b) Yi-9B decode step B=2 at 32,784",
+        lambda: tf.decode_step(params, cache, tok, pos, cfg),
+        {"decode": "decode_"})
+    log(f"lm (b) Yi-9B {YI_GREEDY_STEPS} greedy steps from the 32,768-token "
+        f"cache (B={B}): {out['greedy']['ms_per_step']:.2f}ms a step (bound "
+        f"{out['greedy']['bound_ms_per_step']:.2f}ms), decode_attention "
+        f"launched {launches} ({L_} a step)")
+    del cache, lg, lg_last
+    torch.cuda.empty_cache()
+
+    # (c) decode_32k at batch 8 from a drawn cache
+    Bd, T = YI_DECODE_B, YI_DECODE_T
+    cache = {}
+    for k in ("k", "v"):
+        cache[k] = torch.empty((L_, Bd, T, cfg.n_kv_heads, cfg.head_dim),
+                               dtype=cfg.dtype, device=dev)
+        for i in range(L_):
+            cache[k][i].normal_(generator=gen)
+    cache_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    pos0 = T - YI_DECODE_STEPS - 2
+    tok = torch.randint(0, V, (Bd,), generator=gen, device=dev)
+    pos = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    lm_steps(tf, params, cfg, cache, tok, pos, 2, V)     # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed():
+        start.record()
+        lg = lm_steps(tf, params, cfg, cache, tok, pos, YI_DECODE_STEPS, V)
+        end.record()
+        return lg
+
+    lg, launches, t_dec = lm_segment(
+        torch, "(c) Yi-9B decode_32k B=8", timed,
+        {"decode_attention": L_ * YI_DECODE_STEPS},
+        {"decode_attention": "tensor_core"})
+    require(bool(torch.isfinite(lg[:, :V]).all()),
+            "lm (c): decode logits not finite")
+    bound = lm_decode_bound_ms(params, cfg, Bd, pos0 + 2,
+                               YI_DECODE_STEPS) / YI_DECODE_STEPS
+    out["decode_32k"] = {
+        "B": Bd, "T": T, "steps": YI_DECODE_STEPS, "cache_gb": cache_gb,
+        "ms_per_step": t_dec / YI_DECODE_STEPS * 1e3,
+        "device_ms_per_step": start.elapsed_time(end) / YI_DECODE_STEPS,
+        "bound_ms_per_step": bound, "launches": launches}
+    pos = torch.tensor([T - 1], dtype=torch.int32, device=dev)
+    out["decode_32k"]["profile"] = lm_profile(
+        torch, "(c) Yi-9B decode_32k step B=8",
+        lambda: tf.decode_step(params, cache, tok, pos, cfg),
+        {"decode": "decode_"})
+    d = out["decode_32k"]
+    log(f"lm (c) Yi-9B decode_32k B={Bd}: {d['ms_per_step']:.2f}ms a step "
+        f"on the host clock ({d['device_ms_per_step']:.2f}ms between device "
+        f"events), bound {bound:.2f}ms ({out['param_bytes'] / 1e9:.2f} GB of "
+        f"weights + {cache_gb:.2f} GB of cache at 3.35 TB/s); "
+        f"decode_attention launched {launches}")
+    del cache, params, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def granite_full(torch, np, dev):
+    """(d) Granite-MoE-3B at full width, 32 layers, bf16: a prefill at
+    B=1, S=8,192, then greedy steps; the MoE dispatch's share of one
+    prefill layer."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_size
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").make_config(),
+                              dtype=torch.bfloat16)
+    L_, V, S = cfg.n_layers, cfg.vocab_size, GRANITE_S
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params, _ = tf.init_params(gen, cfg, device=dev)
+    out = {"params": tree_size(params)}
+    toks = torch.randint(0, V, (1, S), generator=gen, device=dev)
+    tf.prefill(params, toks[:, :256], cfg)
+    (lg, small), launches, t_pre = lm_segment(
+        torch, "(d) Granite prefill S=8192", lambda: tf.prefill(params, toks,
+                                                                cfg),
+        {"flash_attention": L_}, {"flash_attention": "tensor_core"})
+    require(bool(torch.isfinite(lg[:, :V]).all()),
+            "lm (d): prefill logits not finite")
+    out["prefill"] = {"S": S, "s": t_pre, "tokens_per_s": S / t_pre,
+                      "launches": launches}
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GRANITE_STEPS))
+             for k, v in small.items()}
+    del small
+    tok = lg[:, :V].argmax(dim=-1)
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    tf.decode_step(params, cache, tok, pos, cfg)       # warm; rewritten
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    lg, launches, t_dec = lm_segment(
+        torch, "(d) Granite greedy steps",
+        lambda: lm_steps(tf, params, cfg, cache, tok, pos, GRANITE_STEPS, V),
+        {"decode_attention": L_ * GRANITE_STEPS},
+        {"decode_attention": "tensor_core"})
+    require(bool(torch.isfinite(lg[:, :V]).all()),
+            "lm (d): decode logits not finite")
+    out["decode"] = {"steps": GRANITE_STEPS,
+                     "ms_per_step": t_dec / GRANITE_STEPS * 1e3,
+                     "launches": launches}
+    # one prefill layer, its MoE FFN and the expert products alone
+    lp = tf.layer_params(params, 0)
+    x = tf._embed(params, toks, cfg)
+    rope = tf._rope(cfg, torch.arange(S, device=dev)[None, :])
+    h = tf._norm(cfg, x, lp["norm"]["ln2"])
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.capacity_factor, n_groups=cfg.moe_groups)
+    buf = moe_lib.dispatch(lp["mlp"], h.reshape(S, -1), **kw)[0]
+    with torch.no_grad():
+        layer_ms = event_ms(lambda: tf._layer(cfg, x, lp, rope, "prefill"),
+                            reps=5)
+        moe_ms = event_ms(lambda: moe_lib.moe_ffn(lp["mlp"], h, **kw),
+                          reps=5)
+        expert_ms = event_ms(lambda: moe_lib.expert_ffn(lp["mlp"], buf),
+                             reps=5)
+    out["layer"] = {"layer_ms": layer_ms, "moe_ms": moe_ms,
+                    "expert_ms": expert_ms,
+                    "dispatch_share": (moe_ms - expert_ms) / layer_ms,
+                    "capacity": int(buf.shape[1])}
+    log(f"lm (d) Granite-MoE-3B: {out['params']:,} parameters (48 experts "
+        f"with the padding), prefill S={S} {t_pre:.3f}s ({S / t_pre:,.0f} "
+        f"tokens/s, flash_attention launched {out['prefill']['launches']}), "
+        f"{GRANITE_STEPS} greedy steps {out['decode']['ms_per_step']:.2f}ms a "
+        f"step (decode_attention launched {launches}); one prefill layer "
+        f"{layer_ms:.3f}ms, its MoE FFN {moe_ms:.3f}ms of which the expert "
+        f"products {expert_ms:.3f}ms (capacity {buf.shape[1]} a expert): "
+        f"routing, dispatch and combine "
+        f"{out['layer']['dispatch_share']:.1%} of the layer")
+    del params, cache, x, h, buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(torch, np, dev):
+    """(e) ``python -m repro_torch.launch.train --arch A --steps 20`` for
+    each LM and GNN arch (the smoke configs, as the JAX launcher runs
+    them), and the first step's loss and gradients card against CPU (the
+    same weights, float32)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.train.trainer import value_and_grad
+    out = {}
+    for name in LM_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        tr = launch.main(["--arch", name, "--steps", str(LM_TRAIN_STEPS),
+                          "--device", str(dev)])
+        secs = time.perf_counter() - t0
+        losses = [h["loss"] for h in tr.history]
+        require(len(losses) == LM_TRAIN_STEPS
+                and all(np.isfinite(losses)),
+                f"lm (e) {name}: the launcher's losses {losses}")
+        arch = get_arch(name)
+        cfg = arch.make_smoke_config()
+        if arch.family == "lm":
+            cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        runs = {}
+        for where in (str(dev), "cpu"):     # the CPU takes the card's routes
+            gen = torch.Generator().manual_seed(0)
+            if arch.family == "lm":
+                params, loss_fn, batch_fn = launch.lm_setup(
+                    arch, cfg, 16, 64, device=where, generator=gen)
+            else:
+                params, loss_fn, batch_fn = launch.gnn_setup(
+                    arch, cfg, device=where, generator=gen)
+            follow = runs[str(dev)][2] if where == "cpu" else None
+            with RouteLog(torch, moe_lib, follow) as routes:
+                loss, grads = value_and_grad(loss_fn, params, batch_fn(0))
+            runs[where] = (float(loss), grads, routes.calls)
+        (lc, gc, rc), (ld, gd, rd) = runs["cpu"], runs[str(dev)]
+        flips = 0
+        if getattr(cfg, "is_moe", False):
+            flips = route_check(torch, rd, rc, cfg.n_experts, cfg.moe_top_k,
+                                STEP_RTOL, SMOKE_GRAD_ATOL_OF_MAX,
+                                f"lm (e) {name}")["flips"]
+        g_worst = _worst(torch, gd, gc, STEP_RTOL, 0.0,
+                         SMOKE_GRAD_ATOL_OF_MAX)
+        log(f"lm (e) {name}: launcher {LM_TRAIN_STEPS} steps on the card, "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {secs:.1f}s "
+            f"({step_ms(tr.history):.1f}ms a step after the first); first "
+            f"step float32 card vs CPU: loss {ld:.6f} / {lc:.6f}, gradients "
+            f"{g_worst:.3f} of their tolerance (rtol {STEP_RTOL}, atol "
+            f"{SMOKE_GRAD_ATOL_OF_MAX} x max)"
+            + (f"; the CPU took the card's routes, its own top-"
+               f"{cfg.moe_top_k} differing at {flips} tokens (near ties)"
+               if flips else ""))
+        require(abs(ld - lc) <= STEP_RTOL * abs(lc) and g_worst <= 1.0,
+                f"lm (e) {name}: the card's first step differs from the "
+                f"CPU's (loss {ld} / {lc}, gradients {g_worst:.3f})")
+        out[name] = {"losses": losses, "s": secs,
+                     "ms_per_step": step_ms(tr.history),
+                     "loss_cpu": lc, "loss_card": ld, "grad_worst": g_worst,
+                     "route_flips": flips}
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def gin_minibatch(torch, np, dev):
+    """(f) GIN at minibatch_lg: a graph at the shape's own sizes from the
+    ported ``make_graph``, the ported ``NeighborSampler`` (15/10 fanouts,
+    1,024 seeds, padded to 262,144 nodes and edges), GIN_STEPS AdamW steps
+    on the card over fresh samples of the same seeds; the loss finite and
+    falling, the first batch's loss card = CPU, the sampler timed against
+    the step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gin_tu
+    from repro_torch.data import NeighborSampler, make_graph
+    from repro_torch.models import gnn
+    from repro_torch.train import OptimizerConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    shape = get_arch("gin-tu").shape("minibatch_lg")
+    cfg = gin_tu.config(shape)
+    n, e = shape["n_nodes"], shape["n_edges"]
+    t0 = time.perf_counter()
+    g = make_graph(n, e, shape["d_feat"], n_classes=shape["n_classes"],
+                   seed=0)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g["src"], g["dst"], n,
+                              (shape["fanout0"], shape["fanout1"]), seed=0)
+    t_csr = time.perf_counter() - t0
+    log(f"lm (f) GIN minibatch_lg: make_graph {n:,} nodes, {e:,} edges, "
+        f"d_feat {shape['d_feat']} in {t_graph:.1f}s; the sampler's CSR in "
+        f"{t_csr:.1f}s")
+    seeds = np.random.default_rng(0).choice(n, shape["batch_nodes"],
+                                            replace=False)
+    mx_n, mx_e = shape["max_nodes"], shape["max_edges"]
+    params, _ = gnn.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    p_cpu = tree_map(lambda t: t.detach().cpu().clone(), params)
+
+    def batch_of(b, where):
+        labels = np.zeros(mx_n, np.int32)
+        mask = np.zeros(mx_n, np.float32)
+        labels[b.seed_local] = b.labels
+        mask[b.seed_local] = 1.0
+        d = {"feats": b.feats, "src": b.src, "dst": b.dst,
+             "edge_mask": b.edge_mask, "labels": labels, "mask": mask}
+        return {k: torch.as_tensor(v).to(where) for k, v in d.items()}
+
+    def loss_fn(p, b):
+        return gnn.node_classification_loss(
+            p, b["feats"], b["src"], b["dst"], b["labels"], b["mask"], cfg,
+            edge_mask=b["edge_mask"])
+
+    ocfg = OptimizerConfig(lr=GIN_LR, warmup_steps=0, total_steps=GIN_STEPS)
+    step = make_train_step(loss_fn, ocfg)
+    state = adamw_init(params, ocfg)
+    losses, t_sample, t_copy, t_step, sizes = [], [], [], [], []
+    for i in range(GIN_STEPS):
+        t0 = time.perf_counter()
+        b = sampler.sample(seeds, g["feats"], g["labels"], mx_n, mx_e)
+        t_sample.append(time.perf_counter() - t0)
+        sizes.append((b.n_nodes, int(b.edge_mask.sum())))
+        batch, dt = lm_wall_s(torch, lambda: batch_of(b, dev))
+        t_copy.append(dt)
+        if i == 0:
+            with torch.no_grad():
+                l_cpu = float(loss_fn(p_cpu, batch_of(b, "cpu")))
+        (params, state, m), dt = lm_wall_s(
+            torch, lambda: step(params, state, batch))
+        losses.append(float(m["loss"]))
+        t_step.append(dt)
+    del p_cpu
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"lm (f) GIN: losses {losses} not finite and falling")
+    require(abs(losses[0] - l_cpu) <= GIN_LOSS_RTOL * abs(l_cpu),
+            f"lm (f) GIN: first batch's loss {losses[0]} on the card, "
+            f"{l_cpu} on the CPU")
+    med = statistics.median
+    out = {"graph_s": t_graph, "csr_s": t_csr, "losses": losses,
+           "loss_cpu": l_cpu, "sample_s": med(t_sample),
+           "copy_s": med(t_copy), "step_s": med(t_step[1:]),
+           "first_step_s": t_step[0], "nodes_edges": sizes}
+    log(f"lm (f) GIN minibatch_lg: {GIN_STEPS} AdamW steps (lr {GIN_LR}) "
+        f"over fresh samples of the same {len(seeds)} seeds "
+        f"({sizes[0][0]:,} nodes, {sizes[0][1]:,} edges of "
+        f"{mx_n:,} / {mx_e:,}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(first batch on the CPU {l_cpu:.4f}); the sampler "
+        f"{out['sample_s'] * 1e3:.0f}ms, the batch's copy to the card "
+        f"{out['copy_s'] * 1e3:.0f}ms, a step {out['step_s'] * 1e3:.1f}ms "
+        f"(first {t_step[0] * 1e3:.0f}ms)")
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_lm(torch, np, dev):
+    """Phase 13: (a) Yi-9B and Granite at full width, two layers, card vs
+    CPU at float32 and bf16; (b) Yi-9B prefill_32k at batch 2 and greedy
+    decoding; (c) decode_32k at batch 8; (d) Granite at full width; (e)
+    the launcher trains each LM and GNN arch; (f) GIN at minibatch_lg."""
+    t_phase = time.perf_counter()
+    out, secs = {}, {}
+    log(f"lm: phase 13, TF32 "
+        f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} for "
+        f"matrix products")
+    t0 = time.perf_counter()
+    out["parity"] = {name: lm_parity(torch, np, dev, name)
+                     for name in ("yi-9b", "granite-moe-3b-a800m")}
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["yi"] = yi_full(torch, np, dev)
+    secs["b-c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["granite"] = granite_full(torch, np, dev)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = lm_train(torch, np, dev)
+    secs["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["gin"] = gin_minibatch(torch, np, dev)
+    secs["f"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"lm: phase 13 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"({k}) {v:.1f}s" for k, v in secs.items()) + ")")
+    return out
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -5058,6 +5812,23 @@ LAUNCH_RUN = {"deepfm_score": "unfused float32",
               "flash_attention": ("phase", "library_kernels"),
               "flash_attention_f32": ("phase", "library_kernels")}
 LINE_RESIDENCY = "int8"   # the fused kernels' numbers in the kernels line
+# the LM path's launches and times of the attention kernels (phase 13, Yi-9B
+# at full width): launches per prefill and per decode step, and the
+# kernels' share of a profiled prefill or step
+LM_PATH = {
+    "flash_attention": lambda lm: {
+        "launches_per_prefill": lm["yi"]["prefill"]["launches"][
+            "flash_attention"],
+        "prefill_s": lm["yi"]["prefill"]["s"],
+        "share_of_prefill": lm["yi"]["prefill"]["profile"]["flash_share"],
+        "ms_in_prefill": lm["yi"]["prefill"]["profile"]["flash_us"] / 1e3},
+    "decode_attention": lambda lm: {
+        "launches_per_step": lm["yi"]["decode_32k"]["launches"][
+            "decode_attention"] // YI_DECODE_STEPS,
+        "step_ms": lm["yi"]["decode_32k"]["ms_per_step"],
+        "share_of_step": lm["yi"]["decode_32k"]["profile"]["decode_share"],
+        "ms_in_step": lm["yi"]["decode_32k"]["profile"]["decode_us"] / 1e3},
+}
 
 
 def kernel_line(results) -> dict:
@@ -5085,6 +5856,8 @@ def kernel_line(results) -> dict:
                         "bound_f32_peak"):
                 if key in e:
                     out[-1][key + "_ms"] = e[key][0]
+            if name in LM_PATH and "lm" in results:
+                out[-1]["lm_path"] = LM_PATH[name](results["lm"])
             continue
         launches = serve_out[run]["launches"][WRAPPER[name]]
         entry = {"name": name, "route": "cuda",
@@ -5136,7 +5909,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
-    ap.add_argument("--only", choices=("train", "tune"), default=None,
+    ap.add_argument("--only", choices=("train", "tune", "lm"), default=None,
                     help="build the kernels and run only this phase (no "
                          "result line): a quicker check of one phase")
     opts = ap.parse_args()
@@ -5177,11 +5950,13 @@ def main() -> int:
         if opts.only is not None:
             if opts.only == "train":
                 results["train"] = check_training(torch, np, dev)
-            else:
+            elif opts.only == "tune":
                 results["tuning"] = check_tuning(
                     torch, np, dev, tune_context(torch, np, dev))
-            log(f"--only {opts.only}: phase "
-                f"{11 if opts.only == 'train' else 12} passed; no result "
+            else:
+                results["lm"] = check_lm(torch, np, dev)
+            phase = {"train": 11, "tune": 12, "lm": 13}[opts.only]
+            log(f"--only {opts.only}: phase {phase} passed; no result "
                 f"line ({time.perf_counter() - t_start:.1f}s)")
             if opts.out:
                 os.makedirs(os.path.dirname(os.path.abspath(opts.out)),
@@ -5232,8 +6007,12 @@ def main() -> int:
                                                      sharded_idx)
         results["train"] = check_training(torch, np, dev)
         results["tuning"] = check_tuning(torch, np, dev, ctx)
+        del ctx
+        torch.cuda.empty_cache()
+        results["lm"] = check_lm(torch, np, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
+        print(f"[smoke] FAIL: {e}", file=sys.stderr, flush=True)
         return 1
     results["seconds"] = time.perf_counter() - t_start
     log(f"all phases passed in {results['seconds']:.1f}s")

@@ -1,7 +1,6 @@
 """Arch/shape registry used by ``launch/train.py --arch`` (the JAX
 package's ``configs/base.py``; plain data, copied so the port stands
-alone). The LM and GNN shape sets come along as data; their archs wait
-for those families (ROADMAP.md)."""
+alone)."""
 from __future__ import annotations
 
 import dataclasses

@@ -5,14 +5,13 @@ arrays in both packages.
 
 - interactions: clustered user/item latent spaces with logistic click
   labels (stands in for Twitch / Amazon Movies&TV);
-- recsys CTR batches (Criteo-like).
-
-The token, graph and molecule generators wait for the LM and GNN families
-(ROADMAP.md).
+- token streams for LM training; recsys CTR batches (Criteo-like);
+- graphs with power-law degree for GNN shapes, and batches of small
+  graphs (molecules).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -40,6 +39,13 @@ def make_interactions(n_users: int, n_items: int, n_inter: int,
             "user_init": user_init, "item_init": item_init}
 
 
+def make_token_batch(batch: int, seq: int, vocab: int, seed: int = 0
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
 def make_recsys_batch(batch: int, n_dense: int, cardinalities, seed: int = 0
                       ) -> Dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
@@ -48,3 +54,44 @@ def make_recsys_batch(batch: int, n_dense: int, cardinalities, seed: int = 0
                       axis=1).astype(np.int32)
     labels = (rng.random(batch) < 0.25).astype(np.float32)
     return {"dense": dense, "sparse": sparse, "labels": labels}
+
+
+def make_graph(n_nodes: int, n_edges: int, d_feat: int, n_classes: int = 40,
+               seed: int = 0, power_law: bool = True
+               ) -> Dict[str, np.ndarray]:
+    """Random graph with (optionally) power-law degree distribution.
+    Edge list is directed (src, dst); callers symmetrize if needed."""
+    rng = np.random.default_rng(seed)
+    if power_law:
+        w = 1.0 / (np.arange(1, n_nodes + 1) ** 0.75)
+        w /= w.sum()
+        src = rng.choice(n_nodes, size=n_edges, p=w).astype(np.int32)
+    else:
+        src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    feats = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    train_mask = (rng.random(n_nodes) < 0.1)
+    return {"src": src, "dst": dst, "feats": feats, "labels": labels,
+            "train_mask": train_mask}
+
+
+def make_batched_molecules(n_graphs: int, n_nodes: int, n_edges: int,
+                           d_feat: int = 16, n_classes: int = 2, seed: int = 0
+                           ) -> Dict[str, np.ndarray]:
+    """Batch of small graphs as one block-diagonal edge list."""
+    rng = np.random.default_rng(seed)
+    srcs, dsts, gids = [], [], []
+    for g in range(n_graphs):
+        off = g * n_nodes
+        srcs.append(rng.integers(0, n_nodes, n_edges) + off)
+        dsts.append(rng.integers(0, n_nodes, n_edges) + off)
+        gids.append(np.full(n_nodes, g))
+    feats = rng.normal(size=(n_graphs * n_nodes, d_feat)).astype(np.float32)
+    labels = rng.integers(0, n_classes, n_graphs).astype(np.int32)
+    return {
+        "src": np.concatenate(srcs).astype(np.int32),
+        "dst": np.concatenate(dsts).astype(np.int32),
+        "graph_ids": np.concatenate(gids).astype(np.int32),
+        "feats": feats, "labels": labels,
+    }

@@ -1,15 +1,17 @@
 """Training launcher of the port: ``--arch <id>`` trains a registered
-recsys architecture's REDUCED (smoke) config on synthetic data, as the
-JAX package's ``launch/train.py`` does. ``recsys_setup`` also builds a
-published config's nets (``arch.make_config()``) for callers that give it
-one.
+architecture's REDUCED (smoke) config on synthetic data, as the JAX
+package's ``launch/train.py`` does: the LM family on token batches, GIN
+on a 500-node graph, the recsys nets on CTR batches. ``lm_setup``,
+``gnn_setup`` and ``recsys_setup`` also take a published config for
+callers that give them one.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 --steps 50
-    PYTHONPATH=src python -m repro_torch.launch.train --arch bst --device cpu
 
 The default device is the card (``--device cuda``); without one the
-launcher fails instead of training on the CPU. The LM and GNN archs are
-not ported yet: they are named and refused.
+launcher fails instead of training on the CPU. DeepSeek-V3 is not ported
+yet: it is named and refused.
 """
 from __future__ import annotations
 
@@ -22,14 +24,67 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, list_archs
-from repro_torch.data.synthetic import make_recsys_batch
+from repro_torch.data.synthetic import (make_graph, make_recsys_batch,
+                                        make_token_batch)
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as rec_lib
+from repro_torch.models import transformer as tf_lib
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-# the JAX launcher's LM and GNN archs (python -m repro.launch.train)
-JAX_ONLY_ARCHS = ("command-r-plus-104b", "deepseek-v3-671b", "gin-tu",
-                  "granite-moe-3b-a800m", "starcoder2-3b", "yi-9b")
+# the JAX launcher's archs not ported yet (python -m repro.launch.train)
+JAX_ONLY_ARCHS = ("deepseek-v3-671b",)
+
+
+def _put(d, dev):
+    return {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+
+
+def _generator(generator, dev):
+    return generator or torch.Generator(device=dev).manual_seed(0)
+
+
+def lm_setup(arch, cfg, batch: int, seq: int, device="cuda",
+             generator: Optional[torch.Generator] = None):
+    """(params, loss_fn, batch_fn) of a dense or MoE transformer at
+    ``cfg``: the weights drawn from ``generator`` (default: one on
+    ``device`` seeded 0), ``make_token_batch(batch, seq)`` from the step
+    number, the next-token loss."""
+    dev = resolve_device(device)
+    params, _ = tf_lib.init_params(_generator(generator, dev), cfg,
+                                   device=dev)
+
+    def loss_fn(p, b):
+        return tf_lib.lm_loss(p, b["tokens"], b["targets"], cfg)
+
+    def batch_fn(step):
+        t, y = make_token_batch(batch, seq, cfg.vocab_size, seed=step)
+        return _put({"tokens": t, "targets": y}, dev)
+
+    return params, loss_fn, batch_fn
+
+
+def gnn_setup(arch, cfg, device="cuda",
+              generator: Optional[torch.Generator] = None):
+    """(params, loss_fn, batch_fn) of GIN at ``cfg``: node classification
+    on ``make_graph(500, 4000)`` (seed 0, every step the same graph), the
+    loss over its train mask."""
+    dev = resolve_device(device)
+    params, _ = gnn_lib.init_params(_generator(generator, dev), cfg,
+                                    device=dev)
+    g = make_graph(500, 4000, cfg.d_in, n_classes=cfg.n_classes, seed=0)
+    graph = _put({"feats": g["feats"], "src": g["src"], "dst": g["dst"],
+                  "labels": g["labels"],
+                  "mask": g["train_mask"].astype(np.float32)}, dev)
+
+    def loss_fn(p, b):
+        return gnn_lib.node_classification_loss(
+            p, b["feats"], b["src"], b["dst"], b["labels"], b["mask"], cfg)
+
+    def batch_fn(step):
+        return graph
+
+    return params, loss_fn, batch_fn
 
 
 def recsys_setup(arch, cfg, batch: int, device="cuda",
@@ -39,10 +94,10 @@ def recsys_setup(arch, cfg, batch: int, device="cuda",
     one on ``device`` seeded 0), batches of ``batch`` made on the host
     from the step number and moved to ``device``."""
     dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    gen = _generator(generator, dev)
 
     def put(d):
-        return {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+        return _put(d, dev)
 
     if arch.name in ("dlrm-rm2", "dcn-v2"):
         init = rec_lib.dlrm_init if arch.name == "dlrm-rm2" else rec_lib.dcn_init
@@ -99,7 +154,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64,
-                    help="sequence length of the LM archs (not ported yet)")
+                    help="sequence length of the LM archs")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
@@ -115,8 +170,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                          f"it; see ROADMAP.md)")
     dev = resolve_device(args.device)
     arch = get_arch(args.arch)
-    params, loss_fn, batch_fn = recsys_setup(arch, arch.make_smoke_config(),
-                                             args.batch, device=dev)
+    cfg = arch.make_smoke_config()
+    if arch.family == "lm":
+        params, loss_fn, batch_fn = lm_setup(arch, cfg, args.batch,
+                                             args.seq, device=dev)
+    elif arch.family == "gnn":
+        params, loss_fn, batch_fn = gnn_setup(arch, cfg, device=dev)
+    else:
+        params, loss_fn, batch_fn = recsys_setup(arch, cfg, args.batch,
+                                                 device=dev)
     tr = Trainer(loss_fn, params,
                  OptimizerConfig(lr=args.lr, total_steps=2 * args.steps),
                  TrainerConfig(total_steps=args.steps,

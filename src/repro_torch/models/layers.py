@@ -3,12 +3,15 @@
 Parameters are the JAX package's pytree layout as a dict of tensor lists,
 ``{'w': [W0, W1, ...], 'b': [b0, b1, ...]}`` with ``W_i`` of shape
 (d_in, d_out), so ``params_from_jax`` carries weights across unchanged;
-``tensor_from_jax`` carries tables and caches (float32 or bfloat16).
+``tensor_from_jax`` carries tables and caches (float32, bfloat16 or
+float8_e4m3fn).
 
-The attention functions are the plain counterparts of the JAX package's
-model layers (q/k/v in the (B, S, heads, hd) layout); like them, they call
-no kernel. ``kernels.decode_attn`` and ``kernels.flash_attn`` are held
-against them.
+The LM layers (``rms_norm``, ``rope_freqs``, ``apply_rope``, ``swiglu``)
+and the attention functions are the plain counterparts of the JAX
+package's model layers (q/k/v in the (B, S, heads, hd) layout); like
+them, they call no kernel. ``kernels.decode_attn`` and
+``kernels.flash_attn`` are held against them, and
+``models/transformer.py`` calls those kernels where it needs no gradient.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 
@@ -37,6 +41,21 @@ def embed_init(generator: torch.Generator, n: int, d: int,
     """An (n, d) table of N(0, 1) * scale, drawn as ``dense_init`` draws (a
     generator on the card draws a table of billions of elements there)."""
     return dense_init(generator, n, d, scale=scale, device=device)
+
+
+def stacked_normal(generator: torch.Generator, n_layers: int, shape,
+                   scale: float, dtype, device) -> torch.Tensor:
+    """(n_layers, *shape) of N(0, 1) x ``scale`` in ``dtype`` on
+    ``device``: each layer drawn in float32 on the generator's device and
+    written into the stack, so a generator on the card draws a model of
+    billions of parameters there with one layer's float32 temporary."""
+    dev = resolve_device(device)
+    out = torch.empty((n_layers, *shape), dtype=dtype, device=dev)
+    for i in range(n_layers):
+        w = torch.randn(tuple(shape), generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        out[i].copy_(w.mul_(scale).to(dev, dtype))
+    return out
 
 
 def init_mlp(generator: torch.Generator, dims: Sequence[int],
@@ -89,6 +108,64 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x * scale.to(torch.float32) + bias.to(torch.float32)).to(dtype)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm computed in float32 (mean of squares, rsqrt), cast back to
+    x's dtype, as the JAX layer."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.to(torch.float32)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=DEFAULT_DEVICE) -> torch.Tensor:
+    """(head_dim / 2,) float32 inverse frequencies theta^(-2i / head_dim),
+    the exponent and the power taken in float32 as in JAX."""
+    expo = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=resolve_device(device)) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=expo.device), expo)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0):
+    """(cos, sin) of the angles positions x freqs, each (..., seq, 1,
+    head_dim / 2) float32, as ``apply_rope`` computes them. A model
+    computes them once per call and rotates every layer's q and k with
+    ``rotate`` (the same numbers as ``apply_rope`` in each layer)."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
+    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """x's halves rotated in float32 by ``rope_angles``'s (cos, sin), cast
+    back to x's dtype; the result is a new contiguous tensor."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, n_heads, head_dim); positions: broadcastable to
+    (..., seq)."""
+    return rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
 class _GatherRows(torch.autograd.Function):
     """``table[ids]`` whose backward sums each id's rows in a fixed order:
     the ids sorted (stable), each run of equal ids reduced in sequence
@@ -129,15 +206,23 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                                   table.shape[1])
 
 
+# ml_dtypes arrays (numpy has no such dtypes of its own) -> (an integer
+# view of the same width, the torch dtype with the same bits)
+_BIT_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def tensor_from_jax(a, device="cuda") -> torch.Tensor:
     """A numpy array from the JAX side -> a tensor on ``device`` with the
     same values: float32 (and integer) arrays as they are, an
-    ``ml_dtypes.bfloat16`` array as ``torch.bfloat16`` with the same bits
-    (through an int16 view, since numpy has no bfloat16 of its own)."""
+    ``ml_dtypes.bfloat16`` or ``float8_e4m3fn`` array as ``torch.bfloat16``
+    or ``torch.float8_e4m3fn`` with the same bits (through an int16 or
+    uint8 view)."""
     a = np.ascontiguousarray(a)
     dev = resolve_device(device)
-    if a.dtype.name == "bfloat16":
-        return torch.tensor(a.view(np.int16), device=dev).view(torch.bfloat16)
+    if a.dtype.name in _BIT_VIEWS:
+        view, dtype = _BIT_VIEWS[a.dtype.name]
+        return torch.tensor(a.view(view), device=dev).view(dtype)
     return torch.tensor(a, device=dev)
 
 

@@ -109,6 +109,8 @@ def _update_chunk(p, g, m, v, scale, lr, bc1, bc2, cfg, decay):
     gf = g.to(torch.float32)
     if scale is not None:
         gf = gf * scale
+        if g.dtype != torch.float32:   # JAX's clip rounds to g's dtype
+            gf = gf.to(g.dtype).to(torch.float32)
     m32, v32, p32 = (t.to(torch.float32) for t in (m, v, p))
     m32.mul_(b1).add_(gf * (1 - b1))
     t = gf * (1 - b2)

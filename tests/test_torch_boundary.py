@@ -78,6 +78,37 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                       torch.as_tensor(base[:3]), torch.full((3,), g.entry),
                       SearchConfig(k=3, ef=8, budget=4))
     assert r.ids.shape == (3, 3)
+    # the LM and GNN families: prefill and decode through the attention
+    # kernels' plain versions, GIN on a sampled batch, compression
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import NeighborSampler, make_graph
+    from repro_torch.models import gnn, transformer
+    from repro_torch.train import compress
+    for name in ("yi-9b", "granite-moe-3b-a800m"):
+        cfg = dataclasses.replace(get_arch(name).make_smoke_config(),
+                                  dtype=torch.float32)
+        p, _ = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                             generator=torch.Generator().manual_seed(1))
+        lg, cache = transformer.prefill(p, toks, cfg)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 2))
+                 for k, v in cache.items()}
+        lg, _ = transformer.decode_step(p, cache, toks[:, -1], 8, cfg)
+        assert torch.isfinite(lg).all()
+    gcfg = get_arch("gin-tu").make_smoke_config()
+    gp, _ = gnn.init_params(torch.Generator().manual_seed(0), gcfg,
+                            device="cpu")
+    g = make_graph(200, 800, gcfg.d_in, n_classes=gcfg.n_classes)
+    b = NeighborSampler(g["src"], g["dst"], 200, (4, 3)).sample(
+        np.arange(8), g["feats"], g["labels"], 64, 64)
+    out = gnn.forward(gp, torch.from_numpy(b.feats), torch.from_numpy(b.src),
+                      torch.from_numpy(b.dst), gcfg,
+                      edge_mask=torch.from_numpy(b.edge_mask))
+    assert out.shape == (64, gcfg.n_classes)
+    q, s = compress.quantize_int8(out.detach())
+    assert q.dtype == torch.int8
     assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                    for k in sys.modules), "a blocked module got in"
     print(len(names))

@@ -333,9 +333,9 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path):
 
 def test_launcher_names_what_is_not_ported():
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-9b",
-         "--device", "cpu"], capture_output=True, text=True, env=_env(),
-        cwd=ROOT, timeout=120)
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "deepseek-v3-671b", "--device", "cpu"], capture_output=True,
+        text=True, env=_env(), cwd=ROOT, timeout=120)
     assert out.returncode != 0
-    assert "yi-9b is not ported yet" in out.stderr
+    assert "deepseek-v3-671b is not ported yet" in out.stderr
     assert "python -m repro.launch.train" in out.stderr
