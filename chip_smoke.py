@@ -93,9 +93,20 @@ its bound; Granite-MoE at full width, a prefill of 8,192 tokens and
 greedy steps, the MoE dispatch's share of a layer; ``launch.train`` for
 every LM and GNN arch, the first step card against CPU; GIN at
 ``minibatch_lg`` over the ported generator and fanout sampler, the loss
-falling, the sampler timed against the step).
+falling, the sampler timed against the step), and last DeepSeek-V3 at
+its published widths with the depth cut (phase 14: two dense layers with
+the MTP head, one init, prefill, the latent cache, four absorbed decode
+steps and the loss with MTP on the card against the CPU in float32 and
+bf16, and the absorbed step at S-1 against the full MLA forward; one
+full-width MoE layer of 256 experts against a float32 reference, its
+drops at the config's capacity counted from the routes; the real first
+four layers: ``prefill_32k`` timed and profiled, greedy absorbed steps,
+``decode_32k`` at batch 128 and ``long_500k`` from drawn latent caches,
+each against its bound; the launcher's first step card against CPU; no
+port kernel launched on the way).
 
-    python3 chip_smoke.py [--out results.json] [--only train|tune|lm]
+    python3 chip_smoke.py [--out results.json]
+                          [--only train|tune|lm|deepseek]
 
 Needs one CUDA card; exits non-zero without one, when any phase fails, or
 when run without the rest of the repository. Imports nothing of JAX. The
@@ -5555,18 +5566,19 @@ def granite_full(torch, np, dev):
     return out
 
 
-def lm_train(torch, np, dev):
+def lm_train(torch, np, dev, archs=LM_TRAIN_ARCHS, label="lm (e)"):
     """(e) ``python -m repro_torch.launch.train --arch A --steps 20`` for
-    each LM and GNN arch (the smoke configs, as the JAX launcher runs
-    them), and the first step's loss and gradients card against CPU (the
-    same weights, float32)."""
+    each arch of ``archs`` (the LM and GNN archs; phase 14 (d) DeepSeek-V3;
+    the smoke configs, as the JAX launcher runs them), and the first
+    step's loss and gradients card against CPU (the same weights,
+    float32)."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.launch import train as launch
     from repro_torch.models import moe as moe_lib
     from repro_torch.train.trainer import value_and_grad
     out = {}
-    for name in LM_TRAIN_ARCHS:
+    for name in archs:
         t0 = time.perf_counter()
         tr = launch.main(["--arch", name, "--steps", str(LM_TRAIN_STEPS),
                           "--device", str(dev)])
@@ -5574,7 +5586,7 @@ def lm_train(torch, np, dev):
         losses = [h["loss"] for h in tr.history]
         require(len(losses) == LM_TRAIN_STEPS
                 and all(np.isfinite(losses)),
-                f"lm (e) {name}: the launcher's losses {losses}")
+                f"{label} {name}: the launcher's losses {losses}")
         arch = get_arch(name)
         cfg = arch.make_smoke_config()
         if arch.family == "lm":
@@ -5594,13 +5606,13 @@ def lm_train(torch, np, dev):
             runs[where] = (float(loss), grads, routes.calls)
         (lc, gc, rc), (ld, gd, rd) = runs["cpu"], runs[str(dev)]
         flips = 0
-        if getattr(cfg, "is_moe", False):
+        if getattr(cfg, "n_experts", 0) > 0:
             flips = route_check(torch, rd, rc, cfg.n_experts, cfg.moe_top_k,
                                 STEP_RTOL, SMOKE_GRAD_ATOL_OF_MAX,
-                                f"lm (e) {name}")["flips"]
+                                f"{label} {name}")["flips"]
         g_worst = _worst(torch, gd, gc, STEP_RTOL, 0.0,
                          SMOKE_GRAD_ATOL_OF_MAX)
-        log(f"lm (e) {name}: launcher {LM_TRAIN_STEPS} steps on the card, "
+        log(f"{label} {name}: launcher {LM_TRAIN_STEPS} steps on the card, "
             f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {secs:.1f}s "
             f"({step_ms(tr.history):.1f}ms a step after the first); first "
             f"step float32 card vs CPU: loss {ld:.6f} / {lc:.6f}, gradients "
@@ -5610,7 +5622,7 @@ def lm_train(torch, np, dev):
                f"{cfg.moe_top_k} differing at {flips} tokens (near ties)"
                if flips else ""))
         require(abs(ld - lc) <= STEP_RTOL * abs(lc) and g_worst <= 1.0,
-                f"lm (e) {name}: the card's first step differs from the "
+                f"{label} {name}: the card's first step differs from the "
                 f"CPU's (loss {ld} / {lc}, gradients {g_worst:.3f})")
         out[name] = {"losses": losses, "s": secs,
                      "ms_per_step": step_ms(tr.history),
@@ -5741,6 +5753,502 @@ def check_lm(torch, np, dev):
     out["seconds"] = time.perf_counter() - t_phase
     out["seconds_by_part"] = secs
     log(f"lm: phase 13 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"({k}) {v:.1f}s" for k, v in secs.items()) + ")")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: DeepSeek-V3 at its published widths (MLA in its full form for
+# prefill and its absorbed form for decode, the 256-expert sigmoid MoE with
+# its shared expert, the MTP head), depth cut; plain products throughout:
+# the path launches none of the port's kernels
+# ---------------------------------------------------------------------------
+
+DS = "deepseek-v3-671b"
+DS_PARITY_S, DS_PARITY_STEPS = 256, 4     # (a) prompt at B=1, decode steps
+DS_DECODE_TOL = 1e-3      # (a) absorbed decode at S-1 vs forward at S-1,
+                          # float32 on the card: rtol, atol x max (JAX's
+                          # own check, tests/test_models_smoke.py)
+DS_MOE_T = 256            # (b) tokens through the full-width MoE layer
+DS_MOE_TOL = 2e-2         # (b) of the float32 reference's largest |entry|
+DS_LAYERS, DS_DENSE = 4, 3                # (c) the real first four layers
+# (c) query chunk of the chunked causal attention: a chunk's float32 logits
+# are (1, 128, 256, 32,768), 4.3 GB, two or three alive at once beside
+# the 30.9 GB of weights (JAX's steps.py sets 1,024: 17.2 GB each)
+DS_ATTN_CHUNK = 256
+DS_PREFILL_S = 32768                      # (c) prefill_32k at batch 1
+DS_GREEDY_STEPS = 8                       # (c) greedy steps from its cache
+DS_DECODE_B, DS_DECODE_T = 128, 32768     # (c) decode_32k
+DS_LONG_T = 524288                        # (c) long_500k at batch 1
+DS_DECODE_STEPS = 8                       # (c) timed steps per shape
+# (c) the profiles' kinds: PyTorch's softmax kernel, and cuBLAS's GEMMs
+# (named nvjet_* by the cuBLAS of CUDA 12.8 on the H100)
+DS_PROFILE_KINDS = {"softmax": "SoftMax", "gemm": "nvjet"}
+
+
+def ds_no_kernels(torch, label, fn):
+    """One DeepSeek call on the card as a main-path segment that must
+    launch none of the port's kernels. Returns (fn's result, seconds)."""
+    out, _, secs = lm_segment(torch, label, fn, {}, {})
+    return out, secs
+
+
+def ds_run(torch, np, ds, params, cfg, prompt, steps, dev):
+    """(a) one device's run: prefill ``prompt`` (1, S), the cache grown by
+    len(steps), one teacher-forced absorbed decode step per token of
+    ``steps``, then ``lm_loss`` with MTP (no gradient) on the prompt and
+    its next tokens. On the card each call is a segment that launches no
+    port kernel. Returns (logits per call + cache c, kr, loss, prefill
+    cache, tokens)."""
+    card = dev.type == "cuda"
+    dt = str(cfg.dtype).split(".")[-1]
+
+    def call(label, fn):
+        if card:
+            return ds_no_kernels(torch, f"deepseek (a) {dt} {label}", fn)[0]
+        return fn()
+
+    toks = torch.as_tensor(prompt, device=dev)
+    S = prompt.shape[1]
+    lg, cache = call("prefill", lambda: ds.prefill(params, toks, cfg))
+    got = [lg.float().cpu(), cache["c"].float().cpu(),
+           cache["kr"].float().cpu()]
+    grown = {k: torch.nn.functional.pad(v, (0, 0, 0, len(steps)))
+             for k, v in cache.items()}
+    for i, tok in enumerate(steps):
+        t = torch.as_tensor(np.asarray([tok]), device=dev)
+        pos = torch.tensor([S + i], dtype=torch.int32, device=dev)
+        lg, grown = call(f"decode step {i}", lambda: ds.decode_step(
+            params, grown, t, pos, cfg))
+        got.append(lg.float().cpu())
+    got += [grown["c"].float().cpu(), grown["kr"].float().cpu()]
+    targets = torch.as_tensor(np.concatenate([prompt[:, 1:], steps[None, :1]],
+                                             axis=1), device=dev)
+    with torch.no_grad():
+        loss = call("lm_loss", lambda: ds.lm_loss(params, toks, targets,
+                                                  cfg))
+    got.append(loss.float().cpu().reshape(1))
+    return got, cache, toks
+
+
+def ds_parity(torch, np, dev):
+    """(a) DeepSeek-V3 at full width, two dense layers, MTP on (3.35e9
+    parameters): one init drawn on the card and copied to the CPU, float32
+    then bf16; the prefill logits, the latent cache, DS_PARITY_STEPS
+    absorbed decode steps and ``lm_loss`` with MTP card against CPU; on
+    the card in float32 the absorbed step at S-1 against ``forward`` at
+    S-1."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import deepseek as ds
+    from repro_torch.tree import tree_map, tree_size
+    base = dataclasses.replace(get_arch(DS).make_config(), n_layers=2,
+                               n_dense_layers=2, dtype=torch.float32)
+    params, _ = ds.init_params(torch.Generator(device=dev).manual_seed(0),
+                               base, device=dev)
+    n_params = tree_size(params)
+    r = np.random.default_rng(0)
+    toks = r.integers(0, base.vocab_size, (1, DS_PARITY_S + DS_PARITY_STEPS))
+    prompt, steps = toks[:, :DS_PARITY_S], toks[0, DS_PARITY_S:]
+    names = (["prefill", "cache c", "cache kr"]
+             + [f"step {i}" for i in range(len(steps))]
+             + ["cache c after", "cache kr after", "lm_loss"])
+    out = {"params": n_params}
+    cpu_f32 = None
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).split(".")[-1]
+        cfg = dataclasses.replace(base, dtype=dt)
+        p_card = tree_map(lambda t: t.to(dt), params)
+        t0 = time.perf_counter()
+        card, cache, ctoks = ds_run(torch, np, ds, p_card, cfg, prompt,
+                                    steps, dev)
+        t_card = time.perf_counter() - t0
+        if dt == torch.float32:
+            # JAX's own check at full width: the absorbed step at S-1 from
+            # the prefill's cache = the full MLA forward's logits at S-1
+            with torch.no_grad():
+                full = ds.forward(p_card, ctoks, cfg)[:, -1].float()
+            (lg, _), _ = ds_no_kernels(
+                torch, "deepseek (a) float32 decode at S-1",
+                lambda: ds.decode_step(p_card, cache, ctoks[:, -1],
+                                       DS_PARITY_S - 1, cfg))
+            err, ratio = close_err(lg.float(), full, DS_DECODE_TOL,
+                                   DS_DECODE_TOL * float(full.abs().max()))
+            log(f"deepseek (a) float32 on the card: the absorbed step at "
+                f"S-1 against forward at S-1, max_abs_err {err:.3e} ("
+                f"{ratio:.3f} of rtol {DS_DECODE_TOL} / atol "
+                f"{DS_DECODE_TOL} x max)")
+            require(ratio <= 1.0, f"deepseek (a): the absorbed decode at "
+                    f"S-1 differs from forward at S-1 by {ratio:.3f} of "
+                    f"the tolerance")
+            out["decode_vs_forward"] = {"max_abs_err": err,
+                                        "tol_ratio": ratio}
+            del full, lg
+        del cache, ctoks
+        p_cpu = tree_map(lambda t: t.cpu(), p_card)
+        del p_card
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu = ds_run(torch, np, ds, p_cpu, cfg, prompt, steps,
+                     torch.device("cpu"))[0]
+        t_cpu = time.perf_counter() - t0
+        del p_cpu
+        if dt == torch.float32:
+            rtol, atols = LM_F32_RTOL, [LM_F32_ATOL_OF_MAX
+                                        * float(w.abs().max()) for w in cpu]
+            cpu_f32 = cpu
+        else:
+            # bf16: 2e-2 of the float32 run's largest |value|, or twice the
+            # CPU bf16 run's own distance from the float32 one where that
+            # is larger (the absorbed step rounds its two logit products
+            # to bf16 before the softmax, as JAX does)
+            rtol = LM_BF16_TOL
+            atols = [max(LM_BF16_TOL * float(f.abs().max()),
+                         2 * float((w - f).abs().max()))
+                     for w, f in zip(cpu, cpu_f32)]
+        worst, errs = 0.0, []
+        for g, w, a in zip(card, cpu, atols):
+            err, ratio = close_err(g, w, rtol, a)
+            errs.append(err)
+            worst = max(worst, ratio)
+        log(f"deepseek (a) x2 dense layers {key}: card vs CPU max_abs_err "
+            + ", ".join(f"{n_} {e:.3e}" for n_, e in zip(names, errs))
+            + f"; {worst:.3f} of the tolerance (rtol {rtol}); card "
+            f"{t_card:.1f}s, CPU {t_cpu:.1f}s")
+        require(worst <= 1.0, f"deepseek (a) {key}: the card differs from "
+                f"the CPU by {worst:.3f} of the tolerance")
+        out[key] = {"max_abs_err": max(errs), "tol_ratio": worst,
+                    "errs": dict(zip(names, errs)), "card_s": t_card,
+                    "cpu_s": t_cpu, "loss_card": float(card[-1]),
+                    "loss_cpu": float(cpu[-1])}
+    log(f"deepseek (a): {n_params:,} parameters (two dense layers at full "
+        f"width, embed, head, MTP), drawn on the card in float32")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_moe(torch, np, dev):
+    """(b) one MoE layer at full width in bf16 (router, 256 experts of
+    7168 x 2048, the shared expert): ``moe_ffn`` over DS_MOE_T tokens at
+    capacity_factor E/K (nothing dropped) against a per-token float32
+    reference over the same bf16 weights and the same routes, expert by
+    expert; at the config's 1.25 the dropped pairs = sum_e max(0, picks_e
+    - C) counted from the routes, and the output the reference over the
+    kept pairs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_lib
+    F = torch.nn.functional
+    cfg = get_arch(DS).make_config()
+    d, E, K = cfg.d_model, cfg.n_experts, cfg.moe_top_k
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stack, _ = moe_lib.init_moe(
+        gen, n_layers=1, d_model=d, d_ff=cfg.moe_d_ff, n_experts=E,
+        dtype=torch.bfloat16, n_shared=cfg.n_shared_experts,
+        shared_d_ff=cfg.moe_d_ff * cfg.n_shared_experts, device=dev)
+    p = {k: v[0] for k, v in stack.items()}
+    layer_gb = sum(v.numel() * v.element_size() for v in p.values()) / 1e9
+    x = torch.randn((DS_MOE_T, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kw = dict(n_experts=E, top_k=K, n_groups=cfg.moe_groups,
+              router_type="sigmoid")
+    out = {"layer_gb": layer_gb, "T": DS_MOE_T}
+    cf = E / K
+    y, _ = ds_no_kernels(torch, "deepseek (b) moe_ffn",
+                         lambda: moe_lib.moe_ffn(p, x, capacity_factor=cf,
+                                                 **kw))
+    out["ms"] = event_ms(lambda: moe_lib.moe_ffn(p, x, capacity_factor=cf,
+                                                 **kw))
+    _, _, w, keep, idx = moe_lib.dispatch(p, x, capacity_factor=cf, **kw)
+    require(bool(keep.all()), "deepseek (b): a pair dropped at "
+            "capacity_factor E/K")
+    # the reference: each (token, slot) pair's expert in float32, expert by
+    # expert, over the bf16 weights and the routes moe_ffn took
+    xf = x.float()
+    pairs = torch.zeros((DS_MOE_T, K, d), dtype=torch.float32, device=dev)
+    for e in idx.unique().tolist():
+        t, k = (idx == e).nonzero(as_tuple=True)
+        xe = xf[t]
+        h = F.silu(xe @ p["w_gate"][e].float()) * (xe @ p["w_up"][e].float())
+        pairs[t, k] = h @ p["w_down"][e].float()
+    shared = (F.silu(xf @ p["shared_gate"].float())
+              * (xf @ p["shared_up"].float())) @ p["shared_down"].float()
+    ref = (w[..., None] * pairs).sum(dim=1) + shared
+    err = float((y.float() - ref).abs().max())
+    top = float(ref.abs().max())
+    log(f"deepseek (b) MoE layer at full width ({layer_gb:.2f} GB bf16, "
+        f"{DS_MOE_T} tokens, capacity_factor {cf:g}: no pair dropped): "
+        f"moe_ffn {out['ms']:.2f}ms; against the float32 per-token "
+        f"reference max_abs_err {err:.3e} = {err / top:.3e} of its largest "
+        f"|entry| (tolerance {DS_MOE_TOL}); {idx.unique().numel()} experts "
+        f"picked")
+    require(err <= DS_MOE_TOL * top, f"deepseek (b): moe_ffn differs from "
+            f"the float32 reference by {err / top:.3e} of its largest entry")
+    out["err_of_max"] = err / top
+    # the config's capacity factor: the drops are exactly the overflow
+    buf, _, w2, keep2, idx2 = moe_lib.dispatch(
+        p, x, capacity_factor=cfg.capacity_factor, **kw)
+    require(torch.equal(idx2, idx), "deepseek (b): the routes changed with "
+            "the capacity factor")
+    C = buf.shape[1]
+    picks = torch.bincount(idx2.reshape(-1).long(), minlength=E)
+    want = int((picks - C).clamp(min=0).sum())
+    dropped = int((~keep2).sum())
+    require(dropped == want, f"deepseek (b): {dropped} pairs dropped at "
+            f"capacity {C}, the routes overflow by {want}")
+    y2 = moe_lib.moe_ffn(p, x, capacity_factor=cfg.capacity_factor, **kw)
+    ref2 = (w2[..., None] * keep2.reshape(DS_MOE_T, K, 1) * pairs).sum(
+        dim=1) + shared
+    err2 = float((y2.float() - ref2).abs().max())
+    top2 = float(ref2.abs().max())
+    log(f"deepseek (b) at capacity_factor {cfg.capacity_factor}: C = {C}, "
+        f"{dropped} of {DS_MOE_T * K} pairs dropped = sum_e max(0, picks_e - "
+        f"C) (busiest expert {int(picks.max())} picks); the output against "
+        f"the reference over the kept pairs {err2 / top2:.3e} of its "
+        f"largest |entry|")
+    require(err2 <= DS_MOE_TOL * top2, f"deepseek (b): moe_ffn at "
+            f"capacity_factor {cfg.capacity_factor} differs from the kept "
+            f"pairs' reference by {err2 / top2:.3e}")
+    out.update(capacity=C, dropped=dropped, err2_of_max=err2 / top2,
+               busiest=int(picks.max()))
+    del stack, p, pairs, y, y2
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_prefill_flops(params, cfg, B, S):
+    """(causal FLOPs, rectangle FLOPs) of a prefill: GEMMs of every weight
+    but the tables and the MTP head once per token (the routed experts at
+    K of E, the rectangle at all E x C slots), the head once per sequence;
+    attention causal (S(S+1)/2 pairs), the rectangle S x S."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.utils import round_up
+    H, qkv = cfg.n_heads, cfg.qk_head_dim + cfg.v_head_dim
+    dense = sum(v.numel() for k, v in params["dense_layers"]["attn"].items()
+                if not k.endswith("norm"))
+    dense += sum(v.numel() for v in params["dense_layers"]["mlp"].values())
+    moe = params["moe_layers"]
+    dense += sum(v.numel() for k, v in moe["attn"].items()
+                 if not k.endswith("norm"))
+    dense += sum(v.numel() for k, v in moe["mlp"].items()
+                 if k == "router" or k.startswith("shared"))
+    routed = sum(moe["mlp"][k].numel() for k in ("w_gate", "w_up", "w_down"))
+    E, K = moe_lib.pad_experts(cfg.n_experts), cfg.moe_top_k
+    T = B * S
+    C = round_up(max(K, int(cfg.capacity_factor * T * K / E)),
+                 cfg.moe_groups)
+    head = 2 * params["lm_head"].numel() * B
+    gemm = 2 * (dense + routed * K / E) * T + head
+    gemm_rect = 2 * dense * T + 2 * routed * C + head
+    pairs = B * S * (S + 1) // 2
+    attn = 2 * H * qkv * pairs * cfg.n_layers
+    attn_rect = 2 * H * qkv * B * S * S * cfg.n_layers
+    return gemm + attn, gemm_rect + attn_rect, C
+
+
+def ds_decode_bound_ms(params, cfg, B, pos0, n):
+    """Least ms of ``n`` absorbed decode steps from ``pos0``: every weight
+    read once a step but the token table (its B rows) and the MTP head
+    (decode never runs it); the batched expert products read every expert,
+    so all of them count; each step's valid latent and rope prefix of
+    every layer read once."""
+    from repro_torch.tree import tree_bytes
+    w = tree_bytes(params) - tree_bytes(params["mtp"]) \
+        - params["embed"].numel() * params["embed"].element_size() \
+        + B * cfg.d_model * params["embed"].element_size()
+    esize = params["embed"].element_size()
+    cache = sum(cfg.n_layers * B * (pos0 + i + 1)
+                * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * esize
+                for i in range(n))
+    return (n * w + cache) / H100_BYTES_PER_S * 1e3
+
+
+def ds_steps(ds, params, cfg, cache, tok, pos, n, vocab):
+    """``n`` greedy absorbed steps from ``tok`` at ``pos`` (a device
+    tensor, advanced in place): no host sync. Returns the last logits."""
+    lg = None
+    for _ in range(n):
+        lg, cache = ds.decode_step(params, cache, tok, pos, cfg)
+        tok = lg[:, :vocab].argmax(dim=-1)
+        pos += 1
+    return lg
+
+
+def ds_decode(torch, ds, params, cfg, gen, dev, B, T, label):
+    """DS_DECODE_STEPS timed absorbed steps at batch ``B`` from a drawn
+    ``T``-token latent cache (positions up to T - DS_DECODE_STEPS - 2
+    valid), after two warm steps; CUDA events around the run, then one
+    step profiled."""
+    L_, V = cfg.n_layers, cfg.vocab_size
+    cache = {"c": torch.empty((L_, B, T, cfg.kv_lora_rank), dtype=cfg.dtype,
+                              device=dev),
+             "kr": torch.empty((L_, B, T, cfg.qk_rope_head_dim),
+                               dtype=cfg.dtype, device=dev)}
+    for v in cache.values():
+        for i in range(L_):
+            v[i].normal_(generator=gen)
+    cache_gb = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
+    pos0 = T - DS_DECODE_STEPS - 2
+    tok = torch.randint(0, V, (B,), generator=gen, device=dev)
+    pos = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    ds_steps(ds, params, cfg, cache, tok, pos, 2, V)              # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed():
+        start.record()
+        lg = ds_steps(ds, params, cfg, cache, tok, pos, DS_DECODE_STEPS, V)
+        end.record()
+        return lg
+
+    lg, secs = ds_no_kernels(torch, f"deepseek (c) {label}", timed)
+    require(bool(torch.isfinite(lg[:, :V]).all()),
+            f"deepseek (c) {label}: logits not finite")
+    bound = ds_decode_bound_ms(params, cfg, B, pos0 + 2, DS_DECODE_STEPS) \
+        / DS_DECODE_STEPS
+    out = {"B": B, "T": T, "cache_gb": cache_gb,
+           "ms_per_step": secs / DS_DECODE_STEPS * 1e3,
+           "device_ms_per_step": start.elapsed_time(end) / DS_DECODE_STEPS,
+           "bound_ms_per_step": bound}
+    pos = torch.tensor([T - 1], dtype=torch.int32, device=dev)
+    out["profile"] = lm_profile(
+        torch, f"deepseek (c) {label} step",
+        lambda: ds.decode_step(params, cache, tok, pos, cfg),
+        DS_PROFILE_KINDS)
+    log(f"deepseek (c) {label} B={B}: {out['ms_per_step']:.2f}ms a step on "
+        f"the host clock ({out['device_ms_per_step']:.2f}ms between device "
+        f"events), bound {bound:.2f}ms (the weights but the table and the "
+        f"MTP head, and {cache_gb:.2f} GB of latent cache, at 3.35 TB/s)")
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_full(torch, np, dev):
+    """(c) the real first four layers (3 dense + 1 MoE) at full width,
+    bf16, MTP head included (15,445,023,744 parameters): prefill_32k at
+    batch 1 (chunked causal attention, DS_ATTN_CHUNK), timed with CUDA
+    events, peak memory, profiled; greedy absorbed steps from its cache;
+    decode_32k at batch 128 and long_500k at batch 1 from drawn latent
+    caches."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import deepseek as ds
+    from repro_torch.tree import tree_bytes, tree_size
+    cfg = dataclasses.replace(get_arch(DS).make_config(), n_layers=DS_LAYERS,
+                              n_dense_layers=DS_DENSE, dtype=torch.bfloat16,
+                              attn_chunk=DS_ATTN_CHUNK)
+    V = cfg.vocab_size
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    (params, _), t_init = lm_wall_s(torch, lambda: ds.init_params(
+        gen, cfg, device=dev))
+    out.update(params=tree_size(params), param_bytes=tree_bytes(params),
+               init_s=t_init,
+               init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"deepseek (c) the first {DS_LAYERS} layers ({DS_DENSE} dense + "
+        f"{DS_LAYERS - DS_DENSE} MoE) at full width: {out['params']:,} "
+        f"parameters, {out['param_bytes'] / 1e9:.2f} GB bf16, drawn on the "
+        f"card in {t_init:.1f}s (peak {out['init_peak_gb']:.1f} GB: a MoE "
+        f"weight's float32 draw)")
+    require(out["params"] == 15_445_023_744, f"deepseek (c): "
+            f"{out['params']:,} parameters in the four-layer tree")
+    S = DS_PREFILL_S
+    toks = torch.randint(0, V, (1, S), generator=gen, device=dev)
+    ds.prefill(params, toks[:, :512], cfg)                 # cuBLAS warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed():
+        start.record()
+        r = ds.prefill(params, toks, cfg)
+        end.record()
+        return r
+
+    (lg, cache), t_host = ds_no_kernels(torch,
+                                        "deepseek (c) prefill_32k B=1", timed)
+    t_pre = start.elapsed_time(end) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    require(tuple(lg.shape) == (1, ds.L.pad_vocab(V))
+            and bool(torch.isfinite(lg[:, :V]).all())
+            and bool(torch.isfinite(cache["c"]).all()),
+            f"deepseek (c): prefill logits {tuple(lg.shape)} not finite")
+    flops, rect, C = ds_prefill_flops(params, cfg, 1, S)
+    out["prefill"] = {"S": S, "s": t_pre, "host_s": t_host,
+                      "tokens_per_s": S / t_pre, "peak_gb": peak / 1e9,
+                      "flops": flops, "rect_flops": rect,
+                      "floor_s": flops / H100_BF16_FLOPS,
+                      "rect_s": rect / H100_BF16_FLOPS, "capacity": C}
+    p = out["prefill"]
+    log(f"deepseek (c) prefill_32k B=1: {t_pre:.3f}s between CUDA events "
+        f"({t_host:.3f}s on the host clock), {S / t_pre:,.0f} tokens/s, "
+        f"peak {peak / 1e9:.1f} GB; floor {p['floor_s']:.3f}s ({flops:.3g} "
+        f"FLOPs of causal attention, projections and the routed experts at "
+        f"989 TFLOP/s), the chunked einsum's rectangle and all "
+        f"{cfg.n_experts} x {C} expert slots {rect:.3g} FLOPs "
+        f"({p['rect_s']:.3f}s); attn_chunk {DS_ATTN_CHUNK}")
+    p["profile"] = lm_profile(torch, "deepseek (c) prefill_32k B=1",
+                              lambda: ds.prefill(params, toks, cfg),
+                              DS_PROFILE_KINDS)
+    # greedy absorbed steps from the prefill's cache
+    T = S + DS_GREEDY_STEPS
+    grown = {k: torch.nn.functional.pad(v, (0, 0, 0, DS_GREEDY_STEPS))
+             for k, v in cache.items()}
+    del cache
+    tok = lg[:, :V].argmax(dim=-1)
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    ds.decode_step(params, grown, tok, pos, cfg)      # warm; rewritten
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    lg_last, t_dec = ds_no_kernels(
+        torch, "deepseek (c) greedy steps",
+        lambda: ds_steps(ds, params, cfg, grown, tok, pos, DS_GREEDY_STEPS,
+                         V))
+    require(bool(torch.isfinite(lg_last[:, :V]).all()),
+            "deepseek (c): greedy decode logits not finite")
+    out["greedy"] = {"steps": DS_GREEDY_STEPS, "T": T,
+                     "ms_per_step": t_dec / DS_GREEDY_STEPS * 1e3,
+                     "bound_ms_per_step": ds_decode_bound_ms(
+                         params, cfg, 1, S, DS_GREEDY_STEPS)
+                     / DS_GREEDY_STEPS}
+    log(f"deepseek (c) {DS_GREEDY_STEPS} greedy absorbed steps from the "
+        f"prefill's cache (B=1): {out['greedy']['ms_per_step']:.2f}ms a step "
+        f"(bound {out['greedy']['bound_ms_per_step']:.2f}ms)")
+    del grown, lg, lg_last, toks
+    torch.cuda.empty_cache()
+    out["decode_32k"] = ds_decode(torch, ds, params, cfg, gen, dev,
+                                  DS_DECODE_B, DS_DECODE_T, "decode_32k")
+    out["long_500k"] = ds_decode(torch, ds, params, cfg, gen, dev, 1,
+                                 DS_LONG_T, "long_500k")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_deepseek(torch, np, dev):
+    """Phase 14: DeepSeek-V3 at its published widths, depth cut (671B
+    parameters are 1.34 TB in bf16): (a) two dense layers with MTP card vs
+    CPU in float32 and bf16, and the absorbed decode against the full
+    forward; (b) one full-width MoE layer against a float32 reference;
+    (c) the real first four layers: prefill_32k, greedy steps,
+    decode_32k at batch 128, long_500k; (d) the launcher trains the smoke
+    config, the first step card against CPU."""
+    t_phase = time.perf_counter()
+    out, secs = {}, {}
+    log("deepseek: phase 14, published widths, depth cut to 2 (a), 1 (b) "
+        "and 4 (c) layers of 61")
+    for part, fn in (("a", ds_parity), ("b", ds_moe), ("c", ds_full)):
+        t0 = time.perf_counter()
+        out[part] = fn(torch, np, dev)
+        secs[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = lm_train(torch, np, dev, archs=(DS,), label="deepseek (d)")
+    secs["d"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"deepseek: phase 14 passed in {out['seconds']:.1f}s ("
         + ", ".join(f"({k}) {v:.1f}s" for k, v in secs.items()) + ")")
     return out
 
@@ -5909,7 +6417,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
-    ap.add_argument("--only", choices=("train", "tune", "lm"), default=None,
+    ap.add_argument("--only", choices=("train", "tune", "lm", "deepseek"),
+                    default=None,
                     help="build the kernels and run only this phase (no "
                          "result line): a quicker check of one phase")
     opts = ap.parse_args()
@@ -5953,9 +6462,12 @@ def main() -> int:
             elif opts.only == "tune":
                 results["tuning"] = check_tuning(
                     torch, np, dev, tune_context(torch, np, dev))
-            else:
+            elif opts.only == "lm":
                 results["lm"] = check_lm(torch, np, dev)
-            phase = {"train": 11, "tune": 12, "lm": 13}[opts.only]
+            else:
+                results["deepseek"] = check_deepseek(torch, np, dev)
+            phase = {"train": 11, "tune": 12, "lm": 13,
+                     "deepseek": 14}[opts.only]
             log(f"--only {opts.only}: phase {phase} passed; no result "
                 f"line ({time.perf_counter() - t_start:.1f}s)")
             if opts.out:
@@ -6010,6 +6522,8 @@ def main() -> int:
         del ctx
         torch.cuda.empty_cache()
         results["lm"] = check_lm(torch, np, dev)
+        torch.cuda.empty_cache()
+        results["deepseek"] = check_deepseek(torch, np, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         print(f"[smoke] FAIL: {e}", file=sys.stderr, flush=True)

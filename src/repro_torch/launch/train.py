@@ -1,17 +1,17 @@
 """Training launcher of the port: ``--arch <id>`` trains a registered
 architecture's REDUCED (smoke) config on synthetic data, as the JAX
-package's ``launch/train.py`` does: the LM family on token batches, GIN
-on a 500-node graph, the recsys nets on CTR batches. ``lm_setup``,
-``gnn_setup`` and ``recsys_setup`` also take a published config for
-callers that give them one.
+package's ``launch/train.py`` does: the LM family (DeepSeek-V3 among
+them) on token batches, GIN on a 500-node graph, the recsys nets on CTR
+batches. ``lm_setup``, ``gnn_setup`` and ``recsys_setup`` also take a
+published config for callers that give them one.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b
 
 The default device is the card (``--device cuda``); without one the
-launcher fails instead of training on the CPU. DeepSeek-V3 is not ported
-yet: it is named and refused.
+launcher fails instead of training on the CPU.
 """
 from __future__ import annotations
 
@@ -26,15 +26,12 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.data.synthetic import (make_graph, make_recsys_batch,
                                         make_token_batch)
+from repro_torch.models import deepseek as ds_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-# the JAX launcher's archs not ported yet (python -m repro.launch.train)
-JAX_ONLY_ARCHS = ("deepseek-v3-671b",)
-
 
 def _put(d, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
@@ -46,16 +43,17 @@ def _generator(generator, dev):
 
 def lm_setup(arch, cfg, batch: int, seq: int, device="cuda",
              generator: Optional[torch.Generator] = None):
-    """(params, loss_fn, batch_fn) of a dense or MoE transformer at
-    ``cfg``: the weights drawn from ``generator`` (default: one on
+    """(params, loss_fn, batch_fn) of a dense or MoE transformer, or of
+    DeepSeek-V3 (an arch named ``deepseek*``, as the JAX launcher picks),
+    at ``cfg``: the weights drawn from ``generator`` (default: one on
     ``device`` seeded 0), ``make_token_batch(batch, seq)`` from the step
-    number, the next-token loss."""
+    number, the model's ``lm_loss`` (DeepSeek's with its MTP term)."""
     dev = resolve_device(device)
-    params, _ = tf_lib.init_params(_generator(generator, dev), cfg,
-                                   device=dev)
+    mod = ds_lib if arch.name.startswith("deepseek") else tf_lib
+    params, _ = mod.init_params(_generator(generator, dev), cfg, device=dev)
 
     def loss_fn(p, b):
-        return tf_lib.lm_loss(p, b["tokens"], b["targets"], cfg)
+        return mod.lm_loss(p, b["tokens"], b["targets"], cfg)
 
     def batch_fn(step):
         t, y = make_token_batch(batch, seq, cfg.vocab_size, seed=step)
@@ -149,8 +147,7 @@ def recsys_setup(arch, cfg, batch: int, device="cuda",
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True,
-                    choices=sorted(list_archs() + list(JAX_ONLY_ARCHS)))
+    ap.add_argument("--arch", required=True, choices=sorted(list_archs()))
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64,
@@ -164,10 +161,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = build_parser().parse_args(argv)
-    if args.arch in JAX_ONLY_ARCHS:
-        raise SystemExit(f"[train] --arch {args.arch} is not ported yet (the "
-                         f"JAX launcher, python -m repro.launch.train, has "
-                         f"it; see ROADMAP.md)")
     dev = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = arch.make_smoke_config()

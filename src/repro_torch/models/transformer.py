@@ -3,8 +3,8 @@ package's ``models/transformer.py`` in PyTorch over the JAX parameter
 tree.
 
 Covers yi-9b / starcoder2-3b (llama-style), command-r-plus (parallel
-block, qk-norm), granite-moe (MoE FFN). DeepSeek-V3 (MLA) is not ported
-yet.
+block, qk-norm), granite-moe (MoE FFN). DeepSeek-V3 (MLA) has its own
+module, ``models/deepseek.py``.
 
 - Params for the repeated layer stack are stacked along a leading
   ``layers`` dim (the JAX tree, so ``tree.tree_from_jax`` carries a JAX

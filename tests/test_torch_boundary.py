@@ -79,7 +79,8 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                       SearchConfig(k=3, ef=8, budget=4))
     assert r.ids.shape == (3, 3)
     # the LM and GNN families: prefill and decode through the attention
-    # kernels' plain versions, GIN on a sampled batch, compression
+    # kernels' plain versions, DeepSeek-V3, GIN on a sampled batch,
+    # compression
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.data import NeighborSampler, make_graph
@@ -97,6 +98,20 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                  for k, v in cache.items()}
         lg, _ = transformer.decode_step(p, cache, toks[:, -1], 8, cfg)
         assert torch.isfinite(lg).all()
+    # DeepSeek-V3: MLA prefill, the absorbed decode, the loss with MTP
+    from repro_torch.models import deepseek
+    cfg = dataclasses.replace(get_arch("deepseek-v3-671b").make_smoke_config(),
+                              dtype=torch.float32)
+    p, _ = deepseek.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(1))
+    lg, cache = deepseek.prefill(p, toks, cfg)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 2))
+             for k, v in cache.items()}
+    lg, _ = deepseek.decode_step(p, cache, toks[:, -1], 8, cfg)
+    assert torch.isfinite(lg).all()
+    assert torch.isfinite(deepseek.lm_loss(p, toks, toks, cfg))
     gcfg = get_arch("gin-tu").make_smoke_config()
     gp, _ = gnn.init_params(torch.Generator().manual_seed(0), gcfg,
                             device="cpu")
