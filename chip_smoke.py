@@ -103,10 +103,19 @@ drops at the config's capacity counted from the routes; the real first
 four layers: ``prefill_32k`` timed and profiled, greedy absorbed steps,
 ``decode_32k`` at batch 128 and ``long_500k`` from drawn latent caches,
 each against its bound; the launcher's first step card against CPU; no
-port kernel launched on the way).
+port kernel launched on the way), and last the launch layer (phase 15:
+the dry run of all 42 (arch x shape) cells of ``launch/steps.py`` on
+meta tensors under the op counter, argument bytes, fit and counted FLOPs
+beside each cell's model_flops; GUITAR's own serving cells, guitar and
+sl2g, at 1,048,576 items with their graph built by NN-descent, batches
+of 4,096 queries timed, each mode launching exactly its kernels, recall
+against brute force; Yi-9B ``long_500k`` whole on the card through the
+builder's decode step, DLRM-RM2 ``serve_p99``, GIN ``full_graph_sm``
+and BERT4Rec ``retrieval_cand`` drawn by ``steps.materialize``, each
+step's FLOPs counted on the card equal to its meta count).
 
     python3 chip_smoke.py [--out results.json]
-                          [--only train|tune|lm|deepseek]
+                          [--only train|tune|lm|deepseek|launch]
 
 Needs one CUDA card; exits non-zero without one, when any phase fails, or
 when run without the rest of the repository. Imports nothing of JAX. The
@@ -6253,6 +6262,330 @@ def check_deepseek(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the launch layer (launch/steps.py, launch/dryrun.py,
+# launch/op_analysis.py): the dry run of every (arch x shape) cell on meta,
+# GUITAR's own serving cell at 1,048,576 items, and one builder-path cell
+# per family drawn on the card at its own size
+# ---------------------------------------------------------------------------
+
+# (a) the LM cells traced at this depth and the next (published widths),
+# their counts scaled to the full depth (at every layer DeepSeek-V3's
+# train step alone took 154.7 s of host time on meta, all 42 cells 234.8
+# s, on the host of an H100 machine); None traces every layer
+LAUNCH_SWEEP_LAYERS = 4
+# (a) the dense cell whose scaled count is held against a full-depth trace
+LAUNCH_SCALE_CHECK = ("yi-9b", "decode_32k")
+GS_TIMED = 3                      # (b) timed batches after one warm-up
+GS_RECALL_Q = 256                 # (b) queries held against brute force
+GS_KERNELS = {"guitar": {"deepfm_score", "neighbor_rank",
+                         "deepfm_value_and_grad"},
+              "sl2g": {"deepfm_score"}}
+LAUNCH_CARD_CELLS = (("yi-9b", "long_500k"), ("dlrm-rm2", "serve_p99"),
+                     ("gin-tu", "full_graph_sm"),
+                     ("bert4rec", "retrieval_cand"))
+LONG_STEPS = 16                   # (c) greedy steps at long_500k
+
+
+def free_card(torch) -> int:
+    """Drop what the engines and Python still hold; returns the bytes
+    still allocated on the card."""
+    import gc
+    from repro_torch.core import engine
+    engine._build_cached.cache_clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return int(torch.cuda.memory_allocated())
+
+
+def launch_sweep(torch, card_bytes):
+    """(a) Every cell built and traced on meta through the dry run; the
+    scaled count of LAUNCH_SCALE_CHECK held against a full-depth trace."""
+    import tempfile
+    from repro_torch.launch import dryrun, steps
+    out, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in steps.list_cells():
+            r = dryrun.run_cell(arch, shape, tmp, device="meta",
+                                n_layers=LAUNCH_SWEEP_LAYERS,
+                                card_bytes=card_bytes)
+            ops = r["op_analysis"]
+            out[f"{arch}:{shape}"] = {
+                "argument_bytes": r["memory_analysis"]["argument_bytes"],
+                "output_bytes": r["memory_analysis"]["output_bytes"],
+                "alias_bytes": r["memory_analysis"]["alias_bytes"],
+                "fits_one_card": r["fits_one_card"],
+                "flops": ops["flops"] if ops else None,
+                "bytes_accessed": ops["bytes_accessed"] if ops else None,
+                "model_flops": r["static_meta"]["model_flops"],
+                "trace_sec": r["trace_sec"], "depth": r.get("depth")}
+            e = out[f"{arch}:{shape}"]
+            log(f"launch (a) {arch}:{shape}: args "
+                f"{e['argument_bytes'] / 1e9:.2f} GB, fits one card "
+                f"{e['fits_one_card']}, counted "
+                + (f"{e['flops'] / 1e12:.4g} TFLOP" if ops else
+                   "(no meta trace: the search ends on data)")
+                + f", model_flops {e['model_flops'] / 1e12:.4g} TFLOP, "
+                f"trace {e['trace_sec']:.1f}s"
+                + (f" (layers {e['depth']['traced_layers']} scaled to "
+                   f"{e['depth']['full_layers']})" if e["depth"] else ""))
+    sweep_s = time.perf_counter() - t0
+    require(len(out) == 42, f"launch (a): {len(out)} cells, expected 42")
+    check = None
+    if LAUNCH_SWEEP_LAYERS:
+        arch, shape = LAUNCH_SCALE_CHECK
+        rep, sec = dryrun.trace(steps.build_job(arch, shape))
+        scaled = out[f"{arch}:{shape}"]["flops"]
+        rel = abs(scaled - rep.flops) / rep.flops
+        check = {"cell": f"{arch}:{shape}", "full_flops": rep.flops,
+                 "scaled_flops": scaled, "rel": rel, "trace_sec": sec}
+        log(f"launch (a) depth scaling at {arch}:{shape}: full-depth trace "
+            f"{rep.flops:.6e} FLOPs in {sec:.1f}s, scaled from "
+            f"{LAUNCH_SWEEP_LAYERS} layers {scaled:.6e} (rel {rel:.2e})")
+        require(rel <= 1e-9, f"launch (a): the scaled count of {arch}:"
+                f"{shape} is {rel:.2e} off its full-depth trace")
+    log(f"launch (a): 42 cells built and traced on meta in {sweep_s:.1f}s")
+    return {"cells": out, "seconds": sweep_s, "scale_check": check}
+
+
+def gs_result_ok(torch, measure, base, queries, res, label):
+    """Ids in range, duplicate-free, scores finite and descending and equal
+    to the plain DeepFM score of the returned rows."""
+    ids, scores = res.ids, res.scores
+    Q, k = ids.shape
+    require(bool(((ids >= 0) & (ids < base.shape[0])).all()),
+            f"{label}: ids out of range or missing")
+    srt = ids.sort(dim=1).values
+    require(bool((srt[:, 1:] != srt[:, :-1]).all()),
+            f"{label}: repeated ids in a result row")
+    require(bool(torch.isfinite(scores).all())
+            and bool((scores[:, 1:] <= scores[:, :-1]).all()),
+            f"{label}: scores not finite or not descending")
+    want = measure.score(base[ids.reshape(-1)],
+                         queries.repeat_interleave(k, dim=0)).reshape(Q, k)
+    err = float((scores - want).abs().max())
+    require(err <= RESULT_SCORE_ATOL, f"{label}: scores {err:.3e} from the "
+            f"plain measure of the returned ids")
+    return err
+
+
+def launch_guitar(torch, np, dev):
+    """(b) The guitar-serve cells at their own size: 1,048,576 N(0, 1)
+    items of D=40 (seed 0), the graph built by graph/build.py at M=24
+    (NN-descent), 4,096 queries a batch; one warm-up and GS_TIMED timed
+    batches per mode, launches by kernel, recall@10 on GS_RECALL_Q
+    queries against brute force."""
+    from repro_torch.core import Measure
+    from repro_torch.core.search import brute_force_topk
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import deepfm as deepfm_lib
+    from repro_torch.configs.guitar_deepfm import measure_config
+    jobs = {m: steps.build_job("guitar-serve", m) for m in ("guitar", "sl2g")}
+    t0 = time.perf_counter()
+    args = steps.materialize(jobs["guitar"], dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params, base, nbrs, entries, gids, queries = args
+    N, Q = base.shape[1], queries.shape[0]
+    log(f"launch (b) guitar-serve: {N:,} items x {base.shape[2]}, graph of "
+        f"degree {nbrs.shape[2]} built and drawn in {build_s:.1f}s, "
+        f"{Q:,} queries a batch")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [queries] + [torch.randn(queries.shape, generator=gen,
+                                       device=dev)
+                           for _ in range(GS_TIMED)]
+    mcfg = measure_config()
+    measure = Measure("deepfm", lambda p, x, q: deepfm_lib.score(
+        p, x, q, mcfg), params, meta=("deepfm", mcfg.fm_dim))
+    t0 = time.perf_counter()
+    true_ids, _ = brute_force_topk(measure, base[0], queries[:GS_RECALL_Q],
+                                   10)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    out = {"items": N, "queries": Q, "build_s": build_s, "brute_s": brute_s}
+    for mode, job in jobs.items():
+        fn = job.step_fn
+        before = peak_reset(torch, dev)
+        t0 = time.perf_counter()
+        warm = fn(params, base, nbrs, entries, gids, batches[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        reset_launch_counts()
+        secs, results = [], []
+        for qb in batches[1:]:
+            t0 = time.perf_counter()
+            res = fn(params, base, nbrs, entries, gids, qb)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            results.append(res)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        peak = peak_bytes(torch, dev, before)
+        label = f"launch (b) {mode}"
+        require(set(counts) == GS_KERNELS[mode], f"{label}: kernels "
+                f"launched {counts}, expected {sorted(GS_KERNELS[mode])}")
+        err = max(gs_result_ok(torch, measure, base[0], qb, r, label)
+                  for qb, r in zip(batches[1:], results))
+        hits = (warm.ids[:GS_RECALL_Q, :, None]
+                == true_ids[:, None, :]).any(dim=2).float().mean()
+        s = statistics.median(secs)
+        ev = float(torch.cat([r.n_eval for r in results]).float().mean())
+        it = float(torch.cat([r.n_iters for r in results]).float().mean())
+        flops = job.static_meta["model_flops"]
+        out[mode] = {
+            "warm_s": warm_s, "batch_s": secs, "median_batch_s": s,
+            "qps": Q / s, "evals_per_query": ev, "iters_per_query": it,
+            "peak_bytes": peak, "launches": counts,
+            "launches_per_batch": {k: v / GS_TIMED
+                                   for k, v in counts.items()},
+            "recall_at_10": float(hits), "max_score_err": err,
+            "model_flops": flops, "model_tflops_per_s": flops / s / 1e12,
+            "share_of_fp32_peak": flops / s / H100_FP32_FLOPS}
+        o = out[mode]
+        log(f"{label}: warm-up batch {warm_s:.2f}s (capture included); "
+            f"{GS_TIMED} batches of {Q:,}: median {s:.3f}s "
+            f"({', '.join(f'{x:.3f}' for x in secs)}), {Q / s:,.0f} QPS, "
+            f"{ev:.1f} evals and {it:.1f} iterations a query, peak "
+            f"{peak / 1e9:.2f} GB above the start, launches {counts}, "
+            f"model_flops {flops:.4g} = {o['model_tflops_per_s']:.3f} "
+            f"TFLOP/s ({o['share_of_fp32_peak']:.2%} of 67 fp32), "
+            f"recall@10 {o['recall_at_10']:.4f} on {GS_RECALL_Q} queries "
+            f"(brute force {brute_s:.1f}s), scores {err:.2e} from plain")
+        del warm, results
+    del args, batches, jobs
+    return out
+
+
+def long_bound_ms(params, cache, B, pos0, n):
+    """Least ms a step of ``n`` decode steps from ``pos0``: every weight
+    read once a step (the token table's B rows only), each step's valid K
+    and V prefix of every layer read once."""
+    from repro_torch.tree import tree_bytes
+    e = params["embed"]
+    w = tree_bytes(params) - e.numel() * e.element_size() \
+        + B * e.shape[1] * e.element_size()
+    k = cache["k"]
+    per_pos = 2 * k.shape[0] * k.shape[1] * k.shape[3] * k.shape[4] \
+        * k.element_size()
+    kv = sum(per_pos * (pos0 + i + 1) for i in range(n))
+    return (n * w + kv) / n / H100_BYTES_PER_S * 1e3
+
+
+def launch_card_cell(torch, dev, arch, shape):
+    """(c) One builder-path cell drawn on the card at its own size: its
+    step counted on meta and once on the card (the FLOPs must agree
+    exactly), timed, its peak memory against the arguments' bytes."""
+    from repro_torch.kernels import (launch_counts, path_launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import dryrun, steps
+    label = f"launch (c) {arch}:{shape}"
+    job = steps.build_job(arch, shape)
+    meta_rep, meta_s = dryrun.trace(job)
+    arg_bytes = dryrun.tree_nbytes(job.args)
+    before = peak_reset(torch, dev)
+    t0 = time.perf_counter()
+    args = steps.materialize(job, dev, seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    reset_launch_counts()
+    card_rep = dryrun.analyze_ops(job.step_fn, *args)
+    torch.cuda.synchronize()
+    first = {k: v for k, v in launch_counts().items() if v}
+    del card_rep.output
+    decode = job.static_meta["kind"] == "decode"
+    out = {"argument_bytes": arg_bytes, "draw_s": draw_s,
+           "meta_flops": meta_rep.flops, "card_flops": card_rep.flops,
+           "meta_trace_s": meta_s, "model_flops": job.static_meta[
+               "model_flops"], "first_step_launches": first}
+    require(card_rep.flops == meta_rep.flops, f"{label}: {card_rep.flops} "
+            f"FLOPs counted on the card, {meta_rep.flops} on meta")
+    if decode:
+        params, cache, tok, _ = args
+        L_ = cache["k"].shape[0]
+        S = cache["k"].shape[2]
+        pos0 = S - LONG_STEPS - 1
+        pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
+        job.step_fn(params, cache, tok, pos)           # warm; rewritten
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(LONG_STEPS):
+            lg, cache = job.step_fn(params, cache, tok, pos)
+            tok = lg.argmax(dim=-1).to(torch.int32)
+            pos += 1
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        paths = path_launch_counts()["decode_attention"]
+        require(counts == {"decode_attention": L_ * LONG_STEPS}
+                and paths["tensor_core"] == L_ * LONG_STEPS,
+                f"{label}: launches {counts} by path {paths}, expected "
+                f"{L_} tensor-core decode launches a step")
+        require(bool(torch.isfinite(lg).all()), f"{label}: logits not "
+                f"finite")
+        out.update(steps=LONG_STEPS, launches=counts,
+                   ms_per_step=start.elapsed_time(end) / LONG_STEPS,
+                   host_ms_per_step=host_s / LONG_STEPS * 1e3,
+                   bound_ms_per_step=long_bound_ms(params, cache,
+                                                   tok.shape[0], pos0,
+                                                   LONG_STEPS))
+        del lg, params, cache, tok
+    else:
+        require(not first, f"{label}: kernels launched {first}; the path "
+                f"launches no port kernel")
+        t = event_ms(lambda: job.step_fn(*args), reps=1, warm=1)
+        out.update(ms_per_step=t, launches={})
+    out["peak_bytes"] = peak_bytes(torch, dev, before)
+    require(out["peak_bytes"] >= arg_bytes, f"{label}: peak "
+            f"{out['peak_bytes']} below the arguments' {arg_bytes} bytes")
+    log(f"{label}: args {arg_bytes / 1e9:.2f} GB drawn in {draw_s:.1f}s, "
+        f"peak {out['peak_bytes'] / 1e9:.2f} GB; FLOPs counted on the card "
+        f"{card_rep.flops:.6e} = meta {meta_rep.flops:.6e} (model_flops "
+        f"{out['model_flops']:.4e}); "
+        + (f"{LONG_STEPS} greedy steps {out['ms_per_step']:.2f}ms a step "
+           f"between events ({out['host_ms_per_step']:.2f} on the host "
+           f"clock), bound {out['bound_ms_per_step']:.2f}ms, launches "
+           f"{out['launches']}" if decode else
+           f"one step {out['ms_per_step']:.2f}ms, no port kernel launched"))
+    del args, job
+    return out
+
+
+def check_launch(torch, np, dev):
+    """Phase 15: (a) the dry run on meta of all 42 cells; (b) the
+    guitar-serve cells at 1,048,576 items on the card; (c) a builder-path
+    cell per family on the card at its own size."""
+    t_phase = time.perf_counter()
+    left = free_card(torch)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    log(f"launch: phase 15, {left / 1e9:.2f} GB still allocated from "
+        f"earlier phases, card total_memory {card_bytes:,} bytes")
+    out, secs = {"card_bytes": card_bytes}, {}
+    t0 = time.perf_counter()
+    out["a"] = launch_sweep(torch, card_bytes)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = launch_guitar(torch, np, dev)
+    secs["b"] = time.perf_counter() - t0
+    free_card(torch)
+    t0 = time.perf_counter()
+    out["c"] = {}
+    for arch, shape in LAUNCH_CARD_CELLS:
+        out["c"][f"{arch}:{shape}"] = launch_card_cell(torch, dev, arch,
+                                                       shape)
+        free_card(torch)
+    secs["c"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_by_part"] = secs
+    log(f"launch: phase 15 passed in {out['seconds']:.1f}s ("
+        + ", ".join(f"({k}) {v:.1f}s" for k, v in secs.items()) + ")")
+    return out
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -6338,6 +6671,18 @@ LM_PATH = {
         "ms_in_step": lm["yi"]["decode_32k"]["profile"]["decode_us"] / 1e3},
 }
 
+# the launch layer's builder paths (phase 15): launches per guitar-serve
+# batch of 4,096 queries, and per Yi-9B long_500k decode step
+BUILDER_PATH = {
+    name: (lambda wrapper: lambda launch: {
+        f"guitar_serve_{mode}_per_batch":
+            launch["b"][mode]["launches_per_batch"].get(wrapper, 0)
+        for mode in ("guitar", "sl2g")})(WRAPPER[name])
+    for name in ("deepfm_score", "neighbor_rank", "deepfm_grad")}
+BUILDER_PATH["decode_attention"] = lambda launch: {
+    "yi_long_500k_per_step": launch["c"]["yi-9b:long_500k"]["launches"][
+        "decode_attention"] / LONG_STEPS}
+
 
 def kernel_line(results) -> dict:
     timed = {**results["kernels"], **results["fused_kernels"],
@@ -6385,6 +6730,11 @@ def kernel_line(results) -> dict:
                          bound_by=r["bound"][dt][1], library_ms=None,
                          residency=dt, ms_by_residency=r["ms"])
         out.append(entry)
+    if "launch" in results:
+        for entry in out:
+            if entry["name"] in BUILDER_PATH:
+                entry["builder_path"] = BUILDER_PATH[entry["name"]](
+                    results["launch"])
     return {"kernels": out}
 
 
@@ -6417,7 +6767,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
-    ap.add_argument("--only", choices=("train", "tune", "lm", "deepseek"),
+    ap.add_argument("--only", choices=("train", "tune", "lm", "deepseek",
+                                       "launch"),
                     default=None,
                     help="build the kernels and run only this phase (no "
                          "result line): a quicker check of one phase")
@@ -6464,10 +6815,12 @@ def main() -> int:
                     torch, np, dev, tune_context(torch, np, dev))
             elif opts.only == "lm":
                 results["lm"] = check_lm(torch, np, dev)
-            else:
+            elif opts.only == "deepseek":
                 results["deepseek"] = check_deepseek(torch, np, dev)
+            else:
+                results["launch"] = check_launch(torch, np, dev)
             phase = {"train": 11, "tune": 12, "lm": 13,
-                     "deepseek": 14}[opts.only]
+                     "deepseek": 14, "launch": 15}[opts.only]
             log(f"--only {opts.only}: phase {phase} passed; no result "
                 f"line ({time.perf_counter() - t_start:.1f}s)")
             if opts.out:
@@ -6524,6 +6877,8 @@ def main() -> int:
         results["lm"] = check_lm(torch, np, dev)
         torch.cuda.empty_cache()
         results["deepseek"] = check_deepseek(torch, np, dev)
+        torch.cuda.empty_cache()
+        results["launch"] = check_launch(torch, np, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         print(f"[smoke] FAIL: {e}", file=sys.stderr, flush=True)

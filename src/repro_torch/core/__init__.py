@@ -32,7 +32,8 @@ from repro_torch.core.faithful import (FaithfulStats,  # noqa: F401
                                        faithful_search_batch)
 from repro_torch.core.sharded import (ShardedIndex,  # noqa: F401
                                       build_sharded_index, empty_topk,
-                                      merge_topk, shard_stores,
+                                      make_sharded_search, merge_topk,
+                                      shard_stores,
                                       sharded_search_host,
                                       sharded_search_stores)
 from repro_torch.graph.mutate import (DurableIndex,  # noqa: F401

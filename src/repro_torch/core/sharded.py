@@ -204,6 +204,39 @@ def shard_params(params, device: torch.device,
     return params
 
 
+def _search_shards(engine, shards, queries: torch.Tensor, k: int,
+                   out_dev, iter_caps=None, taus=None) -> SearchResult:
+    """The body shared by the sharded searches. ``shards`` yields, shard
+    by shard, (params, store, neighbors, global ids, entries (Q,)), each
+    on its store's device; every shard is searched in turn by ``engine``,
+    its local ids mapped through the global ids (padded rows -> -1), and
+    the per-shard top-k merged (``merge_topk``) on ``out_dev``: n_eval and
+    n_grad summed (the work billed to a query), n_iters maxed (shards
+    expand in parallel)."""
+    Q = queries.shape[0]
+    per_ids, per_scores = [], []
+    n_eval = torch.zeros((Q,), dtype=torch.int32, device=out_dev)
+    n_grad = torch.zeros_like(n_eval)
+    n_iters = torch.zeros_like(n_eval)
+    for params, store, nbrs, gids, entries in shards:
+        dev = store.device
+        res = engine.search(params, store, nbrs, queries.to(dev), entries,
+                            iter_caps=None if iter_caps is None
+                            else torch.as_tensor(iter_caps).to(dev),
+                            taus=None if taus is None
+                            else torch.as_tensor(taus).to(dev))
+        local = res.ids.clamp_min(0)
+        per_ids.append(torch.where(res.ids >= 0, gids[local],
+                                   torch.full_like(res.ids, -1)).to(out_dev))
+        per_scores.append(res.scores.to(out_dev))
+        n_eval += res.n_eval.to(out_dev)
+        n_grad += res.n_grad.to(out_dev)
+        n_iters = torch.maximum(n_iters, res.n_iters.to(out_dev))
+    ids, scores = merge_topk(torch.stack(per_ids, dim=1),
+                             torch.stack(per_scores, dim=1), k)
+    return SearchResult(ids, scores, n_eval, n_grad, n_iters)
+
+
 def sharded_search_stores(measure: Measure,
                           stores: List[AnyCorpusStore],
                           index: ShardedIndex, queries, cfg: SearchConfig,
@@ -223,36 +256,65 @@ def sharded_search_stores(measure: Measure,
     engine = build_engine_from_fn(measure.score_fn, cfg, options,
                                   meta=tuple(meta) if meta is not None
                                   else None)
-    out_dev = stores[0].device
     queries = torch.as_tensor(queries, dtype=torch.float32)
     Q = queries.shape[0]
-    per_ids, per_scores = [], []
-    n_eval = torch.zeros((Q,), dtype=torch.int32, device=out_dev)
-    n_grad = torch.zeros_like(n_eval)
-    n_iters = torch.zeros_like(n_eval)
-    for s, store in enumerate(stores):
-        dev = store.device
-        nbrs, gids = index.placed(s, dev)
-        q = queries.to(dev)
-        entries = torch.full((Q,), int(index.entries[s]), dtype=torch.int64,
-                             device=dev)
-        res = engine.search(shard_params(measure.params, dev,
-                                         params_by_device),
-                            store, nbrs, q, entries,
-                            iter_caps=None if iter_caps is None
-                            else torch.as_tensor(iter_caps).to(dev),
-                            taus=None if taus is None
-                            else torch.as_tensor(taus).to(dev))
-        local = res.ids.clamp_min(0)
-        per_ids.append(torch.where(res.ids >= 0, gids[local],
-                                   torch.full_like(res.ids, -1)).to(out_dev))
-        per_scores.append(res.scores.to(out_dev))
-        n_eval += res.n_eval.to(out_dev)
-        n_grad += res.n_grad.to(out_dev)
-        n_iters = torch.maximum(n_iters, res.n_iters.to(out_dev))
-    ids, scores = merge_topk(torch.stack(per_ids, dim=1),
-                             torch.stack(per_scores, dim=1), cfg.k)
-    return SearchResult(ids, scores, n_eval, n_grad, n_iters)
+
+    def shards():
+        for s, store in enumerate(stores):
+            dev = store.device
+            nbrs, gids = index.placed(s, dev)
+            yield (shard_params(measure.params, dev, params_by_device),
+                   store, nbrs, gids,
+                   torch.full((Q,), int(index.entries[s]),
+                              dtype=torch.int64, device=dev))
+
+    return _search_shards(engine, shards(), queries, cfg.k,
+                          stores[0].device, iter_caps, taus)
+
+
+def make_sharded_search(score_fn, cfg: SearchConfig,
+                        options: EngineOptions = EngineOptions(),
+                        meta=None):
+    """The JAX package's ``make_sharded_search`` without the mesh: returns
+    ``fn(measure_params, base (S, Np, D), nbrs (S, Np, deg), entries (S,),
+    gids (S, Np), queries (Q, D)) -> SearchResult``. The S shards are
+    searched one after another on the queries' device by one engine
+    (``meta``, the measure's ``(family, *args)``, resolves its kernel
+    bundle; None = the generic stages), local ids mapped through ``gids``
+    (-1 for padded rows), the per-shard top-k merged with ``merge_topk``;
+    n_eval and n_grad summed over shards, n_iters maxed, as
+    ``sharded_search_stores`` does (the same body).
+
+    Each shard's store (in ``options.corpus_dtype``) and neighbor table
+    are made on the first call with given ``base``, ``nbrs`` and ``gids``
+    and kept while the same tensors come back, so the engine's captured
+    programs stay valid from batch to batch."""
+    engine = build_engine_from_fn(score_fn, cfg, options, meta=meta)
+    placed: dict = {}
+
+    def shard_tensors(base, nbrs, gids, dev):
+        key = (id(base), id(nbrs), id(gids), base.data_ptr(),
+               nbrs.data_ptr(), gids.data_ptr(), str(dev))
+        if key not in placed:
+            placed.clear()
+            placed[key] = ((base, nbrs, gids), [
+                (make_corpus_store(base[s], options.corpus_dtype,
+                                   device=dev),
+                 nbrs[s].to(dev, torch.int64), gids[s].to(dev, torch.int64))
+                for s in range(base.shape[0])])
+        return placed[key][1]
+
+    def fn(measure_params, base, nbrs, entries, gids, queries):
+        dev = queries.device
+        Q = queries.shape[0]
+        shards = [(measure_params, store, nb, gid,
+                   entries[s].to(dev, torch.int64).expand(Q).contiguous())
+                  for s, (store, nb, gid) in enumerate(
+                      shard_tensors(base, nbrs, gids, dev))]
+        return _search_shards(engine, shards, queries.to(torch.float32),
+                              cfg.k, dev)
+
+    return fn
 
 
 def sharded_search_host(measure: Measure, index: ShardedIndex, queries,

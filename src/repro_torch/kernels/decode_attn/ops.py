@@ -7,12 +7,20 @@ dtype and the head width alone (``kernel_path``): a bfloat16 cache at
 hd >= 16 runs on the tensor cores (mma.sync fed by a cp.async ring, P and
 a float32 q split into bf16 hi + lo); a float32 cache (TF32 stays off) and
 bfloat16 at hd = 8, under mma's k16 depth, run on the CUDA cores.
-``decode_attention.path_launches`` counts the launches of each."""
+``decode_attention.path_launches`` counts the launches of each.
+
+The kernels run behind a ``torch.library`` custom op,
+``torch.ops.repro_torch.decode_attention``, so a decode step also runs on
+``meta`` tensors (its fake implementation gives the output's shape and
+dtype, and launches nothing) and ``torch.utils.flop_counter`` counts its
+work, ``decode_flops``, on ``meta``, CPU and CUDA tensors alike."""
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
@@ -153,6 +161,12 @@ def _launch(q, k, v, length, n_chunks=None):
     return out, path
 
 
+def decode_flops(B: int, H: int, hd: int, keys: int) -> int:
+    """q·k and p·v over ``keys`` cache positions: 2 x 2 x hd FLOPs a key
+    and query head."""
+    return 4 * B * H * hd * keys
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length, block_t: int = 512) -> torch.Tensor:
     """q: (B, H, hd) float32 or in the cache's dtype; k/v: (B, T, KV, hd)
@@ -164,15 +178,51 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``block_t`` is kept from the JAX signature; on the card the kernels
     choose their own tiles and split T across blocks."""
     del block_t
-    if k.device.type == "cpu":
-        _check(q, k, v)
-        return decode_attention_ref(q, k, v, length)
-    if k.device.type != "cuda":
+    if k.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for {k.device}")
-    out, path = _launch(q, k, v, length)
+    if k.device.type != "cuda":
+        _check(q, k, v)
+    if isinstance(length, torch.Tensor):
+        return torch.ops.repro_torch.decode_attention(q, k, v, length, 0)
+    return torch.ops.repro_torch.decode_attention(q, k, v, None,
+                                                  int(length))
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               length: Optional[torch.Tensor],
+               length_value: int) -> torch.Tensor:
+    """The op behind ``decode_attention``: the valid prefix is ``length``
+    (a tensor read on the device) or, where that is None, the host int
+    ``length_value``. The plain version for CPU tensors, a kernel for CUDA
+    tensors."""
+    ln = length_value if length is None else length
+    if k.device.type == "cpu":
+        return decode_attention_ref(q, k, v, ln)
+    out, path = _launch(q, k, v, ln)
     decode_attention.launches += 1
     decode_attention.path_launches[path] += 1
     return out
+
+
+@_decode_op.register_fake
+def _decode_fake(q, k, v, length, length_value):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention,
+                       get_raw=True)
+def _decode_flop_formula(q, k, v, length, length_value, *args,
+                         out_val=None, **kwargs) -> int:
+    """A host int prefix counts its keys; a prefix in a tensor cannot be
+    read without a host sync (and has no value on ``meta``), so it counts
+    all T positions of the cache, the most the call can read: the same
+    count on ``meta``, CPU and CUDA tensors."""
+    B, H, hd = q.shape
+    T = k.shape[1]
+    keys = T if length is not None else min(max(length_value, 0), T)
+    return decode_flops(B, H, hd, keys)
 
 
 decode_attention.launches = 0

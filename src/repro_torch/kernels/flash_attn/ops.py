@@ -11,12 +11,19 @@ the tensor cores (``csrc/flash_attn_tc.cu``, wgmma fed by TMA, P split
 into bf16 hi + lo); bfloat16 at hd = 8, under wgmma's k16 depth, runs on
 the CUDA cores (``csrc/flash_attn.cu``). ``flash_attention.path_launches``
 counts the launches of each. No path falls back to another: a kernel that
-refuses its inputs raises."""
+refuses its inputs raises.
+
+The kernels run behind a ``torch.library`` custom op,
+``torch.ops.repro_torch.flash_attention``, so a step also runs on
+``meta`` tensors (its fake implementation gives the output's shape and
+dtype, and launches nothing) and ``torch.utils.flop_counter`` counts its
+work, ``flash_flops``, on ``meta``, CPU and CUDA tensors alike."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
@@ -60,6 +67,12 @@ def _check_tma(q, k, v):
                 f"{tuple(t.stride())} at address {t.data_ptr():#x}")
 
 
+def flash_flops(B: int, S: int, H: int, hd: int) -> int:
+    """The causal work: q·k and p·v over the S(S+1)/2 (query, key) pairs
+    at or below the diagonal, 2 x 2 x hd FLOPs a pair and head."""
+    return 4 * B * H * hd * (S * (S + 1) // 2)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_q: int = 256, block_k: int = 256) -> torch.Tensor:
     """Causal attention. q/k/v: (B, S, H, hd) with equal head counts
@@ -79,10 +92,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must match q "
                              f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return torch.ops.repro_torch.flash_attention(q, k, v)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_op(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """The op behind ``flash_attention`` (arguments checked there): the
+    plain version for CPU tensors, a kernel for CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernels take hd in "
@@ -101,6 +123,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1
     return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flop_formula(q_shape, k_shape, v_shape, *args, out_shape=None,
+                        **kwargs) -> int:
+    return flash_flops(*q_shape)
 
 
 flash_attention.launches = 0

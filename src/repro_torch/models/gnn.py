@@ -39,16 +39,22 @@ class GINConfig:
 def init_params(generator: torch.Generator, cfg: GINConfig,
                 device="cuda") -> Tuple[dict, dict]:
     """(params, axes) in the JAX tree: per layer an MLP d -> h -> h and a
-    zero eps, then an MLP head h -> n_classes (float32)."""
+    zero eps, then an MLP head h -> n_classes, in ``cfg.dtype`` (drawn in
+    float32 and cast, as JAX's init)."""
     dev = resolve_device(device)
+
+    def mlp_of(dims):
+        mlp = L.init_mlp(generator, dims, device=dev)
+        return {k: [t.to(cfg.dtype) for t in v] for k, v in mlp.items()}
+
     layers, layer_axes = [], []
     for i in range(cfg.n_layers):
         d_in = cfg.d_in if i == 0 else cfg.d_hidden
-        mlp = L.init_mlp(generator, [d_in, cfg.d_hidden, cfg.d_hidden],
-                         device=dev)
-        layers.append({"mlp": mlp, "eps": torch.zeros((), device=dev)})
+        mlp = mlp_of([d_in, cfg.d_hidden, cfg.d_hidden])
+        layers.append({"mlp": mlp,
+                       "eps": torch.zeros((), dtype=cfg.dtype, device=dev)})
         layer_axes.append({"mlp": _mlp_axes(mlp), "eps": ()})
-    head = L.init_mlp(generator, [cfg.d_hidden, cfg.n_classes], device=dev)
+    head = mlp_of([cfg.d_hidden, cfg.n_classes])
     return ({"layers": layers, "head": head},
             {"layers": layer_axes, "head": _mlp_axes(head)})
 

@@ -29,11 +29,16 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                scale: Optional[float] = None, device="cuda") -> torch.Tensor:
     """N(0, 1) * scale with scale = 1/sqrt(d_in), drawn on the generator's
     device from ``generator`` (a CPU generator gives the same weights on
-    every device), then moved to ``device``."""
+    every device), then moved to ``device``. On ``meta`` it draws nothing:
+    the result has the shape and dtype alone, and ``generator`` is not
+    advanced."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty((d_in, d_out), dtype=torch.float32, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=generator,
                     dtype=torch.float32, device=generator.device) * scale
-    return w.to(resolve_device(device))
+    return w.to(dev)
 
 
 def embed_init(generator: torch.Generator, n: int, d: int,
@@ -48,9 +53,12 @@ def stacked_normal(generator: torch.Generator, n_layers: int, shape,
     """(n_layers, *shape) of N(0, 1) x ``scale`` in ``dtype`` on
     ``device``: each layer drawn in float32 on the generator's device and
     written into the stack, so a generator on the card draws a model of
-    billions of parameters there with one layer's float32 temporary."""
+    billions of parameters there with one layer's float32 temporary. On
+    ``meta`` it draws nothing (shape and dtype alone)."""
     dev = resolve_device(device)
     out = torch.empty((n_layers, *shape), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return out
     for i in range(n_layers):
         w = torch.randn(tuple(shape), generator=generator,
                         dtype=torch.float32, device=generator.device)
@@ -189,12 +197,16 @@ def segment_sum_rows(g: torch.Tensor, ids: torch.Tensor,
                      n_rows: int) -> torch.Tensor:
     """(n_rows, d) zeros plus, at each distinct id, the sum of g's rows
     with that id in their original order (deterministic on every device;
-    on the CPU the same sums as ``index_add_``)."""
+    on the CPU the same sums as ``index_add_``). On ``meta`` (shapes only:
+    the distinct ids are data) it is ``index_add``, which has the same
+    shape and the same autograd graph's shape."""
+    out = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    if g.device.type == "meta":
+        return out.index_add(0, ids, g)
     srt, perm = torch.sort(ids, stable=True)
     uniq, counts = torch.unique_consecutive(srt, return_counts=True)
     sums = torch.segment_reduce(g.index_select(0, perm), "sum",
                                 lengths=counts)
-    out = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype, device=g.device)
     return out.index_copy_(0, uniq, sums)
 
 

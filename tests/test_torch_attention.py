@@ -177,8 +177,10 @@ def test_decode_wrapper_refuses_bad_arguments():
     with pytest.raises(ValueError):
         decode_attention(torch.zeros((2, 6, 16)), k, torch.zeros(
             (2, 32, 4, 16)), 4)
-    with pytest.raises(ValueError):
-        decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 4)
+    # on meta (shapes only) the op's fake implementation answers
+    out = decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 4)
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +249,10 @@ def test_flash_wrapper_refuses_bad_arguments():
         flash_attention(q, q[:, :4], q)
     with pytest.raises(ValueError):
         flash_attention(q, q, q.bfloat16())
-    with pytest.raises(ValueError):
-        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # on meta (shapes only) the op's fake implementation answers
+    out = flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -124,6 +124,15 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     assert out.shape == (64, gcfg.n_classes)
     q, s = compress.quantize_int8(out.detach())
     assert q.dtype == torch.int8
+    # the launch layer: a cell built and counted on meta, the dry run's
+    # trace, the guitar-serve cell drawn and searched on the CPU
+    from repro_torch.core import make_sharded_search  # noqa: F401
+    from repro_torch.launch import dryrun, op_analysis, steps
+    job = steps.build_job("dlrm-rm2", "serve_p99")
+    assert op_analysis.analyze_ops(job.step_fn, *job.args).flops > 0
+    assert dryrun.trace(steps.build_job("gin-tu", "molecule"))[0].flops > 0
+    gjob = steps.build_guitar_serve_job("guitar", n_items=300, n_queries=4)
+    assert gjob.step_fn(*steps.materialize(gjob, "cpu")).ids.shape == (4, 10)
     assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                    for k in sys.modules), "a blocked module got in"
     print(len(names))
