@@ -112,10 +112,20 @@ of 4,096 queries timed, each mode launching exactly its kernels, recall
 against brute force; Yi-9B ``long_500k`` whole on the card through the
 builder's decode step, DLRM-RM2 ``serve_p99``, GIN ``full_graph_sm``
 and BERT4Rec ``retrieval_cand`` drawn by ``steps.materialize``, each
-step's FLOPs counted on the card equal to its meta count).
+step's FLOPs counted on the card equal to its meta count), and last the
+mesh (phase 16: a one-rank NCCL group from an in-process store and the
+(1, 1) mesh of ``launch/mesh.py``; Yi-9B at full width cut to two layers,
+bf16, its prefill under ``mesh_rules`` with the params placed by
+``shardings_for_tree`` = ``rules=None`` bit for bit, the flash kernel
+launched once a layer through DTensor arguments, then 16 decode steps
+under JAX's decode rules = ``rules=None`` bit for bit, the decode kernel
+once a layer a step, each way timed; DeepSeek-V3's MoE layer at full
+width through ``moe_ffn_ep`` over the EP group, a real NCCL all-to-all,
+against ``moe_ffn`` at capacity E/K and at 1.25, timed; the group
+destroyed).
 
     python3 chip_smoke.py [--out results.json]
-                          [--only train|tune|lm|deepseek|launch]
+                          [--only train|tune|lm|deepseek|launch|mesh]
 
 Needs one CUDA card; exits non-zero without one, when any phase fails, or
 when run without the rest of the repository. Imports nothing of JAX. The
@@ -6586,6 +6596,235 @@ def check_launch(torch, np, dev):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the mesh (launch/mesh.py, sharding.py, moe_ffn_ep) on a one-rank
+# NCCL group: the same forwards, placements and all-to-alls that a job of
+# many cards runs, at full width, against the plain one-device path
+# ---------------------------------------------------------------------------
+
+MESH_LM_B, MESH_LM_S = 2, 1024    # (a) Yi-9B prompt at two layers
+MESH_DECODE_STEPS = 16            # (a) decode steps under the decode rules
+
+
+def mesh_group(torch, dev):
+    """A one-rank NCCL group from an in-process store (no TCP), and the
+    (1, 1) ("data", "model") mesh on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    return make_test_mesh(1, 1)
+
+
+def mesh_equal(torch, got, want) -> bool:
+    from repro_torch.sharding import is_dtensor
+    from repro_torch.tree import tree_leaves
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    return len(pairs) == len(tree_leaves(want)) and all(
+        torch.equal(g.full_tensor() if is_dtensor(g) else g, w)
+        for g, w in pairs)
+
+
+def mesh_segment(torch, label, fn, expect):
+    """``fn`` run with every launch count set to 0 just before; the counts
+    read just after must be ``expect``. Returns (result, counts, ms)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out, secs = lm_wall_s(torch, fn)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    require(counts == expect, f"mesh {label}: kernel launches {counts}, "
+            f"expected {expect}")
+    return out, counts, secs * 1e3
+
+
+def mesh_lm(torch, np, dev, mesh):
+    """(a) Yi-9B at full width, two layers, bf16: ``prefill`` under
+    ``mesh_rules`` (params placed by ``shardings_for_tree``, tokens on the
+    batch axes) = ``rules=None`` bit for bit in logits and cache, the
+    flash kernel launched once a layer through its DTensor rule; then
+    MESH_DECODE_STEPS ``decode_step``s under JAX's decode rules (kv_seq on
+    model, act_seq off) = ``rules=None`` bit for bit, the decode kernel
+    once a layer a step. Each way timed on the host clock, synchronised."""
+    import dataclasses
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_arch("yi-9b").make_config(),
+                              n_layers=LM_PARITY_LAYERS,
+                              dtype=torch.bfloat16)
+    n = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, axes = tf.init_params(gen, cfg, device=dev)
+    rules = sh.mesh_rules(mesh)
+    B, S, T = MESH_LM_B, MESH_LM_S, MESH_LM_S + MESH_DECODE_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=dev)
+    prompt = toks[:, :S].contiguous()
+    dparams = sh.distribute_tree(params, sh.shardings_for_tree(axes, mesh,
+                                                               rules))
+    dprompt = sh.distribute(prompt, sh.NamedSharding(
+        mesh, rules.spec(("batch", None))))
+    # first calls: cuBLAS and the DTensor rules' caches
+    tf.prefill(params, prompt, cfg)
+    tf.prefill(dparams, dprompt, cfg, rules)
+    out = {"B": B, "S": S, "layers": n}
+    want, _, out["prefill_ms_plain"] = mesh_segment(
+        torch, "(a) prefill rules=None", lambda: tf.prefill(params, prompt,
+                                                            cfg),
+        {"flash_attention": n})
+    got, launches, out["prefill_ms_mesh"] = mesh_segment(
+        torch, "(a) prefill mesh_rules",
+        lambda: tf.prefill(dparams, dprompt, cfg, rules),
+        {"flash_attention": n})
+    require(sh.is_dtensor(got[0]) and sh.is_dtensor(got[1]["k"]),
+            "mesh (a): the prefill under mesh_rules returned plain tensors")
+    require(mesh_equal(torch, got, want), "mesh (a): prefill under "
+            "mesh_rules differs from rules=None")
+    out["prefill_launches"] = launches["flash_attention"]
+    # the decode layout: the cache grown by the steps, kv_seq on model
+    dec = rules.with_overrides(act_seq=None, kv_seq="model")
+    plain = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0,
+                                            MESH_DECODE_STEPS))
+             for k, v in want[1].items()}
+    dcache = sh.distribute_tree(
+        {k: v.clone() for k, v in plain.items()},
+        sh.shardings_for_tree(tf.cache_axes(), mesh, dec))
+    dparams_dec = sh.distribute_tree(
+        params, sh.shardings_for_tree(axes, mesh, dec))
+    bspec = sh.NamedSharding(mesh, dec.spec(("batch",)))
+
+    def steps(p, cache, r):
+        pos = torch.tensor([S], dtype=torch.int32, device=dev)
+        logits = []
+        for i in range(MESH_DECODE_STEPS):
+            t = toks[:, S + i].contiguous()
+            if r is not None:
+                t = sh.distribute(t, bspec)
+            lg, cache = tf.decode_step(p, cache, t, pos, cfg, r)
+            logits.append(lg)
+            pos += 1
+        return logits, cache
+
+    # first calls of each way's step (on copies of the caches)
+    tf.decode_step(params, {k: v.clone() for k, v in plain.items()},
+                   toks[:, S].contiguous(), S, cfg)
+    tf.decode_step(dparams_dec, tree_map(lambda t: t.clone(), dcache),
+                   sh.distribute(toks[:, S].contiguous(), bspec), S, cfg, dec)
+    want_d, _, out["decode_ms_plain"] = mesh_segment(
+        torch, "(a) decode rules=None", lambda: steps(params, plain, None),
+        {"decode_attention": n * MESH_DECODE_STEPS})
+    got_d, launches, out["decode_ms_mesh"] = mesh_segment(
+        torch, "(a) decode decode rules",
+        lambda: steps(dparams_dec, dcache, dec),
+        {"decode_attention": n * MESH_DECODE_STEPS})
+    require(mesh_equal(torch, got_d, want_d), "mesh (a): decode under the "
+            "decode rules differs from rules=None")
+    out["decode_launches"] = launches["decode_attention"]
+    out["decode_ms_per_step_plain"] = out["decode_ms_plain"] \
+        / MESH_DECODE_STEPS
+    out["decode_ms_per_step_mesh"] = out["decode_ms_mesh"] \
+        / MESH_DECODE_STEPS
+    log(f"mesh (a) Yi-9B x{n} layers bf16 on the (1, 1) NCCL mesh: prefill "
+        f"B={B} S={S} under mesh_rules = rules=None bit for bit (logits, "
+        f"cache), flash_attention launched {out['prefill_launches']} through "
+        f"its DTensor rule; {out['prefill_ms_mesh']:.2f}ms against "
+        f"{out['prefill_ms_plain']:.2f}ms plain; {MESH_DECODE_STEPS} decode "
+        f"steps under the decode rules = rules=None bit for bit (logits, "
+        f"cache), decode_attention launched {out['decode_launches']}; "
+        f"{out['decode_ms_per_step_mesh']:.2f}ms a step against "
+        f"{out['decode_ms_per_step_plain']:.2f}ms plain")
+    del params, dparams, dparams_dec, want, got, plain, dcache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe(torch, np, dev, mesh):
+    """(b) DeepSeek-V3's MoE layer at full width (256 experts of 7168 x
+    2048, top-8 sigmoid, the shared expert) over DS_MOE_T tokens:
+    ``moe_ffn_ep`` over the one-rank EP group (a real NCCL
+    ``all_to_all_single`` each way) against ``moe_ffn`` at capacity E/K
+    (nothing dropped), and at the config's 1.25 against ``moe_ffn`` at the
+    same per-expert capacity (n_groups 1: the same arrival order, so the
+    same pairs dropped); within phase 14 (b)'s tolerance, bit for bit
+    reported."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_lib
+    cfg = get_arch(DS).make_config()
+    d, E, K = cfg.d_model, cfg.n_experts, cfg.moe_top_k
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stack, axes = moe_lib.init_moe(
+        gen, n_layers=1, d_model=d, d_ff=cfg.moe_d_ff, n_experts=E,
+        dtype=torch.bfloat16, n_shared=cfg.n_shared_experts,
+        shared_d_ff=cfg.moe_d_ff * cfg.n_shared_experts, device=dev)
+    p = {k: v[0] for k, v in stack.items()}
+    axes = {k: v[1:] for k, v in axes.items()}
+    rules = sh.mesh_rules(mesh).with_overrides(experts=("data", "model"),
+                                               capacity=None)
+    dp = sh.distribute_tree(p, sh.shardings_for_tree(axes, mesh, rules))
+    x = torch.randn((1, DS_MOE_T, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dx = sh.distribute(x, sh.NamedSharding(mesh, rules.spec(
+        ("batch", "act_seq", None))))
+    ep_axes, D, E_pad, _ = moe_lib.ep_layout(mesh, E)
+    out = {"T": DS_MOE_T, "ep_axes": list(ep_axes), "D": D}
+    kw = dict(n_experts=E, top_k=K, router_type="sigmoid")
+    for label, cf in (("no_drop", E / K), ("config", cfg.capacity_factor)):
+        Ce = max(1, int(cf * DS_MOE_T * K / E_pad))
+
+        def plain():
+            return moe_lib.moe_ffn(p, x, capacity_factor=cf, n_groups=1,
+                                   **kw)
+
+        def ep():
+            return moe_lib.moe_ffn_ep(dp, dx, capacity_factor=cf,
+                                      rules=rules, **kw)
+
+        want = plain()
+        got, counts, _ = mesh_segment(torch, f"(b) moe_ffn_ep {label}", ep,
+                                      {})
+        g = got.full_tensor()
+        err = float((g.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        r = {"capacity_factor": cf, "Ce": Ce, "err_of_max": err / top,
+             "bit_for_bit": bool(torch.equal(g, want)),
+             "ms_ep": event_ms(ep), "ms_moe_ffn": event_ms(plain)}
+        out[label] = r
+        log(f"mesh (b) DeepSeek-V3 MoE layer, {DS_MOE_T} tokens, "
+            f"capacity_factor {cf:g} (Ce = {Ce} slots an expert): "
+            f"moe_ffn_ep over the EP group {tuple(ep_axes)} (D = {D}, NCCL "
+            f"all_to_all_single) against moe_ffn at the same capacity: "
+            f"{err / top:.3e} of its largest |entry| (tolerance "
+            f"{DS_MOE_TOL}), bit for bit {r['bit_for_bit']}; "
+            f"{r['ms_ep']:.2f}ms against {r['ms_moe_ffn']:.2f}ms")
+        require(err <= DS_MOE_TOL * top, f"mesh (b): moe_ffn_ep at "
+                f"capacity_factor {cf:g} differs from moe_ffn by "
+                f"{err / top:.3e} of its largest entry")
+    del stack, p, dp, x, dx
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh(torch, np, dev):
+    """Phase 16: (a) the LM path and (b) the MoE path under a one-rank
+    NCCL mesh; the group is destroyed at the end."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    free_card(torch)
+    mesh = mesh_group(torch, dev)
+    try:
+        out = {"a": mesh_lm(torch, np, dev, mesh)}
+        free_card(torch)
+        out["b"] = mesh_moe(torch, np, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh: phase 16 passed in {out['seconds']:.1f}s")
+    return out
+
+
 KERNEL_META = {
     "deepfm_score": ("src/repro_torch/kernels/csrc/deepfm_score.cu",
                      "src/repro/kernels/deepfm_score/kernel.py:46"),
@@ -6682,6 +6921,19 @@ BUILDER_PATH = {
 BUILDER_PATH["decode_attention"] = lambda launch: {
     "yi_long_500k_per_step": launch["c"]["yi-9b:long_500k"]["launches"][
         "decode_attention"] / LONG_STEPS}
+# the mesh path (phase 16 (a)): launches through DTensor arguments in one
+# prefill and in the decode steps, each way's time
+MESH_PATH = {
+    "flash_attention": lambda m: {
+        "launches_per_prefill": m["a"]["prefill_launches"],
+        "prefill_ms_mesh": m["a"]["prefill_ms_mesh"],
+        "prefill_ms_plain": m["a"]["prefill_ms_plain"]},
+    "decode_attention": lambda m: {
+        "launches_in_decode": m["a"]["decode_launches"],
+        "decode_steps": MESH_DECODE_STEPS,
+        "step_ms_mesh": m["a"]["decode_ms_per_step_mesh"],
+        "step_ms_plain": m["a"]["decode_ms_per_step_plain"]},
+}
 
 
 def kernel_line(results) -> dict:
@@ -6735,6 +6987,11 @@ def kernel_line(results) -> dict:
             if entry["name"] in BUILDER_PATH:
                 entry["builder_path"] = BUILDER_PATH[entry["name"]](
                     results["launch"])
+    if "mesh" in results:
+        for entry in out:
+            if entry["name"] in MESH_PATH:
+                entry["mesh_path"] = MESH_PATH[entry["name"]](
+                    results["mesh"])
     return {"kernels": out}
 
 
@@ -6768,7 +7025,7 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
     ap.add_argument("--only", choices=("train", "tune", "lm", "deepseek",
-                                       "launch"),
+                                       "launch", "mesh"),
                     default=None,
                     help="build the kernels and run only this phase (no "
                          "result line): a quicker check of one phase")
@@ -6817,10 +7074,12 @@ def main() -> int:
                 results["lm"] = check_lm(torch, np, dev)
             elif opts.only == "deepseek":
                 results["deepseek"] = check_deepseek(torch, np, dev)
-            else:
+            elif opts.only == "launch":
                 results["launch"] = check_launch(torch, np, dev)
+            else:
+                results["mesh"] = check_mesh(torch, np, dev)
             phase = {"train": 11, "tune": 12, "lm": 13,
-                     "deepseek": 14, "launch": 15}[opts.only]
+                     "deepseek": 14, "launch": 15, "mesh": 16}[opts.only]
             log(f"--only {opts.only}: phase {phase} passed; no result "
                 f"line ({time.perf_counter() - t_start:.1f}s)")
             if opts.out:
@@ -6879,6 +7138,8 @@ def main() -> int:
         results["deepseek"] = check_deepseek(torch, np, dev)
         torch.cuda.empty_cache()
         results["launch"] = check_launch(torch, np, dev)
+        torch.cuda.empty_cache()
+        results["mesh"] = check_mesh(torch, np, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         print(f"[smoke] FAIL: {e}", file=sys.stderr, flush=True)

@@ -24,10 +24,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.sharding import distribute, is_dtensor
 from repro_torch.tree import flatten_with_paths, tree_unflatten
 
 
 def _host_array(leaf) -> np.ndarray:
+    if is_dtensor(leaf):              # the whole array, as JAX's save
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -87,9 +90,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                        step: Optional[int] = None, device="cuda",
-                       process_index: int = 0) -> Any:
+                       process_index: int = 0, shardings: Any = None) -> Any:
     """Restore into the structure of ``tree_like`` (its leaves' shapes are
-    checked against the checkpoint's), as tensors on ``device``."""
+    checked against the checkpoint's), as tensors on ``device``. With
+    ``shardings`` (a tree of ``sharding.NamedSharding`` matching
+    ``tree_like``) each leaf is placed as a DTensor on that mesh, every
+    rank keeping its shard: the elastic-remesh entry point (JAX's
+    ``device_put`` with the shardings)."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -112,6 +119,13 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                     f"restore template mismatch at {key}: checkpoint has "
                     f"{arr.shape}, template expects {tuple(like.shape)}")
             leaves.append(torch.from_numpy(arr).to(dev))
+    if shardings is not None:
+        shs = [s for _, s in flatten_with_paths(
+            shardings, is_leaf=lambda x: x is None or hasattr(x, "spec"))]
+        if len(shs) != len(leaves):
+            raise ValueError(f"shardings has {len(shs)} leaves, the tree "
+                             f"{len(leaves)}")
+        leaves = [distribute(a, s) for a, s in zip(leaves, shs)]
     return tree_unflatten(tree_like, leaves)
 
 

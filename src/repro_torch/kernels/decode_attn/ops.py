@@ -227,3 +227,23 @@ def _decode_flop_formula(q, k, v, length, length_value, *args,
 
 decode_attention.launches = 0
 decode_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}
+
+
+def _register_sharding():
+    """DTensor arguments: the batch (dim 0 of q, k, v and the output)
+    shards, the kernel runs on each rank's rows; a sharded cache position
+    or head is gathered first (what XLA does around a Pallas call it
+    cannot partition). ``length`` is replicated."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.decode_attention.default)
+    def _decode_sharding(q, k, v, length, length_value):
+        ln = None if length is None else Replicate()
+        return [([p], [p, p, p, ln, None]) for p in (Replicate(),
+                                                      Shard(0))]
+
+
+_register_sharding()

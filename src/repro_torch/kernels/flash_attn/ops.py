@@ -138,3 +138,22 @@ def _flash_flop_formula(q_shape, k_shape, v_shape, *args, out_shape=None,
 
 flash_attention.launches = 0
 flash_attention.path_launches = {path: 0 for path in ENTRY}
+
+
+def _register_sharding():
+    """DTensor arguments: batch (dim 0) and heads (dim 2) shard, the
+    kernel runs on each rank's (B, S, H, hd) block; a sharded S or hd is
+    gathered first (what XLA does around a Pallas call it cannot
+    partition)."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _flash_sharding(q, k, v):
+        return [([p], [p, p, p]) for p in (Replicate(), Shard(0),
+                                            Shard(2))]
+
+
+_register_sharding()

@@ -22,12 +22,33 @@ Outputs one JSON per cell under reports/dryrun_torch/h100/.
 The ``guitar-serve`` cells cannot run on ``meta``: the search's loop ends
 on data and its programs are captured CUDA graphs. Their reports give the
 arguments and the static cost model, with ``op_analysis`` null.
+
+``--mesh single|multi|both`` builds JAX's production meshes instead, (16,
+16) ("data", "model") and (2, 16, 16) ("pod", "data", "model"), over a
+fake process group of 256 and 512 ranks in this one process (``--mesh
+DxM``: the test mesh (D, M) over D x M ranks, e.g. ``2x4``)
+(``torch.testing._internal.distributed.fake_pg``, torch's own simulator of
+a large group: internal to torch, so it is imported here, by the dry run,
+and nowhere in the package). Each cell's job gets JAX's shardings
+(``steps.build_job(..., mesh=)``), and its report (under
+``reports/dryrun_torch/<mesh>/``, the mesh named as JAX names it:
+``single``, ``multi``, ``single_fsdp``, ...) gives per-device figures: every
+argument leaf's shard shape (DTensor's local shape on rank 0, the
+ceiling of an uneven split, as JAX pads it), ``argument_bytes`` and
+``alias_bytes`` from those shapes, ``output_bytes`` where the step names
+its out shardings (null with a note where JAX leaves them to the
+compiler), ``n_devices`` and ``mesh_shape``. Nothing is traced under the
+mesh: per-device op counts and collective bytes need the steps run on
+DTensors under a traced step, and are not given (``op_analysis`` null).
+The one-card ``h100`` report is the default and unchanged.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
+import math
 import os
 import time
 import traceback
@@ -39,7 +60,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.launch.op_analysis import analyze_ops
 from repro_torch.launch.steps import build_job, list_cells, materialize
-from repro_torch.tree import tree_leaves
+from repro_torch.sharding import NamedSharding, P
+from repro_torch.tree import flatten_with_paths, tree_leaves
 
 MESH_NAME = "h100"
 # ``torch.cuda.get_device_properties(0).total_memory`` of an NVIDIA H100
@@ -186,6 +208,111 @@ def run_cell(arch: str, shape: str, out_dir: str, device: str = "meta",
     return report
 
 
+MESHES = {"single": False, "multi": True}
+WORLD = {"single": 256, "multi": 512}
+NO_MESH_OPS = ("nothing is traced under the mesh: per-device op counts "
+               "and collective bytes need the step run on DTensors under a "
+               "traced step")
+NO_OUT = ("the step names no out shardings for {what}: JAX leaves them to "
+          "the compiler")
+
+
+def parse_test_mesh(kind: str):
+    """(n_data, n_model) of a test-mesh name "DxM", else None."""
+    parts = kind.split("x")
+    if len(parts) == 2 and all(p.isdigit() for p in parts):
+        return int(parts[0]), int(parts[1])
+    return None
+
+
+@contextlib.contextmanager
+def fake_mesh(kind: str):
+    """The production mesh ``kind`` ("single" or "multi"), or the test mesh
+    "DxM" (``make_test_mesh(D, M)``), over a fake process group of its
+    ranks, in this process (rank 0)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    dm = parse_test_mesh(kind)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(dm) if dm else WORLD[kind])
+    try:
+        yield (make_test_mesh(*dm, device="cpu") if dm else
+               make_production_mesh(multi_pod=MESHES[kind], device="cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_leaves(tree, specs, mesh, prefix: str) -> list:
+    """[(path, shape, shard shape, dtype, shard bytes)] of ``tree``'s
+    leaves under the spec tree ``specs``."""
+    leaves = flatten_with_paths(tree, prefix)
+    sp = [s for _, s in flatten_with_paths(
+        specs, is_leaf=lambda x: isinstance(x, P))]
+    if len(sp) != len(leaves):
+        raise ValueError(f"{prefix}: {len(leaves)} leaves, {len(sp)} specs")
+    out = []
+    for (path, t), spec in zip(leaves, sp):
+        shard = NamedSharding(mesh, spec).shard_shape(t.shape)
+        out.append((path, list(t.shape), list(shard),
+                    str(t.dtype).replace("torch.", ""),
+                    math.prod(shard) * t.element_size()))
+    return out
+
+
+def run_mesh_cell(arch: str, shape: str, mesh, kind: str, out_dir: str,
+                  variant: str = "base") -> dict:
+    """One cell's per-device report under ``mesh`` (see the module
+    docstring)."""
+    mesh_name = kind if variant == "base" else f"{kind}_{variant}"
+    t0 = time.perf_counter()
+    job = build_job(arch, shape, variant=variant, mesh=mesh)
+    t_build = time.perf_counter() - t0
+    args = [shard_leaves(a, s, mesh, str(i))
+            for i, (a, s) in enumerate(zip(job.args, job.in_specs))]
+    arg_bytes = sum(r[-1] for a in args for r in a)
+    alias = sum(r[-1] for i in job.donate for r in args[i])
+    single = job.out_specs is None or isinstance(job.out_specs, P)
+    outs = (job.out_specs,) if single else job.out_specs
+    named = job.out_specs is not None and all(o is not None for o in outs)
+    out_bytes, note = None, None
+    if named:
+        like = (job.out_like,) if single else job.out_like
+        out_bytes = sum(r[-1] for i, (o, s) in enumerate(zip(like, outs))
+                        for r in shard_leaves(o, s, mesh, str(i)))
+    else:
+        what = "its outputs" if job.out_specs is None else \
+            "output " + ", ".join(str(i) for i, o in enumerate(outs)
+                                  if o is None)
+        note = NO_OUT.format(what=what)
+    names = list(mesh.mesh_dim_names)
+    report = {
+        "arch": arch, "shape": shape, "mesh": mesh_name,
+        "n_devices": int(mesh.size()),
+        "mesh_shape": {a: int(n) for a, n in zip(names, mesh.mesh.shape)},
+        "device": "meta", "build_sec": round(t_build, 3),
+        "memory_analysis": {
+            "argument_bytes": int(arg_bytes), "output_bytes": out_bytes,
+            "temp_bytes": None, "alias_bytes": int(alias)},
+        "cost_analysis": None, "op_analysis": None,
+        "op_analysis_note": NO_MESH_OPS,
+        "static_meta": job.static_meta,
+        "fits_one_card": bool(arg_bytes <= H100_TOTAL_MEMORY),
+        "card_bytes": H100_TOTAL_MEMORY,
+        "shard_shapes": [list(r[:4]) for a in args for r in a],
+    }
+    if note:
+        report["output_bytes_note"] = note
+    os.makedirs(os.path.join(out_dir, mesh_name), exist_ok=True)
+    with open(os.path.join(out_dir, mesh_name, f"{arch}__{shape}.json"),
+              "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"[dryrun] {mesh_name} {arch}:{shape}  args/dev="
+          f"{arg_bytes / 2**30:.3f}GiB alias/dev={alias / 2**30:.3f}GiB "
+          f"fits={report['fits_one_card']}", flush=True)
+    return report
+
+
 def cells_of(args) -> list:
     if args.all:
         return list_cells()
@@ -212,6 +339,12 @@ def main(argv=None) -> None:
                     help="perf variant: microbatchN | w8 | bf16 | bf16model "
                          "| sl2g, or the sharding-only fsdp | shardnodes | "
                          "repltable (no change on one card)")
+    ap.add_argument("--mesh", default=None,
+                    help="single | multi | both: the production mesh(es) "
+                         "on a fake process group (per-device shard "
+                         "figures, nothing traced) in place of the one-card "
+                         "h100 report; DxM (e.g. 2x4): make_test_mesh(D, M) "
+                         "the same way")
     ap.add_argument("--device", choices=["meta", "cuda"], default="cuda",
                     help="meta: trace only; cuda (the default): trace, then "
                          "run each cell whose arguments fit on the card")
@@ -220,6 +353,8 @@ def main(argv=None) -> None:
                          "(published widths) and scale the counts to the "
                          "full depth")
     args = ap.parse_args(argv)
+    if args.mesh:
+        return main_mesh(args)
     card_bytes = None
     if args.device == "cuda":
         dev = resolve_device("cuda")
@@ -241,6 +376,31 @@ def main(argv=None) -> None:
         print(f"[dryrun] {len(failures)} failures")
         raise SystemExit(1)
     print(f"[dryrun] all {len(cells)} cells traced OK")
+
+
+def main_mesh(args) -> None:
+    kinds = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    for kind in kinds:
+        if kind not in MESHES and parse_test_mesh(kind) is None:
+            raise SystemExit(f"--mesh {kind}: not single, multi, both or "
+                             f"DxM")
+    cells = cells_of(args)
+    failures = []
+    for kind in kinds:
+        with fake_mesh(kind) as mesh:
+            for a, s in cells:
+                try:
+                    run_mesh_cell(a, s, mesh, kind, args.out, args.variant)
+                except Exception as e:  # noqa: BLE001
+                    failures.append((a, s, kind, repr(e)))
+                    print(f"[dryrun] FAIL {a}:{s} {kind}: {e}", flush=True)
+                    if not args.continue_on_error:
+                        traceback.print_exc()
+                        raise
+    if failures:
+        print(f"[dryrun] {len(failures)} failures")
+        raise SystemExit(1)
+    print(f"[dryrun] all {len(cells) * len(kinds)} cells sharded OK")
 
 
 if __name__ == "__main__":

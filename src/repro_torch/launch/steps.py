@@ -1,6 +1,6 @@
-"""Step builders: one (step_fn, abstract args) bundle per (architecture x
-input shape) cell of the dry-run matrix, the port's counterpart of the
-JAX package's ``launch/steps.py`` on one card.
+"""Step builders: one (step_fn, abstract args, shardings) bundle per
+(architecture x input shape x mesh) cell of the dry-run matrix, the
+port's counterpart of the JAX package's ``launch/steps.py``.
 
 Every argument is a tensor on the ``meta`` device, in the JAX package's
 tree layout (params, AdamW state, batch dict; params, cache, tokens, pos;
@@ -9,19 +9,26 @@ describe, and the step runs on those tensors as it would on real ones
 (``launch/dryrun.py`` traces it there). ``materialize`` draws real
 arguments of a job on a device, and the same step then runs there.
 
-What one card changes against the JAX builders:
-
-- The mesh's batch axes have size 1: ``moe_groups = 1`` for the MoE
-  archs and one corpus partition (``Pn = 1``) in the ``guitar-serve``
-  cells. DeepSeek's expert-parallel override and the ``moe_impl="ep"``
-  set for MoE train and prefill cells are moot: on one device the MoE
-  runs ``moe_ffn``, as JAX's does without a mesh.
-- There are no shardings. The variants that change only shardings
-  (``fsdp``, ``shardnodes``, ``repltable``) are accepted and change
-  nothing; ``microbatchN`` (``train.trainer.make_train_step``), ``w8``
-  (weights stored in ``torch.float8_e4m3fn``), ``bf16`` / ``bf16model``
-  (GIN messages or the whole GIN in bf16) and ``sl2g`` change the step as
-  in JAX.
+Every builder takes ``mesh=`` (a ``DeviceMesh``; JAX's ``build_job(arch,
+shape, mesh, variant)``). With a mesh the job carries JAX's
+``in_shardings`` as spec trees (``in_specs``, one per argument, the
+argument's tree of ``sharding.P``) and its ``out_shardings`` where JAX
+names them (``out_specs``, with ``out_like``: the outputs' meta tensors;
+None where JAX leaves them to the compiler), and the step closes over the
+mesh's rules with JAX's overrides: ``fsdp`` (``embed`` on data),
+``shardnodes`` (``nodes`` on the batch axes), ``repltable``
+(``table_rows`` replicated), DeepSeek's EP override, the prefill cache's
+and the decode step's ``kv_seq`` / batch rules, the retrieval rules over
+the corpus axes. ``moe_groups`` is the mesh's batch axes' size and the
+``guitar-serve`` partition count its ``model`` axis. Without a mesh
+(``mesh=None``: one card) there are no specs, the rules are None, the
+batch and corpus axes count 1, and the sharding-only variants change
+nothing; a (1, 1) mesh gives the same arguments. ``microbatchN``
+(``train.trainer.make_train_step``), ``w8`` (weights stored in
+``torch.float8_e4m3fn``), ``bf16`` / ``bf16model`` (GIN messages or the
+whole GIN in bf16) and ``sl2g`` change the step as in JAX; the
+``moe_impl="ep"`` of the MoE train and prefill cells runs ``moe_ffn_ep``
+under a mesh and ``moe_ffn`` without one.
 - Train steps update params and moments in place (JAX donates args 0 and
   1), a decode step its cache (JAX donates arg 1): ``donate`` names them.
 - The ``guitar-serve`` step is ``core.make_sharded_search`` with the
@@ -44,17 +51,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchDef, ShapeSpec, get_arch
+from repro_torch.launch.mesh import batch_axis_size
 from repro_torch.models import deepseek as ds_lib
 from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import layers as L
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+from repro_torch.sharding import (P, mesh_axis_sizes, mesh_rules,
+                                  specs_for_tree, zero1_spec_tree)
+from repro_torch.train.optimizer import (AdamWState, OptimizerConfig,
+                                         adamw_init)
 from repro_torch.train.trainer import make_train_step
-from repro_torch.tree import flatten_with_paths, tree_unflatten
+from repro_torch.tree import flatten_with_paths, tree_map, tree_unflatten
 
 META = torch.device("meta")
-BATCH_AXIS_SIZE = 1      # one card: the mesh's (pod, data) axes
-CORPUS_AXIS_SIZE = 1     # one card: the mesh's model axis (corpus shards)
 
 
 @dataclasses.dataclass
@@ -73,6 +83,10 @@ class StepJob:
     donate: Tuple[int, ...] = ()
     init: Optional[Callable] = None
     inputs: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    in_specs: Optional[Tuple[Any, ...]] = None
+    out_specs: Any = None
+    out_like: Any = None
 
 
 def _pad_count(n: int, m: int = 512) -> int:
@@ -92,6 +106,39 @@ def _abstract_init(init_fn, cfg):
 
 def _sds(shape, dtype):
     return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _repl_like(tree):
+    """P() for every leaf of ``tree`` (JAX's replicated sharding)."""
+    return tree_map(lambda _: P(), tree)
+
+
+def _batch_spec(mesh) -> P:
+    return P(tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names))
+
+
+def _rules_of(mesh):
+    return None if mesh is None else mesh_rules(mesh)
+
+
+def _specs(axes, rules):
+    return None if rules is None else specs_for_tree(axes, rules)
+
+
+def _opt_specs(params, axes, mesh, rules):
+    """JAX's ``_opt_shardings``: a replicated step, ZeRO-1 moments."""
+    if rules is None:
+        return None
+    z = zero1_spec_tree(params, axes, mesh, rules)
+    return AdamWState(step=P(), m=z, v=z)
+
+
+def _leading(batch: dict, B: int, lead: P) -> dict:
+    """JAX's batch shardings: a leaf whose leading dim is the batch B on
+    the batch axes, any other replicated."""
+    return {k: P(lead[0], *([None] * (v.dim() - 1)))
+            if v.dim() and v.shape[0] == B else P()
+            for k, v in batch.items()}
 
 
 def _cut_depth(cfg, n_layers: Optional[int]):
@@ -165,23 +212,37 @@ OPT_ZEROS = {"1": ("zeros",)}
 
 
 def build_lm_job(arch: ArchDef, shape: ShapeSpec, variant: str = "base",
-                 n_layers: Optional[int] = None) -> StepJob:
+                 n_layers: Optional[int] = None, mesh=None) -> StepJob:
     mod = _lm_modules(arch)
     cfg = _cut_depth(arch.make_config(), n_layers)
+    rules = _rules_of(mesh)
+    nb = 1 if mesh is None else batch_axis_size(mesh)
     if hasattr(cfg, "moe_groups") and getattr(cfg, "n_experts", 0):
-        cfg = dataclasses.replace(cfg, moe_groups=BATCH_AXIS_SIZE)
+        cfg = dataclasses.replace(cfg, moe_groups=nb)
+    if rules is not None:
+        sizes = mesh_axis_sizes(mesh)
+        if getattr(cfg, "n_experts", 0) >= sizes["data"] * sizes["model"]:
+            # fine-grained MoE (deepseek: 256e): one expert per intra-pod
+            # device, replicated across pods; capacity unsharded
+            rules = rules.with_overrides(experts=("data", "model"),
+                                         capacity=None)
+        if "fsdp" in variant:
+            # 2-D weight sharding (FSDP x TP): the embed weight dim on data
+            rules = rules.with_overrides(embed="data")
     B, S = shape["batch"], shape["seq"]
     if shape.kind in ("train", "prefill") and S >= 2048:
         # flash-style chunked attention: bounds the (B,H,c,T) logits buffer
         cfg = dataclasses.replace(cfg, attn_chunk=1024)
     if shape.kind in ("train", "prefill") and getattr(cfg, "n_experts", 0):
-        # JAX's all-to-all EP dispatch; one device runs moe_ffn for it
+        # the all-to-all EP dispatch (moe_ffn_ep) under a mesh
         cfg = dataclasses.replace(cfg, moe_impl="ep")
     name = f"{arch.name}:{shape.name}"
     vocab = ("int", 0, cfg.vocab_size)
+    bspec = None if mesh is None else _batch_spec(mesh)
+    common = dict(name=name, arch=arch.name, shape=shape.name, mesh=mesh)
 
     if shape.kind == "train":
-        params, _ = _abstract_init(mod.init_params, cfg)
+        params, axes = _abstract_init(mod.init_params, cfg)
         opt_cfg = _lm_opt_cfg(arch)
         opt = adamw_init(params, opt_cfg)
         batch = {"tokens": _sds((B, S), torch.int32),
@@ -191,30 +252,48 @@ def build_lm_job(arch: ArchDef, shape: ShapeSpec, variant: str = "base",
         n_micro = int(m.group(1)) if m else 1
 
         def loss_fn(p, b):
-            return mod.lm_loss(p, b["tokens"], b["targets"], cfg)
+            return mod.lm_loss(p, b["tokens"], b["targets"], cfg, rules)
 
+        psp = _specs(axes, rules)
+        osp = _opt_specs(params, axes, mesh, rules)
         return StepJob(
-            name=name, arch=arch.name, shape=shape.name,
             step_fn=make_train_step(loss_fn, opt_cfg, n_micro),
             args=(params, opt, batch),
             static_meta={"model_flops": _lm_model_flops(cfg, B * S),
                          "tokens": B * S, "kind": "train"},
             donate=(0, 1), init=_init_of(mod.init_params, cfg),
-            inputs={**OPT_ZEROS, "2/tokens": vocab, "2/targets": vocab})
+            inputs={**OPT_ZEROS, "2/tokens": vocab, "2/targets": vocab},
+            in_specs=None if rules is None else (
+                psp, osp, {k: P(bspec[0], None) for k in batch}),
+            out_specs=None if rules is None else (psp, osp, None),
+            **common)
 
     if shape.kind == "prefill":
-        params, _ = _abstract_init(mod.init_params, cfg)
+        params, axes = _abstract_init(mod.init_params, cfg)
         batch = {"tokens": _sds((B, S), torch.int32)}
 
         def step(params, batch):
-            return mod.prefill(params, batch["tokens"], cfg)
+            return mod.prefill(params, batch["tokens"], cfg, rules)
 
+        specs = {}
+        if rules is not None:
+            # the prefill cache lands in the decode layout: kv_seq on model
+            pc_rules = rules.with_overrides(kv_seq="model")
+            cache_ax = mod.cache_axes() if mod is ds_lib \
+                else tf_lib.cache_axes()
+            specs = dict(
+                in_specs=(_specs(axes, rules), {"tokens": P(bspec[0], None)}),
+                out_specs=(P(bspec[0], "model"),
+                           specs_for_tree(cache_ax, pc_rules)),
+                out_like=(_sds((B, L.pad_vocab(cfg.vocab_size)), cfg.dtype),
+                          mod.init_cache(cfg, B, S, dtype=cfg.dtype,
+                                         device=META)))
         return StepJob(
-            name=name, arch=arch.name, shape=shape.name, step_fn=step,
-            args=(params, batch),
+            step_fn=step, args=(params, batch),
             static_meta={"model_flops": _lm_model_flops(cfg, B * S) / 3,
                          "tokens": B * S, "kind": "prefill"},
-            init=_init_of(mod.init_params, cfg), inputs={"1/tokens": vocab})
+            init=_init_of(mod.init_params, cfg), inputs={"1/tokens": vocab},
+            **specs, **common)
 
     # decode: one new token against a seq-length cache
     if "w8" in variant and not getattr(cfg, "n_experts", 0) \
@@ -222,21 +301,33 @@ def build_lm_job(arch: ArchDef, shape: ShapeSpec, variant: str = "base",
         # weight-only fp8 serving: weights stored f8_e4m3, cast to bf16 at
         # use — halves the weight-read bytes that dominate decode
         cfg = dataclasses.replace(cfg, param_dtype=torch.float8_e4m3fn)
-    params, _ = _abstract_init(mod.init_params, cfg)
+    params, axes = _abstract_init(mod.init_params, cfg)
     cache = mod.init_cache(cfg, B, S, device=META)
+    dec_rules, specs = None, {}
+    if rules is not None:
+        dec_rules = rules.with_overrides(
+            act_seq=None,   # single-token steps: nothing to sequence-shard
+            kv_seq=("data", "model") if B == 1 else "model",
+            **({"batch": None, "queries": None} if B == 1 else {}))
+        cache_ax = mod.cache_axes() if mod is ds_lib \
+            else tf_lib.cache_axes()
+        csp = specs_for_tree(cache_ax, dec_rules)
+        specs = dict(in_specs=(specs_for_tree(axes, dec_rules), csp,
+                               P(None) if B == 1 else P(bspec[0]), P()),
+                     out_specs=(None, csp))
 
     def step(params, cache, tokens, pos):
-        return mod.decode_step(params, cache, tokens, pos, cfg)
+        return mod.decode_step(params, cache, tokens, pos, cfg, dec_rules)
 
     return StepJob(
-        name=name, arch=arch.name, shape=shape.name, step_fn=step,
+        step_fn=step,
         args=(params, cache, _sds((B,), torch.int32), _sds((), torch.int32)),
         static_meta={"model_flops": _lm_model_flops(cfg, B, decode=True,
                                                     kv_len=S),
                      "tokens": B, "kind": "decode"},
         donate=(1,), init=_init_of(mod.init_params, cfg),
         # the token at the cache's last slot: a step against a full cache
-        inputs={"2": vocab, "3": ("value", S - 1)})
+        inputs={"2": vocab, "3": ("value", S - 1)}, **specs, **common)
 
 
 def _init_of(init_fn, cfg):
@@ -252,15 +343,18 @@ def _init_of(init_fn, cfg):
 # ---------------------------------------------------------------------------
 
 def build_gnn_job(arch: ArchDef, shape: ShapeSpec,
-                  variant: str = "base") -> StepJob:
+                  variant: str = "base", mesh=None) -> StepJob:
     cfg = arch.make_config(shape)
-    # perf variants: bf16 message aggregation / bf16 feature storage
-    # (``shardnodes`` changes only shardings: nothing on one card)
+    rules = _rules_of(mesh)
+    # perf variants: bf16 message aggregation / node-sharded aggregation /
+    # bf16 feature storage
     if "bf16model" in variant:
         cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     elif "bf16" in variant:
         cfg = dataclasses.replace(cfg, msg_bf16=True)
-    params, _ = _abstract_init(gnn_lib.init_params, cfg)
+    if "shardnodes" in variant and rules is not None:
+        rules = rules.with_overrides(nodes=_batch_spec(mesh)[0])
+    params, axes = _abstract_init(gnn_lib.init_params, cfg)
     opt_cfg = OptimizerConfig(lr=1e-3)
     opt = adamw_init(params, opt_cfg)
     classes = ("int", 0, cfg.n_classes)
@@ -280,7 +374,7 @@ def build_gnn_job(arch: ArchDef, shape: ShapeSpec,
         def loss_fn(p, b):
             return gnn_lib.graph_classification_loss(
                 p, b["feats"], b["src"], b["dst"], b["graph_ids"], G,
-                b["labels"], cfg)
+                b["labels"], cfg, rules=rules)
         flops = 2.0 * (G * Ne * cfg.d_hidden * cfg.n_layers * 2
                        + G * Nn * (shape["d_feat"] * cfg.d_hidden
                                    + (cfg.n_layers * 2 - 1) * cfg.d_hidden ** 2)) * 3
@@ -309,17 +403,25 @@ def build_gnn_job(arch: ArchDef, shape: ShapeSpec,
         def loss_fn(p, b):
             return gnn_lib.node_classification_loss(
                 p, b["feats"], b["src"], b["dst"], b["labels"],
-                b["label_mask"], cfg, edge_mask=b["edge_mask"])
+                b["label_mask"], cfg, edge_mask=b["edge_mask"], rules=rules)
         flops = 2.0 * (Ne * cfg.d_hidden * cfg.n_layers * 2
                        + Nn * (shape["d_feat"] * cfg.d_hidden
                                + (cfg.n_layers * 2 - 1) * cfg.d_hidden ** 2)) * 3
 
+    specs = {}
+    if rules is not None:
+        psp = _specs(axes, rules)
+        osp = _opt_specs(params, axes, mesh, rules)
+        edges = P(_batch_spec(mesh)[0])
+        bsp = {k: edges if k in ("src", "dst", "edge_mask") else P()
+               for k in batch}
+        specs = dict(in_specs=(psp, osp, bsp), out_specs=(psp, osp, None))
     return StepJob(
         name=f"{arch.name}:{shape.name}", arch=arch.name, shape=shape.name,
         step_fn=make_train_step(loss_fn, opt_cfg), args=(params, opt, batch),
         static_meta={"model_flops": flops, "kind": "train"}, donate=(0, 1),
         init=_init_of(gnn_lib.init_params, cfg),
-        inputs={**OPT_ZEROS, **inputs})
+        inputs={**OPT_ZEROS, **inputs}, mesh=mesh, **specs)
 
 
 # ---------------------------------------------------------------------------
@@ -375,24 +477,33 @@ def _recsys_inputs(arch: ArchDef, cfg, prefix: str) -> dict:
             f"{prefix}/masked_pos": ("int", 0, cfg.seq_len)}
 
 
-def _recsys_loss(arch: ArchDef, cfg):
+def _recsys_axes(arch: ArchDef, cfg):
+    return {
+        "dlrm-rm2": rec_lib.dlrm_axes,
+        "dcn-v2": rec_lib.dcn_axes,
+        "bst": rec_lib.bst_axes,
+        "bert4rec": rec_lib.bert4rec_axes,
+    }[arch.name](cfg)
+
+
+def _recsys_loss(arch: ArchDef, cfg, rules=None):
     if arch.name == "dlrm-rm2":
         def f(p, b):
-            lg = rec_lib.dlrm_forward(p, b["dense"], b["sparse"], cfg)
+            lg = rec_lib.dlrm_forward(p, b["dense"], b["sparse"], cfg, rules)
             return rec_lib.bce_loss(lg, b["labels"])
     elif arch.name == "dcn-v2":
         def f(p, b):
-            lg = rec_lib.dcn_forward(p, b["dense"], b["sparse"], cfg)
+            lg = rec_lib.dcn_forward(p, b["dense"], b["sparse"], cfg, rules)
             return rec_lib.bce_loss(lg, b["labels"])
     elif arch.name == "bst":
         def f(p, b):
-            lg = rec_lib.bst_forward(p, b["hist"], b["target"], cfg)
+            lg = rec_lib.bst_forward(p, b["hist"], b["target"], cfg, rules)
             return rec_lib.bce_loss(lg, b["labels"])
     else:
         def f(p, b):
             return rec_lib.bert4rec_sampled_loss(
                 p, b["items"], b["masked_pos"], b["labels"], b["negatives"],
-                cfg)
+                cfg, rules)
     return f
 
 
@@ -429,26 +540,38 @@ def _bert4rec_retrieval_flops(cfg, N: int) -> float:
 
 
 def build_recsys_job(arch: ArchDef, shape: ShapeSpec,
-                     variant: str = "base") -> StepJob:
-    # ``repltable`` replicates the table across a mesh: nothing on one card
+                     variant: str = "base", mesh=None) -> StepJob:
     cfg = arch.make_config()
+    rules = _rules_of(mesh)
+    # perf variant: replicate the embedding table (serving-size tables fit
+    # per chip; no cross-shard gather on the hot path)
+    if "repltable" in variant and rules is not None:
+        rules = rules.with_overrides(table_rows=None)
     init_fn = _recsys_init(arch, cfg)
     params, _ = _abstract_init(init_fn, cfg)
+    axes = _recsys_axes(arch, cfg)
+    psp = _specs(axes, rules)
+    bspec = None if mesh is None else _batch_spec(mesh)
     B = shape["batch"]
     name = f"{arch.name}:{shape.name}"
     common = dict(name=name, arch=arch.name, shape=shape.name,
-                  init=_init_of(init_fn, cfg))
+                  init=_init_of(init_fn, cfg), mesh=mesh)
 
     if shape.kind == "train":
         opt_cfg = OptimizerConfig(lr=1e-3)
+        batch = _recsys_train_batch(arch, cfg, B)
+        specs = {}
+        if rules is not None:
+            osp = _opt_specs(params, axes, mesh, rules)
+            specs = dict(in_specs=(psp, osp, _leading(batch, B, bspec)),
+                         out_specs=(psp, osp, None))
         return StepJob(
-            step_fn=make_train_step(_recsys_loss(arch, cfg), opt_cfg),
-            args=(params, adamw_init(params, opt_cfg),
-                  _recsys_train_batch(arch, cfg, B)),
+            step_fn=make_train_step(_recsys_loss(arch, cfg, rules), opt_cfg),
+            args=(params, adamw_init(params, opt_cfg), batch),
             static_meta={"model_flops": _recsys_flops(arch, cfg, B, True),
                          "kind": "train"}, donate=(0, 1),
             inputs={**OPT_ZEROS, **_recsys_inputs(arch, cfg, "2")},
-            **common)
+            **specs, **common)
 
     if shape.kind == "serve":
         batch = _recsys_train_batch(arch, cfg, B)
@@ -462,25 +585,37 @@ def build_recsys_job(arch: ArchDef, shape: ShapeSpec,
                 else rec_lib.dcn_forward
 
             def step(params, batch):
-                return fwd(params, batch["dense"], batch["sparse"], cfg)
+                return fwd(params, batch["dense"], batch["sparse"], cfg,
+                           rules)
         elif arch.name == "bst":
             def step(params, batch):
                 return rec_lib.bst_forward(params, batch["hist"],
-                                           batch["target"], cfg)
+                                           batch["target"], cfg, rules)
         else:
             def step(params, batch):
-                h = rec_lib.bert4rec_encode(params, batch["items"], cfg)
+                h = rec_lib.bert4rec_encode(params, batch["items"], cfg,
+                                            rules)
                 return h[:, -1, :]   # serving representation
 
+        specs = {} if rules is None else dict(in_specs=(psp, {
+            k: P(bspec[0], *([None] * (v.dim() - 1)))
+            for k, v in batch.items()}))
         return StepJob(
             step_fn=torch.no_grad()(step), args=(params, batch),
             static_meta={"model_flops": _recsys_flops(arch, cfg, B, False),
                          "kind": "serve"},
-            inputs=_recsys_inputs(arch, cfg, "1"), **common)
+            inputs=_recsys_inputs(arch, cfg, "1"), **specs, **common)
 
     # retrieval: 1 query x 1e6 candidates (padded as JAX pads them to shard
     # evenly; the pad tail's scores are sliced off by the caller)
     N = _pad_count(shape["n_candidates"])
+    r_rules, corpus = None, None
+    if rules is not None:
+        corpus = tuple(a for a in ("pod", "data", "model")
+                       if a in mesh.mesh_dim_names)
+        # candidate-batch activations live on the corpus axes, not the
+        # training batch axes
+        r_rules = rules.with_overrides(corpus=corpus, batch=corpus)
     if arch.name in ("dlrm-rm2", "dcn-v2"):
         score_fn = (rec_lib.dlrm_score_candidates if arch.name == "dlrm-rm2"
                     else rec_lib.dcn_score_candidates)
@@ -488,38 +623,45 @@ def build_recsys_job(arch: ArchDef, shape: ShapeSpec,
         batch = {"dense": _sds((cfg.n_dense,), torch.float32),
                  "user_sparse": _sds((cfg.n_sparse - n_item,), torch.int32),
                  "cand_emb": _sds((N, n_item, cfg.embed_dim), torch.float32)}
+        bsp = {"dense": P(), "user_sparse": P(),
+               "cand_emb": P(corpus, None, None)}
 
         def step(params, batch):
             return score_fn(params, batch["dense"], batch["user_sparse"],
-                            batch["cand_emb"], cfg)
+                            batch["cand_emb"], cfg, r_rules)
     elif arch.name == "bst":
         batch = {"hist": _sds((cfg.seq_len,), torch.int32),
                  "cand": _sds((N,), torch.int32)}
+        bsp = {"hist": P(), "cand": P(corpus)}
 
         def step(params, batch):
             return rec_lib.bst_score_candidates(params, batch["hist"],
-                                                batch["cand"], cfg)
+                                                batch["cand"], cfg, r_rules)
     else:
         batch = {"items": _sds((1, cfg.seq_len), torch.int32),
                  "cand": _sds((N,), torch.int32)}
+        bsp = {"items": P(), "cand": P(corpus)}
 
         def step(params, batch):
             return rec_lib.bert4rec_score_candidates(
-                params, batch["items"], batch["cand"], cfg)
+                params, batch["items"], batch["cand"], cfg, r_rules)
 
     mflops = (_bert4rec_retrieval_flops(cfg, N) if arch.name == "bert4rec"
               else _recsys_flops(arch, cfg, N, False))
+    specs = {} if rules is None else dict(
+        in_specs=(psp, bsp), out_specs=P(corpus),
+        out_like=_sds((N,), torch.float32))
     return StepJob(
         step_fn=torch.no_grad()(step), args=(params, batch),
         static_meta={"model_flops": mflops, "kind": "retrieval"},
-        inputs=_recsys_inputs(arch, cfg, "1"), **common)
+        inputs=_recsys_inputs(arch, cfg, "1"), **specs, **common)
 
 
 # ---------------------------------------------------------------------------
 
 def build_guitar_serve_job(variant: str = "base",
                            n_items: int = 1_048_576, n_queries: int = 4096,
-                           degree: int = 48) -> StepJob:
+                           degree: int = 48, mesh=None) -> StepJob:
     """The paper's own serving step as a cell: corpus-sharded GUITAR search
     (per-shard search + global top-k merge) over a Twitch-scale corpus with
     the DeepFM measure. Variant 'sl2g' runs the evaluate-all baseline.
@@ -538,7 +680,8 @@ def build_guitar_serve_job(variant: str = "base",
 
     mode = "sl2g" if "sl2g" in variant else "guitar"
     scfg = SearchConfig(k=10, ef=64, budget=8, alpha=1.01, mode=mode)
-    Pn = CORPUS_AXIS_SIZE
+    # one corpus partition per device of the mesh's model axis
+    Pn = 1 if mesh is None else mesh_axis_sizes(mesh)["model"]
     Np = n_items // Pn
     D = mcfg.vec_dim
     args = (
@@ -554,6 +697,12 @@ def build_guitar_serve_job(variant: str = "base",
     F = 2 * (64 * 64 + 64 * 64 + 64 + mcfg.fm_dim)
     iters = 2 * scfg.ef
     per_q = iters * (2 + (scfg.budget if mode == "guitar" else degree)) * F
+    specs = {}
+    if mesh is not None:
+        specs = dict(in_specs=(_repl_like(mparams), P("model", None, None),
+                               P("model", None, None), P("model"),
+                               P("model", None),
+                               P(_batch_spec(mesh)[0], None)))
     return StepJob(
         name=f"guitar-serve:{mode}", arch="guitar-serve", shape=mode,
         step_fn=fn, args=args,
@@ -561,21 +710,23 @@ def build_guitar_serve_job(variant: str = "base",
                      "kind": "serve",
                      "note": "corpus-sharded search; per-shard sub-search"},
         init=_init_of(deepfm_lib.init_measure, mcfg),
-        inputs={"1": ("graph", degree // 2)})
+        inputs={"1": ("graph", degree // 2)}, mesh=mesh, **specs)
 
 
 def build_job(arch_name: str, shape_name: str, variant: str = "base",
-              n_layers: Optional[int] = None) -> StepJob:
+              n_layers: Optional[int] = None, mesh=None) -> StepJob:
+    """The cell's job; ``mesh`` (a DeviceMesh) gives it JAX's shardings."""
     if arch_name == "guitar-serve":
         # shape selects the searcher: 'guitar' (gradient-pruned) or 'sl2g'
-        return build_guitar_serve_job(variant=shape_name)
+        return build_guitar_serve_job(variant=shape_name, mesh=mesh)
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
     if arch.family == "lm":
-        return build_lm_job(arch, shape, variant, n_layers=n_layers)
+        return build_lm_job(arch, shape, variant, n_layers=n_layers,
+                            mesh=mesh)
     if arch.family == "gnn":
-        return build_gnn_job(arch, shape, variant)
-    return build_recsys_job(arch, shape, variant)
+        return build_gnn_job(arch, shape, variant, mesh=mesh)
+    return build_recsys_job(arch, shape, variant, mesh=mesh)
 
 
 def list_cells() -> list:

@@ -14,8 +14,11 @@ group-limited routing and no balancing bias).
   returns ``(params, axes)``. The layers run in a Python loop, dense ones
   first, each under ``torch.utils.checkpoint`` when ``cfg.remat`` and
   autograd is recording (JAX's ``scan`` + remat: the same numbers).
-- No ``rules=``: on one device every JAX ``constrain`` is the identity,
-  and ``moe_impl="ep"`` takes ``moe_ffn`` as JAX does without a mesh.
+- Every entry point takes ``rules=`` and calls ``sharding.constrain`` at
+  JAX's points (see ``models/transformer.py``): the identity without a
+  mesh, a redistribution of DTensors under one. ``moe_impl="ep"`` takes
+  ``moe.moe_ffn_ep`` under a mesh and ``moe_ffn`` without one, as in JAX;
+  the decode step's MoE is ``moe_ffn`` in one group either way.
 
 Attention, in two forms. Both are plain products: the JAX module calls no
 Pallas kernel, and neither MLA form fits the port's attention kernels
@@ -47,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Iterator, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +59,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding import (ShardingRules, constrain, gather_inner,
+                                  gather_inner_grad, is_dtensor, mesh_scope,
+                                  per_shard)
 from repro_torch.tree import tree_map
 
 
@@ -82,8 +88,8 @@ class DeepSeekConfig:
     dtype: Any = torch.bfloat16
     capacity_factor: float = 1.25
     moe_groups: int = 16
-    moe_impl: str = "scatter"   # scatter | ep (ep needs a mesh: on one
-                                # device both run moe_ffn, as in JAX)
+    moe_impl: str = "scatter"   # scatter | ep (all-to-all over the mesh;
+                                # without one both run moe_ffn)
     attn_chunk: int = 0         # >0: chunked-causal attention
     use_mtp: bool = True
     mtp_weight: float = 0.1
@@ -209,6 +215,11 @@ def init_params(generator: torch.Generator, cfg: DeepSeekConfig,
 # MLA attention
 # ---------------------------------------------------------------------------
 
+# the dims of the batch and the heads that ``sharding.per_shard`` runs the
+# absorbed attention over: (B, S, H, .) activations, (B, T, .) latent
+# caches, (R, H, .) halves of wkv_b
+_BH, _B, _RH = {"batch": 0, "heads": 2}, {"batch": 0}, {"heads": 1}
+
 def _rope(cfg, positions):
     """``layers.rope_angles`` at the rope width, once per call: every
     layer's q_rope and k_rope are rotated by them."""
@@ -233,18 +244,23 @@ def _mla_latent(cfg, p, x, rope):
     return c, L.rotate(kv[..., None, R:], *rope)
 
 
-def _mla_train(cfg, p, x, rope):
+def _mla_train(cfg, p, x, rope, rules=None):
     """Full (non-absorbed) MLA for train and prefill. x: (B, S, d).
     Returns (out (B, S, d), (c (B, S, kv_lora), kr (B, S, rr)))."""
     B, S, _ = x.shape
     H = cfg.n_heads
     qk, rr, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if S > 1:
+        # SP gather point (Megatron SP): projections consume the full seq
+        x = constrain(x, rules, "batch", None, None)
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
     c, kr = _mla_latent(cfg, p, x, rope)
     kvu = (c @ p["wkv_b"]).reshape(B, S, H, qk + vh)
     k = torch.cat([kvu[..., :qk], kr.expand(B, S, H, rr)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     v = kvu[..., qk:]
+    qf = constrain(qf, rules, "batch", "seq", "heads", None)
+    k = constrain(k, rules, "batch", "seq", "heads", None)
     scale = 1.0 / math.sqrt(qk + rr)     # q.k width 192 (v is 128 wide)
     if cfg.attn_chunk and S > cfg.attn_chunk:
         out = L.chunked_causal_mha(qf, k, v, cfg.attn_chunk, scale=scale)
@@ -252,10 +268,12 @@ def _mla_train(cfg, p, x, rope):
         out = L.mha_attention(qf, k, v,
                               mask=L.causal_mask(S, device=x.device),
                               scale=scale)
+    out = constrain(out, rules, "batch", "seq", "heads", None)
     return out.reshape(B, S, H * vh) @ p["wo"], (c, kr[:, :, 0])
 
 
-def _mla_decode(cfg, p, x, cache_c, cache_kr, slot, rope, key_ok):
+def _mla_decode(cfg, p, x, cache_c, cache_kr, slot, rope, key_ok,
+                rules=None):
     """Absorbed MLA decode. x: (B, 1, d); cache_c: (B, T, kv_lora),
     cache_kr: (B, T, rr), both written at ``slot`` (a one-element int64
     tensor) in place; ``key_ok``: the (1, T) mask of keys at positions up
@@ -271,53 +289,77 @@ def _mla_decode(cfg, p, x, cache_c, cache_kr, slot, rope, key_ok):
     cd = x.dtype
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
     c_new, kr_new = _mla_latent(cfg, p, x, rope)
-    cache_c.index_copy_(1, slot, c_new.to(cache_c.dtype))
-    cache_kr.index_copy_(1, slot, kr_new[:, :, 0].to(cache_kr.dtype))
+    L.write_at(cache_c, 1, slot, c_new.to(cache_c.dtype))
+    L.write_at(cache_kr, 1, slot, kr_new[:, :, 0].to(cache_kr.dtype))
 
     # absorb: q_nope (B,S,H,qk) x wkv_b's key half (R,H,qk) -> (B,S,H,R)
     wkv_b = p["wkv_b"].reshape(R, H, qk + vh)
     w_k, w_v = wkv_b[..., :qk], wkv_b[..., qk:]
-    q_abs = torch.einsum("bshq,rhq->bshr", q_nope, w_k)
+    q_abs = per_shard(lambda q_, w_: torch.einsum("bshq,rhq->bshr", q_, w_),
+                      (q_nope, w_k), (_BH, _RH), _BH)
+    q_abs = constrain(q_abs, rules, "batch", "seq", "heads", None)
     at = torch.promote_types(cd, cache_c.dtype)
     scale = 1.0 / math.sqrt(qk + rr)
-    logits = (torch.einsum("bshr,btr->bhst", q_abs.to(at), cache_c.to(at))
-              + torch.einsum("bshr,btr->bhst", q_rope.to(at),
-                             cache_kr.to(at))).float() * scale
-    logits = torch.where(key_ok, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(cache_c.dtype)
-    out_lat = torch.einsum("bhst,btr->bshr", probs, cache_c)   # (B,S,H,R)
-    out = torch.einsum("bshr,rhv->bshv", out_lat.to(at), w_v.to(at))
-    return out.to(cd).reshape(B, S, H * vh) @ p["wo"]
+
+    def attend(q_abs, q_rope, cache_c, cache_kr, w_v, key_ok):
+        logits = (torch.einsum("bshr,btr->bhst", q_abs.to(at),
+                               cache_c.to(at))
+                  + torch.einsum("bshr,btr->bhst", q_rope.to(at),
+                                 cache_kr.to(at))).float() * scale
+        logits = torch.where(key_ok, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(cache_c.dtype)
+        out_lat = torch.einsum("bhst,btr->bshr", probs, cache_c)  # (B,S,H,R)
+        return torch.einsum("bshr,rhv->bshv", out_lat.to(at), w_v.to(at))
+
+    # per rank's batch and head shards under a mesh (the cache gathered
+    # along kv_seq first: every head reads all of it)
+    out = per_shard(attend, (q_abs, q_rope, cache_c, cache_kr, w_v, key_ok),
+                    (_BH, _BH, _B, _B, _RH, {}), _BH)
+    out = constrain(out.to(cd), rules, "batch", "seq", "heads", None)
+    return out.reshape(B, S, H * vh) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
 # Blocks / forward
 # ---------------------------------------------------------------------------
 
-def _dense_ffn(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def _dense_ffn(p, x, rules=None):
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = constrain(h, rules, "batch", "seq", "mlp")
+    return h @ p["w_down"]
 
 
-def _ffn(cfg, p, x, is_moe, n_groups):
+def _ffn(cfg, p, x, is_moe, n_groups, rules=None, ep=False):
+    if is_moe and ep and cfg.moe_impl == "ep" and rules is not None \
+            and rules.mesh is not None:     # it takes x in its own layout
+        return moe_lib.moe_ffn_ep(p, x, n_experts=cfg.n_experts,
+                                  top_k=cfg.moe_top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  rules=rules, router_type="sigmoid")
+    x = gather_inner(x)
     if not is_moe:
-        return _dense_ffn(p, x)
+        return _dense_ffn(p, x, rules)
     return moe_lib.moe_ffn(p, x, n_experts=cfg.n_experts,
                            top_k=cfg.moe_top_k,
                            capacity_factor=cfg.capacity_factor,
-                           n_groups=n_groups, router_type="sigmoid")
+                           n_groups=n_groups, rules=rules,
+                           router_type="sigmoid")
 
 
-def _block(cfg, x, lp, rope, is_moe):
+def _block(cfg, x, lp, rope, is_moe, rules=None):
     """One train/prefill layer: (x out, the layer's latents (c, kr))."""
     h = L.rms_norm(x, lp["norm"]["ln1"], cfg.norm_eps)
-    attn_out, latents = _mla_train(cfg, lp["attn"], h, rope)
-    x = x + attn_out
+    attn_out, latents = _mla_train(cfg, lp["attn"], h, rope, rules)
+    x = x + gather_inner_grad(attn_out)
     h = L.rms_norm(x, lp["norm"]["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, lp["mlp"], h, is_moe, cfg.moe_groups), latents
+    y = gather_inner_grad(_ffn(cfg, lp["mlp"], h, is_moe, cfg.moe_groups,
+                               rules, ep=True))
+    # sequence-parallel residual handoff between blocks
+    return constrain(x + y, rules, "batch", "act_seq", None), latents
 
 
-def _train_block(x, lp, rope, cfg, is_moe):
-    return _block(cfg, x, lp, rope, is_moe)[0]
+def _train_block(x, lp, rope, cfg, is_moe, rules=None):
+    return _block(cfg, x, lp, rope, is_moe, rules)[0]
 
 
 def layers(params: dict, cfg: DeepSeekConfig
@@ -340,38 +382,46 @@ def _positions(tokens):
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: DeepSeekConfig,
+            rules: Optional[ShardingRules] = None,
             return_hidden: bool = False):
     """Training forward: tokens (B, S) -> logits (B, S, V_pad), with
     ``return_hidden`` also the final-normed hidden states (B, S, d)."""
-    x = _embed(params, tokens, cfg)
-    rope = _rope(cfg, _positions(tokens))
-    remat = cfg.remat and torch.is_grad_enabled()
-    for lp, is_moe in layers(params, cfg):
-        if remat:
-            x = checkpoint(_train_block, x, lp, rope, cfg, is_moe,
-                           use_reentrant=False)
-        else:
-            x = _train_block(x, lp, rope, cfg, is_moe)
-    h_final = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.mask_pad_vocab(h_final @ params["lm_head"], cfg.vocab_size)
-    if return_hidden:
-        return logits, h_final
-    return logits
+    with mesh_scope(rules):
+        x = constrain(_embed(params, tokens, cfg), rules,
+                      "batch", "act_seq", None)
+        rope = _rope(cfg, _positions(tokens))
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp, is_moe in layers(params, cfg):
+            if remat:
+                x = checkpoint(_train_block, x, lp, rope, cfg, is_moe, rules,
+                               use_reentrant=False)
+            else:
+                x = _train_block(x, lp, rope, cfg, is_moe, rules)
+        h_final = L.rms_norm(gather_inner(x), params["final_norm"],
+                             cfg.norm_eps)
+        logits = L.mask_pad_vocab(h_final @ params["lm_head"],
+                                  cfg.vocab_size)
+        logits = constrain(logits, rules, "batch", "seq", "vocab")
+        if return_hidden:
+            return logits, h_final
+        return logits
 
 
 def mtp_logits(params: dict, hidden: torch.Tensor, next_tokens: torch.Tensor,
-               cfg: DeepSeekConfig) -> torch.Tensor:
+               cfg: DeepSeekConfig,
+               rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """MTP module: predict token t+2 from (hidden_t, emb(token_{t+1})),
     through the model's ``embed`` and ``lm_head``."""
-    p = params["mtp"]
-    emb = _embed(params, next_tokens, cfg)
-    x = torch.cat([hidden, emb], dim=-1) @ p["proj"]
-    rope = _rope(cfg, _positions(next_tokens))
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + _mla_train(cfg, p["attn"], h, rope)[0]
-    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + _dense_ffn(p, h)
-    return L.mask_pad_vocab(x @ params["lm_head"], cfg.vocab_size)
+    with mesh_scope(rules):
+        p = params["mtp"]
+        emb = _embed(params, next_tokens, cfg)
+        x = torch.cat([gather_inner(hidden), emb], dim=-1) @ p["proj"]
+        rope = _rope(cfg, _positions(next_tokens))
+        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + _mla_train(cfg, p["attn"], h, rope, rules)[0]
+        h = gather_inner(L.rms_norm(x, p["norm2"], cfg.norm_eps))
+        x = x + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+        return L.mask_pad_vocab(x @ params["lm_head"], cfg.vocab_size)
 
 
 def _nll(logits, targets):
@@ -380,41 +430,64 @@ def _nll(logits, targets):
 
 
 def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: DeepSeekConfig) -> torch.Tensor:
+            cfg: DeepSeekConfig,
+            rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """The next-token loss, plus ``mtp_weight`` times the MTP head's loss
     on the targets rolled one further (the last position wraps, as
     JAX's ``roll``), each in float32 over the vocab-masked logits."""
     if not cfg.use_mtp:
-        return _nll(forward(params, tokens, cfg), targets)
-    logits, hidden = forward(params, tokens, cfg, return_hidden=True)
-    loss = _nll(logits, targets)
-    t2 = torch.roll(targets, -1, dims=1)
+        logits = forward(params, tokens, cfg, rules)
+        with mesh_scope(rules):
+            return _nll(logits, targets)
+    logits, hidden = forward(params, tokens, cfg, rules, return_hidden=True)
     if cfg.remat and torch.is_grad_enabled():
-        mtp = checkpoint(mtp_logits, params, hidden, targets, cfg,
+        mtp = checkpoint(mtp_logits, params, hidden, targets, cfg, rules,
                          use_reentrant=False)
     else:
-        mtp = mtp_logits(params, hidden, targets, cfg)
-    return loss + cfg.mtp_weight * _nll(mtp, t2)
+        mtp = mtp_logits(params, hidden, targets, cfg, rules)
+    with mesh_scope(rules):
+        loss = _nll(logits, targets)
+        # rolled along the sequence on each rank's rows (no DTensor rule
+        # for roll in every torch release)
+        t2 = per_shard(lambda t: torch.roll(t, -1, dims=1), (targets,),
+                       (_B,), _B)
+        return loss + cfg.mtp_weight * _nll(mtp, t2)
 
 
 @torch.no_grad()
-def prefill(params: dict, tokens: torch.Tensor, cfg: DeepSeekConfig
+def prefill(params: dict, tokens: torch.Tensor, cfg: DeepSeekConfig,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Prefill: tokens (B, S) -> (next-token logits (B, V_pad), the latent
     cache {'c': (L, B, S, kv_lora), 'kr': (L, B, S, rr)} in the compute
     dtype). The latents are those of each layer's normalised input, the
-    ones its attention used."""
-    B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    rope = _rope(cfg, _positions(tokens))
-    cache = {"c": x.new_empty((cfg.n_layers, B, S, cfg.kv_lora_rank)),
-             "kr": x.new_empty((cfg.n_layers, B, S, cfg.qk_rope_head_dim))}
-    for i, (lp, is_moe) in enumerate(layers(params, cfg)):
-        x, (c, kr) = _block(cfg, x, lp, rope, is_moe)
-        cache["c"][i].copy_(c)
-        cache["kr"][i].copy_(kr)
-    x = L.rms_norm(x[:, -1, :], params["final_norm"], cfg.norm_eps)
-    return L.mask_pad_vocab(x @ params["lm_head"], cfg.vocab_size), cache
+    ones its attention used. Under a mesh the cache is the layers'
+    DTensors stacked."""
+    with mesh_scope(rules):
+        B, S = tokens.shape
+        x = constrain(_embed(params, tokens, cfg), rules,
+                      "batch", "act_seq", None)
+        rope = _rope(cfg, _positions(tokens))
+        sharded = is_dtensor(x)
+        lats = []
+        if not sharded:
+            cache = {"c": x.new_empty((cfg.n_layers, B, S,
+                                       cfg.kv_lora_rank)),
+                     "kr": x.new_empty((cfg.n_layers, B, S,
+                                        cfg.qk_rope_head_dim))}
+        for i, (lp, is_moe) in enumerate(layers(params, cfg)):
+            x, (c, kr) = _block(cfg, x, lp, rope, is_moe, rules)
+            if sharded:
+                lats.append((c, kr))
+            else:
+                cache["c"][i].copy_(c)
+                cache["kr"][i].copy_(kr)
+        if sharded:
+            cache = {"c": torch.stack([c for c, _ in lats]),
+                     "kr": torch.stack([kr for _, kr in lats])}
+        x = L.rms_norm(x[:, -1, :], params["final_norm"], cfg.norm_eps)
+        logits = L.mask_pad_vocab(x @ params["lm_head"], cfg.vocab_size)
+        return constrain(logits, rules, "batch", "vocab"), cache
 
 
 def init_cache(cfg: DeepSeekConfig, batch: int, max_len: int,
@@ -434,24 +507,28 @@ def cache_axes() -> dict:
 
 @torch.no_grad()
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
-                cfg: DeepSeekConfig) -> Tuple[torch.Tensor, dict]:
+                cfg: DeepSeekConfig,
+                rules: Optional[ShardingRules] = None
+                ) -> Tuple[torch.Tensor, dict]:
     """One decode step (absorbed MLA). tokens: (B,) ids; pos: the current
     length, an int or a one-element integer tensor (on the cache's
     device, a loop never syncs the host). Writes each layer's latent and
     rope key into ``cache`` at ``pos`` in place and returns (logits (B,
     V_pad), cache). The MoE layers route the B tokens in one group."""
-    B = tokens.shape[0]
-    dev = cache["c"].device
-    slot = torch.as_tensor(pos, device=dev).reshape(1).to(torch.int64)
-    x = _embed(params, tokens, cfg)[:, None, :]                  # (B, 1, d)
-    rope = _rope(cfg, slot.reshape(1, 1).expand(B, 1))
-    T = cache["c"].shape[2]
-    key_ok = torch.arange(T, device=dev)[None, :] <= slot[:, None]
-    for i, (lp, is_moe) in enumerate(layers(params, cfg)):
-        h = L.rms_norm(x, lp["norm"]["ln1"], cfg.norm_eps)
-        x = x + _mla_decode(cfg, lp["attn"], h, cache["c"][i],
-                            cache["kr"][i], slot, rope, key_ok)
-        h = L.rms_norm(x, lp["norm"]["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp["mlp"], h, is_moe, 1)
-    x = L.rms_norm(x[:, 0, :], params["final_norm"], cfg.norm_eps)
-    return L.mask_pad_vocab(x @ params["lm_head"], cfg.vocab_size), cache
+    with mesh_scope(rules):
+        B = tokens.shape[0]
+        dev = cache["c"].device
+        slot = torch.as_tensor(pos, device=dev).reshape(1).to(torch.int64)
+        x = _embed(params, tokens, cfg)[:, None, :]              # (B, 1, d)
+        rope = _rope(cfg, slot.reshape(1, 1).expand(B, 1))
+        T = cache["c"].shape[2]
+        key_ok = torch.arange(T, device=dev)[None, :] <= slot[:, None]
+        for i, (lp, is_moe) in enumerate(layers(params, cfg)):
+            h = L.rms_norm(x, lp["norm"]["ln1"], cfg.norm_eps)
+            x = x + _mla_decode(cfg, lp["attn"], h, cache["c"][i],
+                                cache["kr"][i], slot, rope, key_ok, rules)
+            h = L.rms_norm(x, lp["norm"]["ln2"], cfg.norm_eps)
+            x = x + _ffn(cfg, lp["mlp"], h, is_moe, 1, rules)
+        x = L.rms_norm(x[:, 0, :], params["final_norm"], cfg.norm_eps)
+        return (L.mask_pad_vocab(x @ params["lm_head"], cfg.vocab_size),
+                cache)

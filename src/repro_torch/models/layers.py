@@ -210,12 +210,62 @@ def segment_sum_rows(g: torch.Tensor, ids: torch.Tensor,
     return out.index_copy_(0, uniq, sums)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Row gather (rows, d) x (...,) -> (..., d) with the deterministic
-    backward of ``_GatherRows``."""
+    backward of ``_GatherRows``. A DTensor table (rows sharded over a mesh)
+    is gathered by ``F.embedding``, whose DTensor rule masks each rank's
+    rows and sums the partial results (here, where the mask is), as GSPMD's
+    sharded gather does."""
+    if _is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+        out = F.embedding(ids.long(), table)
+        # the masked partial sums are reduced here, where their mask is
+        return out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
     flat = ids.reshape(-1).long()
     return _GatherRows.apply(table, flat).reshape(*ids.shape,
                                                   table.shape[1])
+
+
+def write_at(cache: torch.Tensor, dim: int, slot: torch.Tensor,
+             value: torch.Tensor) -> None:
+    """``cache.index_copy_(dim, slot, value)`` in place, ``slot`` a
+    one-element int64 tensor on the device (no host sync). A DTensor cache
+    whose ``dim`` is sharded is written rank by rank, as XLA writes a
+    ``dynamic_update_slice`` into a sharded dim: each rank takes ``value``
+    in the cache's other placements, moves ``slot`` to its shard's offset
+    and keeps its old entry where the slot lies outside its shard."""
+    if not _is_dtensor(cache):
+        cache.index_copy_(dim, slot, value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in cache.placements]
+    if not _is_dtensor(value):
+        from torch.distributed.tensor import DTensor
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    v = value.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    n = shape[dim]
+    if n == 0:
+        return
+    sl = slot.to_local() if _is_dtensor(slot) else slot
+    at = sl - offset[dim]
+    inside = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    keep = local.index_select(dim, at)
+    local.index_copy_(dim, at, torch.where(inside, v, keep))
 
 
 # ml_dtypes arrays (numpy has no such dtypes of its own) -> (an integer
@@ -242,12 +292,27 @@ def tensor_from_jax(a, device="cuda") -> torch.Tensor:
 # Attention (GQA): counterparts of the JAX model layers
 # ---------------------------------------------------------------------------
 
+# attention is independent per batch row and per head: under a mesh it
+# runs on each rank's (batch, heads) shard (``sharding.per_shard``)
+_BH = {"batch": 0, "heads": 2}
+
+
+def _sharded(x) -> bool:
+    return _is_dtensor(x)
+
+
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, T, H, hd) (GQA pre-expanded). Logits in
     float32, masked entries set to -1e30, probabilities cast to
-    ``v.dtype``; returns (B, S, H, hd) in v's dtype."""
+    ``v.dtype``; returns (B, S, H, hd) in v's dtype. DTensor arguments
+    run on each rank's batch and head shards."""
+    if _sharded(q) or _sharded(k):
+        from repro_torch.sharding import per_shard
+        return per_shard(lambda q_, k_, v_, m_: mha_attention(
+            q_, k_, v_, m_, scale), (q, k, v, mask),
+            (_BH, _BH, _BH, {} if mask is not None else None), _BH)
     hd = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     logits = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
@@ -264,6 +329,10 @@ def chunked_causal_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to (B, H, chunk, T). Forward only (a Python loop over chunks, where
     the JAX layer scans with rematerialization). S must be a multiple of
     ``chunk``, as there."""
+    if _sharded(q) or _sharded(k):
+        from repro_torch.sharding import per_shard
+        return per_shard(lambda q_, k_, v_: chunked_causal_mha(
+            q_, k_, v_, chunk, scale), (q, k, v), (_BH, _BH, _BH), _BH)
     B, S, H, hd = q.shape
     T = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -293,7 +362,15 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: Optional[float] = None) -> torch.Tensor:
     """Grouped-query attention with k/v kept at KV heads. q: (B, S, H, hd);
     k/v: (B, T, KV, hd); mask broadcastable to (B, KV, G, S, T), e.g.
-    (S, T) or (B, 1, 1, S, T). Returns (B, S, H, hd) in v's dtype."""
+    (S, T) or (B, 1, 1, S, T). Returns (B, S, H, hd) in v's dtype.
+    DTensor arguments run on each rank's batch shard."""
+    if _sharded(q) or _sharded(k):
+        from repro_torch.sharding import per_shard
+        b = {"batch": 0}
+        mrole = ({"batch": 0} if mask is not None and mask.ndim == 5
+                 and mask.shape[0] > 1 else {}) if mask is not None else None
+        return per_shard(lambda q_, k_, v_, m_: gqa_attention(
+            q_, k_, v_, m_, scale), (q, k, v, mask), (b, b, b, mrole), b)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV

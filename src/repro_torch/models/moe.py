@@ -13,19 +13,28 @@ kernel, and neither does this one).
      router weights.
 
 Nothing syncs the host: the keep mask selects rows by index arithmetic,
-never by a boolean index. ``moe_ffn_ep`` (expert parallelism by
-all-to-all over a mesh) is not ported: on one device JAX's
-``_mlp_block`` takes ``moe_ffn`` as well.
+never by a boolean index.
+
+Under a mesh (``rules=mesh_rules(mesh)``, DTensor tokens and weights)
+``moe_ffn`` routes on the gathered tokens (GSPMD replicates the token
+buffer the same way), constrains the (E, C, d) buffer and the expert
+activations to ``("experts", "capacity", None)`` as JAX does, and runs the
+expert products on DTensors. ``moe_ffn_ep`` is JAX's expert-parallel
+dispatch: each rank routes its own tokens, and two all-to-alls over the
+EP group (``dist.all_to_all_single``) carry the (D, E_local·Ce, d) send
+and return buffers, as JAX's ``shard_map`` body does.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import (P, ShardingRules, constrain, is_dtensor,
+                                  mesh_axis_sizes, placements)
 from repro_torch.utils import round_up
 
 EXPERT_PAD = 16  # expert count padded to a multiple of the TP axis
@@ -150,36 +159,203 @@ def dispatch(p: dict, xt: torch.Tensor, *, n_experts: int, top_k: int,
     return buf[:E * C].reshape(E, C, d), slot, weights, keep, expert_idx
 
 
-def expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
+def expert_ffn(p: dict, buf: torch.Tensor,
+               rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """SwiGLU of every expert over its (C, d) slots: (E, C, d) -> (E, C,
     d), the weights cast to the buffer's dtype."""
     cd = buf.dtype
     h = F.silu(torch.bmm(buf, p["w_gate"].to(cd))) \
         * torch.bmm(buf, p["w_up"].to(cd))
+    h = constrain(h, rules, "experts", "capacity", None)
     return torch.bmm(h, p["w_down"].to(cd))
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a DTensor on every rank (a plain tensor as it is)."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, n_groups: int = 16,
+            rules: Optional[ShardingRules] = None,
             router_type: str = "softmax") -> torch.Tensor:
-    """x: (B, S, d) or (T, d). Returns the same shape."""
+    """x: (B, S, d) or (T, d). Returns the same shape. A DTensor ``x`` is
+    routed on every rank over the gathered tokens, and the buffer and
+    expert products run as DTensors under ``rules``."""
     orig_shape = x.shape
     d = x.shape[-1]
+    sharded = is_dtensor(x)
     xt = x.reshape(-1, d)
     T = xt.shape[0]
     K = top_k
+    route_p = {"router": _replicated(p["router"]),
+               "w_gate": p["w_gate"]}
     buf, slot, weights, keep, _ = dispatch(
-        p, xt, n_experts=n_experts, top_k=K, capacity_factor=capacity_factor,
-        n_groups=n_groups, router_type=router_type)
-    out = expert_ffn(p, buf)
+        route_p, _replicated(xt), n_experts=n_experts, top_k=K,
+        capacity_factor=capacity_factor, n_groups=n_groups,
+        router_type=router_type)
+    if sharded:
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = x.device_mesh
+        buf = DTensor.from_local(buf, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    buf = constrain(buf, rules, "experts", "capacity", None)
+    out = expert_ffn(p, buf, rules)
+    out = constrain(out, rules, "experts", "capacity", None)
     E, C = out.shape[0], out.shape[1]
     # combine: gather back to token order, weighted sum over the K slots
-    y = out.reshape(E * C, d)[slot]                                  # (T*K, d)
+    y = _replicated(out).reshape(E * C, d)[slot]                     # (T*K, d)
     y = y * (weights.reshape(-1)[:, None] * keep[:, None]).to(y.dtype)
     y = y.reshape(T, K, d).sum(dim=1)
+    if sharded:
+        y = DTensor.from_local(y, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
     if "shared_gate" in p:
         cd = xt.dtype
         hs = F.silu(xt @ p["shared_gate"].to(cd)) \
             * (xt @ p["shared_up"].to(cd))
         y = y + hs @ p["shared_down"].to(cd)
     return y.reshape(orig_shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all_single`` of equal dim-0 splits over ``group``; its
+    adjoint is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g, ctx.group), None
+
+
+def ep_layout(mesh, E_w: int):
+    """JAX's EP layout: (ep_axes, D, E_pad, E_local). The EP group is
+    ("data", "model") when the weights' E_w experts reach |data|·|model|,
+    else ("model",); the pod axis stays pure data parallelism."""
+    sizes = mesh_axis_sizes(mesh)
+    dm, dd = sizes["model"], sizes["data"]
+    ep_axes = ("data", "model") if E_w >= dm * dd else ("model",)
+    D = math.prod(sizes[a] for a in ep_axes)
+    E_pad = round_up(E_w, D)
+    return ep_axes, D, E_pad, E_pad // D
+
+
+def _ep_group(mesh, ep_axes):
+    """The process group of this rank's EP group (ranks in the group's
+    row-major order: data-major, as JAX orders a tuple of axes)."""
+    if len(ep_axes) == 1:
+        return mesh.get_group(ep_axes[0])
+    return mesh[ep_axes]._flatten().get_group()
+
+
+def _ep_rank(mesh, ep_axes) -> int:
+    names = list(mesh.mesh_dim_names)
+    sizes = mesh_axis_sizes(mesh)
+    r = 0
+    for a in ep_axes:
+        r = r * sizes[a] + mesh.get_local_rank(names.index(a))
+    return r
+
+
+def _local_experts(w: torch.Tensor, mesh, ep_axes, E_pad: int,
+                   E_local: int, r: int) -> torch.Tensor:
+    """This rank's E_local experts of ``w`` (E_w, ...) padded with zero
+    experts to E_pad and split over the EP group."""
+    E_w = w.shape[0]
+    if E_pad == E_w and is_dtensor(w):
+        want = placements(P(ep_axes), mesh, w.ndim)
+        return w.redistribute(mesh, want).to_local()
+    full = _replicated(w)
+    if E_pad > E_w:
+        full = F.pad(full, (0, 0) * (full.ndim - 1) + (0, E_pad - E_w))
+    return full[r * E_local:(r + 1) * E_local]
+
+
+def moe_ffn_ep(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+               capacity_factor: float = 1.25,
+               rules: Optional[ShardingRules] = None,
+               router_type: str = "softmax") -> torch.Tensor:
+    """Expert-parallel MoE with explicit all-to-all dispatch: JAX's
+    ``moe_ffn_ep`` (its ``shard_map`` body on each rank's shards).
+
+    Layout contract (the framework's default rules):
+      x: (B, S, d) with B sharded over the batch axes (pod, data) and S
+         over model when S > 1: every rank of the EP group holds distinct
+         tokens;
+      experts: padded to a multiple of the EP group size D and split over
+         the group (padding experts' router logits are -1e30, then
+         ``mask_pad_experts``);
+      EP group = ("data", "model") when E >= |data|x|model| else
+         ("model",); the pod axis stays pure data parallelism.
+    Each rank routes its Tl tokens with Ce = max(1, int(capacity_factor
+    · Tl · K / E_pad)) slots per expert, sends each expert's slots to the
+    rank that holds it, runs its E_local experts over the D·Ce tokens it
+    receives, sends the results back, and adds the shared experts of its
+    own tokens. Returns a DTensor in x's layout."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if rules is None or rules.mesh is None:
+        raise ValueError("moe_ffn_ep needs rules with a mesh")
+    mesh = rules.mesh
+    B, S, d = x.shape
+    E, K = n_experts, top_k
+    E_w = p["w_gate"].shape[-3]          # weights are EXPERT_PAD-padded
+    ep_axes, D, E_pad, E_local = ep_layout(mesh, E_w)
+    bb = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    x_place = placements(P(bb, "model" if S > 1 else None, None), mesh, 3)
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    xb = x.redistribute(mesh, x_place).to_local()
+    r = _ep_rank(mesh, ep_axes)
+    w = {k: _local_experts(p[k], mesh, ep_axes, E_pad, E_local, r)
+         for k in ("w_gate", "w_up", "w_down")}
+    router = _replicated(p["router"])
+    group = _ep_group(mesh, ep_axes)
+
+    Bl, Sl, _ = xb.shape
+    t = xb.reshape(-1, d)
+    Tl = t.shape[0]
+    logits = t.to(torch.float32) @ router.to(torch.float32)
+    if E_pad > E_w:
+        logits = F.pad(logits, (0, E_pad - E_w), value=-1e30)
+    logits = mask_pad_experts(logits, E)
+    weights, expert_idx = route(logits, K, router_type)
+    Ce = max(1, int(capacity_factor * Tl * K / E_pad))
+
+    flat_e = expert_idx.reshape(-1).long()
+    pos = _positions_in_expert(flat_e, E_pad, 1).long()
+    keep = pos < Ce
+    slot = flat_e * Ce + torch.where(keep, pos, 0)
+    # kept pairs to their unique slots, dropped ones to a discard row
+    dest = torch.where(keep, slot, E_pad * Ce)
+    xk = torch.repeat_interleave(t, K, dim=0)
+    send = t.new_zeros((E_pad * Ce + 1, d)).index_put((dest,), xk)
+    send = send[:E_pad * Ce].reshape(D, E_local * Ce, d)
+    recv = _AllToAll.apply(send, group)
+
+    toks = (recv.reshape(D, E_local, Ce, d).transpose(0, 1)
+            .reshape(E_local, D * Ce, d))
+    out = expert_ffn(w, toks)
+    back = (out.reshape(E_local, D, Ce, d).transpose(0, 1)
+            .reshape(D, E_local * Ce, d))
+    ret = _AllToAll.apply(back, group)
+
+    y = ret.reshape(E_pad * Ce, d)[slot]
+    y = y * (weights.reshape(-1)[:, None] * keep[:, None]).to(y.dtype)
+    y = y.reshape(Tl, K, d).sum(dim=1)
+    if "shared_gate" in p:
+        cd = t.dtype
+        sg, su, sd = (_replicated(p[k]).to(cd) for k in
+                      ("shared_gate", "shared_up", "shared_down"))
+        y = y + (F.silu(t @ sg) * (t @ su)) @ sd
+    return DTensor.from_local(y.reshape(Bl, Sl, d), mesh, x_place,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())

@@ -8,8 +8,12 @@ offsets (one big gather instead of 26 small ones). Row gathers go through
 ``layers.gather_rows``, whose backward sums duplicate ids in a fixed
 order. Bagged (multi-hot) lookups are a gather plus a segment reduction
 (``index_add_``, ``scatter_reduce``); ``kernels.embedding_bag`` is the
-kernel of the padded (B, L) form. On one device the JAX models' sharding
-constraints are the identity, so the port's forwards take no ``rules``.
+kernel of the padded (B, L) form.
+
+The inits return the params alone; ``dlrm_axes``, ``dcn_axes``,
+``bst_axes`` and ``bert4rec_axes`` give the JAX inits' logical-axes trees.
+Every forward takes ``rules=`` (last) and constrains at JAX's points: the
+identity without a mesh, a redistribution of DTensors under one.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding import ShardingRules, constrain, mesh_scope
 
 # Criteo Kaggle display-advertising per-field cardinalities (26 sparse fields).
 CRITEO_CARDINALITIES: Tuple[int, ...] = (
@@ -122,23 +127,49 @@ def _dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
     return gram[:, iu, ju]
 
 
+def _mlp_axes(dims) -> dict:
+    """The JAX ``init_mlp``'s axes: every weight and bias unsharded."""
+    return {"w": [(None, None) for _ in dims[1:]],
+            "b": [(None,) for _ in dims[1:]]}
+
+
+def dlrm_axes(cfg: "DLRMConfig") -> dict:
+    n_vec = cfg.n_sparse + 1
+    top_in = n_vec * (n_vec - 1) // 2 + cfg.embed_dim
+    return {"table": ("table_rows", "table_dim"),
+            "bot": _mlp_axes([cfg.n_dense, *cfg.bot_mlp]),
+            "top": _mlp_axes([top_in, *cfg.top_mlp])}
+
+
 def dlrm_forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
-                 cfg: DLRMConfig) -> torch.Tensor:
+                 cfg: DLRMConfig,
+                 rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """dense: (B, 13) f32; sparse: (B, 26) ids -> logits (B,)."""
-    emb = multi_field_lookup(params["table"], sparse,
-                             _offsets(cfg.cardinalities, sparse.device))
-    d0 = L.mlp_apply(params["bot"], dense.to(torch.float32))
-    vecs = torch.cat([d0[:, None, :], emb], dim=1)             # (B, 27, d)
-    top_in = torch.cat([_dot_interaction(vecs), d0], dim=-1)
-    return L.mlp_apply(params["top"], top_in)[:, 0]
+    with mesh_scope(rules):
+        dense = constrain(dense, rules, "batch", None)
+        emb = multi_field_lookup(params["table"], sparse,
+                                 _offsets(cfg.cardinalities, sparse.device))
+        emb = constrain(emb, rules, "batch", None, None)
+        d0 = L.mlp_apply(params["bot"], dense.to(torch.float32))
+        vecs = torch.cat([d0[:, None, :], emb], dim=1)         # (B, 27, d)
+        top_in = torch.cat([_dot_interaction(vecs), d0], dim=-1)
+        return L.mlp_apply(params["top"], top_in)[:, 0]
 
 
 def dlrm_score_candidates(params: dict, dense: torch.Tensor,
                           user_sparse: torch.Tensor, cand_emb: torch.Tensor,
-                          cfg: DLRMConfig) -> torch.Tensor:
+                          cfg: DLRMConfig,
+                          rules: Optional[ShardingRules] = None
+                          ) -> torch.Tensor:
     """Retrieval scoring: one user vs N candidates. dense: (13,);
     user_sparse: (n_user_fields,) ids (already offset); cand_emb: (N,
     n_item_fields, d) pre-gathered item-side embeddings."""
+    with mesh_scope(rules):
+        cand_emb = constrain(cand_emb, rules, "corpus", None, None)
+        return _dlrm_score(params, dense, user_sparse, cand_emb)
+
+
+def _dlrm_score(params, dense, user_sparse, cand_emb):
     d0 = L.mlp_apply(params["bot"], dense.to(torch.float32))
     user_emb = embedding_lookup(params["table"], user_sparse)   # (Fu, d)
     fixed = torch.cat([d0[None, :], user_emb], dim=0)           # (Fu+1, d)
@@ -188,6 +219,14 @@ def dcn_init(generator: torch.Generator, cfg: DCNConfig,
     return {"table": table, "cross": cross, "deep": deep, "head": head}
 
 
+def dcn_axes(cfg: "DCNConfig") -> dict:
+    d = cfg.d_input
+    return {"table": ("table_rows", "table_dim"),
+            "cross": {"w": ("layers", None, None), "b": ("layers", None)},
+            "deep": _mlp_axes([d, *cfg.deep_mlp]),
+            "head": _mlp_axes([d + cfg.deep_mlp[-1], 1])}
+
+
 def _cross_net(cross: dict, x0: torch.Tensor) -> torch.Tensor:
     """DCN-v2 cross layers: x_{l+1} = x0 * (x_l W_l + b_l) + x_l."""
     x = x0
@@ -197,20 +236,34 @@ def _cross_net(cross: dict, x0: torch.Tensor) -> torch.Tensor:
 
 
 def dcn_forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
-                cfg: DCNConfig) -> torch.Tensor:
-    emb = multi_field_lookup(params["table"], sparse,
-                             _offsets(cfg.cardinalities, sparse.device))
-    B = dense.shape[0]
-    x0 = torch.cat([dense.to(torch.float32), emb.reshape(B, -1)], dim=-1)
-    xc = _cross_net(params["cross"], x0)
-    xd = L.mlp_apply(params["deep"], x0)
-    return L.mlp_apply(params["head"], torch.cat([xc, xd], dim=-1))[:, 0]
+                cfg: DCNConfig,
+                rules: Optional[ShardingRules] = None) -> torch.Tensor:
+    with mesh_scope(rules):
+        dense = constrain(dense, rules, "batch", None)
+        emb = multi_field_lookup(params["table"], sparse,
+                                 _offsets(cfg.cardinalities, sparse.device))
+        emb = constrain(emb, rules, "batch", None, None)
+        B = dense.shape[0]
+        x0 = torch.cat([dense.to(torch.float32), emb.reshape(B, -1)],
+                       dim=-1)
+        xc = _cross_net(params["cross"], x0)
+        xd = L.mlp_apply(params["deep"], x0)
+        return L.mlp_apply(params["head"],
+                           torch.cat([xc, xd], dim=-1))[:, 0]
 
 
 def dcn_score_candidates(params: dict, dense: torch.Tensor,
                          user_sparse: torch.Tensor, cand_emb: torch.Tensor,
-                         cfg: DCNConfig) -> torch.Tensor:
+                         cfg: DCNConfig,
+                         rules: Optional[ShardingRules] = None
+                         ) -> torch.Tensor:
     """dense: (13,); user_sparse: (Fu,) offset ids; cand_emb: (N, Fi, d)."""
+    with mesh_scope(rules):
+        cand_emb = constrain(cand_emb, rules, "corpus", None, None)
+        return _dcn_score(params, dense, user_sparse, cand_emb)
+
+
+def _dcn_score(params, dense, user_sparse, cand_emb):
     user_emb = embedding_lookup(params["table"], user_sparse).reshape(-1)
     fixed = torch.cat([dense.to(torch.float32), user_emb])
     N = cand_emb.shape[0]
@@ -283,24 +336,45 @@ def bst_init(generator: torch.Generator, cfg: BSTConfig,
     }
 
 
+def _block_axes() -> dict:
+    return {k: (None,) * n for k, n in (
+        ("wq", 2), ("wk", 2), ("wv", 2), ("wo", 2), ("ffn_up", 2),
+        ("ffn_down", 2), ("ln1", 1), ("ln1_b", 1), ("ln2", 1),
+        ("ln2_b", 1))}
+
+
+def bst_axes(cfg: "BSTConfig") -> dict:
+    S = cfg.seq_len + 1
+    return {"item_table": ("table_rows", "table_dim"), "pos": (None, None),
+            "blocks": [_block_axes() for _ in range(cfg.n_blocks)],
+            "mlp": _mlp_axes([S * cfg.embed_dim, *cfg.mlp, 1])}
+
+
 def bst_forward(params: dict, hist: torch.Tensor, target: torch.Tensor,
-                cfg: BSTConfig) -> torch.Tensor:
+                cfg: BSTConfig,
+                rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """hist: (B, seq_len) item ids; target: (B,) item id -> logits (B,)."""
-    seq = torch.cat([hist, target[:, None]], dim=1)             # (B, S)
-    x = embedding_lookup(params["item_table"], seq) + params["pos"][None]
-    for blk in params["blocks"]:
-        x = _encoder_block(blk, x, cfg.n_heads)
-    B = x.shape[0]
-    return L.mlp_apply(params["mlp"], x.reshape(B, -1), act=_gelu)[:, 0]
+    with mesh_scope(rules):
+        seq = torch.cat([hist, target[:, None]], dim=1)         # (B, S)
+        x = embedding_lookup(params["item_table"], seq) \
+            + params["pos"][None]
+        x = constrain(x, rules, "batch", None, None)
+        for blk in params["blocks"]:
+            x = _encoder_block(blk, x, cfg.n_heads)
+        B = x.shape[0]
+        return L.mlp_apply(params["mlp"], x.reshape(B, -1), act=_gelu)[:, 0]
 
 
 def bst_score_candidates(params: dict, hist: torch.Tensor, cand: torch.Tensor,
-                         cfg: BSTConfig) -> torch.Tensor:
+                         cfg: BSTConfig,
+                         rules: Optional[ShardingRules] = None
+                         ) -> torch.Tensor:
     """Cross-encoder retrieval: hist: (seq_len,) one user; cand: (N,) item
     ids. Every candidate re-runs the transformer (a true cross measure)."""
     N = cand.shape[0]
-    return bst_forward(params, hist[None, :].expand(N, cfg.seq_len), cand,
-                       cfg)
+    with mesh_scope(rules):
+        return bst_forward(params, hist[None, :].expand(N, cfg.seq_len),
+                           cand, cfg, rules)
 
 
 # ---------------------------------------------------------------------------
@@ -335,43 +409,64 @@ def bert4rec_init(generator: torch.Generator, cfg: BERT4RecConfig,
     }
 
 
+def bert4rec_axes(cfg: "BERT4RecConfig") -> dict:
+    return {"item_table": ("table_rows", "table_dim"), "pos": (None, None),
+            "blocks": [_block_axes() for _ in range(cfg.n_blocks)]}
+
+
 def bert4rec_encode(params: dict, items: torch.Tensor,
-                    cfg: BERT4RecConfig) -> torch.Tensor:
+                    cfg: BERT4RecConfig,
+                    rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """items: (B, seq_len) -> hidden (B, seq_len, d). Bidirectional; pad
     (id 0) keys masked."""
-    x = embedding_lookup(params["item_table"], items) + params["pos"][None]
-    pad_mask = (items > 0)[:, None, None, None, :]   # (B,1,1,1,S) keys
-    for blk in params["blocks"]:
-        x = _encoder_block(blk, x, cfg.n_heads, mask=pad_mask)
-    return x
+    with mesh_scope(rules):
+        x = embedding_lookup(params["item_table"], items) \
+            + params["pos"][None]
+        x = constrain(x, rules, "batch", None, None)
+        pad_mask = (items > 0)[:, None, None, None, :]   # (B,1,1,1,S) keys
+        for blk in params["blocks"]:
+            x = _encoder_block(blk, x, cfg.n_heads, mask=pad_mask)
+        return x
 
 
 def bert4rec_logits(params: dict, items: torch.Tensor,
-                    cfg: BERT4RecConfig) -> torch.Tensor:
+                    cfg: BERT4RecConfig,
+                    rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """Masked-item-prediction logits over the item vocab (tied
     embeddings)."""
-    h = bert4rec_encode(params, items, cfg)
-    return L.mask_pad_vocab(h @ params["item_table"].T, cfg.vocab)
+    h = bert4rec_encode(params, items, cfg, rules)
+    with mesh_scope(rules):
+        logits = L.mask_pad_vocab(h @ params["item_table"].T, cfg.vocab)
+        return constrain(logits, rules, "batch", None, "table_rows")
 
 
 def bert4rec_mlm_loss(params: dict, items: torch.Tensor,
                       labels: torch.Tensor, mask: torch.Tensor,
-                      cfg: BERT4RecConfig) -> torch.Tensor:
-    logits = bert4rec_logits(params, items, cfg).to(torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    m = mask.to(torch.float32)
-    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+                      cfg: BERT4RecConfig,
+                      rules: Optional[ShardingRules] = None) -> torch.Tensor:
+    logits = bert4rec_logits(params, items, cfg, rules).to(torch.float32)
+    with mesh_scope(rules):
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def bert4rec_sampled_loss(params: dict, items: torch.Tensor,
                           masked_pos: torch.Tensor, labels: torch.Tensor,
                           negatives: torch.Tensor,
-                          cfg: BERT4RecConfig) -> torch.Tensor:
+                          cfg: BERT4RecConfig,
+                          rules: Optional[ShardingRules] = None
+                          ) -> torch.Tensor:
     """Sampled-softmax MLM loss for huge item vocabs. items: (B, S);
     masked_pos: (B, M) positions; labels: (B, M) true items; negatives:
     (N,) shared negative samples."""
-    h = bert4rec_encode(params, items, cfg)                       # (B,S,d)
+    h = bert4rec_encode(params, items, cfg, rules)                # (B,S,d)
+    with mesh_scope(rules):
+        return _sampled_loss(params, h, masked_pos, labels, negatives)
+
+
+def _sampled_loss(params, h, masked_pos, labels, negatives):
     idx = masked_pos.long()[..., None].expand(-1, -1, h.shape[-1])
     hm = torch.gather(h, 1, idx)                                  # (B,M,d)
     pos_emb = embedding_lookup(params["item_table"], labels)      # (B,M,d)
@@ -384,12 +479,16 @@ def bert4rec_sampled_loss(params: dict, items: torch.Tensor,
 
 def bert4rec_score_candidates(params: dict, items: torch.Tensor,
                               cand: torch.Tensor,
-                              cfg: BERT4RecConfig) -> torch.Tensor:
+                              cfg: BERT4RecConfig,
+                              rules: Optional[ShardingRules] = None
+                              ) -> torch.Tensor:
     """items: (1, seq_len) user history; cand: (N,) item ids -> (N,)
     scores. Two-tower style: encode once, dot with the candidates."""
-    h = bert4rec_encode(params, items, cfg)[:, -1, :]             # (1, d)
-    cand_emb = embedding_lookup(params["item_table"], cand)       # (N, d)
-    return (cand_emb @ h[0]).to(torch.float32)
+    h = bert4rec_encode(params, items, cfg, rules)[:, -1, :]      # (1, d)
+    with mesh_scope(rules):
+        cand_emb = embedding_lookup(params["item_table"], cand)   # (N, d)
+        cand_emb = constrain(cand_emb, rules, "corpus", None)
+        return (cand_emb @ h[0]).to(torch.float32)
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -34,12 +34,25 @@ plain autograd attention.
 On a CPU tensor both kernels' wrappers run their plain versions, so the
 same code serves both devices. ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``.
+
+Sharding: every entry point takes ``rules=`` (``sharding.ShardingRules``)
+and calls ``sharding.constrain`` at JAX's points with JAX's logical axes.
+Without a mesh (``rules=None``, ``single_device_rules()``) every
+constraint is the identity and the code runs as on one device. Under
+``mesh_rules(mesh)`` the params and inputs are DTensors
+(``sharding.distribute_tree``), the forward runs in ``sharding.mesh_scope``
+and each constraint redistributes; the two attention kernels run on each
+rank's shard through their DTensor sharding rules (batch and heads shard,
+anything else is gathered first), the plain attention layers through
+``sharding.per_shard``, the seq dim is gathered before the MLP and the
+head (``sharding.gather_inner``), the decode cache is written by
+``layers.write_at``, and ``moe_impl="ep"`` takes ``moe.moe_ffn_ep``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +63,8 @@ from repro_torch.kernels.decode_attn import decode_attention
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding import (ShardingRules, constrain, gather_inner,
+                                  gather_inner_grad, is_dtensor, mesh_scope)
 from repro_torch.tree import tree_map
 
 
@@ -82,8 +97,8 @@ class TransformerConfig:
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
     moe_groups: int = 16              # hierarchical dispatch groups
-    moe_impl: str = "scatter"         # scatter | ep (ep needs a mesh: on one
-                                      # device both run moe_ffn, as in JAX)
+    moe_impl: str = "scatter"         # scatter | ep (all-to-all over the
+                                      # mesh; without one both run moe_ffn)
     attn_chunk: int = 0               # >0: chunked-causal attention
     remat: bool = True
 
@@ -190,7 +205,7 @@ def _norm(cfg, x, scale, bias=None):
 
 
 def _attn_block(cfg, p, x, rope, mode, cache_kv=None, slot=None,
-                length=None):
+                length=None, rules=None):
     """x: (B, S, d); rope: ``layers.rope_angles`` of the positions.
     Returns (out, (k, v)): the new k/v entries at KV heads, or with
     ``cache_kv=(ck, cv)`` (``mode="decode"``) the cache after the write.
@@ -200,6 +215,9 @@ def _attn_block(cfg, p, x, rope, mode, cache_kv=None, slot=None,
     one-element int64 tensor, then the decode kernel over ``length``)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if S > 1:
+        # SP gather point: qkv GEMMs consume the full sequence (Megatron SP)
+        x = constrain(x, rules, "batch", None, None)
     cd = x.dtype
     q = (x @ p["wq"].to(cd)).reshape(B, S, H, hd)
     k = (x @ p["wk"].to(cd)).reshape(B, S, KV, hd)
@@ -209,14 +227,16 @@ def _attn_block(cfg, p, x, rope, mode, cache_kv=None, slot=None,
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = L.rotate(q, *rope)
     k = L.rotate(k, *rope)
+    q = constrain(q, rules, "batch", "seq", "heads", None)
+    k = constrain(k, rules, "batch", "seq", "kv_heads", None)
 
     if mode == "decode":
         if S != 1:
             raise ValueError(f"decode attention takes one position, got "
                              f"S={S}")
         ck, cv = cache_kv
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
+        L.write_at(ck, 1, slot, k.to(ck.dtype))
+        L.write_at(cv, 1, slot, v.to(cv.dtype))
         qd = q[:, 0] if q.dtype in (torch.float32, ck.dtype) else \
             q[:, 0].to(torch.float32)
         out = decode_attention(qd, ck, cv, length=length).to(cd)[:, None]
@@ -226,6 +246,8 @@ def _attn_block(cfg, p, x, rope, mode, cache_kv=None, slot=None,
         # contiguous (rotate and repeat_interleave write new tensors)
         kf = L.expand_kv(k, H)
         vf = L.expand_kv(v, H)
+        kf = constrain(kf, rules, "batch", "seq", "heads", None)
+        vf = constrain(vf, rules, "batch", "seq", "heads", None)
         if mode == "prefill":
             out = flash_attention(q, kf, vf).to(cd)
         elif cfg.attn_chunk and S > cfg.attn_chunk:
@@ -234,37 +256,51 @@ def _attn_block(cfg, p, x, rope, mode, cache_kv=None, slot=None,
             out = L.mha_attention(q, kf, vf,
                                   mask=L.causal_mask(S, device=x.device))
         new_kv = (k, v)
+    out = constrain(out, rules, "batch", "seq", "heads", None)
     return out.reshape(B, S, H * hd) @ p["wo"].to(cd), new_kv
 
 
-def _mlp_block(cfg, p, x):
+def _mlp_block(cfg, p, x, rules=None):
+    x = gather_inner(x)
     if cfg.is_moe:
+        if cfg.moe_impl == "ep" and rules is not None \
+                and rules.mesh is not None:
+            return moe_lib.moe_ffn_ep(p, x, n_experts=cfg.n_experts,
+                                      top_k=cfg.moe_top_k,
+                                      capacity_factor=cfg.capacity_factor,
+                                      rules=rules)
         return moe_lib.moe_ffn(p, x, n_experts=cfg.n_experts,
                                top_k=cfg.moe_top_k,
                                capacity_factor=cfg.capacity_factor,
-                               n_groups=cfg.moe_groups)
+                               n_groups=cfg.moe_groups, rules=rules)
     cd = x.dtype
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
+        h = constrain(h, rules, "batch", "seq", "mlp")
         return h @ p["w_down"].to(cd)
     h = F.gelu(x @ p["w_up"].to(cd) + p["b_up"].to(cd), approximate="tanh")
+    h = constrain(h, rules, "batch", "seq", "mlp")
     return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
 
 
-def _layer(cfg, x, p, rope, mode, cache_kv=None, slot=None, length=None):
+def _layer(cfg, x, p, rope, mode, rules=None, cache_kv=None, slot=None,
+           length=None):
     nb = p["norm"].get("ln1_b") if cfg.norm_type == "layernorm" else None
     h1 = _norm(cfg, x, p["norm"]["ln1"], nb)
     attn_out, new_kv = _attn_block(cfg, p["attn"], h1, rope, mode,
                                    cache_kv=cache_kv, slot=slot,
-                                   length=length)
+                                   length=length, rules=rules)
+    attn_out = gather_inner_grad(attn_out)
     if cfg.parallel_block:
-        x = x + attn_out + _mlp_block(cfg, p["mlp"], h1)
+        x = x + attn_out + gather_inner_grad(_mlp_block(cfg, p["mlp"], h1,
+                                                        rules))
     else:
         x = x + attn_out
         nb2 = p["norm"].get("ln2_b") if cfg.norm_type == "layernorm" else None
         h2 = _norm(cfg, x, p["norm"]["ln2"], nb2)
-        x = x + _mlp_block(cfg, p["mlp"], h2)
-    return x, new_kv
+        x = x + gather_inner_grad(_mlp_block(cfg, p["mlp"], h2, rules))
+    # sequence-parallel residual handoff between blocks
+    return constrain(x, rules, "batch", "act_seq", None), new_kv
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -279,7 +315,7 @@ def _embed(params, tokens, cfg):
 def _head(params, x, cfg):
     """Final norm, the (tied) head, the vocab mask and the soft cap."""
     fb = params.get("final_norm_b") if cfg.norm_type == "layernorm" else None
-    x = _norm(cfg, x, params["final_norm"], fb)
+    x = _norm(cfg, gather_inner(x), params["final_norm"], fb)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(cfg.dtype)
     logits = L.mask_pad_vocab(x @ head, cfg.vocab_size)
@@ -296,44 +332,61 @@ def _rope(cfg, positions):
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def forward(params: dict, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """Training forward: tokens (B, S) -> logits (B, S, V_pad), plain
     autograd attention."""
-    B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :]
-                 .expand(B, S))
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        if remat:
-            x = checkpoint(lambda x_, lp_: _layer(cfg, x_, lp_, rope,
-                                                  "train")[0],
-                           x, lp, use_reentrant=False)
-        else:
-            x, _ = _layer(cfg, x, lp, rope, "train")
-    return _head(params, x, cfg)
+    with mesh_scope(rules):
+        B, S = tokens.shape
+        x = constrain(_embed(params, tokens, cfg), rules,
+                      "batch", "act_seq", None)
+        rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :]
+                     .expand(B, S))
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(cfg.n_layers):
+            lp = layer_params(params, i)
+            if remat:
+                x = checkpoint(lambda x_, lp_: _layer(cfg, x_, lp_, rope,
+                                                      "train", rules)[0],
+                               x, lp, use_reentrant=False)
+            else:
+                x, _ = _layer(cfg, x, lp, rope, "train", rules)
+        return constrain(_head(params, x, cfg), rules,
+                         "batch", "seq", "vocab")
 
 
 @torch.no_grad()
-def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig
+def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Prefill pass: tokens (B, S) -> (next-token logits (B, V_pad), cache
     {'k','v': (L, B, S, KV, hd)} in the compute dtype), attention through
-    the flash kernel."""
-    B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :]
-                 .expand(B, S))
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-             "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for i in range(cfg.n_layers):
-        x, (k, v) = _layer(cfg, x, layer_params(params, i), rope, "prefill")
-        cache["k"][i].copy_(k)
-        cache["v"][i].copy_(v)
-    return _head(params, x[:, -1, :], cfg), cache
+    the flash kernel. Under a mesh the cache is the layers' DTensors
+    stacked (JAX's scan output)."""
+    with mesh_scope(rules):
+        B, S = tokens.shape
+        x = constrain(_embed(params, tokens, cfg), rules,
+                      "batch", "act_seq", None)
+        rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :]
+                     .expand(B, S))
+        kvs = []
+        if not is_dtensor(x):
+            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+            cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                     "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+        for i in range(cfg.n_layers):
+            x, (k, v) = _layer(cfg, x, layer_params(params, i), rope,
+                               "prefill", rules)
+            if is_dtensor(x):
+                kvs.append((k, v))
+            else:
+                cache["k"][i].copy_(k)
+                cache["v"][i].copy_(v)
+        if kvs:
+            cache = {"k": torch.stack([k for k, _ in kvs]),
+                     "v": torch.stack([v for _, v in kvs])}
+        logits = _head(params, x[:, -1, :], cfg)
+        return constrain(logits, rules, "batch", "vocab"), cache
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -352,28 +405,34 @@ def cache_axes(decode_seq_shard: bool = True) -> dict:
 
 @torch.no_grad()
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
-                cfg: TransformerConfig) -> Tuple[torch.Tensor, dict]:
+                cfg: TransformerConfig,
+                rules: Optional[ShardingRules] = None
+                ) -> Tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B,) ids; pos: the current length, an int
     or a one-element integer tensor (on the cache's device, a loop never
     syncs the host). Writes the new k/v into ``cache`` at ``pos`` in place
-    and returns (logits (B, V_pad), cache)."""
-    B = tokens.shape[0]
-    dev = cache["k"].device
-    pos_t = torch.as_tensor(pos, device=dev).reshape(1)
-    slot = pos_t.to(torch.int64)
-    length = (pos_t + 1).to(torch.int32)
-    x = _embed(params, tokens, cfg)[:, None, :]                  # (B, 1, d)
-    rope = _rope(cfg, slot.reshape(1, 1).expand(B, 1))
-    for i in range(cfg.n_layers):
-        x, _ = _layer(cfg, x, layer_params(params, i), rope, "decode",
-                      cache_kv=(cache["k"][i], cache["v"][i]), slot=slot,
-                      length=length)
-    return _head(params, x[:, 0, :], cfg), cache
+    and returns (logits (B, V_pad), cache). Under a mesh ``pos`` stays a
+    plain tensor on every rank (JAX's replicated scalar)."""
+    with mesh_scope(rules):
+        B = tokens.shape[0]
+        dev = cache["k"].device
+        pos_t = torch.as_tensor(pos, device=dev).reshape(1)
+        slot = pos_t.to(torch.int64)
+        length = (pos_t + 1).to(torch.int32)
+        x = _embed(params, tokens, cfg)[:, None, :]              # (B, 1, d)
+        rope = _rope(cfg, slot.reshape(1, 1).expand(B, 1))
+        for i in range(cfg.n_layers):
+            x, _ = _layer(cfg, x, layer_params(params, i), rope, "decode",
+                          rules, cache_kv=(cache["k"][i], cache["v"][i]),
+                          slot=slot, length=length)
+        return _head(params, x[:, 0, :], cfg), cache
 
 
 def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
-    logits = forward(params, tokens, cfg).to(torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return torch.mean(nll)
+            cfg: TransformerConfig,
+            rules: Optional[ShardingRules] = None) -> torch.Tensor:
+    logits = forward(params, tokens, cfg, rules).to(torch.float32)
+    with mesh_scope(rules):
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        return torch.mean(nll)

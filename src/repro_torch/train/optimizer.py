@@ -12,6 +12,13 @@ update is dense, never lazy.
 The update runs in place on the parameters and the moments (the JAX step
 donates their buffers), one flat chunk of ``CHUNK`` elements at a time, so
 a table of billions of elements needs only a chunk's temporaries.
+
+DTensor leaves (a mesh): each rank updates its shard of the moments in
+their own placements (ZeRO-1: ``sharding.zero1_spec_tree`` shards them
+over ``data`` where the param is replicated there), with the gradient
+and the param redistributed to those placements, then writes the new
+param back into its own placements (an all-gather over ``data``). The
+global norm sums each leaf's squares over the mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.sharding import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 # elements per in-place update chunk (64 MB of float32): the temporaries of
@@ -72,6 +80,10 @@ def global_norm(grads: Any) -> torch.Tensor:
     (a leaf above ``CHUNK`` elements summed chunk by chunk)."""
     total = 0
     for g in tree_leaves(grads):
+        if is_dtensor(g):
+            total = total + torch.sum(torch.square(
+                g.to(torch.float32))).full_tensor()
+            continue
         for c in _chunks(g):
             total = total + torch.sum(torch.square(c.to(torch.float32)))
     return torch.sqrt(total)
@@ -96,6 +108,8 @@ def adamw_init(params: Any, cfg: OptimizerConfig) -> AdamWState:
     dev = leaves[0].device if leaves else torch.device("cpu")
 
     def zeros(p):
+        if is_dtensor(p):     # the param's placements
+            return torch.zeros_like(p, dtype=cfg.moment_dtype)
         return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -125,6 +139,23 @@ def _update_chunk(p, g, m, v, scale, lr, bc1, bc2, cfg, decay):
             dst.copy_(src)
 
 
+def _update_sharded(p, g, m, v, scale, lr, bc1, bc2, cfg, decay):
+    """One DTensor leaf: the update on this rank's shard of the moments,
+    the param written back in its own placements."""
+    from torch.distributed.tensor import DTensor
+    mesh, place = m.device_mesh, m.placements
+    pl = p.redistribute(mesh, place).to_local()
+    gl = g.redistribute(mesh, place).to_local()
+    ml, vl = m.to_local(), v.to_local()
+    for pc, gc, mc, vc in zip(_chunks(pl), _chunks(gl), _chunks(ml),
+                              _chunks(vl)):
+        _update_chunk(pc, gc, mc, vc, scale, lr, bc1, bc2, cfg, decay)
+    if tuple(p.placements) != tuple(place):
+        new = DTensor.from_local(pl, mesh, place, run_check=False,
+                                 shape=p.shape, stride=p.stride())
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
+
+
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: AdamWState,
                  cfg: OptimizerConfig):
@@ -146,6 +177,9 @@ def adamw_update(params: Any, grads: Any, state: AdamWState,
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.m), tree_leaves(state.v)):
         decay = cfg.weight_decay > 0 and p.ndim >= 2   # matrices only
+        if is_dtensor(p):
+            _update_sharded(p, g, m, v, scale, lr, bc1, bc2, cfg, decay)
+            continue
         for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m),
                                   _chunks(v)):
             _update_chunk(pc, gc, mc, vc, scale, lr, bc1, bc2, cfg, decay)

@@ -8,8 +8,10 @@ clip and AdamW, the parameters updated in place under ``torch.no_grad()``
 (where the JAX step donates their buffers). ``Trainer`` adds periodic
 atomic checkpoints, restart from LATEST and the straggler monitor.
 
-On one device the JAX step's sharding rules are the identity, so the
-port has none.
+The step takes no rules, as JAX's: the loss function closes over them
+(``launch/steps.py``). DTensor params (a mesh) run the same step: the
+backward runs under implicit replication, as the forward does, and
+``adamw_update`` updates each rank's shards.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.ft.checkpoint import (latest_step, restore_checkpoint,
                                        save_checkpoint)
 from repro_torch.ft.straggler import StragglerMonitor
+from repro_torch.sharding import tensors_scope
 from repro_torch.train.optimizer import (AdamWState, OptimizerConfig,
                                          adamw_init, adamw_update)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -34,7 +37,8 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
     for p in leaves:
         p.requires_grad_(True)
     loss = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with tensors_scope(leaves):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
