@@ -9,7 +9,9 @@ each DeepFM wrapper refusing a net its cluster plan cannot place; the
 library kernels embedding_bag, decode_attention and flash_attention at
 the JAX test shapes and at DLRM-RM2 and Yi-9B widths in float32 and
 bfloat16, driven once each as the slice's main path and timed beside one
-PyTorch call of the same function; attention on the tensor cores, bf16
+PyTorch call of the same function; the bag also at the edges of its
+tiling, bit for bit in float32, its SASS checked for every row load of a
+batch issued before the first add; attention on the tensor cores, bf16
 by wgmma and mma.sync and float32 in 3xTF32 by both, checked in the SASS,
 in ptxas's spill report and in each launch's path; the cluster kernels
 of the MLP and DeepFM pairs checked in the SASS for their cluster
@@ -1374,6 +1376,124 @@ def drive_segment(torch, label, name, calls, expect, path=None):
     return out, counts[name]
 
 
+# the bag kernel's tiling edges: bag lengths below, at and across its batch
+# of 4 (bag, slot) items a lane (and the 1-item path of short small
+# batches), row widths on the vector path (d = 8, 64, 128) and the scalar
+# one (d = 12), batch sizes 1, 33 (a warp's last tile partly empty) and
+# 20,003 (past the 1-item path's cut at L = 1, a partial 4-bag tile)
+BAG_TILING_L = (1, 7, 8, 9, 17, 33)
+BAG_TILING_D = (8, 12, 64, 128)
+BAG_TILING_B = (1, 33, 20_003)
+BAG_TILING_R = 1_000
+
+
+def check_bag_tiling(torch, dev, gen, close_bag):
+    """The bag kernel against its plain version at the edges of its tiling,
+    in float32 and bf16, with and without weights, int32 and int64 ids:
+    each (L, d, B) case has one bag of -1s and one of a single hot row
+    amid random ids; at B = 33 also through a table view 16 bytes off
+    alignment (``flat[1:]``, the scalar path); then every id one hot row.
+    float32 must equal the plain version bit for bit, bf16 within
+    BAG_TOL; the count equal bit for bit is logged per (dtype, L, d)."""
+    from repro_torch.kernels import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    R = BAG_TILING_R
+    n_cases, n_equal = 0, 0
+
+    def run(table, idx, w, dt, label):
+        nonlocal n_cases, n_equal
+        worst, eq_here, n_here = 0.0, 0, 0
+        for ids in (idx.to(dev), idx.long().to(dev)):
+            for ww in (w, None):
+                got = embedding_bag(table, ids, ww)
+                torch.cuda.synchronize()
+                err, eq = close_bag(got, embedding_bag_ref(table, ids, ww), dt,
+                                    f"{label} ids {ids.dtype} weights "
+                                    f"{ww is not None}")
+                require(eq or dt != "float32",
+                        f"{label} ids {ids.dtype}: float32 differs from the "
+                        f"plain version (max_abs_err {err:.3e})")
+                worst, eq_here, n_here = max(worst, err), eq_here + eq, \
+                    n_here + 1
+        n_cases, n_equal = n_cases + n_here, n_equal + eq_here
+        return worst, eq_here, n_here
+
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        for L in BAG_TILING_L:
+            for d in BAG_TILING_D:
+                flat = torch.randn((R * d + 8,), generator=gen).to(dev, tdt)
+                worst, eq_all, n_all = 0.0, 0, 0
+                for B in BAG_TILING_B:
+                    idx = torch.randint(-1, R, (B, L), generator=gen,
+                                        dtype=torch.int32)
+                    if B > 1:
+                        idx[B // 2] = -1                    # a bag of -1s
+                        idx[B // 2 - 1] = 7                 # one hot row
+                    w = torch.rand((B, L), generator=gen).to(dev, tdt)
+                    views = [flat[:R * d].view(R, d)]
+                    if B == 33:
+                        views.append(flat[1:R * d + 1].view(R, d))
+                    for table in views:
+                        err, eq, n = run(table, idx, w, dt,
+                                         f"embedding_bag {dt} L={L} d={d} "
+                                         f"B={B} offset "
+                                         f"{table.data_ptr() % 16}")
+                        worst, eq_all, n_all = max(worst, err), eq_all + eq, \
+                            n_all + n
+                log(f"embedding_bag tiling {dt} L={L} d={d}: {n_all} cases "
+                    f"(B {'/'.join(map(str, BAG_TILING_B))}, B=33 also "
+                    f"misaligned; weights or not; int32/int64 ids) "
+                    f"max_abs_err {worst:.3e}, {eq_all} bit for bit")
+        for L in (1, 8):
+            table = torch.randn((R, 64), generator=gen).to(dev, tdt)
+            idx = torch.full((BAG_TILING_B[-1], L), 7, dtype=torch.int32)
+            w = torch.rand(idx.shape, generator=gen).to(dev, tdt)
+            err, eq, n = run(table, idx, w, dt,
+                             f"embedding_bag {dt} hot row L={L}")
+            log(f"embedding_bag tiling {dt} every id one row, L={L} d=64 "
+                f"B={BAG_TILING_B[-1]}: {n} cases, max_abs_err {err:.3e}, "
+                f"{eq} bit for bit")
+    log(f"embedding_bag: {n_cases} tiling-edge cases match the plain version, "
+        f"{n_equal} bit for bit (every float32 case)")
+
+
+def check_bag_sass(sass):
+    """The bag kernel's SASS: in each instantiation every row load of a
+    batch is issued before the first add (``embedding_bag_kernel<T, VEC,
+    LANES, ITEMS>``: ITEMS 128-bit loads before the first FADD on the
+    16-byte path, at least ITEMS + 1 loads (ids, weights, row elements) on
+    the scalar one). Returns {instantiation: (loads, ITEMS)}."""
+    import re
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = None
+            m = re.search(r"embedding_bag_kernelI([ft])Li(\d+)ELi(\d+)ELi(\d+)E",
+                          line)
+            if m:
+                t, vec, lanes, items = m.group(1), *map(int, m.groups()[1:])
+                wide = vec * (4 if t == "f" else 2) == 16
+                fn = (f"{'float' if t == 'f' else 'bf16'} VEC={vec} "
+                      f"LANES={lanes} ITEMS={items}", items, wide)
+                found[fn[0]] = [0, items, wide, False]
+        elif fn is not None and not found[fn[0]][3]:
+            if "FADD" in line:
+                found[fn[0]][3] = True
+            elif "LDG" in line and (".128" in line or not fn[2]):
+                found[fn[0]][0] += 1
+    require(len(found) == 48, f"SASS: {len(found)} embedding_bag_kernel "
+            f"instantiations, expected 48 (2 dtypes x 2 paths x 6 widths x "
+            f"ITEMS 1, 4)")
+    for name, (loads, items, wide, _) in found.items():
+        need = items if wide else items + 1
+        require(loads >= need, f"SASS: embedding_bag_kernel {name}: {loads} "
+                f"row loads before the first FADD, expected >= {need}")
+    log("sass: embedding_bag_kernel: loads before the first FADD "
+        + ", ".join(f"{k}: {v[0]}" for k, v in sorted(found.items())))
+    return {k: (v[0], v[1]) for k, v in found.items()}
+
+
 def check_library_bag(torch, dev, report):
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag
@@ -1419,6 +1539,7 @@ def check_library_bag(torch, dev, report):
     log(f"embedding_bag: {n_cases} cases at the JAX test shapes and edges "
         f"(no weights, int64 ids, ids outside [-1, R), an empty bag) match "
         f"the plain version, {n_equal} bit for bit")
+    check_bag_tiling(torch, dev, gen, close_bag)
 
     # -- DLRM-RM2: one table of pad_vocab(sum(cardinalities)) x 64 rows
     card = torch.tensor(CRITEO_CARDINALITIES, dtype=torch.int64)
@@ -1778,7 +1899,8 @@ def check_kernel_build(lib_path):
     registers, shared memory and spills (``ptxas -v`` in build.log), and
     its count of each required instruction in the library's SASS
     (``cuobjdump -sass``), which must not be 0; a ``NO_SPILL`` kernel must
-    report 0 bytes of spill stores and loads."""
+    report 0 bytes of spill stores and loads; the bag kernel's row loads
+    issued before its first add (``check_bag_sass``)."""
     from repro_torch.kernels import _lib
     entry, ptxas = None, {}
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
@@ -1817,7 +1939,8 @@ def check_kernel_build(lib_path):
             require(bool(spills) and all(
                 "0 bytes spill stores, 0 bytes spill loads" in x
                 for x in spills), f"ptxas: {f} spills ({spills})")
-    return {"sass": counts, "ptxas": ptxas}
+    return {"sass": counts, "ptxas": ptxas,
+            "embedding_bag_loads_before_add": check_bag_sass(sass)}
 
 
 def check_library_kernels(torch, dev):

@@ -57,6 +57,13 @@ def _f32(x):
 @pytest.mark.parametrize("r,d,b,l,dtype", [
     (100, 16, 8, 4, "float32"), (500, 64, 33, 8, "float32"),
     (64, 128, 16, 2, "bfloat16"),
+    # the card kernel's tiling edges: L below, across and twice its batch
+    # of items, the scalar path (d = 12), a single bag
+    (100, 16, 8, 1, "float32"), (100, 16, 8, 1, "bfloat16"),
+    (300, 64, 20, 9, "float32"), (300, 64, 20, 9, "bfloat16"),
+    (200, 32, 6, 17, "float32"), (200, 32, 6, 17, "bfloat16"),
+    (100, 12, 10, 4, "float32"), (100, 12, 10, 4, "bfloat16"),
+    (50, 64, 1, 8, "float32"), (50, 64, 1, 8, "bfloat16"),
 ])
 def test_embedding_bag_matches_jax_sweep(r, d, b, l, dtype):
     np_dtype = np.float32 if dtype == "float32" else BF16
