@@ -74,6 +74,18 @@ arithmetic is exactly ``step``'s) on that buffer, and ``_freeze_done``
 (``PagedFeed``). ``init`` reads the entries' rows from a buffer the host
 fills.
 
+Timed programs (``set_tracer``): while the engine holds a live tracer,
+``search`` keeps a second program beside each untimed one of a whole
+store, under its own cache key, whose chunks (two, replayed in turns, so
+that one's marks are read while the other runs) mark the stages of
+``STAGES`` (pop, grad, rank, measure, visit, insert; copy_back once a
+chunk) with ``obs.Marks``: timing events that the capture records as graph
+nodes on the card, host stamps on the CPU. It runs while the tracer is on,
+and ``stats`` gathers its device seconds per stage after each chunk's
+``done`` read. Both programs are captured while the tracer is live, so
+switching it captures nothing; without a tracer the untimed capture holds
+no event node and nothing is marked. Paged programs have no timed twin.
+
 The continuous runtime's lane lifecycle is ``reset_lanes`` (a lane-masked
 ``init_state``) and ``idle_state`` (every lane parked, ``done``).
 
@@ -105,10 +117,17 @@ from repro_torch.kernels.neighbor_rank.ref import neighbor_rank_ref
 from repro_torch.kernels.neighbor_rank_fused import neighbor_rank_fused
 from repro_torch.kernels.neighbor_rank_fused.ref import \
     neighbor_rank_fused_ref
-from repro_torch.obs.profile import annotate
+from repro_torch.obs.phases import Marks
+from repro_torch.obs.trace import NULL_TRACER, NullTracer
 
 SYNC_EVERY = 8       # steps per chunk: between host checks of done.all()
 PROGRAM_CACHE = 8    # search programs an engine keeps (least recent out)
+# the stages a timed chunk marks, in step order (``copy_back``: once per
+# chunk, the program's copies of the new state)
+STAGES = ("pop", "grad", "rank", "measure", "visit", "insert", "copy_back")
+# a timed program's two chunks, replayed in turns, each with its own
+# events: one chunk's are read while the next runs
+TIMED_CHUNKS = ("chunk", "chunk.alt")
 _NEG_INF = float("-inf")
 
 
@@ -471,6 +490,16 @@ class ExpansionEngine:
     c_max: int = 0
     angle_tau: float = 0.0
     tile: Optional[str] = None      # EngineOptions.tile override spec
+    tracer: object = NULL_TRACER    # set_tracer; not a search option
+
+    def set_tracer(self, tracer) -> None:
+        """Give the engine a tracer (``obs.Tracer``; ``NULL_TRACER`` takes
+        it away). While it holds a live one, on or off, ``search`` builds
+        and captures a timed program beside each untimed one, and replays
+        the timed one while the tracer is on (``stats``). Engines are
+        shared through ``build_engine``'s cache: the tracer is the
+        engine's, not one caller's."""
+        object.__setattr__(self, "tracer", tracer)
 
     def n_candidates(self, max_degree: int) -> int:
         if self.grad is None:
@@ -570,13 +599,15 @@ class ExpansionEngine:
 
     def step(self, params, store: AnyCorpusStore, neighbors, queries,
              qs_flat, state: EngineState, tile=None,
-             use_tile: Optional[bool] = None) -> EngineState:
+             use_tile: Optional[bool] = None, marks=None) -> EngineState:
         """One iteration over the whole batch: pop, grad, rank, measure,
         insert. ``qs_flat`` is the (Q*C, Dq) repeated query block.
         ``use_tile`` is the step's plan (None: ``plan_for`` resolves it).
         The tile plan reads its rows from ``tile``, the (Q, 1+B, D) rows of
         [frontier | neighbors] (gathered here by ``store.take`` when None,
-        through the pager for a paged store)."""
+        through the pager for a paged store). ``marks`` (an ``obs.Marks``,
+        a timed chunk's) is entered at each stage boundary of ``STAGES``
+        after ``pop``; the caller enters ``pop``."""
         Q = queries.shape[0]
         if use_tile is None:
             use_tile = self._use_tile_plan(store, neighbors.shape[1], Q)
@@ -588,6 +619,8 @@ class ExpansionEngine:
             tile = store.take(torch.cat([pop.fid[:, None],
                                          nbr.clamp_min(0)], dim=1))
 
+        if marks is not None:
+            marks.enter("grad")
         if self.grad_fused is not None and not use_tile:
             # the frontier rows come back from the kernel, dequantized
             _, g, x = self.grad_fused(params, store, pop.fid, queries)
@@ -601,6 +634,8 @@ class ExpansionEngine:
             else:
                 g, n_grad = None, s.n_grad
 
+        if marks is not None:
+            marks.enter("rank")
         targs = (state.angle_tau,) if self.adaptive == "angle" else ()
         if self.rank_fused is not None and not use_tile:
             # the kernels clamp -1 ids themselves
@@ -612,6 +647,8 @@ class ExpansionEngine:
             sel_idx, sel_mask = self.rank(x, g, nvecs, valid, *targs)
         sel_ids = nbr.gather(1, sel_idx)
 
+        if marks is not None:
+            marks.enter("measure")
         C = sel_idx.shape[1]
         if self.measure_fused is not None and not use_tile:
             # adaptive: the prefix mask rides into the kernel, whose masked
@@ -632,8 +669,13 @@ class ExpansionEngine:
             scores = scores.masked_fill(
                 bit_test_global(store.tombstones, sel_ids), _NEG_INF)
 
+        if marks is not None:
+            marks.enter("visit")
+        visited = bit_set_rows(s.visited, sel_ids, sel_mask)
+        if marks is not None:
+            marks.enter("insert")
         s = s._replace(
-            visited=bit_set_rows(s.visited, sel_ids, sel_mask),
+            visited=visited,
             n_grad=n_grad,
             n_eval=s.n_eval + sel_mask.sum(dim=1).int(),
             n_iters=s.n_iters + pop.active.int())
@@ -699,19 +741,24 @@ class ExpansionEngine:
                             n_iters=final.n_iters.clone())
 
     def step_routine(self, params, store, neighbors, steps: int,
-                     use_tile: bool):
+                     use_tile: bool, marks=None):
         """A program routine of ``steps`` consecutive step + freeze calls
         over the state in the plan ``use_tile``, the queries read from the
-        ``queries`` buffer."""
+        ``queries`` buffer. With ``marks`` it is the timed routine: each
+        step enters ``pop`` first, and the freeze belongs to ``insert``."""
         C = self.n_candidates(neighbors.shape[1])
 
         def run(bufs, s):
+            if marks is not None:
+                marks.begin("pop")
             q = bufs["queries"]
             qs_flat = _repeat_rows(q, C)
-            for _ in range(steps):
+            for i in range(steps):
+                if marks is not None and i:
+                    marks.enter("pop")
                 s = _freeze_done(s.done, self.step(
                     params, store, neighbors, q, qs_flat, s,
-                    use_tile=use_tile), s)
+                    use_tile=use_tile, marks=marks), s)
             return s, {}
         return run
 
@@ -744,26 +791,47 @@ class ExpansionEngine:
 
     @functools.cached_property
     def stats(self) -> dict:
-        """Totals over this engine's ``search`` calls: searches, steps,
-        program runs (graph replays on the card: one init + the chunks per
-        search, or a paged search's pre and post halves), the host seconds
-        spent issuing them (the blocking ``done`` reads left out) and the
-        search programs built (each a new capture on the card); and a
-        paged search's host seconds by part (``PagedFeed.times``):
-        ``paged_replay_s``, ``paged_sync_s`` (the ids sync),
-        ``paged_gather_s`` (the pager), ``paged_h2d_s`` (the tile copy)."""
-        return {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0,
-                "programs": 0, "paged_replay_s": 0.0, "paged_sync_s": 0.0,
-                "paged_gather_s": 0.0, "paged_h2d_s": 0.0}
+        """Totals over this engine's ``search`` calls, all flat numbers:
+
+        - ``searches``, ``steps``, ``runs`` (program runs: graph replays on
+          the card, one init + the chunks per search, or a paged search's
+          pre and post halves), ``programs`` (search programs built, each
+          a new capture on the card);
+        - host seconds: ``load_s`` (writing the inputs into the buffers,
+          a paged search's tile copies too), ``launch_s`` (inside the
+          program runs), ``sync_s`` (the blocking ``done`` reads), and
+          ``issue_s`` = ``load_s`` + ``launch_s``;
+        - a paged search's host seconds by part (``PagedFeed.times``):
+          ``paged_replay_s``, ``paged_sync_s`` (the ids sync),
+          ``paged_gather_s`` (the pager), ``paged_h2d_s`` (the tile copy);
+        - while the tracer is on (timed chunks, whole stores only):
+          ``stage_s.<stage>`` and ``stage_calls.<stage>`` for each of
+          ``STAGES`` (device seconds on the card, host seconds on the CPU;
+          a call per step, per chunk for ``copy_back``), and
+          ``chunk_gap_s`` over ``chunk_gaps``: the device idle before each
+          chunk's replay, from the end of the run before it (the init or
+          the last chunk) to the chunk's first node."""
+        st = {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0,
+              "load_s": 0.0, "launch_s": 0.0, "sync_s": 0.0,
+              "programs": 0, "paged_replay_s": 0.0, "paged_sync_s": 0.0,
+              "paged_gather_s": 0.0, "paged_h2d_s": 0.0,
+              "chunk_gap_s": 0.0, "chunk_gaps": 0}
+        for name in STAGES:
+            st["stage_s." + name] = 0.0
+            st["stage_calls." + name] = 0
+        return st
 
     def search_program(self, params, base, neighbors, queries,
-                       capture: bool = True) -> StateProgram:
+                       capture: bool = True,
+                       timed: bool = False) -> StateProgram:
         """The cached program for this batch shape and these params, corpus
         and graph (by identity, and the params' tensors by pointer: pass
         the same objects unchanged between calls; a changed corpus or graph
         is a new object), and the step plan (``plan_for``) at its shape.
         The program holds them, so their ids stay theirs while it is
-        cached."""
+        cached. ``timed``: the timed program (its chunk marks ``STAGES``),
+        under a key of its own; a paged store has none (its program is the
+        untimed one)."""
         dev = queries.device
         Q, Dq = queries.shape
         key = (Q, Dq, str(dev), bool(capture), id(params), id(base),
@@ -772,7 +840,8 @@ class ExpansionEngine:
         dim = base.dim if paged or isinstance(base, CorpusStore) \
             else base.shape[1]
         use_tile = self.plan_for(Q, neighbors.shape[1], dim, dev.type, paged)
-        key = key + (use_tile,)
+        timed = bool(timed) and not paged
+        key = key + (timed, use_tile)
         progs = self._programs
         if key in progs:
             progs.move_to_end(key)
@@ -800,6 +869,12 @@ class ExpansionEngine:
             prog.add("pre", self.pre_routine(nbrs))
             prog.add("post", self.post_routine(params, store, nbrs))
             prog.feed = PagedFeed(store, prog.buffers)
+        elif timed:
+            for name in TIMED_CHUNKS:
+                marks = Marks(dev)
+                prog.add(name, self.step_routine(params, store, nbrs,
+                                                 SYNC_EVERY, use_tile, marks),
+                         marks=marks)
         else:
             prog.add("chunk", self.step_routine(params, store, nbrs,
                                                 SYNC_EVERY, use_tile))
@@ -819,58 +894,134 @@ class ExpansionEngine:
         optional (Q,) adaptive angle cutoffs. Everything runs on
         ``queries.device``: on the card as captured programs
         (``capture=False``: the same chunks, or a paged store's halves,
-        eagerly)."""
+        eagerly). While the engine's tracer is on, the timed program runs
+        (``set_tracer``, ``stats``) and the search's host phases (``load``,
+        ``launch``, ``sync``) are spans of the tracer (site ``engine``)."""
+        tr = self.tracer
+        timed = tr.enabled
         prog = self.search_program(params, base, neighbors, queries,
-                                   capture)
-        with annotate("repro/search"):
-            t0 = time.perf_counter()
-            prog.load(queries=queries, entries=entries)
-            if iter_caps is None:
-                prog.fill(caps=self.cfg.iters())
-                cap_max = self.cfg.iters()
-            else:
-                caps = torch.as_tensor(iter_caps)
-                prog.load(caps=caps)
-                cap_max = int(caps.max())
-            if taus is None:
-                prog.fill(taus=self.angle_tau)
-            else:
-                prog.load(taus=taus)
-            if prog.feed is not None:
-                prog.feed.load_entries(torch.as_tensor(entries).cpu())
-            prog.run("init")
-            issue = time.perf_counter() - t0
-            # every live lane expands or finishes each step, so all lanes are
-            # done after max(iter_cap) + 1 steps; the check is a guard
-            limit = cap_max + 1 + SYNC_EVERY
-            if prog.feed is not None:
-                steps, runs, issue = self._paged_steps(prog, limit, issue)
-            else:
-                steps = runs = 0
-                while True:
-                    t0 = time.perf_counter()
-                    prog.run("chunk")
-                    issue += time.perf_counter() - t0
-                    steps += SYNC_EVERY
-                    runs += 1
-                    if bool(prog.state.done.all()):
-                        break
-                    if steps >= limit:
-                        raise RuntimeError(
-                            f"search did not converge in {steps} steps "
-                            f"(iter cap {limit - 1})")
-            st = self.stats
-            st["searches"] += 1
-            st["steps"] += steps
-            st["runs"] += runs + 1
-            st["issue_s"] += issue
-            return self._result(prog.state)
+                                   capture, timed)
+        if not isinstance(tr, NullTracer):
+            # a live tracer, on or off: both programs are captured, so that
+            # switching it captures nothing
+            self.search_program(params, base, neighbors, queries, capture,
+                                not timed).prepare("init", *TIMED_CHUNKS)
+        phases = Marks(tracer=tr, site="engine") if timed else None
+        if phases is not None:
+            phases.begin("load")
+        t0 = time.perf_counter()
+        prog.load(queries=queries, entries=entries)
+        if iter_caps is None:
+            prog.fill(caps=self.cfg.iters())
+            cap_max = self.cfg.iters()
+        else:
+            caps = torch.as_tensor(iter_caps)
+            prog.load(caps=caps)
+            cap_max = int(caps.max())
+        if taus is None:
+            prog.fill(taus=self.angle_tau)
+        else:
+            prog.load(taus=taus)
+        if prog.feed is not None:
+            prog.feed.load_entries(torch.as_tensor(entries).cpu())
+        t1 = time.perf_counter()
+        if phases is not None:
+            phases.enter("launch")
+        prog.run("init")
+        t2 = time.perf_counter()
+        st = self.stats
+        load, launch, sync = t1 - t0, t2 - t1, 0.0
+        # every live lane expands or finishes each step, so all lanes are
+        # done after max(iter_cap) + 1 steps; the check is a guard
+        limit = cap_max + 1 + SYNC_EVERY
+        if prog.feed is not None:
+            steps, runs, d = self._paged_steps(prog, limit)
+            load += d["h2d_s"]
+            launch += d["replay_s"]
+            sync += d["sync_s"]
+        elif "chunk" in prog.marks:
+            steps, runs, dl, sync = self._timed_chunks(prog, limit, phases)
+            launch += dl
+        else:
+            steps = runs = 0
+            t = t2
+            while True:
+                prog.run("chunk")
+                t1 = time.perf_counter()
+                launch += t1 - t
+                steps += SYNC_EVERY
+                runs += 1
+                finished = bool(prog.state.done.all())
+                t = time.perf_counter()
+                sync += t - t1
+                if finished:
+                    break
+                if steps >= limit:
+                    raise RuntimeError(
+                        f"search did not converge in {steps} steps "
+                        f"(iter cap {limit - 1})")
+        if phases is not None:
+            phases.stop()
+        st["searches"] += 1
+        st["steps"] += steps
+        st["runs"] += runs + 1
+        st["load_s"] += load
+        st["launch_s"] += launch
+        st["sync_s"] += sync
+        st["issue_s"] += load + launch
+        return self._result(prog.state)
 
-    def _paged_steps(self, prog: StateProgram, limit: int,
-                     issue: float) -> Tuple[int, int, float]:
+    def _timed_chunks(self, prog: StateProgram, limit: int,
+                      phases) -> Tuple[int, int, float, float]:
+        """The chunk loop of the timed program, its two chunks in turns:
+        a chunk's stage marks, and the device idle before its replay, are
+        read into ``stats`` while the next chunk runs (the ``done`` read
+        after a chunk, the sync the loop makes anyway, has passed them),
+        the last chunk's after its ``done`` read. Returns (steps, runs,
+        launch seconds, sync seconds)."""
+        st = self.stats
+
+        def read(marks, before) -> None:
+            phases.enter("read")
+            for name, sec in marks.read():
+                st["stage_s." + name] += sec
+                st["stage_calls." + name] += 1
+            st["chunk_gap_s"] += marks.between(before, marks.first)
+            st["chunk_gaps"] += 1
+
+        steps = runs = 0
+        launch = sync = 0.0
+        prev = prog.marks["chunk"].point()     # the end of the init's run
+        pending = None
+        while True:
+            name = TIMED_CHUNKS[runs % 2]
+            marks = prog.marks[name]
+            phases.enter("launch")
+            t0 = time.perf_counter()
+            prog.run(name)
+            launch += time.perf_counter() - t0
+            end = marks.point()
+            if pending is not None:
+                read(*pending)
+            phases.enter("sync")
+            t0 = time.perf_counter()
+            finished = bool(prog.state.done.all())
+            sync += time.perf_counter() - t0
+            pending, prev = (marks, prev), end
+            steps += SYNC_EVERY
+            runs += 1
+            if finished:
+                read(*pending)
+                return steps, runs, launch, sync
+            if steps >= limit:
+                raise RuntimeError(f"search did not converge in {steps} "
+                                   f"steps (iter cap {limit - 1})")
+
+    def _paged_steps(self, prog: StateProgram,
+                     limit: int) -> Tuple[int, int, dict]:
         """A paged search's steps, ``done`` read after every one (the JAX
-        ``while_loop``): returns (steps, program runs, host issue seconds
-        with the replays and the tile copies added)."""
+        ``while_loop``): returns (steps, program runs, the host seconds of
+        its ``PagedFeed.times`` parts)."""
         feed = prog.feed
         t0 = dict(feed.times)
         steps = 0
@@ -882,7 +1033,7 @@ class ExpansionEngine:
         d = {k: feed.times[k] - t0[k] for k in t0}
         for k in ("replay_s", "sync_s", "gather_s", "h2d_s"):
             self.stats["paged_" + k] += d[k]
-        return steps, 2 * steps + 1, issue + d["replay_s"] + d["h2d_s"]
+        return steps, 2 * steps + 1, d
 
     def search_debug(self, params, base, neighbors, queries: torch.Tensor,
                      entries, max_steps: Optional[int] = None,

@@ -21,6 +21,15 @@ the captured launches to the kernels' counts. A capture that fails raises;
 nothing falls back to the eager path. Elsewhere (the CPU, or
 ``capture=False``) each run calls the routine eagerly through the same
 copy-in and copy-back, which is what the CPU tests hold.
+
+A routine added with ``marks`` (an ``obs.Marks``) is a timed one: the
+routine marks its own stage boundaries, and the program marks
+``copy_back`` (its copies of the new state and the outputs) and the end.
+On the card the marks are timing events recorded as nodes of the captured
+graph; on the CPU, host stamps in the eager run. The engine builds such a
+program beside the untimed one, under its own cache key, only while it has
+a live tracer (``core/engine.py``); an untimed routine records nothing,
+and its capture holds no event node.
 """
 from __future__ import annotations
 
@@ -53,9 +62,12 @@ class StateProgram:
         self.feed = None
         self._routines: Dict[str, Routine] = {}
         self._graphs: Dict[str, tuple] = {}
+        self.marks: Dict[str, object] = {}   # a timed routine's obs.Marks
 
-    def add(self, name: str, fn: Routine) -> None:
+    def add(self, name: str, fn: Routine, marks=None) -> None:
         self._routines[name] = fn
+        if marks is not None:
+            self.marks[name] = marks
 
     def load(self, **values) -> None:
         """Copy each value (a tensor on any device, or an array) into the
@@ -89,6 +101,14 @@ class StateProgram:
         graph.replay()
         kernels.add_launches(captured)
 
+    def prepare(self, *names: str) -> None:
+        """Capture those of ``names`` this program has and has not captured
+        yet, without running them (nothing to do off the card)."""
+        if self.capture:
+            for name in names:
+                if name in self._routines and name not in self._graphs:
+                    self._graphs[name] = self._capture(name)
+
     def captured_launches(self, name: str) -> dict:
         """The kernel launches one replay of ``name`` makes ({} before its
         capture or without one)."""
@@ -96,11 +116,16 @@ class StateProgram:
 
     def _apply(self, name: str, state: NamedTuple) -> None:
         new, outputs = self._routines[name](self.buffers, state)
+        marks = self.marks.get(name)
+        if marks is not None:
+            marks.enter("copy_back")
         for dst, src in zip(state, new):
             if dst is not src:
                 dst.copy_(src)
         for key, src in outputs.items():
             self.buffers[key].copy_(src)
+        if marks is not None:
+            marks.stop()
 
     def _capture(self, name: str) -> tuple:
         with torch.cuda.device(self.device):

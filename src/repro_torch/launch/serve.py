@@ -253,8 +253,9 @@ def serve_continuous(args, graph, measure, cfg, options, store, nbrs,
         fault_hook = fault_plan.tick_hook("tick")
         print(f"[serve] chaos: replaying {args.chaos} "
               f"(seed={fault_plan.seed}, {len(fault_plan.events)} event(s))")
-    tracer = (Tracer(sample=args.trace_sample)
-              if args.trace_sample else NULL_TRACER)
+    # --profile-dir alone: a tracer of the round's phases, no request
+    tracer = (Tracer(sample=args.trace_sample) if args.trace_sample
+              else Tracer(sample=None) if args.profile_dir else NULL_TRACER)
     runtime = ContinuousRuntime(engine, measure.params, store, nbrs,
                                 n_lanes=args.lanes, query_dim=args.dim,
                                 entry=graph.entry,
@@ -692,13 +693,26 @@ def main(argv: Optional[Sequence[str]] = None,
     nbrs = torch.as_tensor(graph.neighbors, device=device)
     if args.autotune:
         autotune_plan(args, graph, measure, cfg, options, store, nbrs, device)
-    with profile_trace(args.profile_dir):
-        if args.runtime == "continuous":
-            out = serve_continuous(args, graph, measure, cfg, options, store,
-                                   nbrs, base_t, rng, device)
-        else:
-            out = serve_oneshot(args, graph, measure, cfg, options, store,
-                                nbrs, base_t, rng, device, results=results)
+    # --profile-dir turns the engine's phases and timed chunks on (the
+    # continuous runtime's: serve_continuous); the engine is shared by
+    # build_engine's cache, so its tracer is taken away after the run
+    engine = (build_engine(measure, cfg, options)
+              if args.searcher == "engine" and args.runtime == "oneshot"
+              and args.profile_dir else None)
+    if engine is not None:
+        engine.set_tracer(Tracer(sample=None))
+    try:
+        with profile_trace(args.profile_dir):
+            if args.runtime == "continuous":
+                out = serve_continuous(args, graph, measure, cfg, options,
+                                       store, nbrs, base_t, rng, device)
+            else:
+                out = serve_oneshot(args, graph, measure, cfg, options,
+                                    store, nbrs, base_t, rng, device,
+                                    results=results)
+    finally:
+        if engine is not None:
+            engine.set_tracer(NULL_TRACER)
     if args.profile_dir:
         print(f"[serve] profiler trace -> {args.profile_dir}")
     return out

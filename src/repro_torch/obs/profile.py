@@ -8,11 +8,11 @@ Two layers, both free when unused:
   when a card is in use; on exit it writes a Chrome trace (``trace.json``,
   viewable in Perfetto or ``chrome://tracing``) into the directory. A
   ``None`` directory is a null context.
-- :func:`annotate` names host-side stage boundaries with
-  ``torch.profiler.record_function`` so the device timeline lines up with
-  the serving runtime's phases (``repro/reset``, ``repro/tick``) and the
-  engine's search (``repro/search``). Each wraps a host call (a graph
-  replay on the card), never code inside a capture.
+- :func:`annotate` names a host span with
+  ``torch.profiler.record_function`` (a plain range; the engine and the
+  runtime name their phases through ``obs.phases.Marks`` instead, which
+  opens such ranges only while their tracer is on: ``serve
+  --profile-dir`` gives them one).
 """
 from __future__ import annotations
 

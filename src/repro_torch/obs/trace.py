@@ -103,19 +103,24 @@ class Tracer:
     """Span collector with a bounded ring buffer.
 
     ``sample=N`` traces every Nth request id (``rid % N == 0``);
-    ``capacity`` bounds retained spans (oldest evicted first). The
-    clock must be monotonic; ``time.perf_counter`` by default.
+    ``sample=None`` traces no request, only site-scoped spans (the
+    program's phases, ``obs/phases.py``). ``capacity`` bounds retained
+    spans (oldest evicted first). The clock must be monotonic;
+    ``time.perf_counter`` by default. ``enabled`` may be set False on an
+    instance to switch a live tracer off: its owners keep what they built
+    for it (an engine's timed programs) and run as untraced until it is
+    set True again.
     """
     enabled = True
 
-    def __init__(self, capacity: int = 4096, sample: int = 1,
+    def __init__(self, capacity: int = 4096, sample: Optional[int] = 1,
                  clock: Callable[[], float] = time.perf_counter):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
-        if sample < 1:
-            raise ValueError("sample must be >= 1")
+        if sample is not None and sample < 1:
+            raise ValueError("sample must be >= 1 (None: no request)")
         self.capacity = int(capacity)
-        self.sample = int(sample)
+        self.sample = None if sample is None else int(sample)
         self.clock = clock
         self._ring: collections.deque = collections.deque(maxlen=capacity)
         self._open: Dict[int, Span] = {}
@@ -156,7 +161,8 @@ class Tracer:
 
     # -- request roots -------------------------------------------------
     def sampled(self, rid) -> bool:
-        return rid is not None and rid >= 0 and rid % self.sample == 0
+        return (self.sample is not None and rid is not None and rid >= 0
+                and rid % self.sample == 0)
 
     def root_for(self, rid: int, t0: Optional[float] = None) -> int:
         """Get-or-create the root ``request`` span for ``rid``.

@@ -44,6 +44,10 @@ Differences from the JAX runtime, each forced by the card:
   place; ``install_index`` builds a new program for the new store and
   neighbor table at the swap and drops the old epoch's graphs and
   buffers.
+- A request is stamped done (``RequestRecord.t_done``, and the service
+  time the deadline-aware degrade averages) once the round's harvest copy
+  has returned to the host; the JAX runtime stamps it before that copy's
+  sync, before the device has finished the tick.
 - A shard's fault domain strikes only the shard's own faults
   (``SHARD_FAULTS``: a chaos plan's ``InjectedFault``, an ``OSError``, a
   paged store's ``CorpusUnavailableError``).
@@ -80,7 +84,7 @@ from repro_torch.core.engine import ExpansionEngine, PagedFeed, paged_buffers
 from repro_torch.core.program import StateProgram
 from repro_torch.core.sharded import (_devices, merge_topk, shard_params,
                                       shard_stores)
-from repro_torch.obs.profile import annotate
+from repro_torch.obs.phases import Marks
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.health import ShardHealthTracker
@@ -93,6 +97,8 @@ SHARD_FAULTS = (InjectedFault, OSError, CorpusUnavailableError)
 # the sites of the sharded runtime's own site-scoped spans (module
 # docstring): pass as ``obs.attribution(spans, rid, sites=TRACE_SITES)``
 TRACE_SITES = ("tracer", "merge")
+# a round's phases, in order (``ContinuousRuntime.step_once``)
+ROUND_PHASES = ("admit", "launch", "harvest_wait", "harvest")
 
 
 @dataclasses.dataclass
@@ -217,7 +223,16 @@ class ContinuousRuntime:
         self.trace_site = trace_site
         self._trace_owner = trace_owner
         self._queue_spans: Dict[int, int] = {}
-        self._n_ticks = 0
+        # unsampled round counters, kept whatever the tracer (int adds)
+        self.counters = {"rounds": 0, "admitted": 0, "harvested": 0,
+                         "resets": 0, "ticks": 0}
+        # while the tracer is on: each phase's host seconds, the rounds
+        # they cover and, on a card, the rounds' device seconds
+        self.round_s = dict.fromkeys(ROUND_PHASES + ("device",), 0.0)
+        self.traced_rounds = 0
+        self._phases = Marks(tracer=tracer, site="runtime", clock=now_fn,
+                             **({"shard": trace_site} if trace_site else {}))
+        self._events: Optional[list] = None   # a traced round's, on a card
 
         self.epoch = 0
         self._pending_index: Optional[tuple] = None
@@ -282,6 +297,11 @@ class ContinuousRuntime:
                 return s, {"harvest": _pack(s, k)}
             program.add("tick", tick)
         self.program = program
+        # the harvest's host side: pinned on a card, so that its copy is
+        # issued, fenced (traced: an event) and then waited for
+        self._harvest_host = (torch.empty(
+            bufs["harvest"].shape, dtype=torch.int64, pin_memory=True)
+            if dev.type == "cuda" else None)
 
     # -- queue side ---------------------------------------------------------
 
@@ -423,14 +443,17 @@ class ContinuousRuntime:
 
     # -- scheduler round ----------------------------------------------------
 
-    def _admit(self, now: float) -> List[Completion]:
+    def _admit(self, now: float) -> Tuple[List[Completion], bool]:
+        """Queued requests into free lanes and their values into the
+        program's buffers; returns the deadline drops and whether a lane
+        was filled (the launch then runs the reset)."""
         dropped: List[Completion] = []
         if self._pending_index is not None:
-            return dropped      # admissions hold until the staged epoch
+            return dropped, False   # admissions hold until the new epoch
         free = [lane for lane in range(self.n_lanes)
                 if self._lane_req[lane] is None]
         if not free or not self.queue:
-            return dropped
+            return dropped, False
         tr = self.tracer
         mask = np.zeros((self.n_lanes,), bool)
         while free and self.queue:
@@ -457,6 +480,7 @@ class ContinuousRuntime:
                     req.degraded = True
             lane = free.pop(0)
             mask[lane] = True
+            self.counters["admitted"] += 1
             if tr.enabled:
                 qs = self._queue_spans.pop(req.rid, None)
                 if qs is not None:
@@ -471,17 +495,24 @@ class ContinuousRuntime:
                                    else self.engine.cfg.iters())
             self._taus_np[lane] = (tau if tau is not None
                                    else self.engine.angle_tau)
-        if mask.any():
-            self.program.load(queries=self._queries_np,
-                              entries=self._entries_np, mask=mask,
-                              caps=self._caps_np, taus=self._taus_np)
-            if self.program.feed is not None:
-                # init_state seeds every lane, as the JAX reset gathers
-                # every lane's entry through the pager
-                self.program.feed.load_entries(self._entries_np)
-            with annotate("repro/reset"):
-                self.program.run("reset")
-        return dropped
+        if not mask.any():
+            return dropped, False
+        self.program.load(queries=self._queries_np,
+                          entries=self._entries_np, mask=mask,
+                          caps=self._caps_np, taus=self._taus_np)
+        if self.program.feed is not None:
+            # init_state seeds every lane, as the JAX reset gathers
+            # every lane's entry through the pager
+            self.program.feed.load_entries(self._entries_np)
+        return dropped, True
+
+    def _launch(self, reset: bool) -> None:
+        """The round's replays: the lane reset (when ``_admit`` filled a
+        lane), then the tick."""
+        if reset:
+            self.program.run("reset")
+            self.counters["resets"] += 1
+        self._tick()
 
     def _tick(self) -> None:
         self.tick_penalty_s = 0.0
@@ -494,27 +525,44 @@ class ContinuousRuntime:
             # slow tick reports extra seconds for the sharded runtime's
             # deadline check and straggler monitor
             self.tick_penalty_s = float(self.fault_hook() or 0.0)
-        with annotate("repro/tick"):
-            feed = self.program.feed
-            if feed is None:
-                self.program.run("tick")
-            else:
-                for _ in range(self.steps_per_tick):
-                    feed.step(self.program, stop_when_done=False)
-                self.program.run("pack")
-        self._n_ticks += 1
+        feed = self.program.feed
+        if feed is None:
+            self.program.run("tick")
+        else:
+            for _ in range(self.steps_per_tick):
+                feed.step(self.program, stop_when_done=False)
+            self.program.run("pack")
+        self.counters["ticks"] += 1
         self.metrics.observe_occupancy(busy, self.n_lanes,
                                        self.steps_per_tick)
 
-    def _harvest(self, now: float) -> List[Completion]:
+    def _fetch(self, ev=None) -> Optional[np.ndarray]:
+        """The harvest buffer on the host (None when no lane is in
+        flight): one copy per round, done + results + counters together,
+        and its wait, which is where the host waits for the tick. ``ev``
+        (traced, on a card) is recorded after the copy, before the
+        wait."""
+        if all(r is None for r in self._lane_req):
+            return None
+        buf = self.program.buffers["harvest"]
+        host = self._harvest_host
+        if host is None:
+            return buf.cpu().numpy()
+        host.copy_(buf, non_blocking=True)
+        if ev is not None:
+            ev.record()
+        torch.cuda.current_stream(self.device).synchronize()
+        return host.numpy()
+
+    def _harvest(self, packed: Optional[np.ndarray],
+                 now: float) -> List[Completion]:
+        """Completions of the converged lanes in ``packed`` (``_fetch``),
+        stamped done at ``now``, after the copy has returned."""
+        if packed is None:
+            return []
         occupied = [lane for lane in range(self.n_lanes)
                     if self._lane_req[lane] is not None]
-        if not occupied:
-            return []
-        # one copy per round: done + results + counters together (its sync
-        # is where the host waits for the tick)
         k = self.engine.cfg.k
-        packed = self.program.buffers["harvest"].cpu().numpy()
         ids = packed[:, :k]
         scores = packed[:, k:2 * k].astype(np.int32).view(np.float32)
         n_eval, n_grad, n_iters, done = packed[:, 2 * k:].T
@@ -540,32 +588,63 @@ class ContinuousRuntime:
             self.completions.append(c)
             self._lane_req[lane] = None
             out.append(c)
+        self.counters["harvested"] += len(out)
         return out
 
     def step_once(self) -> List[Completion]:
-        """One admit -> tick -> harvest round; returns every request that
-        resolved in it (harvested results and deadline drops). A staged
-        index (``install_index``) swaps in at the top of the round once
-        the previous epoch's lanes have all harvested."""
+        """One round: admit -> launch (the reset, the tick) -> harvest
+        wait (the copy and its sync) -> harvest; returns every request
+        that resolved in it (harvested results and deadline drops). A
+        staged index (``install_index``) swaps in at the top of the round
+        once the previous epoch's lanes have all harvested. A request is
+        stamped done once the harvest copy has returned (the JAX runtime
+        stamps it before its harvest's sync)."""
         self._maybe_swap_index()
         self.metrics.observe_queue_depth(len(self.queue))
+        self.counters["rounds"] += 1
+        if self.tracer.enabled:
+            return self._traced_round()
+        dropped, reset = self._admit(self._now())
+        self._launch(reset)
+        packed = self._fetch()
+        return dropped + self._harvest(packed, self._now())
+
+    def _traced_round(self) -> List[Completion]:
+        """``step_once`` under a tracer that is on: the phases of
+        ``ROUND_PHASES`` are marked (``obs.Marks``: site-scoped spans,
+        ``repro/<phase>`` profiler ranges, seconds into ``round_s``); on a
+        card, two events on the stream, before the first replay and after
+        the harvest copy, give the round's device span
+        (``round_s["device"]``: the reset, the tick and the copy, and the
+        device's waits for their launches, which stream events cannot tell
+        from work); the sampled requests' phase spans (admit / tick / harvest)
+        share the phases' stamps, so they tile the round."""
         tr = self.tracer
-        if not tr.enabled:
-            dropped = self._admit(self._now())
-            self._tick()
-            return dropped + self._harvest(self._now())
-        # traced round: four shared timestamps tile the round, so the
-        # per-request phase spans (admit / tick / harvest) cover its wall
-        # clock. The tick span covers the replay's dispatch only: the card
-        # works asynchronously, and the harvest copy's sync carries the
-        # device wait
-        t0 = self._now()
-        dropped = self._admit(t0)
-        t1 = self._now()
-        self._tick()
-        t2 = self._now()
-        harvested = self._harvest(t2)
-        t3 = self._now()
+        ph = self._phases
+        ph.tracer = tr
+        ev = None
+        if self.device.type == "cuda":
+            if self._events is None:
+                self._events = [torch.cuda.Event(enable_timing=True)
+                                for _ in range(2)]
+            ev = self._events
+        t0 = ph.begin("admit", i=self.counters["rounds"])
+        dropped, reset = self._admit(t0)
+        t1 = ph.enter("launch")
+        if ev is not None:
+            ev[0].record()
+        self._launch(reset)
+        t2 = ph.enter("harvest_wait")
+        packed = self._fetch(ev[1] if ev is not None else None)
+        now = ph.enter("harvest")
+        harvested = self._harvest(packed, now)
+        t3 = ph.stop()
+        rs = self.round_s
+        for name, sec in ph.read():
+            rs[name] += sec
+        self.traced_rounds += 1
+        if ev is not None and packed is not None:
+            rs["device"] += ph.between(ev[0], ev[1])
         if self._emit_round_spans(t0, t1, t2, t3, harvested) \
                 and not self._trace_owner:
             # under the sharded fan-out, the tracer's own time on this
@@ -590,7 +669,7 @@ class ContinuousRuntime:
                 tr.emit("admit", t0, t1, rid=rid, site=site, parent=root)
             if t2 > t1:
                 tr.emit("tick", t1, t2, rid=rid, site=site, parent=root,
-                        i=self._n_ticks, steps=self.steps_per_tick)
+                        i=self.counters["ticks"], steps=self.steps_per_tick)
             if t3 > t2:
                 tr.emit("harvest", t2, t3, rid=rid, site=site, parent=root)
         if self._trace_owner:

@@ -405,7 +405,9 @@ def test_serve_chaos_trace_metrics_profile_flags(tmp_path, capsys):
     assert 'repro_serving_requests_total{status="ok"} 12' in prom
     assert json.load(open(paths["json"]))["n_completed"] == 12
     trace = json.load(open(f"{paths['prof']}/trace.json"))
-    assert any(e.get("name") == "repro/tick" for e in trace["traceEvents"])
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"repro/admit", "repro/launch", "repro/harvest_wait",
+            "repro/harvest"} <= names
     with pytest.raises(SystemExit, match="--chaos needs --runtime"):
         serve.parse_args(["--chaos", str(plan)])
     with pytest.raises(SystemExit, match="--trace-out needs --trace-sample"):
