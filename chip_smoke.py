@@ -2217,6 +2217,13 @@ def check_graph(torch, np, dev, family, N=5000):
             cap_counts, warm = launch_counts(), warmup_launch_counts()
             prog = eng.search_program(measure.params, store, nbrs, qt)
             per_chunk = prog.captured_launches("chunk")
+            others = sum(t.nbytes for f, t in zip(prog.state._fields,
+                                                  prog.state)
+                         if f != "visited")
+            require(prog.copied == {"init": others, "chunk": others},
+                    f"{name}: the captured runs copy back {prog.copied} "
+                    f"bytes, not the state's fields without the visited "
+                    f"bitmap ({others})")
             replay = eng.search(measure.params, store, nbrs, qt, entries,
                                 **kw)
             torch.cuda.synchronize()
@@ -2234,11 +2241,13 @@ def check_graph(torch, np, dev, family, N=5000):
             log(f"{name}: captured search = search_debug = host loop bit "
                 f"for bit (ids, scores, counters); launches {cap_counts} "
                 f"= host loop's (warm-up apart: {warm}); one chunk "
-                f"replays {per_chunk}; first call with capture "
+                f"replays {per_chunk} and copies back {others} bytes "
+                f"(the bitmap stays in place); first call with capture "
                 f"{capture_s:.2f}s; one eager step made no host sync")
             out[f"{label} {case}"] = {
                 "launches": cap_counts, "warmup_launches": warm,
                 "chunk_launches": per_chunk, "capture_s": capture_s,
+                "chunk_copy_back_bytes": others,
                 "n_iters_max": int(debug.n_iters.max())}
     return out
 

@@ -93,6 +93,17 @@ Counters follow the paper's Table-2 accounting: ``n_eval`` counts effective
 (mask-surviving) measure evaluations, ``n_grad`` gradients, ``n_iters``
 expansions. Ids are int64 (torch's index type); the visited bitmap holds
 32-bit words in int64 lanes.
+
+The visited bitmap, (Q, ceil(N/32)) words (758 MB at Q = 4,096 over
+739,991 items), is written in place (``bit_set_rows_``): ``step`` sets the
+step's bits in the input state's own tensor and returns that tensor,
+``reset_lanes`` clears and seeds the masked lanes' rows in it, and a
+program's init zeroes and seeds its own (``init_state(visited=)``). A
+program's routines so hand back the bitmap they were given, and the program
+copies nothing of it back (``StateProgram.copied``); once ``idle_state``
+has allocated it no (Q, N/32) tensor is made again. A caller that needs a
+state's bitmap as it was before a ``step`` or ``reset_lanes`` clones it
+first.
 """
 from __future__ import annotations
 
@@ -128,6 +139,8 @@ STAGES = ("pop", "grad", "rank", "measure", "visit", "insert", "copy_back")
 # a timed program's two chunks, replayed in turns, each with its own
 # events: one chunk's are read while the next runs
 TIMED_CHUNKS = ("chunk", "chunk.alt")
+# the routines of a search program that run its steps
+STEP_ROUTINES = TIMED_CHUNKS + ("pre", "post")
 _NEG_INF = float("-inf")
 
 
@@ -222,21 +235,28 @@ def bit_test_rows(bitmap: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return ((w >> (safe & 31)) & 1).bool()
 
 
-def bit_set_rows(bitmap: torch.Tensor, ids: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
-    """Set bits rowwise (returns a new bitmap). Within a row the masked-in
-    ids are distinct and unset (neighbor lists are duplicate-free and only
-    fresh ids are set), so a scatter-add over the flattened words acts as
-    OR (integer adds: the order does not matter)."""
+def bit_set_rows_(bitmap: torch.Tensor, ids: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Set bits rowwise in ``bitmap``'s own storage (contiguous) and return
+    it. Within a row the masked-in ids are distinct and unset (neighbor
+    lists are duplicate-free and only fresh ids are set), so a scatter-add
+    over the flattened words acts as OR (integer adds: the order does not
+    matter)."""
     safe = ids.clamp_min(0).long()
     updates = torch.where(mask, torch.ones_like(safe) << (safe & 31),
                           torch.zeros_like(safe))
     Q, W = bitmap.shape
     rows = torch.arange(Q, device=bitmap.device)[:, None] * W
-    flat = bitmap.reshape(-1).clone()
-    flat.scatter_add_(0, (rows + (safe >> 5)).reshape(-1),
-                      updates.reshape(-1))
-    return flat.view(Q, W)
+    bitmap.view(-1).scatter_add_(0, (rows + (safe >> 5)).reshape(-1),
+                                 updates.reshape(-1))
+    return bitmap
+
+
+def bit_set_rows(bitmap: torch.Tensor, ids: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """``bit_set_rows_`` on a copy: returns a new bitmap."""
+    return bit_set_rows_(bitmap.clone(memory_format=torch.contiguous_format),
+                         ids, mask)
 
 
 def _repeat_rows(x: torch.Tensor, C: int) -> torch.Tensor:
@@ -263,9 +283,11 @@ def _freeze_done(done: torch.Tensor, new: EngineState,
                  old: EngineState) -> EngineState:
     """Keep converged lanes' state frozen (lane-granular early exit).
 
-    ``visited`` is exempt: a done lane pops with ``active=False``, so every
-    bit update is masked to a no-op and the new bitmap already equals the
-    old one; skipping the select saves a (Q, N/32) copy per step."""
+    ``visited`` is exempt: ``step`` sets its bits in place, so the new
+    state's bitmap is the old state's tensor, and a done lane pops with
+    ``active=False``, so its bit updates are masked to no-ops. The bitmap
+    passes through as it is: no (Q, N/32) select, and the programs copy
+    nothing of it back."""
     def pick(n, o):
         d = done.view((-1,) + (1,) * (n.dim() - 1))
         return torch.where(d, o, n)
@@ -511,17 +533,36 @@ class ExpansionEngine:
 
     def init_state(self, params, store: AnyCorpusStore, neighbors, queries,
                    entries, iter_caps=None, taus=None, entry_rows=None,
-                   use_tile: bool = False) -> EngineState:
+                   use_tile: bool = False, visited=None) -> EngineState:
         """Seed each pool with its entry point (one measure call). A paged
         store seeds from ``entry_rows`` ((Q, D) float32, the entries' rows
         the host gathered) or, without them, one ``store.take``; the tile
         plan (``use_tile``) through ``store.take`` and the pre-gathered
-        measure too, so that it launches no fused kernel."""
+        measure too, so that it launches no fused kernel. ``visited``: a
+        (Q, ceil(N/32)) int64 bitmap that the state takes as its own,
+        zeroed and seeded in place (a program's init passes its state's);
+        None allocates one."""
+        Q = queries.shape[0]
+        dev = queries.device
+        entries = entries.long()
+        if visited is None:
+            visited = torch.zeros((Q, (store.n + 31) // 32),
+                                  dtype=torch.int64, device=dev)
+        else:
+            visited.zero_()
+        bit_set_rows_(visited, entries[:, None],
+                      torch.ones((Q, 1), dtype=torch.bool, device=dev))
+        return self._seed(params, store, queries, entries, iter_caps, taus,
+                          entry_rows, use_tile, visited)
+
+    def _seed(self, params, store: AnyCorpusStore, queries, entries,
+              iter_caps, taus, entry_rows, use_tile: bool,
+              visited: torch.Tensor) -> EngineState:
+        """``init_state``'s fields around a bitmap the caller has seeded
+        (held as it is)."""
         Q = queries.shape[0]
         ef = self.cfg.ef
         dev = queries.device
-        nwords = (store.n + 31) // 32
-        entries = entries.long()
         if store.is_paged:
             rows = entry_rows if entry_rows is not None \
                 else store.take(entries)
@@ -541,10 +582,6 @@ class ExpansionEngine:
         pool_ids[:, 0] = entries
         pool_expanded = torch.ones((Q, ef), dtype=torch.bool, device=dev)
         pool_expanded[:, 0] = False
-        visited = bit_set_rows(
-            torch.zeros((Q, nwords), dtype=torch.int64, device=dev),
-            entries[:, None], torch.ones((Q, 1), dtype=torch.bool,
-                                         device=dev))
         zeros = torch.zeros((Q,), dtype=torch.int32, device=dev)
         if iter_caps is None:
             iter_caps = torch.full((Q,), self.cfg.iters(),
@@ -607,7 +644,9 @@ class ExpansionEngine:
         [frontier | neighbors] (gathered here by ``store.take`` when None,
         through the pager for a paged store). ``marks`` (an ``obs.Marks``,
         a timed chunk's) is entered at each stage boundary of ``STAGES``
-        after ``pop``; the caller enters ``pop``."""
+        after ``pop``; the caller enters ``pop``. The step sets its visited
+        bits in ``state.visited`` in place, and the returned state holds
+        that same tensor: clone it first to keep the bitmap as it was."""
         Q = queries.shape[0]
         if use_tile is None:
             use_tile = self._use_tile_plan(store, neighbors.shape[1], Q)
@@ -671,11 +710,10 @@ class ExpansionEngine:
 
         if marks is not None:
             marks.enter("visit")
-        visited = bit_set_rows(s.visited, sel_ids, sel_mask)
+        bit_set_rows_(s.visited, sel_ids, sel_mask)
         if marks is not None:
             marks.enter("insert")
         s = s._replace(
-            visited=visited,
             n_grad=n_grad,
             n_eval=s.n_eval + sel_mask.sum(dim=1).int(),
             n_iters=s.n_iters + pop.active.int())
@@ -698,13 +736,20 @@ class ExpansionEngine:
         ``iter_caps`` / ``taus``, and a paged store's ``entry_rows``) hold
         the NEW values in the masked rows; mask: (Q,) bool, True lanes are
         re-initialized. Lane for lane equal to ``init_state`` (in the plan
-        ``use_tile``) on the masked rows."""
-        fresh = self.init_state(params, store, None, queries, entries,
-                                iter_caps, taus, entry_rows, use_tile)
+        ``use_tile``) on the masked rows. The masked lanes' rows of
+        ``state.visited`` are cleared and seeded in place, the other rows
+        left untouched, and the returned state holds that same tensor:
+        clone it first to keep the bitmap as it was."""
+        entries = entries.long()
+        visited = state.visited.masked_fill_(mask[:, None], 0)
+        bit_set_rows_(visited, entries[:, None], mask[:, None])
+        fresh = self._seed(params, store, queries, entries, iter_caps, taus,
+                           entry_rows, use_tile, visited)
 
         def pick(n, o):
             return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
-        return EngineState(*(pick(n, o) for n, o in zip(fresh, state)))
+        return EngineState(*(n if f == "visited" else pick(n, o) for f, n, o
+                             in zip(EngineState._fields, fresh, state)))
 
     def idle_state(self, n_lanes: int, n_corpus: int,
                    device=DEFAULT_DEVICE) -> EngineState:
@@ -810,12 +855,16 @@ class ExpansionEngine:
           a call per step, per chunk for ``copy_back``), and
           ``chunk_gap_s`` over ``chunk_gaps``: the device idle before each
           chunk's replay, from the end of the run before it (the init or
-          the last chunk) to the chunk's first node."""
+          the last chunk) to the chunk's first node;
+        - ``copy_back_bytes``: the bytes the search's step runs (the chunks,
+          a paged search's pre and post halves; not the init) copied back
+          into the state and the output buffers, ``StateProgram.copied``
+          per run (always)."""
         st = {"searches": 0, "steps": 0, "runs": 0, "issue_s": 0.0,
               "load_s": 0.0, "launch_s": 0.0, "sync_s": 0.0,
               "programs": 0, "paged_replay_s": 0.0, "paged_sync_s": 0.0,
               "paged_gather_s": 0.0, "paged_h2d_s": 0.0,
-              "chunk_gap_s": 0.0, "chunk_gaps": 0}
+              "chunk_gap_s": 0.0, "chunk_gaps": 0, "copy_back_bytes": 0}
         for name in STAGES:
             st["stage_s." + name] = 0.0
             st["stage_calls." + name] = 0
@@ -863,7 +912,8 @@ class ExpansionEngine:
         def init(b, s):
             return self.init_state(params, store, nbrs, b["queries"],
                                    b["entries"], b["caps"], b["taus"],
-                                   b.get("entry_rows"), use_tile), {}
+                                   b.get("entry_rows"), use_tile,
+                                   visited=s.visited), {}
         prog.add("init", init)
         if store.is_paged:
             prog.add("pre", self.pre_routine(nbrs))
@@ -924,6 +974,7 @@ class ExpansionEngine:
             prog.load(taus=taus)
         if prog.feed is not None:
             prog.feed.load_entries(torch.as_tensor(entries).cpu())
+        runs0 = dict(prog.runs)
         t1 = time.perf_counter()
         if phases is not None:
             phases.enter("launch")
@@ -969,6 +1020,9 @@ class ExpansionEngine:
         st["launch_s"] += launch
         st["sync_s"] += sync
         st["issue_s"] += load + launch
+        st["copy_back_bytes"] += sum(
+            (prog.runs[name] - runs0.get(name, 0)) * prog.copied.get(name, 0)
+            for name in STEP_ROUTINES)
         return self._result(prog.state)
 
     def _timed_chunks(self, prog: StateProgram, limit: int,

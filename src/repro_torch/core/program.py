@@ -7,9 +7,13 @@ A ``StateProgram`` owns a state (a NamedTuple of tensors, the engine's
 ``fn(buffers, state) -> (new_state, outputs)``: it reads the buffers and
 the state, and the program copies ``new_state`` back into the state's own
 tensors and each of ``outputs`` into the buffer of its name, so the next
-run reads them in place. The host writes new inputs into the buffers
-(``load``, ``fill``) and new state values (``assign``) between runs;
-nothing else changes a buffer's storage.
+run reads them in place. A field the routine wrote in place and returns as
+the state's own tensor (the engine's visited bitmap) is not copied.
+``copied`` holds, per routine, the bytes one run copies back, state and
+outputs: fixed at the capture on the card, counted at each eager run
+elsewhere. The host writes new inputs into the buffers (``load``,
+``fill``) and new state values (``assign``) between runs; nothing else
+changes a buffer's storage.
 
 On a CUDA device with ``capture=True`` a routine's first run warms it up
 (one eager run on a side stream over a clone of the state, so the kernel
@@ -46,7 +50,8 @@ Routine = Callable[[Dict[str, torch.Tensor], NamedTuple],
 
 class StateProgram:
     """Routines over one static state and its buffers (module docstring).
-    ``runs`` counts each routine's runs (replays on the card)."""
+    ``runs`` counts each routine's runs (replays on the card); ``copied``
+    holds the bytes one run of each copies back."""
 
     def __init__(self, state: NamedTuple, buffers: Dict[str, torch.Tensor],
                  capture: bool = True):
@@ -58,6 +63,7 @@ class StateProgram:
         self.device = state[0].device
         self.capture = bool(capture) and self.device.type == "cuda"
         self.runs: collections.Counter = collections.Counter()
+        self.copied: Dict[str, int] = {}
         # a paged program's host side (core.engine.PagedFeed), else None
         self.feed = None
         self._routines: Dict[str, Routine] = {}
@@ -119,11 +125,15 @@ class StateProgram:
         marks = self.marks.get(name)
         if marks is not None:
             marks.enter("copy_back")
+        nbytes = 0
         for dst, src in zip(state, new):
             if dst is not src:
                 dst.copy_(src)
+                nbytes += dst.nbytes
         for key, src in outputs.items():
             self.buffers[key].copy_(src)
+            nbytes += self.buffers[key].nbytes
+        self.copied[name] = nbytes
         if marks is not None:
             marks.stop()
 

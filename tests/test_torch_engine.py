@@ -132,6 +132,32 @@ def test_visited_bitmap_exact():
     assert int(got.max()) < 2 ** 32
 
 
+@pytest.mark.parametrize("seed", [3, 9])
+def test_visited_bitmap_in_place_exact(seed):
+    """``bit_set_rows_`` writes the functional ``bit_set_rows``'s words,
+    and the JAX reference's, into the bitmap it is given, and returns it."""
+    js, ts = _random_state(seed)
+    rng = np.random.default_rng(seed)
+    Qs, W = ts.visited.shape
+    ids = np.stack([rng.permutation(32 * W)[:10] for _ in range(Qs)])
+    ids[:, -2:] = -1
+    mask = rng.random(ids.shape) < 0.6
+    fresh = np.asarray(js.visited).astype(np.uint64)
+    for q in range(Qs):
+        for i in ids[q][ids[q] >= 0]:
+            fresh[q, i >> 5] &= ~np.uint64(1 << (i & 31))
+    bm = torch.from_numpy(fresh.astype(np.int64))
+    tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
+    functional = teng.bit_set_rows(bm, tids, tmask)
+    ptr = bm.data_ptr()
+    got = teng.bit_set_rows_(bm, tids, tmask)
+    assert got is bm and bm.data_ptr() == ptr
+    _eq(got, functional.numpy())
+    want = jeng.bit_set_rows(jnp.asarray(fresh.astype(np.uint32)),
+                             jnp.asarray(ids), jnp.asarray(mask))
+    _eq(got, np.asarray(want).astype(np.int64))
+
+
 @pytest.mark.parametrize("variant", ["band", "valid", "adaptive_tau"])
 def test_select_top_c_exact(variant):
     rng = np.random.default_rng(5)

@@ -32,6 +32,9 @@ from repro_torch.core import (EngineOptions, SearchConfig,  # noqa: E402
                               make_corpus_store, make_family_measure,
                               params_from_jax, recall, search_measure)
 from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.core import ResidencyPolicy  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
+from repro_torch.serving import ContinuousRuntime, Request  # noqa: E402
 
 N, D, Q = 1000, 40, 16
 CFG = dict(k=10, ef=32, budget=8, alpha=1.01, mode="guitar",
@@ -204,6 +207,16 @@ def test_state_program_copy_in_and_back():
     assert torch.equal(prog.state[1], torch.full((3,), 2, dtype=torch.int32))
     assert torch.equal(prog.buffers["out"], torch.tensor([3.0, 5.0, 7.0]))
     assert prog.runs["bump"] == 2 and prog.captured_launches("bump") == {}
+    assert prog.copied["bump"] == 3 * 4 + 3 * 4 + 3 * 4     # a, b and out
+
+    def keep_a(b, s):
+        # a field written in place and handed back is not copied
+        s[0].add_(1.0)
+        return S(s[0], s[1] + 1), {}
+    prog.add("keep_a", keep_a)
+    prog.run("keep_a")
+    assert torch.equal(prog.state[0], torch.tensor([2.5, 3.5, 4.5]))
+    assert prog.copied["keep_a"] == 3 * 4
     with pytest.raises(ValueError, match="share storage"):
         z = torch.zeros(3)
         StateProgram(S(z, z), {})
@@ -288,12 +301,157 @@ def test_reset_lanes_equals_init_state(system, mode):
     e2 = torch.where(mask, torch.tensor([5, 0, 7, 0]), e)
     caps = torch.tensor([3, 99, 5, 99], dtype=torch.int32)
     taus = torch.tensor([1.5, 0.0, 1.7, 0.0])
+    # reset_lanes writes the bitmap in place: hold the lanes against a copy
+    before = teng.EngineState(*(t.clone() for t in state))
     out = eng.reset_lanes(m.params, store, merged, e2, state, mask, caps,
                           taus)
     fresh = eng.init_state(m.params, store, nbrs, merged, e2, caps, taus)
-    for o, f, s in zip(out, fresh, state):
+    for o, f, s in zip(out, fresh, before):
         assert torch.equal(o[0], f[0]) and torch.equal(o[2], f[2])
         assert torch.equal(o[1], s[1]) and torch.equal(o[3], s[3])
+
+
+def test_reset_lanes_writes_visited_in_place(system):
+    """reset_lanes clears and seeds the masked lanes' bitmap rows in the
+    state's own tensor, leaves the other rows' words as they were, and
+    hands that tensor back."""
+    eng = _engine(system, "deepfm", "fused-f32")
+    m = system["tms"]["deepfm"]
+    store = make_corpus_store(system["base"], "float32", device="cpu")
+    nbrs, g = system["nbrs"], system["graph"]
+    q = system["qt"][:4]
+    e = torch.full((4,), g.entry)
+    state = eng.init_state(m.params, store, nbrs, q, e)
+    qs_flat = teng._repeat_rows(q, eng.n_candidates(nbrs.shape[1]))
+    for _ in range(4):
+        state = eng.step(m.params, store, nbrs, q, qs_flat, state)
+    bitmap = state.visited
+    ptr, before = bitmap.data_ptr(), bitmap.clone()
+    mask = torch.tensor([False, True, False, True])
+    e2 = torch.tensor([0, 11, 0, 13])
+    out = eng.reset_lanes(m.params, store, q, e2, state, mask)
+    assert out.visited is bitmap and bitmap.data_ptr() == ptr
+    assert torch.equal(bitmap[~mask], before[~mask])
+    assert not torch.equal(bitmap[mask], before[mask])
+    fresh = eng.init_state(m.params, store, nbrs, q, e2)
+    assert torch.equal(bitmap[mask], fresh.visited[mask])
+
+
+def test_step_sets_visited_in_place(system):
+    """step sets its bits in the input state's bitmap and returns that
+    tensor; the bits equal the functional ``bit_set_rows`` on a copy."""
+    eng = _engine(system, "mlp", "unfused")
+    m = system["tms"]["mlp"]
+    store = make_corpus_store(system["base"], "float32", device="cpu")
+    nbrs, g = system["nbrs"], system["graph"]
+    q = system["qt"][:5]
+    state = eng.init_state(m.params, store, nbrs, q, torch.full((5,),
+                                                                 g.entry))
+    qs_flat = teng._repeat_rows(q, eng.n_candidates(nbrs.shape[1]))
+    for _ in range(2):
+        before = state.visited.clone()
+        ptr = state.visited.data_ptr()
+        new = teng._freeze_done(state.done, eng.step(
+            m.params, store, nbrs, q, qs_flat, state), state)
+        assert new.visited is state.visited
+        assert new.visited.data_ptr() == ptr
+        # the step only adds bits
+        added = new.visited & ~before
+        assert torch.equal(added | before, new.visited)
+        assert int(added.sum()) > 0
+        state = new
+
+
+def test_init_state_seeds_a_given_bitmap_in_place(system):
+    """init_state(visited=t) zeroes and seeds t itself, and equals the
+    functional init_state field for field."""
+    eng = _engine(system, "deepfm", "unfused")
+    m = system["tms"]["deepfm"]
+    store = make_corpus_store(system["base"], "float32", device="cpu")
+    nbrs = system["nbrs"]
+    q = system["qt"][:6]
+    e = torch.tensor([0, 5, 31, 32, 999, 500])
+    want = eng.init_state(m.params, store, nbrs, q, e)
+    t = torch.full_like(want.visited, -1)
+    ptr = t.data_ptr()
+    got = eng.init_state(m.params, store, nbrs, q, e, visited=t)
+    assert got.visited is t and t.data_ptr() == ptr
+    for f in teng.EngineState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(t.ne(0).sum()) == 6
+
+
+def _bytes_but_bitmap(state) -> int:
+    return sum(t.nbytes for f, t in zip(teng.EngineState._fields, state)
+               if f != "visited")
+
+
+@pytest.mark.parametrize("path", ["whole", "timed", "paged"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_programs_copy_back_no_bitmap(system, family, path):
+    """A search program's init and step routines (the chunk, the timed
+    chunks, a paged search's halves) copy back every state field but the
+    visited bitmap (``copied``), and ``stats["copy_back_bytes"]`` sums the
+    step routines' per run; the result still equals search_debug."""
+    eng = dataclasses.replace(_engine(system, family, "fused-int8"))
+    m = system["tms"][family]
+    if path == "timed":
+        tracer = Tracer(sample=None)
+        eng.set_tracer(tracer)
+    residency = ResidencyPolicy("paged", page_rows=64,
+                                cache_bytes=4 * 64 * 160) \
+        if path == "paged" else None
+    store = make_corpus_store(system["base"], "int8", device="cpu",
+                              residency=residency)
+    nbrs, g = system["nbrs"], system["graph"]
+    entries = torch.full((Q,), g.entry)
+    got = eng.search(m.params, store, nbrs, system["qt"], entries)
+    _same(got, eng.search_debug(m.params, store, nbrs, system["qt"],
+                                entries))
+    prog = eng.search_program(m.params, store, nbrs, system["qt"],
+                              timed=path == "timed")
+    others = _bytes_but_bitmap(prog.state)
+    steps = {"whole": ("chunk",), "timed": teng.TIMED_CHUNKS,
+             "paged": ("pre", "post")}[path]
+    assert prog.copied["init"] == others
+    for name in steps:
+        # the paged pre leaves the state as it is and writes its ids
+        want = prog.buffers["ids"].nbytes if name == "pre" else others
+        assert prog.copied[name] == want, name
+
+    def total():
+        return sum(prog.runs[n] * prog.copied[n] for n in steps)
+    assert all(prog.runs[n] >= 1 for n in steps)
+    assert eng.stats["copy_back_bytes"] == total()
+    # another search adds its own step runs
+    runs = sum(prog.runs[n] for n in steps)
+    eng.search(m.params, store, nbrs, system["qt"], entries,
+               iter_caps=[4] * Q)
+    assert sum(prog.runs[n] for n in steps) > runs
+    assert eng.stats["copy_back_bytes"] == total()
+
+
+def test_runtime_programs_copy_back_no_bitmap(system):
+    """The continuous runtime's reset and tick copy back every state field
+    but the visited bitmap (and the tick its harvest), and its answers equal
+    the oneshot search's."""
+    eng = _engine(system, "mlp", "adaptive")
+    m = system["tms"]["mlp"]
+    store = make_corpus_store(system["base"], "int8", device="cpu")
+    g = system["graph"]
+    rt = ContinuousRuntime(eng, m.params, store, system["nbrs"],
+                           query_dim=D, entry=g.entry, n_lanes=4,
+                           steps_per_tick=3)
+    comps = rt.run_stream([Request(rid=i, query=system["queries"][i])
+                           for i in range(6)], realtime=False)
+    ref = eng.search(m.params, store, system["nbrs"], system["qt"][:6],
+                     torch.full((6,), g.entry))
+    for c in comps:
+        assert np.array_equal(c.ids, ref.ids[c.rid].numpy()), c.rid
+    prog = rt.program
+    others = _bytes_but_bitmap(prog.state)
+    assert prog.copied["reset"] == others
+    assert prog.copied["tick"] == others + prog.buffers["harvest"].nbytes
 
 
 def test_idle_state_steps_are_noops(system):
@@ -312,9 +470,11 @@ def test_idle_state_steps_are_noops(system):
     assert len({t.data_ptr() for t in idle}) == len(idle)
     q = torch.zeros((3, D))
     qs_flat = teng._repeat_rows(q, eng.n_candidates(nbrs.shape[1]))
+    # the step writes the bitmap in place: hold it against a copy
+    before = teng.EngineState(*(t.clone() for t in idle))
     s2 = teng._freeze_done(idle.done, eng.step(m.params, store, nbrs, q,
                                                qs_flat, idle), idle)
-    for a, b in zip(idle, s2):
+    for a, b in zip(before, s2):
         assert torch.equal(a, b)
 
 
@@ -341,6 +501,45 @@ def test_repeat_rows_and_bitmap_scatter():
             if ok:
                 want[r, max(i, 0) >> 5] |= 1 << (max(i, 0) & 31)
     assert torch.equal(out, want)
+    assert out.data_ptr() != bm.data_ptr()
+    # the in-place form writes the same words into bm itself
+    assert teng.bit_set_rows_(bm, ids, mask) is bm
+    assert torch.equal(bm, want)
+
+
+@pytest.mark.cuda
+def test_captured_programs_copy_no_bitmap_on_card():
+    """On the card, at a multi-lane shape: the captured init and chunk copy
+    back every state field but the visited bitmap (``copied``, fixed at
+    the capture), ``copy_back_bytes`` sums the chunk's per replay, and the
+    captured search equals search_debug bit for bit, capturing call and
+    replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the captured graphs run only there")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    n, q = 3000, 256
+    base = rng.normal(size=(n, D)).astype(np.float32)
+    from repro_torch.graph import build_l2_graph
+    graph = build_l2_graph(base, m=12, k_construction=48, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    qt = torch.as_tensor(rng.normal(size=(q, D)).astype(np.float32),
+                         device=dev)
+    entries = torch.full((q,), graph.entry, device=dev)
+    for family in FAMILIES:
+        m = make_family_measure(family, torch.Generator().manual_seed(0), D,
+                                device=dev)
+        eng = dataclasses.replace(build_engine(
+            m, SearchConfig(**{**CFG, "ef": 64}), EngineOptions(fused=True)))
+        store = make_corpus_store(base, "float32", device=dev)
+        debug = eng.search_debug(m.params, store, nbrs, qt, entries)
+        for _ in range(2):
+            _same(eng.search(m.params, store, nbrs, qt, entries), debug)
+        prog = eng.search_program(m.params, store, nbrs, qt)
+        assert set(prog.captured) == {"init", "chunk"}
+        others = _bytes_but_bitmap(prog.state)
+        assert prog.copied == {"init": others, "chunk": others}
+        assert eng.stats["copy_back_bytes"] == prog.runs["chunk"] * others
 
 
 @pytest.mark.cuda

@@ -139,7 +139,9 @@ def _bulk_window(on: bool, wall: float, d: dict) -> dict:
          "step_us": 1e6 * wall / d["steps"], "runs": d["runs"],
          "load_us_per_search": 1e6 * d["load_s"] / d["searches"],
          "launch_us": 1e6 * d["launch_s"] / d["runs"],
-         "sync_us_per_chunk": 1e6 * d["sync_s"] / (d["runs"] - d["searches"])}
+         "sync_us_per_chunk": 1e6 * d["sync_s"] / (d["runs"] - d["searches"]),
+         "copy_back_bytes_per_chunk":
+             d["copy_back_bytes"] / (d["runs"] - d["searches"])}
     if on:
         steps = d["stage_calls.pop"]
         w["stage_us"] = {s: 1e6 * d["stage_s." + s] / steps for s in STAGES}
