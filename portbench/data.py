@@ -1,11 +1,12 @@
 """A run's inputs, made on the run's device: the corpus, the queries and
 the measure's weights, each from its own stream so that one size never
 shifts another's numbers. Each is drawn once from a seed of the
-configuration (``data_seed``, the measure's ``model_seed``). The corpus
-keeps that one order, so every seed builds the same index; the queries
-and the measure's hidden units are laid out in an order drawn from
-``--seed``. Every seed serves the same data, index and function, so the
-seed does not change the work. (With the corpus drawn from the run's
+configuration (``data_seed``, the measure's ``model_seed``); the weights
+and the queries by the measure's family (``families/<family>.py``). The
+corpus keeps that one order, so every seed builds the same index; the
+queries and the measure's hidden units are laid out in an order drawn
+from ``--seed``. Every seed serves the same data, index and function, so
+the seed does not change the work. (With the corpus drawn from the run's
 seed, the MLP cells' recall moved 14-16% from seed to seed; with only its
 order drawn from the seed, still 4%: the index's reverse edges are kept
 in id order, so each order built another graph.) The same seed gives the
@@ -14,11 +15,12 @@ tensors."""
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
 import torch
+
+from portbench import families
 
 # stream ids: one generator per input
 CORPUS, WEIGHTS, QUERIES, ARRIVALS, SAMPLE = range(5)
@@ -48,55 +50,11 @@ def normal_rows(seed: int, stream: int, n: int, dim: int,
                        dtype=torch.float32, device=device)
 
 
-def layer_dims(measure: dict) -> list:
-    """The measure network's widths, input first."""
-    if measure["family"] == "deepfm":
-        d_in = 2 * measure["deep_dim"]
-    elif measure["family"] == "mlp":
-        d_in = measure["d_x"] + measure["d_q"]
-    else:
-        raise ValueError(f"unknown measure family {measure['family']!r}")
-    return [d_in, *measure["hidden"], 1]
-
-
-def make_weights(measure: dict, seed: int, device) -> dict:
-    """The measure's network ``{'w': [(d_in, d_out) ...], 'b': [...]}``:
-    one model, drawn on ``device`` in one call from the configuration's
-    ``model_seed`` (weights N(0, 1/fan_in), biases N(0, ``bias_std``),
-    the output bias shifted by ``out_bias``), with its hidden units in an
-    order drawn from the run's seed. Every seed serves the same function
-    in another layout, so the seed does not change the work a query
-    takes (with weights drawn whole from the seed, recall and p95
-    followed the draw)."""
-    dims = layer_dims(measure)
-    shapes = [(a, b) for a, b in zip(dims[:-1], dims[1:])]
-    total = sum(a * b + b for a, b in shapes)
-    flat = torch.randn((total,), generator=generator(
-        measure["model_seed"], WEIGHTS, device), dtype=torch.float32,
-        device=device)
-    ws, bs, at = [], [], 0
-    for i, (a, b) in enumerate(shapes):
-        ws.append(flat[at:at + a * b].view(a, b) * (1.0 / math.sqrt(a)))
-        at += a * b
-        bias = flat[at:at + b] * measure["bias_std"]
-        if i == len(shapes) - 1:
-            bias = bias + measure["out_bias"]
-        bs.append(bias)
-        at += b
-    g = generator(seed, WEIGHTS, device)
-    for i in range(len(shapes) - 1):          # each hidden layer's units
-        perm = torch.randperm(shapes[i][1], generator=g, device=device)
-        ws[i], bs[i] = ws[i][:, perm], bs[i][perm]
-        ws[i + 1] = ws[i + 1][perm, :]
-    return {"w": [w.contiguous() for w in ws],
-            "b": [b.contiguous() for b in bs]}
-
-
 @dataclasses.dataclass
 class Inputs:
     corpus: torch.Tensor      # (N, D) float32 on the device
-    weights: dict             # the measure's network on the device
-    queries: torch.Tensor     # (P, D) float32 on the device: the pool or
+    weights: dict             # the measure's weights on the device
+    queries: torch.Tensor     # (P, d_q) float32 on the device: the pool or
     #                           the request stream's queries
     order: torch.Tensor       # (P,) int64: each query row's index in the
     #                           draw's own order
@@ -118,11 +76,12 @@ def make_inputs(config: dict, n_queries: int, seed: int, device,
     an order drawn from ``seed`` that keeps the draw's first ``head``
     rows (default all) in the first ``head`` places: an online run's
     window serves the same users for every seed, at other times."""
-    dim, fixed = config["dim"], config["data_seed"]
+    family = families.reference(config["measure"])
     order = seeded_order(n_queries, n_queries if head is None else head,
                          seed, device)
     return Inputs(
-        corpus=normal_rows(fixed, CORPUS, config["n_items"], dim, device),
-        weights=make_weights(config["measure"], seed, device),
-        queries=normal_rows(fixed, QUERIES, n_queries, dim, device)[order],
+        corpus=normal_rows(config["data_seed"], CORPUS, config["n_items"],
+                           config["dim"], device),
+        weights=family.make_weights(config["measure"], seed, device),
+        queries=family.make_queries(config, n_queries, device)[order],
         order=order)

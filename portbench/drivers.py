@@ -129,7 +129,8 @@ def run_online(system, inputs, mix: dict, seconds: float, trace: bool,
     from repro_torch.serving import ContinuousRuntime
     dev = system.device
     rt = ContinuousRuntime(system.engine, system.params, system.store,
-                           system.neighbors, query_dim=system.config["dim"],
+                           system.neighbors,
+                           query_dim=inputs.queries.shape[1],
                            entry=system.entry, device=system.device,
                            **mix["runtime"])
     queries = inputs.queries.cpu().numpy()

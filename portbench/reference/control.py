@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from portbench.products import PRODUCTS
 from portbench.reference import exact, judge, measures, store
 
 
@@ -32,7 +33,7 @@ def control_answers(config: dict, weights: dict, corpus: torch.Tensor,
     """(ids, scores) of the control ``mode`` for ``queries``."""
     measure, k = config["measure"], config["search"]["k"]
     dtype = "int4" if mode == "int4" else config["engine"]["corpus_dtype"]
-    mm = measures.PRODUCTS["tf32" if mode == "tf32" else "fp32"]
+    mm = PRODUCTS["tf32" if mode == "tf32" else "fp32"]
     rows = store.stored_rows(corpus, dtype)
     with torch.no_grad():
         ids, _ = exact.exact_topk(measure, weights, rows, queries, k, mm)

@@ -1,18 +1,21 @@
 """The exact top-k of a measure over the whole corpus, in blocks of
-queries and items so that it fits beside nothing else on the card."""
+queries and items so that it fits beside nothing else on the card: the
+family's ``SCAN_BLOCKS`` (``families/<family>.py``)."""
 from __future__ import annotations
 
 import torch
 
-from portbench.reference import measures
+from portbench import families
+from portbench.products import fp32_mm
 
 
 def exact_topk(measure: dict, weights: dict, rows: torch.Tensor,
-               queries: torch.Tensor, k: int, mm=measures.fp32_mm,
-               q_block: int = 128, n_block: int = 32768):
+               queries: torch.Tensor, k: int, mm=fp32_mm):
     """(ids (Q, k) int64, logits (Q, k)) of the k best items of ``rows``
     for each query, best first."""
-    items = measures.item_terms(measure, weights, rows, mm)
+    family = families.reference(measure)
+    q_block, n_block = family.SCAN_BLOCKS
+    items = family.item_terms(measure, weights, rows, mm)
     n = rows.shape[0]
     out_ids, out_val = [], []
     for s in range(0, queries.shape[0], q_block):
@@ -23,7 +26,7 @@ def exact_topk(measure: dict, weights: dict, rows: torch.Tensor,
                              device=rows.device)
         for lo in range(0, n, n_block):
             hi = min(n, lo + n_block)
-            v = measures.block_logits(measure, weights, items, q, lo, hi, mm)
+            v = family.block_logits(measure, weights, items, q, lo, hi, mm)
             kk = min(k, hi - lo)
             bv, bi = torch.topk(v, kk, dim=1)
             cat_v = torch.cat([best_v, bv], dim=1)

@@ -3,66 +3,77 @@
 least time it takes on the card's peaks. Frozen: later changes to the
 program cannot move it.
 
-Per unit of work (D the vector width, R the bytes of a stored row):
+Per unit of work (D the item's width, R the bytes of a stored row):
 
-- measure, per evaluation: the network's forward, 2 (d_in h0 + h0 h1 +
-  h1) operations (and 2 fm for DeepFM's dot); bytes: the row, its id
-  (8) and the score written (4).
-- grad, per gradient: the forward and the backward to the item's inputs,
-  2 (h1 + h0 h1 + d_x h0) more (d_x the item's share of the first layer;
-  DeepFM's dot adds 2 fm); bytes: the row, its id, the query (4 D), the
-  value (4), the gradient and the row read back (4 D each).
-- rank, per expansion: for each of the graph's neighbours (its mean
-  degree) the neighbour's row and id, the dot with the gradient and the
-  norm (6 D operations), the key and mask written (5 bytes); the frontier
-  row and its gradient (4 D each).
+- measure, per evaluation, and grad, per gradient: the family's count
+  (``families/<family>.py``: ``forward_flops``, ``grad_flops``,
+  ``eval_bytes``, ``grad_bytes``); the network families count the
+  forward, 2 sum(d_i d_i+1) operations, and for a gradient the backward
+  to the item's inputs besides, DeepFM's dot 2 fm more in each; bytes: the
+  row, its id (8) and the score written (4), and for a gradient the query
+  (4 D), the value (4), the gradient and the row read back (4 D each).
+- rank, per expansion, for every family: for each of the graph's
+  neighbours (its mean degree) the neighbour's row and id, the dot with the
+  gradient and the norm (6 D operations), the key and mask written (5
+  bytes); the frontier row and its gradient (4 D each).
 
 The counts are of the work these inputs need: a converged lane, a padded
 neighbour slot or a row the adaptive mask skips is not counted. The
 network's weights (about 50 KB a launch) are left out, so the bound is a
-shade low: a share of it never reads high."""
+shade low: a share of it never reads high.
+
+The kernels that do each stage's work, and the port's whole list, are
+``kernels.json``'s; a family that runs other kernels names its own
+(``stage_kernels``, ``port_kernels``)."""
 from __future__ import annotations
 
 import json
 from pathlib import Path
 
-PEAKS = json.loads((Path(__file__).resolve().parent
-                    / "peaks.json").read_text())
+from portbench import families
+
+HERE = Path(__file__).resolve().parent
+PEAKS = json.loads((HERE / "peaks.json").read_text())
+
+
+def kernel_lists() -> dict:
+    """``kernels.json``: the stages' kernels and the port's."""
+    return json.loads((HERE / "kernels.json").read_text())
+
+
+def stage_kernels(config: dict) -> dict:
+    """{stage: [kernel name substrings]} of the configuration's search:
+    ``kernels.json``'s, with the grad and measure stages' from the family
+    where it names its own (``stage_kernels()``)."""
+    lists = kernel_lists()["stages"]
+    own = getattr(families.reference(config["measure"]), "stage_kernels",
+                  None)
+    return {**lists, **own()} if own else lists
+
+
+def port_kernels(config: dict) -> list:
+    """Every kernel of the port: ``kernels.json``'s list and those the
+    configuration's family adds (``port_kernels()``, where it has one)."""
+    own = getattr(families.reference(config["measure"]), "port_kernels",
+                  None)
+    return kernel_lists()["port"] + (own() if own else [])
 
 
 def row_bytes(dtype: str, dim: int) -> int:
     return {"float32": 4 * dim, "int8": dim + 4}[dtype]
 
 
-def widths(measure: dict) -> tuple:
-    """(d_in, h0, h1, d_x, fm) of a measure configuration."""
-    h0, h1 = measure["hidden"]
-    if measure["family"] == "deepfm":
-        return (2 * measure["deep_dim"], h0, h1, measure["deep_dim"],
-                measure["fm_dim"])
-    return (measure["d_x"] + measure["d_q"], h0, h1, measure["d_x"], 0)
-
-
-def forward_flops(measure: dict) -> float:
-    d_in, h0, h1, _, fm = widths(measure)
-    return 2.0 * (d_in * h0 + h0 * h1 + h1) + 2.0 * fm
-
-
-def grad_flops(measure: dict) -> float:
-    _, h0, h1, d_x, fm = widths(measure)
-    return forward_flops(measure) + 2.0 * (h1 + h0 * h1 + d_x * h0) \
-        + 2.0 * fm
-
-
 def stage_work(config: dict, n_eval: float, n_grad: float,
                n_iters: float, mean_degree: float) -> dict:
     """{stage: (operations, bytes)} of the counted work."""
     m, dim = config["measure"], config["dim"]
+    family = families.reference(m)
     r = row_bytes(config["engine"]["corpus_dtype"], dim)
     return {
-        "measure": (n_eval * forward_flops(m), n_eval * (r + 8 + 4)),
-        "grad": (n_grad * grad_flops(m),
-                 n_grad * (r + 8 + 4 * dim + 4 + 8 * dim)),
+        "measure": (n_eval * family.forward_flops(m),
+                    n_eval * family.eval_bytes(config, r)),
+        "grad": (n_grad * family.grad_flops(m),
+                 n_grad * family.grad_bytes(config, r)),
         "rank": (n_iters * mean_degree * 6.0 * dim,
                  n_iters * (mean_degree * (r + 8 + 5) + 8 * dim)),
     }
@@ -80,4 +91,5 @@ def search_flops(config: dict, n_eval: float, n_grad: float) -> float:
     """The measure's operations of the counted evaluations and
     gradients."""
     m = config["measure"]
-    return n_eval * forward_flops(m) + n_grad * grad_flops(m)
+    family = families.reference(m)
+    return n_eval * family.forward_flops(m) + n_grad * family.grad_flops(m)

@@ -1,32 +1,15 @@
 """The system under test, set up for one configuration: the port's index
-build, corpus store, measure and engine, fed the benchmark's inputs. This
-and ``drivers.py`` are the only files of the benchmark that import the
-program (``repro_torch``)."""
+build, corpus store, measure and engine, fed the benchmark's inputs. This,
+``drivers.py`` and each family's ``families/<family>_port.py`` are the
+only files of the benchmark that import the program (``repro_torch``)."""
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
-from repro_torch.core import (EngineOptions, Measure, SearchConfig,
-                              build_engine, deepfm_measure,
-                              make_corpus_store, mlp_measure)
+from portbench import families
+from repro_torch.core import (EngineOptions, SearchConfig, build_engine,
+                              make_corpus_store)
 from repro_torch.graph import build_l2_graph
-from repro_torch.models.deepfm import DeepFMConfig
-
-
-def make_measure(spec: dict, weights: dict, device) -> Measure:
-    """The port's measure of this family over the benchmark's weights."""
-    if spec["family"] == "deepfm":
-        cfg = DeepFMConfig(fm_dim=spec["fm_dim"], deep_dim=spec["deep_dim"],
-                           mlp_hidden=tuple(spec["hidden"]))
-        return deepfm_measure({"mlp": weights}, cfg)
-    # the generic measure's score function, with the benchmark's weights
-    # in place of the ones it draws
-    shell = mlp_measure(torch.Generator().manual_seed(0), spec["d_x"],
-                        spec["d_q"], hidden=tuple(spec["hidden"]),
-                        device=device)
-    return dataclasses.replace(shell, params=weights)
 
 
 class System:
@@ -59,7 +42,8 @@ class System:
         self.neighbors = torch.as_tensor(graph.neighbors, device=self.device)
         self.store = make_corpus_store(
             corpus, config["engine"]["corpus_dtype"], device=self.device)
-        self.measure = make_measure(config["measure"], weights, self.device)
+        self.measure = families.port(config["measure"]).make_measure(
+            config["measure"], weights, self.device)
         self.engine = build_engine(self.measure,
                                    SearchConfig(**config["search"]),
                                    EngineOptions(**config["engine"]))

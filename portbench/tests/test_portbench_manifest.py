@@ -12,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from portbench import manifest  # noqa: E402
+from portbench import families, manifest  # noqa: E402
 from portbench.traffic import generator  # noqa: E402
 
 MAN = manifest.load()
@@ -92,6 +92,9 @@ def test_config_and_traffic_found_by_name(cell):
     assert config["name"] == w["config"]
     assert entry["reduced"] == config["reduced"]
     assert set(config["limits"]) == {"score_err", "recall_at_10"}
+    assert families.reference(config["measure"]).SCAN_BLOCKS
+    family = config["measure"]["family"]
+    assert (families.HERE / f"{family}_port.py").is_file()
     mix = generator.load(w["traffic"])
     assert mix["kind"] in ("bulk", "online")
 

@@ -59,12 +59,18 @@ def test_tiny_run_prints_a_well_formed_line(cell, trace):
 
 
 def test_reference_imports_nothing_of_the_program():
-    code = ("import sys; sys.path[:0] = [sys.argv[1]]; "
+    fams = sorted(p.stem for p in (ROOT / "portbench" / "families")
+                  .glob("*.py")
+                  if p.stem != "__init__" and not p.stem.endswith("_port"))
+    assert {"deepfm", "mlp"} <= set(fams)
+    code = ("import sys, importlib; sys.path[:0] = [sys.argv[1]]; "
             "import portbench.reference.judge, portbench.reference.control,"
             " portbench.roofline.stages, json; "
+            "[importlib.import_module('portbench.families.' + f) "
+            "for f in sys.argv[2:]]; "
             "print(json.dumps(sorted({m.split('.')[0] for m in "
             "sys.modules})))")
-    out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT), *fams],
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     top = set(json.loads(out.stdout))

@@ -50,7 +50,8 @@ def main() -> None:
     # the backlog: every request due at once
     from repro_torch.serving import ContinuousRuntime
     rt = ContinuousRuntime(system.engine, system.params, system.store,
-                           system.neighbors, query_dim=config["dim"],
+                           system.neighbors,
+                           query_dim=inputs.queries.shape[1],
                            entry=system.entry, device=system.device,
                            **mix["runtime"])
     q = inputs.queries.cpu().numpy()
